@@ -9,13 +9,15 @@ Phases (each prints its own lines):
 2. build   -- compile ``src/repro_torch/kernels/csrc/*.cu`` (or find them
               built) into ``build/repro_torch_kernels/``;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the card,
-              at the main path's shapes and ragged ones: max error; device
-              ms per call (profiler kernel time) of the kernel, the plain
-              version and the library call; the kernel's per-call time as
-              the stream sees it (``call_ms``, host launch overhead
-              included); and the least time the card could take (bytes over
-              3.35 TB/s or FLOPs over 67 TFLOP/s, the H100 SXM's memory rate
-              and f32 CUDA-core peak);
+              at the main path's shapes and ragged ones, the INT8 schemes of
+              the conv kernel and both schemes of the quant matmul included:
+              max error; device ms per call (profiler kernel time) of the
+              kernel, the plain version and the library call; the kernel's
+              per-call time as the stream sees it (``call_ms``, host launch
+              overhead included); and the least time the card could take
+              (bytes over 3.35 TB/s, or operations over 67 TFLOP/s for f32
+              -- the H100 SXM's memory rate and f32 CUDA-core peak -- or over
+              1,979 TOP/s for int8, its int8 tensor-core peak);
 4. apps    -- the paper's pipeline for each demo app at full width (base 32):
               build from a seeded ``torch.Generator``, prune with
               ``app_masks``, compile with ``PassManager`` + ``compile_plan``,
@@ -23,10 +25,22 @@ Phases (each prints its own lines):
               checks the node count, the exact kernel launches per plan call,
               zero conv fallbacks, and the output against the reference plan;
               then profiles one more serving run (device time per kernel
-              family and the device's idle share).
+              family and the device's idle share);
+5. int8    -- the same apps through the INT8 path: calibrate on the f32
+              reference plan (2 random batches), run the ``quantize`` pass
+              with the app's skip sets, compile for the ``quant`` backend and
+              serve as in phase 4; checks the quantized nodes' schemes, the
+              exact launches per plan call (conv kernel by scheme,
+              quant_matmul, dense_matmul, fused_elementwise), zero conv
+              fallbacks, every quantized step's kernel handler against its
+              reference handler on the same inputs, and the whole plan
+              against the quant reference plan; prints the error against the
+              f32 plan, the weight bytes before and after, ms/frame beside
+              the f32 plan's, and a profile line.
 
-The line before the last is a JSON object with every kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+The line before the last is a JSON object with every kernel's numbers (the
+conv kernel once per scheme the main path launches); the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -43,10 +57,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 FMA rate on
-#: the CUDA cores (no tensor cores: the kernels compute in true f32)
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f32 FMA rate on
+#: the CUDA cores (the f32 and W8 schemes compute in true f32) and the dense
+#: int8 tensor-core rate (the least time of an int8 x int8 contraction)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 
 SEED = 0
 BASE = 32
@@ -63,15 +79,34 @@ EXPECTED = {
     "super_resolution": (20, 10, 8, 1),
 }
 
-#: where each kernel lives and which TPU kernel it replaces
+#: the INT8 plans: quantized nodes by (op, scheme), then launches per plan
+#: call -- the conv kernel by scheme, quant_matmul, dense_matmul,
+#: fused_elementwise
+EXPECTED_INT8 = {
+    "style_transfer": ({("qconv2d", "w8"): 14},
+                       {"f32": 2, "w8": 9, "w8a8": 0}, 5, 0, 0),
+    "coloring": ({("qconv2d", "w8a8"): 11, ("qlinear", "w8a8"): 1},
+                 {"f32": 2, "w8": 0, "w8a8": 10}, 2, 0, 0),
+    "super_resolution": ({("qconv2d", "w8"): 16},
+                         {"f32": 2, "w8": 8, "w8a8": 0}, 8, 0, 1),
+}
+
+_CONV = ("src/repro_torch/kernels/csrc/conv2d.cu", "src/repro/kernels/conv2d.py:175")
+#: each entry of the kernels line: where the kernel lives and which TPU
+#: kernel it replaces (the conv kernel once per scheme)
 KERNELS = {
-    "conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu", "src/repro/kernels/conv2d.py:175"),
+    "conv2d": _CONV,
+    "conv2d_w8": _CONV,
+    "conv2d_w8a8": _CONV,
     "dense_matmul": (
         "src/repro_torch/kernels/csrc/dense_matmul.cu", "src/repro/kernels/dense_matmul.py:85",
     ),
     "fused_elementwise": (
         "src/repro_torch/kernels/csrc/fused_elementwise.cu",
         "src/repro/kernels/fused_elementwise.py:39",
+    ),
+    "quant_matmul": (
+        "src/repro_torch/kernels/csrc/quant_matmul.cu", "src/repro/kernels/quant_matmul.py:62",
     ),
 }
 
@@ -81,10 +116,10 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: the time of every kernel it
-    launches, from torch.profiler, averaged over ``reps`` calls (host work
-    between launches is not counted)."""
+def profiled_us(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Device time of ``reps`` calls of ``fn``: the time of every kernel they
+    launch, from torch.profiler (host work between launches is not
+    counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -94,10 +129,26 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``, averaged over ``reps`` calls."""
+    us = profiled_us(torch, fn, reps)
     check(us > 0, "the profiler saw no device time")
     return us / reps / 1e3
+
+
+def library_ms(torch, fn, reps: int = 20):
+    """The library yardstick's time per call: its device time, or -- where
+    the profiler attributes none of its kernels, as it did for one cuDNN
+    convolution -- its time on the stream between CUDA events.  Returns the
+    time and how it was taken."""
+    us = profiled_us(torch, fn, reps)
+    if us > 0:
+        return us / reps / 1e3, "profiler"
+    return call_ms(torch, fn, reps), "events"
 
 
 def call_ms(torch, fn, reps: int = 20) -> float:
@@ -115,10 +166,22 @@ def call_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main_path_launches(ops):
+    """The launch counts by entry of the kernels line (the conv kernel by
+    scheme)."""
+    counts = ops.kernel_launch_counts()
+    by_scheme = ops.conv_scheme_launch_counts()
+    return {
+        "conv2d": by_scheme["f32"], "conv2d_w8": by_scheme["w8"],
+        "conv2d_w8a8": by_scheme["w8a8"], "dense_matmul": counts["dense_matmul"],
+        "fused_elementwise": counts["fused_elementwise"], "quant_matmul": counts["quant_matmul"],
+    }
 
 
 def nbytes(*ts) -> int:
@@ -157,7 +220,9 @@ def phase_kernels(torch):
     from repro_torch.kernels import conv2d as kconv
     from repro_torch.kernels import dense_matmul as kdense
     from repro_torch.kernels import fused_elementwise as kfused
+    from repro_torch.kernels import quant_matmul as kquant
     from repro_torch.kernels.ref import _ACT, xla_conv_pads
+    from repro_torch.quant import QTensor, quantize_array
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -167,22 +232,25 @@ def phase_kernels(torch):
 
     results = {name: [] for name in KERNELS}
 
-    def record(name, label, out, want, kernel, plain, library, nb, flops):
+    def record(name, label, out, want, kernel, plain, library, nb, flops, rtol=1e-4,
+               peak_ops=PEAK_F32_FLOPS):
         err = (out - want).abs().max().item()
-        tol = 1e-4 * max(1.0, want.abs().max().item())
-        b_ms, b_by = bound(nb, flops)
+        tol = rtol * max(1.0, want.abs().max().item())
+        b_ms, b_by = bound(nb, flops, peak_ops)
         ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain, reps=5)
-        library_ms = None if library is None else device_ms(torch, library)
-        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+        lib_ms, lib_how = (None, None) if library is None else library_ms(torch, library)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}" + (
+            "(events)" if lib_how == "events" else "")
         print(f"  {name:18s} {label:42s} max_err={err:.3e} (tol {tol:.1e}) "
               f"ms={ms:.4f} call_ms={call_ms(torch, kernel):.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by})")
         check(err <= tol, f"{name} {label}: max_err {err} > {tol}")
         results[name].append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
+                                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
     # -- conv2d -------------------------------------------------------------- #
-    def conv_case(label, n, c_in, hw, o, k, stride, c_live=None, act=None, add_side=False):
+    def conv_case(label, n, c_in, hw, o, k, stride, c_live=None, act=None, add_side=False,
+                  scheme="f32"):
         h, w_ = hw
         x = randn(n, c_in, h, w_)
         c = c_live or c_in
@@ -196,23 +264,37 @@ def phase_kernels(torch):
         sides = (randn(n, o, oh, ow),) if add_side else ()
         epi = (("add", 0),) if add_side else ()
         kw = dict(kept=kept, stride=stride, padding="SAME", activation=act, epilogue=epi)
+        w_lib = wt
+        if scheme != "f32":  # the operands as ops.conv2d hands them to the kernel
+            qt = QTensor.from_float(wt, axis=0)
+            wt, ws = qt.values, qt.scale
+            if scheme == "w8a8":
+                x_scale = torch.full((1,), x.abs().max().item() / 127.0, device=dev)
+                x, ws = quantize_array(x, x_scale), ws * x_scale
+            kw["ws"] = ws
+            w_lib = wt.float() * ws[:, None, None, None]
         out = kconv.conv2d_gemm(x, wt, b, *sides, **kw)
         want = kconv.conv2d_plain(x, wt, b, *sides, **kw)
-        # library yardstick: cuDNN on the gathered, XLA-padded input (the
-        # gather and the asymmetric pad are prepared outside the timing)
+        # library yardstick: cuDNN (TF32 off) on the gathered, XLA-padded
+        # input and, for the INT8 schemes, the dequantized filter (the
+        # gather, the pad and the dequantization are prepared outside the
+        # timing)
         xg = x if kept is None else x.index_select(1, kept)
         ph = xla_conv_pads(h, k, stride, "SAME", 0)
         pw = xla_conv_pads(w_, k, stride, "SAME", 1)
-        xp = F.pad(xg, (pw[0], pw[1], ph[0], ph[1]))
+        xp = F.pad(xg.float(), (pw[0], pw[1], ph[0], ph[1]))
 
         def library():
-            y = _ACT[act](F.conv2d(xp, wt, b, stride=stride))
+            y = _ACT[act](F.conv2d(xp, w_lib, b, stride=stride))
             return y + sides[0] if add_side else y
 
-        nb = nbytes(xg, wt, b, kept, *sides, out)
+        nb = nbytes(xg, wt, kw.get("ws"), b, kept, *sides, out)
         flops = 2.0 * n * oh * ow * o * c * k * k
-        record("conv2d", label, out, want, lambda: kconv.conv2d_gemm(x, wt, b, *sides, **kw),
-               lambda: kconv.conv2d_plain(x, wt, b, *sides, **kw), library, nb, flops)
+        name = "conv2d" if scheme == "f32" else f"conv2d_{scheme}"
+        record(name, label, out, want, lambda: kconv.conv2d_gemm(x, wt, b, *sides, **kw),
+               lambda: kconv.conv2d_plain(x, wt, b, *sides, **kw), library, nb, flops,
+               rtol=1e-5 if scheme == "w8a8" else 1e-4,
+               peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
 
     conv_case("7x7 s1 3->32 @256^2 n4", BATCH, 3, (SIZE, SIZE), BASE, 7, 1)
     conv_case("3x3 s2 16-of-32->64 @256^2 n4", BATCH, 32, (SIZE, SIZE), 64, 3, 2, c_live=16)
@@ -221,6 +303,19 @@ def phase_kernels(torch):
     conv_case("3x3 s1 8-of-16->2 tanh @256^2 n4", BATCH, 16, (SIZE, SIZE), 2, 3, 1,
               c_live=8, act="tanh")
     conv_case("3x3 s2 24->40 relu @37x29 n2", 2, 24, (37, 29), 40, 3, 2, act="relu")
+    # INT8 schemes: the first case of each is its headline (main-path shape)
+    conv_case("w8 3x3 s1 96-of-192->32 +add @256^2 n4", BATCH, 192, (SIZE, SIZE), 32, 3, 1,
+              c_live=96, add_side=True, scheme="w8")
+    conv_case("w8 3x3 s2 16-of-32->64 @256^2 n4", BATCH, 32, (SIZE, SIZE), 64, 3, 2,
+              c_live=16, scheme="w8")
+    conv_case("w8 3x3 s2 24->40 relu @37x29 n2", 2, 24, (37, 29), 40, 3, 2, act="relu",
+              scheme="w8")
+    conv_case("w8a8 3x3 s1 64-of-128->128 relu @64^2 n4", BATCH, 128, (64, 64), 128, 3, 1,
+              c_live=64, act="relu", scheme="w8a8")
+    conv_case("w8a8 3x3 s2 32-of-64->64 relu @128^2 n4", BATCH, 64, (128, 128), 64, 3, 2,
+              c_live=32, act="relu", scheme="w8a8")
+    conv_case("w8a8 3x3 s2 24->40 +add @37x29 n2", 2, 24, (37, 29), 40, 3, 2, add_side=True,
+              scheme="w8a8")
 
     # -- dense_matmul -------------------------------------------------------- #
     def dense_case(label, m, k, n, act=None, sides_epi=False):
@@ -246,6 +341,53 @@ def phase_kernels(torch):
     dense_case("M=4 K=64 N=64", BATCH, 2 * BASE, 2 * BASE)
     dense_case("M=1000 K=50 N=70 add+mul", 1000, 50, 70, sides_epi=True)
 
+    # -- quant_matmul -------------------------------------------------------- #
+    def quant_case(label, m, k, n, scheme, act=None, sides_epi=False):
+        x = randn(m, k)
+        qt = QTensor.from_float(randn(k, n, scale=k ** -0.5), axis=1)
+        wq, ws = qt.values, qt.scale
+        b = randn(n, scale=0.1)
+        if scheme == "w8a8":  # the operands as ops.qmatmul hands them to the kernel
+            x_scale = torch.full((1,), x.abs().max().item() / 127.0, device=dev)
+            x, ws = quantize_array(x, x_scale), ws * x_scale
+        sides = (randn(m, n), randn(m, n)) if sides_epi else ()
+        epi = (("add", 0), ("mul", 1)) if sides_epi else ()
+        kw = dict(activation=act, epilogue=epi)
+        out = kquant.quant_matmul(x, wq, ws, b, *sides, **kw)
+        want = kquant.quant_matmul_plain(x, wq, ws, b, *sides, **kw)
+
+        def tail(y):
+            y = _ACT[act](y)
+            return (y + sides[0]) * sides[1] if sides_epi else y
+
+        # library yardstick: an int32 GEMM where torch._int_mm's shape rules
+        # allow it (M > 16, K and N multiples of 8), then the rescale; for
+        # W8, addmm on the dequantized f32 weight (prepared outside timing)
+        library = None
+        if scheme == "w8a8" and m > 16 and k % 8 == 0 and n % 8 == 0:
+            def library():
+                return tail(torch._int_mm(x, wq).float() * ws + b)
+        elif scheme == "w8":
+            w_deq = wq.float() * ws
+
+            def library():
+                return tail(torch.addmm(b, x, w_deq))
+
+        record("quant_matmul", label, out, want,
+               lambda: kquant.quant_matmul(x, wq, ws, b, *sides, **kw),
+               lambda: kquant.quant_matmul_plain(x, wq, ws, b, *sides, **kw), library,
+               nbytes(x, wq, ws, b, *sides, out), 2.0 * m * n * k,
+               rtol=1e-5 if scheme == "w8a8" else 1e-4,
+               peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+
+    quant_case("w8 M=4*256^2 K=32 N=192 relu", BATCH * SIZE * SIZE, BASE, 6 * BASE, "w8",
+               act="relu")
+    quant_case("w8a8 M=4*64^2 K=128 N=64 relu", BATCH * 64 * 64, 4 * BASE, 2 * BASE, "w8a8",
+               act="relu")
+    quant_case("w8a8 M=4 K=64 N=64 relu", BATCH, 2 * BASE, 2 * BASE, "w8a8", act="relu")
+    quant_case("w8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8", sides_epi=True)
+    quant_case("w8a8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8a8", sides_epi=True)
+
     # -- fused_elementwise --------------------------------------------------- #
     def fused_case(label, m, d, steps, n_sides, n_norms):
         x = randn(m, d)
@@ -267,13 +409,58 @@ def phase_kernels(torch):
     return results
 
 
+def serve_measured(torch, ops, plan, params, frames, app):
+    """Serve ``frames`` through ``PlanServer(batch_size=BATCH)``: one warm-up
+    run, then ``TIMING_REPS`` timed runs with every launch count and the
+    fallback counter set to 0 just before them and read just after.
+    Returns the last output, the median seconds per run, the launches by
+    kernels-line entry, the number of plan calls, the peak allocated bytes
+    and the serving function (for the profile line)."""
+    from repro_torch.serving import PlanServer
+
+    def serve():
+        server = PlanServer(plan, params, BATCH, name=app)
+        for f in frames:
+            server.submit(f)
+        out = server.close()
+        torch.cuda.synchronize()
+        return out, server.stats
+
+    serve()  # warm-up: allocator, first launches
+    ops.reset_kernel_launches()
+    ops.reset_conv_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMING_REPS):
+        t0 = time.perf_counter()
+        out, stats = serve()
+        times.append(time.perf_counter() - t0)
+    launches = main_path_launches(ops)
+    counts = ops.kernel_launch_counts()
+    fallbacks = ops.conv_fallback_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(stats["batches"] == 3 and stats["padded_frames"] == 2,
+          f"{app}: served {stats}, want 3 chunks with 2 padded frames")
+    check(sum(fallbacks.values()) == 0, f"{app}: conv fallbacks {fallbacks}")
+    calls = stats["batches"] * TIMING_REPS
+    return dict(out=out, sec=statistics.median(times), launches=launches, counts=counts,
+                calls=calls, peak=peak, serve=serve)
+
+
+def check_per_call(app, counts, calls, want):
+    for name, n in want.items():
+        check(counts[name] == n * calls,
+              f"{app}: {name} launched {counts[name]} times over {calls} plan calls, "
+              f"want {n} per call")
+
+
 def phase_apps(torch, np):
     from repro_torch.core.graph import PassContext, PassManager, compile_plan
     from repro_torch.kernels import ops
     from repro_torch.models.cnn import APP_INPUT_CHANNELS, APPS, app_masks
-    from repro_torch.serving import PlanServer
 
     launches = {name: 0 for name in KERNELS}
+    apps = {}
     rng = np.random.default_rng(SEED)
     for app, (n_nodes, n_conv, n_dense, n_fused) in EXPECTED.items():
         g = APPS[app](torch.Generator().manual_seed(SEED), base=BASE, device="cuda")
@@ -288,37 +475,13 @@ def phase_apps(torch, np):
             rng.standard_normal((FRAMES, c_in, SIZE, SIZE)).astype(np.float32)
         ).to("cuda")
         mem = plan.memory_estimate((BATCH, c_in, SIZE, SIZE))
-
-        def serve():
-            server = PlanServer(plan, go.params, BATCH, name=app)
-            for f in frames:
-                server.submit(f)
-            out = server.close()
-            torch.cuda.synchronize()
-            return out, server.stats
-
-        serve()  # warm-up: allocator, first launches
-        ops.reset_kernel_launches()
-        ops.reset_conv_fallbacks()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(TIMING_REPS):
-            t0 = time.perf_counter()
-            out, stats = serve()
-            times.append(time.perf_counter() - t0)
-        counts = ops.kernel_launch_counts()
-        fallbacks = ops.conv_fallback_counts()
-        peak = torch.cuda.max_memory_allocated()
-        calls = stats["batches"] * TIMING_REPS
-        check(stats["batches"] == 3 and stats["padded_frames"] == 2,
-              f"{app}: served {stats}, want 3 chunks with 2 padded frames")
-        for name, want in (("conv2d", n_conv), ("dense_matmul", n_dense),
-                           ("fused_elementwise", n_fused)):
-            check(counts[name] == want * calls,
-                  f"{app}: {name} launched {counts[name]} times over {calls} plan calls, "
-                  f"want {want} per call")
-            launches[name] += counts[name]
-        check(sum(fallbacks.values()) == 0, f"{app}: conv fallbacks {fallbacks}")
+        run = serve_measured(torch, ops, plan, go.params, frames, app)
+        check_per_call(app, run["counts"], run["calls"], {
+            "conv2d": n_conv, "dense_matmul": n_dense, "fused_elementwise": n_fused,
+            "quant_matmul": 0})
+        for name, n in run["launches"].items():
+            launches[name] += n
+        out = run["out"]
         want = torch.cat(
             [ref_plan(go.params, frames[i:i + BATCH]) for i in range(0, FRAMES, BATCH)]
         )
@@ -327,21 +490,123 @@ def phase_apps(torch, np):
         err = (out - want).abs().max().item()
         tol = 1e-3 * max(1.0, want.abs().max().item())
         check(err <= tol, f"{app}: max|kernel plan - reference plan| {err} > {tol}")
-        sec = statistics.median(times)
+        sec = run["sec"]
         print(f"  {app:16s} nodes={len(go.nodes)} per-call launches conv2d={n_conv} "
               f"dense_matmul={n_dense} fused_elementwise={n_fused} fallbacks=0 "
               f"out={tuple(out.shape)} max_err={err:.3e} (tol {tol:.1e}) "
               f"ms/frame={sec / FRAMES * 1e3:.3f} frames/s={FRAMES / sec:.1f} "
               f"(median of {TIMING_REPS} x {FRAMES} frames) "
-              f"peak_alloc={peak / 1e6:.1f}MB est_peak_act@batch{BATCH}="
+              f"peak_alloc={run['peak'] / 1e6:.1f}MB est_peak_act@batch{BATCH}="
               f"{mem['peak_activation_bytes'] / 1e6:.1f}MB")
-        profile_serving(torch, app, serve)
+        profile_serving(torch, app, run["serve"])
+        apps[app] = dict(go=go, frames=frames, ref_plan=ref_plan, ms_per_frame=sec / FRAMES * 1e3)
+    return launches, apps
+
+
+def phase_int8(torch, np, apps):
+    """The INT8 path of each app, on the f32 graphs phase 4 built."""
+    from repro_torch.core.graph import PassContext, PassManager, compile_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP
+    from repro_torch.quant import calibrate_plan
+
+    launches = {name: 0 for name in KERNELS}
+    rng = np.random.default_rng(SEED + 1)
+    for app, (schemes, conv_by_scheme, n_quant, n_dense, n_fused) in EXPECTED_INT8.items():
+        go, frames, f32_plan = apps[app]["go"], apps[app]["frames"], apps[app]["ref_plan"]
+        shape = (BATCH, APP_INPUT_CHANNELS[app], SIZE, SIZE)
+        batches = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda")
+                   for _ in range(2)]
+        table = calibrate_plan(f32_plan, go.params, batches)
+        gq = PassManager(("quantize",)).run(go, PassContext(
+            calibration=table, quant_skip=APP_QUANT_SKIP[app], act_quant_skip=APP_ACT_SKIP[app]))
+        got = {}
+        for n in gq.nodes:
+            if n.op in ("qconv2d", "qlinear"):
+                got[(n.op, n.attrs["scheme"])] = got.get((n.op, n.attrs["scheme"]), 0) + 1
+        check(got == schemes, f"{app}: quantized nodes {got}, want {schemes}")
+        plan = compile_plan(gq, backend="quant", device="cuda")
+        qref_plan = compile_plan(gq, backend="reference", device="cuda")
+
+        run = serve_measured(torch, ops, plan, gq.params, frames, app)
+        calls = run["calls"]
+        check_per_call(app, run["counts"], calls, {
+            "conv2d": sum(conv_by_scheme.values()), "quant_matmul": n_quant,
+            "dense_matmul": n_dense, "fused_elementwise": n_fused})
+        for scheme, n in conv_by_scheme.items():
+            name = "conv2d" if scheme == "f32" else f"conv2d_{scheme}"
+            check(run["launches"][name] == n * calls,
+                  f"{app}: conv kernel launched {run['launches'][name]} times as {scheme} "
+                  f"over {calls} plan calls, want {n} per call")
+        for name, n in run["launches"].items():
+            launches[name] += n
+
+        # every quantized step: its kernel handler against its reference
+        # handler on the same inputs (the values of one plan call)
+        values = {}
+        x = frames[:BATCH]
+        plan.run_steps(gq.params, x, observer=values.__setitem__)
+        ref_handlers = qref_plan._handlers
+        step_err = 0.0
+        for step in plan.steps:
+            n = step.node
+            if n.op not in ("qconv2d", "qlinear"):
+                continue
+            xs = [values[i] for i in n.inputs]
+            y = plan._handlers[n.op](gq.params[n.name], xs, n.attrs, plan._rt)
+            r = ref_handlers[n.op](gq.params[n.name], xs, n.attrs, qref_plan._rt)
+            e = (y - r).abs().max().item()
+            tol = 1e-3 * max(1.0, r.abs().max().item())
+            check(e <= tol, f"{app}: step {n.name} ({n.attrs['scheme']}) kernel vs reference "
+                            f"{e} > {tol}")
+            step_err = max(step_err, e)
+        del values
+
+        out = run["out"]
+        check(bool(torch.isfinite(out).all()), f"{app}: non-finite output")
+        chunks = range(0, FRAMES, BATCH)
+        qref = torch.cat([qref_plan(gq.params, frames[i:i + BATCH]) for i in chunks])
+        f32 = torch.cat([f32_plan(go.params, frames[i:i + BATCH]) for i in chunks])
+        check(tuple(out.shape) == tuple(qref.shape) == tuple(f32.shape),
+              f"{app}: shape {tuple(out.shape)}")
+        err_q = (out - qref).abs().max().item()
+        # W8 keeps f32 activations: the plan is as close to its reference as
+        # an f32 plan is.  W8A8 (coloring) may round an activation the other
+        # way after a different f32 sum; its bound is the INT8 contract.
+        rtol = 5e-2 if any(s == "w8a8" for _, s in schemes) else 1e-3
+        tol_q = rtol * max(1.0, qref.abs().max().item())
+        check(err_q <= tol_q, f"{app}: max|quant plan - quant reference plan| {err_q} > {tol_q}")
+        err_f = (out - f32).abs().max().item()
+        shp = (BATCH, *shape[1:])
+        mem_f, mem_q = f32_plan.memory_estimate(shp), plan.memory_estimate(shp)
+        sec = run["sec"]
+        print(f"  {app:16s} int8 nodes={sum(schemes.values())} "
+              f"schemes={ {f'{o}/{s}': k for (o, s), k in schemes.items()} } "
+              f"per-call launches conv2d={conv_by_scheme} quant_matmul={n_quant} "
+              f"dense_matmul={n_dense} fused_elementwise={n_fused} fallbacks=0 "
+              f"step_max_err={step_err:.3e} max_err_vs_quant_ref={err_q:.3e} (tol {tol_q:.1e}) "
+              f"max_err_vs_f32={err_f:.3e} weights {mem_f['param_bytes'] / 1e6:.3f}MB -> "
+              f"{mem_q['param_bytes'] / 1e6:.3f}MB "
+              f"({mem_f['param_bytes'] / mem_q['param_bytes']:.2f}x) "
+              f"ms/frame={sec / FRAMES * 1e3:.3f} frames/s={FRAMES / sec:.1f} "
+              f"(f32 plan {apps[app]['ms_per_frame']:.3f} ms/frame) "
+              f"peak_alloc={run['peak'] / 1e6:.1f}MB")
+        profile_serving(torch, app + " int8", run["serve"])
     return launches
 
 
 #: kernel-name fragments of the port's own kernels
 _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
-        "fused_ew": "fused_elementwise"}
+        "fused_ew": "fused_elementwise", "quant_matmul_kernel": "quant_matmul"}
+#: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
+_CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
+
+
+def _family(key: str) -> str:
+    name = next((v for k, v in _OWN.items() if k in key), None)
+    if name == "conv2d":
+        return _CONV_SCHEME.get(key.split("conv2d_igemm_kernel<")[-1][:1], name)
+    return name or "other:" + key.split("(")[0].split("<")[0][:48]
 
 
 def profile_serving(torch, app, serve):
@@ -362,8 +627,7 @@ def profile_serving(torch, app, serve):
         us = e.self_device_time_total
         if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
             continue
-        name = next((v for k, v in _OWN.items() if k in e.key), None)
-        name = name or "other:" + e.key.split("(")[0].split("<")[0][:48]
+        name = _family(e.key)
         by[name] = by.get(name, 0.0) + us
     busy = sum(by.values())
     check(busy > 0, f"{app}: the profiler saw no device time")
@@ -398,7 +662,11 @@ def main() -> int:
     print("== kernels")
     results = phase_kernels(torch)
     print(f"== apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
-    launches = phase_apps(torch, np)
+    launches, apps = phase_apps(torch, np)
+    print(f"== int8 apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
+    int8_launches = phase_int8(torch, np, apps)
+    for name, n in int8_launches.items():
+        launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     line = {"kernels": []}

@@ -3,9 +3,11 @@
 ``params_from_numpy`` takes a ``{node_name: {key: array}}`` tree (the shape
 of ``Graph.params``; any array type numpy can read, e.g. params built by the
 JAX package and passed through ``numpy.asarray``) and returns the same tree
-of torch tensors on ``device``.  f32 stays f32 and integer index arrays
-(``kept``) stay int32: ``index_select`` and the CUDA kernels take int32
-indices, so the port stores exactly what the reference stores.
+of torch tensors on ``device``.  Floats become f32, int8 payloads (the
+quantized weights of ``qlinear`` / ``qconv2d`` nodes) stay int8, and every
+other integer array (the ``kept`` index arrays) becomes int32:
+``index_select`` and the CUDA kernels take int32 indices, so the port stores
+exactly what the reference stores.
 
 ``resolve_device`` is the one rule every entry point follows: ``None``
 means ``cuda``, and asking for ``cuda`` on a machine without a GPU raises --
@@ -39,9 +41,9 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float32, copy=False)
-    elif arr.dtype.kind in "iu":
+    elif arr.dtype.kind in "iu" and arr.dtype != np.int8:
         arr = arr.astype(np.int32, copy=False)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.tensor(arr, device=device)  # a copy: the array may be read-only
 
 
 def params_from_numpy(

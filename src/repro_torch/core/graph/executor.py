@@ -5,9 +5,11 @@ Compilation (:func:`compile_plan`) happens once per graph:
 
 1. **handler resolution** -- every node op is looked up in the op registry
    (:func:`register_op`); unknown ops fail at *compile* time, not mid-run.
-   Two handler sets exist: ``kernel`` (the GEMM/conv/fused ops go through
-   the hand-written CUDA kernels) and ``reference`` (plain torch, the parity
-   oracle).
+   Three handler sets exist: ``kernel`` (the GEMM/conv/fused ops go through
+   the hand-written CUDA kernels), ``reference`` (plain torch, the parity
+   oracle) and ``quant`` (the kernel set overlaid with the INT8
+   ``qlinear`` / ``qconv2d`` handlers: the backend of plans the
+   ``quantize`` pass rewrote).
 2. **topological scheduling** -- Kahn's algorithm with graph order as the
    tiebreak.
 3. **buffer liveness** -- each step records which intermediates die after it
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,17 +62,33 @@ __all__ = [
 _ACT = kref._ACT
 
 #: ``kernel``: CUDA-kernel-backed GEMM/conv/fused ops.  ``reference``: plain
-#: torch (the parity oracle).  The JAX package's ``quant`` and ``guarded``
-#: backends come with later slices.
-BACKENDS = ("kernel", "reference")
+#: torch (the parity oracle).  ``quant``: the kernel set *overlaid* with the
+#: INT8 handlers -- the only backend that executes ``qlinear`` / ``qconv2d``
+#: nodes with the INT8 kernels; other ops fall through to their kernel
+#: handlers.  The JAX package's ``guarded`` backend comes with a later slice.
+BACKENDS = ("kernel", "reference", "quant")
 
 #: backend -> op -> handler(params, inputs, attrs, runtime) -> tensor
 _HANDLERS: Dict[str, Dict[str, Callable]] = {b: {} for b in BACKENDS}
 
 
 def handlers_for(backend: str) -> Dict[str, Callable]:
-    """The handler table for ``backend``."""
+    """The effective handler table for ``backend`` (``quant`` inherits every
+    kernel handler and overrides/extends it with the quantized set)."""
+    if backend == "quant":
+        return {**_HANDLERS["kernel"], **_HANDLERS["quant"]}
     return dict(_HANDLERS[backend])
+
+
+def _node_scheme(n: Node) -> str:
+    """The arithmetic scheme a node executes under (``f32``, ``w8``,
+    ``w8a8``): the ``scheme`` arg of its step span."""
+    if n.op in ("qlinear", "qconv2d"):
+        s = n.attrs.get("scheme")
+        if s:
+            return s
+        return "w8a8" if n.attrs.get("x_scale") is not None else "w8"
+    return "f32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,13 +239,22 @@ def _sparse_linear_ref(p, xs, a, rt):
     return _apply_epilogue(y, a.get("epilogue") or (), xs, p)
 
 
-def _conv_out_shape(p, xs, a):
-    x, w = xs[0], p["w"]
+def _conv_out_shape(p, xs, a, wkey="w"):
+    x, w = xs[0], p[wkey]
     oh, ow = kops.conv_out_hw(
         x.shape[2], x.shape[3], w.shape[2], w.shape[3],
         a.get("stride", 1), a.get("padding", "SAME"),
     )
     return (x.shape[0], w.shape[0], oh, ow)
+
+
+def _conv_call_kwargs(p, a):
+    """Shared kwarg plumbing for the conv kernel handlers."""
+    return dict(
+        stride=a.get("stride", 1), padding=a.get("padding", "SAME"),
+        groups=a.get("groups", 1), dilation=a.get("dilation", 1),
+        kept=p.get("kept"), activation=a.get("activation"),
+    )
 
 
 @register_op("conv2d", backends=("kernel",))
@@ -240,11 +267,7 @@ def _conv2d_kernel(p, xs, a, rt):
     negative pads, empty output) take the plain version inside ``ops``."""
     epi = a.get("epilogue") or ()
     steps, sides = _kernel_epilogue(epi, xs, _conv_out_shape(p, xs, a))
-    kw = dict(
-        stride=a.get("stride", 1), padding=a.get("padding", "SAME"),
-        groups=a.get("groups", 1), dilation=a.get("dilation", 1),
-        kept=p.get("kept"), activation=a.get("activation"),
-    )
+    kw = _conv_call_kwargs(p, a)
     if steps is not None:
         kw.update(epilogue=steps, epilogue_sides=sides)
     y = kops.conv2d(xs[0], p["w"], p.get("b"), **kw)
@@ -267,7 +290,82 @@ def _conv2d_ref(p, xs, a, rt):
 
 
 # --------------------------------------------------------------------------- #
-# handlers: shared ops (same implementation on both backends)                  #
+# handlers: quantized GEMM family (produced by the ``quantize`` pass)          #
+# --------------------------------------------------------------------------- #
+#
+# ``qlinear`` node contract -- params: ``values`` int8 [K', N] (+ ``kept``
+# for colcompact, ``b`` f32), ``w_scale`` f32 [N]; attrs: ``format`` in
+# {dense, colcompact, channelcompact}, ``scheme`` in {w8, w8a8} (+
+# ``x_scale`` float when w8a8), plus the usual activation/epilogue attrs and
+# a ``bytes_saved`` annotation from the pass.  ``qconv2d`` likewise, with
+# ``values`` int8 [O, C', kh, kw] and ``w_scale`` [O].
+
+
+@register_op("qlinear", backends=("quant",))
+def _qlinear_quant(p, xs, a, rt):
+    """INT8 kernel path: W8A8 (int32 sums) when the node carries a
+    calibrated activation scale, else W8 (int8 weights, f32 activations)."""
+    x = xs[0]
+    if a.get("format") == "colcompact":
+        x = x.index_select(-1, p["kept"])
+    epi = a.get("epilogue") or ()
+    out_shape = (*xs[0].shape[:-1], p["values"].shape[1])
+    steps, sides = _kernel_epilogue(epi, xs, out_shape)
+    kw = dict(x_scale=a.get("x_scale"), activation=a.get("activation"))
+    if steps is not None:
+        kw.update(epilogue=steps, epilogue_sides=sides)
+    y = kops.qmatmul(x, p["values"], p["w_scale"], p.get("b"), **kw)
+    return y if steps is not None else _apply_epilogue(y, epi, xs, p)
+
+
+@register_op("qlinear", backends=("reference",))
+def _qlinear_ref(p, xs, a, rt):
+    """Plain oracle: dequantized weights (and fake-quantized activations
+    for w8a8) through the f32 reference GEMM."""
+    x = xs[0]
+    if a.get("format") == "colcompact":
+        x = x.index_select(-1, p["kept"])
+    y = kref.qmatmul_ref(
+        x, p["values"], p["w_scale"], p.get("b"),
+        x_scale=a.get("x_scale"), activation=a.get("activation"),
+    )
+    return _apply_epilogue(y, a.get("epilogue") or (), xs, p)
+
+
+@register_op("qconv2d", backends=("quant",))
+def _qconv2d_quant(p, xs, a, rt):
+    """INT8 implicit-GEMM conv: W8A8 (int8 patches x int8 filters, int32
+    sums) when the node carries a calibrated activation scale, else W8
+    (int8 filters converted on chip) -- the f32 filter copy never
+    materializes in device memory."""
+    epi = a.get("epilogue") or ()
+    steps, sides = _kernel_epilogue(epi, xs, _conv_out_shape(p, xs, a, "values"))
+    kw = _conv_call_kwargs(p, a)
+    kw.update(w_scale=p["w_scale"], x_scale=a.get("x_scale"))
+    if steps is not None:
+        kw.update(epilogue=steps, epilogue_sides=sides)
+    y = kops.conv2d(xs[0], p["values"], p.get("b"), **kw)
+    return y if steps is not None else _apply_epilogue(y, epi, xs, p)
+
+
+@register_op("qconv2d", backends=("reference",))
+def _qconv2d_ref(p, xs, a, rt):
+    """Plain oracle: dequantized filters (and fake-quantized activations for
+    w8a8) through the f32 reference conv."""
+    x = xs[0]
+    if p.get("kept") is not None:
+        x = x.index_select(1, p["kept"])
+    y = kref.qconv2d_ref(
+        x, p["values"], p["w_scale"], p.get("b"), x_scale=a.get("x_scale"),
+        stride=a.get("stride", 1), padding=a.get("padding", "SAME"),
+        groups=a.get("groups", 1), dilation=a.get("dilation", 1),
+        activation=a.get("activation"),
+    )
+    return _apply_epilogue(y, a.get("epilogue") or (), xs, p)
+
+
+# --------------------------------------------------------------------------- #
+# handlers: shared ops (same implementation on every backend)                  #
 # --------------------------------------------------------------------------- #
 
 
@@ -444,9 +542,16 @@ class ExecutionPlan:
     def __call__(self, params: Dict[str, Dict[str, Any]], *args):
         return self.run_steps(params, *args)
 
-    def run_steps(self, params: Dict[str, Dict[str, Any]], *args):
+    def run_steps(
+        self,
+        params: Dict[str, Dict[str, Any]],
+        *args,
+        observer: Optional[Callable[[str, Any], None]] = None,
+    ):
         """Execute the plan: one handler call per step, dead intermediates
-        dropped right after their last use."""
+        dropped right after their last use.  ``observer(name, value)`` (if
+        given) sees every graph input and node output as it is produced --
+        the calibration hook of :func:`repro_torch.quant.calibrate_plan`."""
         if len(args) != len(self.graph.inputs):
             raise TypeError(
                 f"plan expects {len(self.graph.inputs)} inputs "
@@ -456,22 +561,27 @@ class ExecutionPlan:
             name: torch.as_tensor(x, device=self.device)
             for name, x in zip(self.graph.inputs, args)
         }
+        if observer is not None:
+            for name, v in env.items():
+                observer(name, v)
         if _otrace.enabled():  # one branch per run when tracing is off
-            return self._run_steps_traced(env, params)
+            return self._run_steps_traced(env, params, observer)
         for step in self.steps:
             n = step.node
             xs = [env[i] for i in n.inputs]
             env[n.name] = self._handlers[n.op](params.get(n.name, {}), xs, n.attrs, self._rt)
             del xs
+            if observer is not None:
+                observer(n.name, env[n.name])
             for f in step.frees:  # dead intermediate: release our reference
                 del env[f]
         outs = tuple(env[o] for o in self.graph.outputs)
         return outs[0] if len(outs) == 1 else outs
 
-    def _run_steps_traced(self, env, params):
+    def _run_steps_traced(self, env, params, observer):
         """The traced twin of the ``run_steps`` loop: one ``cat="plan"``
         span around the run, one ``cat="step"`` span per step carrying op /
-        backend / output shape."""
+        scheme / backend / output shape."""
         with _otrace.span(
             "plan", cat="plan", backend=self.backend, steps=len(self.steps),
             outputs=list(self.graph.outputs),
@@ -479,11 +589,14 @@ class ExecutionPlan:
             for step in self.steps:
                 n = step.node
                 xs = [env[i] for i in n.inputs]
-                with _otrace.span(n.name, cat="step", op=n.op, backend=self.backend) as sp:
+                with _otrace.span(n.name, cat="step", op=n.op, scheme=_node_scheme(n),
+                                  backend=self.backend) as sp:
                     y = self._handlers[n.op](params.get(n.name, {}), xs, n.attrs, self._rt)
                     sp.set("out_shape", list(y.shape))
                 del xs
                 env[n.name] = y
+                if observer is not None:
+                    observer(n.name, y)
                 for f in step.frees:
                     del env[f]
         outs = tuple(env[o] for o in self.graph.outputs)
@@ -505,10 +618,12 @@ class ExecutionPlan:
         }
         leaves = [v for p in pmeta.values() for v in p.values()]
         param_bytes = sum(_nbytes(v) for v in leaves)
+        # per-dtype breakdown: quantized plans show their int8 payloads here
         param_bytes_by_dtype: Dict[str, int] = {}
         for v in leaves:
             key = str(v.dtype).replace("torch.", "")
             param_bytes_by_dtype[key] = param_bytes_by_dtype.get(key, 0) + _nbytes(v)
+        weight_bytes_saved = sum(int(n.attrs.get("bytes_saved", 0)) for n in self.graph.nodes)
         env: Dict[str, Any] = dict(zip(self.graph.inputs, metas))
         # every op has a reference handler: it computes the same shapes and
         # runs on meta tensors
@@ -529,6 +644,7 @@ class ExecutionPlan:
             "peak_activation_bytes": int(peak),
             "param_bytes": int(param_bytes),
             "param_bytes_by_dtype": param_bytes_by_dtype,
+            "weight_bytes_saved": int(weight_bytes_saved),
             "peak_total_bytes": int(peak + param_bytes),
             "per_step": per_step,
             "out_shapes": tuple(tuple(env[o].shape) for o in self.graph.outputs),

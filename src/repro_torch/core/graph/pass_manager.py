@@ -57,8 +57,7 @@ class PassContext:
     structures: Dict[str, Any] = dataclasses.field(default_factory=dict)
     max_bands: int = 4
     #: activation-range table for the ``quantize`` pass; None leaves the
-    #: pipeline at full precision.  The port's INT8 slice is not written
-    #: yet: a pipeline that reaches ``quantize`` with a table raises
+    #: pipeline at full precision (an empty table quantizes weights only)
     calibration: Optional[Any] = None
     #: node names the ``quantize`` pass leaves at f32 (the standard
     #: keep-the-output-layer-full-precision accuracy practice)

@@ -14,7 +14,8 @@ Pass pipeline for deployment (see :func:`optimize`):
                          PBCSR form comes with a later slice)
 4. ``fold_gathers``      compaction gathers folded into adjacent weights
 5. ``cse`` / ``fuse_elementwise`` / ``fuse_epilogue``
-6. ``quantize``          INT8 (a later slice: skipped without calibration)
+6. ``quantize``          GEMM/conv weights -> INT8 ``qlinear`` / ``qconv2d``
+                         (skipped without a calibration table)
 7. ``dce``               drop dead nodes
 
 All passes are pure: Graph in, Graph out.
@@ -28,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...quant.qtensor import QTensor
 from ..pruning.structures import Block, Channel, Column, Structure
 from ..sparse.formats import ChannelCompact, ColumnCompact
 from .ir import Graph, Node
@@ -525,15 +527,103 @@ def fuse_epilogue(g: Graph) -> Graph:
 
 
 # --------------------------------------------------------------------------- #
-# 5c. weight quantization (a later slice)                                      #
+# 5c. weight quantization                                                      #
 # --------------------------------------------------------------------------- #
 
+#: sparse formats whose packed values are plain [K', N'] matrices -- these
+#: ride the qmatmul path.  pbcsr values are 4-D packed blocks, so pbcsr
+#: nodes stay f32.
+_QUANT_SPARSE_FORMATS = ("colcompact", "channelcompact")
 
-def quantize(g: Graph, calibration=None, *, skip=(), act_skip=()) -> Graph:
-    """INT8 rewrite of GEMM/conv nodes (``qlinear`` / ``qconv2d``).  The
-    port's INT8 slice is not written yet; full-precision pipelines skip this
-    pass (it needs a calibration table), and asking for it raises."""
-    raise NotImplementedError("the quantize pass is not ported yet (INT8 slice)")
+
+def quantize(
+    g: Graph,
+    calibration=None,
+    *,
+    skip: Tuple[str, ...] = (),
+    act_skip: Tuple[str, ...] = (),
+) -> Graph:
+    """Rewrite GEMM/conv nodes to INT8-stored quantized ops (symmetric
+    per-output-channel absmax, :class:`repro_torch.quant.qtensor.QTensor`
+    layout).
+
+    * ``linear`` / ``sparse_linear(colcompact|channelcompact)`` ->
+      ``qlinear``: int8 ``values`` + f32 ``w_scale[N]``.  When
+      ``calibration`` (a :class:`~repro_torch.quant.calibrate.CalibrationTable`)
+      has an activation range for the node's input, the node is tagged
+      ``scheme="w8a8"`` with the static ``x_scale`` (int8 x int8 sums in the
+      kernel); otherwise ``scheme="w8"`` keeps f32 activations.
+    * ``conv2d`` -> ``qconv2d``: int8 filters executed by the INT8
+      implicit-GEMM conv kernel, with the same W8A8-vs-W8 election.
+      Channel-compact convs keep their ``kept`` indices (the gather
+      preserves values, so the input's scale applies to the gathered
+      activations too).
+    * ``sparse_linear(pbcsr)`` is left untouched (blocked payload), as is
+      any node named in ``skip`` (keep the first/last layers f32).  Nodes
+      named in ``act_skip`` still quantize their weights but are pinned to
+      ``scheme="w8"`` even when calibrated -- the mixed-precision knob for
+      residual trunks, where static activation quantization noise
+      accumulates across blocks (see ``models/cnn.py:APP_ACT_SKIP``).
+
+    Every rewritten node is annotated with ``bytes_saved`` (dense f32 bytes
+    minus int8 payload + scales), which
+    :meth:`ExecutionPlan.memory_estimate` sums as ``weight_bytes_saved``.
+    Runs after ``fuse_epilogue`` so epilogue attrs (and their
+    ``e{i}_scale``/``e{i}_bias`` params, which are kept) are attached.
+    """
+    g = dataclasses.replace(g, nodes=list(g.nodes), params=dict(g.params))
+
+    def elect_scheme(node) -> Dict[str, Any]:
+        """The one W8A8-vs-W8 policy shared by linear and conv rewrites:
+        upgrade iff the node's input range is calibrated and its activations
+        are not pinned to f32 by ``act_skip``."""
+        x_scale = (
+            calibration.get_scale(node.inputs[0])
+            if calibration is not None and node.name not in act_skip
+            else None
+        )
+        if x_scale is None:
+            return {"scheme": "w8"}
+        return {"scheme": "w8a8", "x_scale": float(x_scale)}
+
+    def packed(p, wkey, axis):
+        w = p[wkey]
+        qt = QTensor.from_float(w, axis=axis)  # per output channel
+        saved = w.numel() * w.element_size() - qt.nbytes
+        # keep every non-weight param (bias, gather indices, epilogue norm
+        # scale/bias) alongside the packed payload
+        params = {**{k: v for k, v in p.items() if k != wkey},
+                  "values": qt.values, "w_scale": qt.scale}
+        return params, int(saved)
+
+    nodes = []
+    for node in g.nodes:
+        if node.name in skip:
+            nodes.append(node)
+            continue
+        p = g.params.get(node.name, {})
+        is_qlinear = node.op == "linear" or (
+            node.op == "sparse_linear"
+            and node.attrs.get("format") in _QUANT_SPARSE_FORMATS
+        )
+        if is_qlinear:
+            g.params[node.name], saved = packed(p, "w" if node.op == "linear" else "values", 1)
+            attrs = {
+                **node.attrs,
+                "format": node.attrs.get("format", "dense"),
+                "bytes_saved": saved,
+                **elect_scheme(node),
+            }
+            nodes.append(node.replace(op="qlinear", attrs=attrs))
+        elif node.op == "conv2d" and "w" in p:
+            g.params[node.name], saved = packed(p, "w", 0)
+            attrs = {**node.attrs, "bytes_saved": saved, **elect_scheme(node)}
+            nodes.append(node.replace(op="qconv2d", attrs=attrs))
+        else:
+            nodes.append(node)
+    g = dataclasses.replace(g, nodes=nodes)
+    g.validate()
+    return g
 
 
 # --------------------------------------------------------------------------- #

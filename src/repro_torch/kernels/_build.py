@@ -56,6 +56,8 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"
 #: fixed maxima of a step program (csrc/epilogue.cuh)
 MAX_STEPS, MAX_SIDES, MAX_NORMS = 8, 4, 4
 _STEP_CODES = {"activation": 0, "add": 1, "mul": 2, "norm": 3}
+#: arithmetic schemes of the GEMM-shaped kernels (csrc/scheme.cuh)
+SCHEME_CODES = {"f32": 0, "w8": 1, "w8a8": 2}
 _ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _LOCK = threading.Lock()
@@ -132,8 +134,10 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     cdll.repro_dense_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P, I, P, P]
     cdll.repro_dense_matmul.restype = I
-    cdll.repro_conv2d.argtypes = [P, P, P, P, P] + [I] * 14 + [I, P, I, P, P]
+    cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P, P]
     cdll.repro_conv2d.restype = I
+    cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P, P]
+    cdll.repro_quant_matmul.restype = I
     cdll.repro_fused_elementwise.argtypes = [P, P, L, I, I, P, P, I, P, I, P, P]
     cdll.repro_fused_elementwise.restype = I
     cdll.repro_fused_elementwise_max_d.argtypes = []
@@ -164,10 +168,14 @@ def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def kernel_device(name: str, **tensors: Optional[torch.Tensor]) -> torch.device:
+def kernel_device(
+    name: str, dtypes: Optional[Dict[str, torch.dtype]] = None, **tensors: Optional[torch.Tensor]
+) -> torch.device:
     """The device every given operand lies on.  For CUDA operands, check
-    what the kernels take (f32 data, int32 indices, contiguous) and raise on
-    anything else; CPU operands go to the plain versions unchecked."""
+    what the kernels take (f32 data, int32 ``kept`` indices, or the dtype
+    ``dtypes`` names for an operand -- int8 for quantized ones; contiguous)
+    and raise on anything else; CPU operands go to the plain versions
+    unchecked."""
     present = {k: t for k, t in tensors.items() if t is not None}
     devices = {t.device for t in present.values()}
     if len(devices) != 1:
@@ -178,8 +186,9 @@ def kernel_device(name: str, **tensors: Optional[torch.Tensor]) -> torch.device:
         return dev
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+    dtypes = dtypes or {}
     for k, t in present.items():
-        want = torch.int32 if k == "kept" else torch.float32
+        want = dtypes.get(k, torch.int32 if k == "kept" else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name}: {k} must be {want}, got {t.dtype}")
         if not t.is_contiguous():

@@ -1,11 +1,17 @@
 """Implicit-GEMM conv2d with a fused epilogue: CUDA kernel + plain version.
 
 Replaces the TPU kernel ``repro/kernels/conv2d.py:conv2d_gemm_kernel``
-(wrapper ``conv2d_gemm``) for the f32 and channel-pruned schemes.
-``conv2d_gemm(x, w, bias, *sides, kept=..., stride=..., padding=...)``
-computes ``epilogue(act(conv(x[:, kept], w) + bias))`` with ``x [N, C, H, W]``
-NCHW, ``w [O, C', kh, kw]`` OIHW (``C' = len(kept)`` for a channel-pruned
-conv) and sides ``[N, O, OH, OW]``.
+(wrapper ``conv2d_gemm``) in every scheme: f32, channel-pruned, and the
+INT8 schemes W8 and W8A8.
+``conv2d_gemm(x, w, bias, *sides, ws=..., kept=..., stride=..., padding=...)``
+computes ``epilogue(act(conv(x[:, kept], w) * ws + bias))`` with
+``x [N, C, H, W]`` NCHW, ``w [O, C', kh, kw]`` OIHW (``C' = len(kept)`` for
+a channel-pruned conv) and sides ``[N, O, OH, OW]``.  The operand types
+pick the scheme: f32 ``x`` and ``w`` is f32 (no ``ws``); f32 ``x`` with
+int8 ``w`` is W8; int8 ``x`` and ``w`` is W8A8.  The INT8 schemes need
+``ws [O]``, the combined per-output-channel rescale (``w_scale``, times the
+activation scale for W8A8: the caller quantizes W8A8 activations, as the
+TPU wrapper does, and folds their scale in).
 
 The TPU wrapper made a zero-padded NHWC copy of the input in device memory
 and gathered ``kept`` channels in XLA before its kernel; the CUDA kernel
@@ -15,11 +21,18 @@ place, turns the zero border into bounds checks (XLA's SAME split, see
 builds each im2col slab in shared memory only, and writes NCHW.
 
 What bounds it on an H100: the demo apps' 3x3 / 7x7 layers contract
-K = 147..1728 per output element, so f32 FMA throughput on the CUDA cores
-bounds them (no TF32: the plan tolerances assume true f32); the tile shape
-follows the output-channel count so narrow heads waste little of a tile.
-Routing: a CPU tensor takes :func:`conv2d_plain`, a CUDA tensor launches the
-kernel or raises.  ``launches`` counts kernel launches.
+K = 147..1728 per output element, so multiply-add throughput on the CUDA
+cores bounds them (true f32, no TF32: the plan tolerances assume it; exact
+int32 for W8A8); the tile shape follows the output-channel count so narrow
+heads waste little of a tile.  The INT8 schemes stage int8 filters (and,
+for W8A8, int8 patches) at a quarter of the f32 bytes.
+
+The plain version accumulates the INT8 schemes in float64 -- exact for
+W8A8, whose integer sums pass 2^24 (127^2 x 1728 = 2.8e7) where a float32
+sum is not -- then rescales in f32 like the kernel.  Routing: a CPU tensor
+takes :func:`conv2d_plain`, a CUDA tensor launches the kernel or raises.
+``launches`` counts kernel launches, ``scheme_launches`` splits them by
+scheme.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from .ref import _ACT, apply_steps_ref, conv2d_ref
 __all__ = [
     "conv2d_gemm",
     "conv2d_plain",
+    "conv_scheme",
     "conv_out_hw",
     "conv_pad_hw",
     "conv_padding_token",
@@ -42,6 +56,8 @@ __all__ = [
 
 #: kernel launches made by :func:`conv2d_gemm` (CUDA route only)
 launches = 0
+#: the same launches by scheme
+scheme_launches = {scheme: 0 for scheme in _build.SCHEME_CODES}
 
 
 def _explicit_pads(padding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -89,11 +105,19 @@ def conv_padding_token(padding) -> str:
     return f"+p{a}.{b}.{c}.{d}"
 
 
+def conv_scheme(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The kernel scheme of a conv's operand types (see the module doc)."""
+    if w_dtype == torch.int8:
+        return "w8a8" if x_dtype == torch.int8 else "w8"
+    return "f32"
+
+
 def conv2d_plain(
     x: torch.Tensor,
     w: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *sides: torch.Tensor,
+    ws: Optional[torch.Tensor] = None,
     kept: Optional[torch.Tensor] = None,
     stride: int = 1,
     padding="SAME",
@@ -103,9 +127,17 @@ def conv2d_plain(
     """The plain PyTorch version of the kernel (same arguments)."""
     if kept is not None:
         x = x.index_select(1, kept)
-    y = conv2d_ref(x, w, bias, stride=stride, padding=padding, activation=activation,
-                   out_dtype=torch.float32)
-    return apply_steps_ref(y, epilogue, [s.float() for s in sides]).to(x.dtype)
+    if w.dtype == torch.int8:
+        acc = conv2d_ref(x, w, stride=stride, padding=padding, acc_dtype=torch.float64,
+                         out_dtype=torch.float32)
+        y = acc * ws.float()[None, :, None, None]
+        if bias is not None:
+            y = y + bias.float()[None, :, None, None]
+        y = _ACT[activation](y)
+    else:
+        y = conv2d_ref(x, w, bias, stride=stride, padding=padding, activation=activation,
+                       out_dtype=torch.float32)
+    return apply_steps_ref(y, epilogue, [s.float() for s in sides])
 
 
 def conv2d_gemm(
@@ -113,19 +145,26 @@ def conv2d_gemm(
     w: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *sides: torch.Tensor,
+    ws: Optional[torch.Tensor] = None,
     kept: Optional[torch.Tensor] = None,
     stride: int = 1,
     padding="SAME",
     activation: Optional[str] = None,
     epilogue: Tuple[Tuple, ...] = (),
 ) -> torch.Tensor:
-    """``epilogue(act(conv(x[:, kept], w) + bias))``; see the module doc.
-    Takes what the kernel takes: ungrouped, undilated, non-negative padding,
-    at least one output pixel (``ops.conv2d`` routes the rest to the plain
-    version)."""
+    """``epilogue(act(conv(x[:, kept], w) * ws + bias))``; see the module
+    doc.  Takes what the kernel takes: ungrouped, undilated, non-negative
+    padding, at least one output pixel (``ops.conv2d`` routes the rest to
+    the plain version)."""
     global launches
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv2d_gemm: x{tuple(x.shape)} / w{tuple(w.shape)} must be 4-D")
+    if x.dtype == torch.int8 and w.dtype != torch.int8:
+        raise TypeError("conv2d_gemm: int8 activations need int8 weights (W8A8)")
+    scheme = conv_scheme(x.dtype, w.dtype)
+    if (scheme == "f32") != (ws is None):
+        raise ValueError(f"conv2d_gemm: the {scheme} scheme "
+                         f"{'takes no' if scheme == 'f32' else 'needs a'} ws rescale")
     nb, c_in, h, wd = x.shape
     o, c, kh, kw = w.shape
     if kept is None and c != c_in:
@@ -141,6 +180,8 @@ def conv2d_gemm(
         raise ValueError(f"conv2d_gemm: empty output {(oh, ow)}")
     if bias is not None and tuple(bias.shape) != (o,):
         raise ValueError(f"conv2d_gemm: bias {tuple(bias.shape)} != ({o},)")
+    if ws is not None and tuple(ws.shape) != (o,):
+        raise ValueError(f"conv2d_gemm: ws {tuple(ws.shape)} != ({o},)")
     for s in sides:
         if tuple(s.shape) != (nb, o, oh, ow):
             raise ValueError(f"conv2d_gemm: side {tuple(s.shape)} != {(nb, o, oh, ow)}")
@@ -149,23 +190,29 @@ def conv2d_gemm(
     epilogue = tuple(tuple(s) for s in epilogue)
     validate_epilogue(epilogue, len(sides))
     named = {f"side{i}": s for i, s in enumerate(sides)}
-    dev = _build.kernel_device("conv2d_gemm", x=x, w=w, bias=bias, kept=kept, **named)
+    int8 = {"w8": ("w",), "w8a8": ("x", "w")}.get(scheme, ())
+    dev = _build.kernel_device(
+        "conv2d_gemm", {k: torch.int8 for k in int8},
+        x=x, w=w, ws=ws, bias=bias, kept=kept, **named,
+    )
     if dev.type == "cpu":
-        return conv2d_plain(x, w, bias, *sides, kept=kept, stride=stride, padding=padding,
-                            activation=activation, epilogue=epilogue)
+        return conv2d_plain(x, w, bias, *sides, ws=ws, kept=kept, stride=stride,
+                            padding=padding, activation=activation, epilogue=epilogue)
     pt, pl = conv_pad_hw(h, wd, kh, kw, stride, padding)
     out = torch.empty((nb, o, oh, ow), dtype=torch.float32, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
     lib = _build.lib()
     err = lib.repro_conv2d(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        x.data_ptr(), w.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if bias is None else bias.data_ptr(),
         None if kept is None else kept.data_ptr(), out.data_ptr(),
         nb, c_in, h, wd, c, o, kh, kw, stride, pt, pl, oh, ow,
-        _build.activation_code(activation),
+        _build.activation_code(activation), _build.SCHEME_CODES[scheme],
         prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
         _build.stream_handle(),
     )
     _build.check(err, "conv2d_gemm")
     launches += 1
+    scheme_launches[scheme] += 1
     return out

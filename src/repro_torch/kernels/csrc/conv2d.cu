@@ -1,8 +1,11 @@
 // Implicit-GEMM conv2d with the fused epilogue program, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/conv2d.py:conv2d_gemm_kernel
-// (wrapper conv2d_gemm), f32 and channel-pruned ("channelcompact") schemes:
-//   out = epilogue(act(conv(x[:, kept], w) + bias))
+// (wrapper conv2d_gemm), every scheme: f32, channel-pruned
+// ("channelcompact"), and the INT8 schemes W8 and W8A8 (scheme.cuh):
+//   out = epilogue(act(conv(x[:, kept], w) * ws + bias))
+// with ws the per-output-channel rescale of the INT8 schemes (absent for
+// f32): w_scale for W8, w_scale * x_scale for W8A8, folded by the wrapper.
 //
 // GEMM view: M = N * OH * OW output pixels, N_gemm = O output channels,
 // K = C * kh * kw with C the live (kept) input channels; K is ordered like
@@ -17,33 +20,48 @@
 // load), never materialising the im2col matrix anywhere.  Neighbouring
 // threads take neighbouring output pixels, so patch loads and NCHW output
 // stores are coalesced along the image row.  Ragged pixel / channel edges
-// are masked.  Bias, activation and the epilogue steps (add/mul with NCHW
-// side operands) run on the f32 accumulator before the one store.
+// are masked.  The rescale, bias, activation and the epilogue steps (add/mul
+// with NCHW side operands) run on the accumulator before the one store.
 //
-// What bounds it here: the 3x3 / 7x7 layers of the demo apps carry
-// K = 147..1728 per output, so FMA throughput on the CUDA cores (true f32,
-// no TF32) bounds them, not memory; the tile shape is picked per layer by
-// its output-channel count so narrow heads (O = 2..12) do not waste most of
-// a 64-wide tile.  Tensor cores (wgmma in TF32 or lower) are later work.
+// INT8 schemes, one kernel body templated on the scheme: W8 stages f32
+// patches and converts each int8 filter element to f32 as it is staged
+// (f32 accumulator); W8A8 stages int8 patches and int8 filters (a quarter
+// of the f32 shared memory) and accumulates exact int32 sums.  The wrapper
+// quantizes W8A8 activations before the launch, as the TPU wrapper does
+// (round half to even, clip to +-127), so the kernel reads int8 NCHW.
+//
+// What bounds it here: the demo apps' 3x3 / 7x7 layers carry K = 147..1728
+// per output, so multiply-add throughput on the CUDA cores (f32 FMA, or
+// integer multiply-add for W8A8) bounds them, not memory; the f32 tile
+// shape is picked per layer by its output-channel count so narrow heads
+// (O = 2..12) do not waste most of a 64-wide tile.  The INT8 schemes take
+// two tile shapes (O <= 32, wider) to keep the build short: the apps'
+// quantized convs are 32..128 channels wide.  Tensor cores (wgmma in TF32
+// or lower, s8 for W8A8) are later work.
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "scheme.cuh"
 
 namespace {
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int S, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    conv2d_igemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ bias, const int* __restrict__ kept,
-                        float* __restrict__ out, int Nb, int C_in, int H, int W, int C, int O,
-                        int kh, int kw, int stride, int pad_t, int pad_l, int OH, int OW,
-                        int act, StepProgram prog) {
+    conv2d_igemm_kernel(const typename Scheme<S>::X* __restrict__ x,
+                        const typename Scheme<S>::WG* __restrict__ w,
+                        const float* __restrict__ ws, const float* __restrict__ bias,
+                        const int* __restrict__ kept, float* __restrict__ out, int Nb, int C_in,
+                        int H, int W, int C, int O, int kh, int kw, int stride, int pad_t,
+                        int pad_l, int OH, int OW, int act, StepProgram prog) {
+  using X = typename Scheme<S>::X;
+  using SW = typename Scheme<S>::SW;
+  using Acc = typename Scheme<S>::Acc;
   constexpr int TX = BM / TM;  // threads along pixels (fastest: coalesced)
   constexpr int TY = BN / TN;  // threads along output channels
   constexpr int NT = TX * TY;
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN + 1];
+  __shared__ X As[BK][BM];
+  __shared__ SW Bs[BK][BN + 1];
   __shared__ long long s_xbase[BM];  // n * C_in * H * W, or -1 past M
   __shared__ long long s_obase[BM];  // n * O * OH * OW + oh * OW + ow
   __shared__ int s_ih0[BM];
@@ -82,11 +100,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
   __syncthreads();  // K may be 0 (every channel pruned): the epilogue reads these
 
-  float acc[TM][TN];
+  Acc acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int kk = tid; kk < BK; kk += NT) {
@@ -108,7 +126,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     // patch slab [BK, BM]: neighbouring threads gather neighbouring pixels
     for (int e = tid; e < BM * BK; e += NT) {
       const int mm = e % BM, kk = e / BM;
-      float v = 0.f;
+      X v = X(0);
       const long long xb = s_xbase[mm], co = s_coff[kk];
       if (xb >= 0 && co >= 0) {
         const int ih = s_ih0[mm] + s_ki[kk];
@@ -118,16 +136,17 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       As[kk][mm] = v;
     }
     // filter slab [BK, BN]: w is [O, K] row-major, neighbouring threads read
-    // neighbouring k
+    // neighbouring k; W8 converts each int8 filter element to f32 here
     for (int e = tid; e < BK * BN; e += NT) {
       const int kk = e % BK, nn = e / BK;
       const int k = k0 + kk, o = n0 + nn;
-      Bs[kk][nn] = (k < K && o < O) ? w[(long long)o * K + k] : 0.f;
+      Bs[kk][nn] = (k < K && o < O) ? SW(w[(long long)o * K + k]) : SW(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+      X a[TM];
+      SW b[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = As[kk][tx + i * TX];
 #pragma unroll
@@ -135,7 +154,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = mac(acc[i][j], a[i], b[j]);
     }
     __syncthreads();
   }
@@ -150,7 +169,8 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int o = n0 + ty + j * TY;
       if (o >= O) continue;
       const long long idx = ob + (long long)o * OHW;
-      float v = acc[i][j];
+      float v = (float)acc[i][j];
+      if (ws) v *= ws[o];
       if (bias) v += bias[o];
       v = apply_act(act, v);
       out[idx] = apply_pointwise_steps(prog, v, idx);
@@ -158,53 +178,81 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
-void launch(const float* x, const float* w, const float* bias, const int* kept, float* out,
-            int Nb, int C_in, int H, int W, int C, int O, int kh, int kw, int stride,
-            int pad_t, int pad_l, int OH, int OW, int act, const StepProgram& prog,
+template <int S, int BM, int BN, int BK, int TM, int TN>
+void launch(const void* x, const void* w, const float* ws, const float* bias, const int* kept,
+            float* out, int Nb, int C_in, int H, int W, int C, int O, int kh, int kw,
+            int stride, int pad_t, int pad_l, int OH, int OW, int act, const StepProgram& prog,
             cudaStream_t stream) {
   const long long M = (long long)Nb * OH * OW;
   dim3 grid((unsigned)((M + BM - 1) / BM), (O + BN - 1) / BN);
   dim3 block((BM / TM) * (BN / TN));
-  conv2d_igemm_kernel<BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
-      x, w, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act,
-      prog);
+  conv2d_igemm_kernel<S, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
+      static_cast<const typename Scheme<S>::X*>(x), static_cast<const typename Scheme<S>::WG*>(w),
+      ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act, prog);
+}
+
+template <int S>
+void dispatch(const void* x, const void* w, const float* ws, const float* bias, const int* kept,
+              float* out, int Nb, int C_in, int H, int W, int C, int O, int kh, int kw,
+              int stride, int pad_t, int pad_l, int OH, int OW, int act, const StepProgram& p,
+              cudaStream_t st) {
+#define REPRO_CONV_LAUNCH(BM, BN, BK, TM, TN)                                               \
+  launch<S, BM, BN, BK, TM, TN>(x, w, ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw,   \
+                                stride, pad_t, pad_l, OH, OW, act, p, st)
+  if constexpr (S == SCHEME_F32) {
+    if (O <= 4) {
+      REPRO_CONV_LAUNCH(256, 4, 16, 4, 1);
+    } else if (O <= 16) {
+      REPRO_CONV_LAUNCH(256, 16, 16, 4, 4);
+    } else if (O <= 32) {
+      REPRO_CONV_LAUNCH(128, 32, 16, 4, 4);
+    } else {
+      REPRO_CONV_LAUNCH(64, 64, 16, 4, 4);
+    }
+  } else {
+    if (O <= 32) {
+      REPRO_CONV_LAUNCH(128, 32, 16, 4, 4);
+    } else {
+      REPRO_CONV_LAUNCH(64, 64, 16, 4, 4);
+    }
+  }
+#undef REPRO_CONV_LAUNCH
 }
 
 }  // namespace
 
-extern "C" int repro_conv2d(const void* x, const void* w, const void* bias, const void* kept,
-                            void* out, int Nb, int C_in, int H, int W, int C, int O, int kh,
-                            int kw, int stride, int pad_t, int pad_l, int OH, int OW, int act,
-                            int n_steps, const int* prog, int n_sides,
-                            const void* const* sides, void* stream) {
+// scheme: SCHEME_F32 (x, w f32; ws null), SCHEME_W8 (x f32, w int8) or
+// SCHEME_W8A8 (x, w int8); the INT8 schemes need ws.
+extern "C" int repro_conv2d(const void* x, const void* w, const void* ws, const void* bias,
+                            const void* kept, void* out, int Nb, int C_in, int H, int W, int C,
+                            int O, int kh, int kw, int stride, int pad_t, int pad_l, int OH,
+                            int OW, int act, int scheme, int n_steps, const int* prog,
+                            int n_sides, const void* const* sides, void* stream) {
   StepProgram p;
   if (Nb < 0 || C_in < 0 || C < 0 || O < 0 || kh < 1 || kw < 1 || stride < 1 || OH < 0 ||
-      OW < 0 || !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
+      OW < 0 || scheme < SCHEME_F32 || scheme > SCHEME_W8A8 ||
+      (scheme != SCHEME_F32 && ws == nullptr) ||
+      !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int s = 0; s < n_steps; ++s) {
     if (p.kind[s] == STEP_NORM) return (int)cudaErrorInvalidValue;
   }
   if (Nb == 0 || O == 0 || OH == 0 || OW == 0) return (int)cudaSuccess;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
+  const float* wsf = static_cast<const float*>(ws);
   const float* bf = static_cast<const float*>(bias);
   const int* kp = static_cast<const int*>(kept);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_CONV_LAUNCH(BM, BN, BK, TM, TN)                                                 \
-  launch<BM, BN, BK, TM, TN>(xf, wf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, \
-                             pad_l, OH, OW, act, p, st)
-  if (O <= 4) {
-    REPRO_CONV_LAUNCH(256, 4, 16, 4, 1);
-  } else if (O <= 16) {
-    REPRO_CONV_LAUNCH(256, 16, 16, 4, 4);
-  } else if (O <= 32) {
-    REPRO_CONV_LAUNCH(128, 32, 16, 4, 4);
+  if (scheme == SCHEME_W8A8) {
+    dispatch<SCHEME_W8A8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t,
+                          pad_l, OH, OW, act, p, st);
+  } else if (scheme == SCHEME_W8) {
+    dispatch<SCHEME_W8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t,
+                        pad_l, OH, OW, act, p, st);
   } else {
-    REPRO_CONV_LAUNCH(64, 64, 16, 4, 4);
+    dispatch<SCHEME_F32>(x, w, nullptr, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride,
+                         pad_t, pad_l, OH, OW, act, p, st);
   }
-#undef REPRO_CONV_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 """Public wrappers around the port's kernels (a port of ``repro.kernels.ops``
-for the slice's paths).
+for the ported paths).
 
 These do the layout work so the executor calls one function per op:
-leading-batch flattening, the 1x1-conv direct-GEMM fast path, and the conv
-fallback matrix.  Each routes to a kernel wrapper in this package, whose
-device picks the route (CPU tensor: plain version; CUDA tensor: the CUDA
-kernel or an error).
+leading-batch flattening, the 1x1-conv direct-GEMM fast path, the conv
+fallback matrix, and the INT8 schemes' activation quantization (W8A8
+activations are quantized here, before the kernel, as the JAX wrappers do,
+and their scale is folded into the kernel's per-column rescale).  Each
+routes to a kernel wrapper in this package, whose device picks the route
+(CPU tensor: plain version; CUDA tensor: the CUDA kernel or an error).
 
 Differences from the JAX wrappers, by design:
 
@@ -26,18 +28,22 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..obs import metrics as _metrics
+from ..quant.qtensor import fake_quant, quantize_array, scale_tensor
 from . import conv2d as _conv2d_mod
 from . import dense_matmul as _dense_mod
 from . import fused_elementwise as _fused_mod
+from . import quant_matmul as _quant_mod
 from .conv2d import conv2d_gemm as _conv2d_gemm
 from .conv2d import conv_out_hw, conv_pad_hw, conv_padding_token
 from .dense_matmul import dense_matmul as _dense_matmul
 from .fused_elementwise import fused_elementwise as _fused_elementwise
+from .quant_matmul import quant_matmul as _quant_matmul
 from .ref import apply_steps_ref, conv2d_ref
 
 __all__ = [
     "matmul",
     "col_matmul",
+    "qmatmul",
     "conv2d",
     "fused_elementwise",
     "conv_out_hw",
@@ -50,6 +56,7 @@ __all__ = [
     "conv_fastpath_counts",
     "reset_conv_fastpaths",
     "kernel_launch_counts",
+    "conv_scheme_launch_counts",
     "reset_kernel_launches",
 ]
 
@@ -58,6 +65,7 @@ _KERNEL_MODULES = {
     "conv2d": _conv2d_mod,
     "dense_matmul": _dense_mod,
     "fused_elementwise": _fused_mod,
+    "quant_matmul": _quant_mod,
 }
 
 
@@ -67,9 +75,17 @@ def kernel_launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNEL_MODULES.items()}
 
 
+def conv_scheme_launch_counts() -> Dict[str, int]:
+    """The conv kernel's launches since the last reset, by scheme (``f32``
+    -- channel-pruned included -- ``w8``, ``w8a8``)."""
+    return dict(_conv2d_mod.scheme_launches)
+
+
 def reset_kernel_launches() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+    for scheme in _conv2d_mod.scheme_launches:
+        _conv2d_mod.scheme_launches[scheme] = 0
 
 
 # --------------------------------------------------------------------------- #
@@ -150,6 +166,46 @@ def col_matmul(
     )
 
 
+def qmatmul(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    x_scale: Optional[float] = None,
+    activation: Optional[str] = None,
+    epilogue: Sequence[Tuple] = (),
+    epilogue_sides: Sequence[torch.Tensor] = (),
+) -> torch.Tensor:
+    """Quantized ``epilogue(act((x @ w_q) * scales + bias))`` for arbitrary
+    leading batch dims through the INT8 matmul kernel.
+
+    ``w_q [K, N]`` int8 with per-output-channel ``w_scale [N]`` f32.  With
+    ``x_scale`` (the calibrated static activation scale, a Python float) the
+    f32 activations are quantized to int8 here and the kernel sums int8 x
+    int8 products in int32 (**W8A8**); the activation scale is folded into
+    the per-column rescale, ``w_scale * x_scale`` in f32.  Without it the
+    activations stay f32 and only the weights are int8 (**W8**)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m, n = x2.shape[0], w_q.shape[1]
+    sides2 = []
+    for s in epilogue_sides:
+        if tuple(s.shape) not in ((*lead, n), (m, n)):
+            raise ValueError(f"qmatmul: side {tuple(s.shape)} vs output {(*lead, n)}")
+        sides2.append(s.reshape(m, n).contiguous())
+    ws = w_scale.float()
+    if x_scale is not None:
+        s = scale_tensor(x_scale, x2)
+        x2 = quantize_array(x2, s)
+        ws = ws * s
+    out = _quant_matmul(
+        x2, w_q.contiguous(), ws.contiguous(), bias, *sides2, activation=activation,
+        epilogue=tuple(tuple(s) for s in epilogue),
+    )
+    return out.reshape(*lead, n)
+
+
 # --------------------------------------------------------------------------- #
 # conv2d                                                                       #
 # --------------------------------------------------------------------------- #
@@ -197,12 +253,17 @@ def conv_fallback_reason(
     return None
 
 
-def _conv2d_fallback(x, w, bias, *, stride, padding, kept, groups, dilation,
-                     activation, epilogue, sides):
+def _conv2d_fallback(x, w, bias, *, stride, padding, kept, w_scale, x_scale, groups,
+                     dilation, activation, epilogue, sides):
     """The plain route for configs outside the kernel's matrix -- the same
-    math as the reference handler (channel gather, conv, step tail)."""
+    math as the reference handlers (channel gather, dequant / fake-quant for
+    int8 weights, conv, step tail)."""
     if kept is not None:
         x = x.index_select(1, kept)
+    if w.dtype == torch.int8:
+        w = w.float() * w_scale.float()[:, None, None, None]
+        if x_scale is not None:
+            x = fake_quant(x.float(), x_scale)
     y = conv2d_ref(x, w, bias, stride=stride, padding=padding, groups=groups,
                    dilation=dilation, activation=activation, out_dtype=torch.float32)
     if epilogue:
@@ -210,13 +271,16 @@ def _conv2d_fallback(x, w, bias, *, stride, padding, kept, groups, dilation,
     return y.to(x.dtype)
 
 
-def _conv2d_1x1_gemm(x, w, bias, *, stride, kept, activation, epilogue, sides):
+def _conv2d_1x1_gemm(x, w, bias, *, stride, kept, w_scale, x_scale, activation, epilogue,
+                     sides):
     """The 1x1 direct-GEMM fast path: a unit-tap conv with no border padding
     is ``y[n, :, i, j] = W @ x[n, :, i*s, j*s]`` -- a plain GEMM over the
     ``N*OH*OW`` pixel axis.  NCHW is permuted to pixel-major ``[P, C]`` (the
     stride subsamples the grid first), the OIHW filter collapses to
     ``[C, O]``, and bias / activation / epilogue with its side operands ride
-    the dense-matmul kernel.  The permutes around it are plain torch."""
+    the dense-matmul kernel (f32) or the quant-matmul kernel (int8 weights,
+    with the conv's ``w_scale`` / ``x_scale``).  The permutes around it are
+    plain torch."""
     if kept is not None:
         x = x.index_select(1, kept)
     if stride > 1:
@@ -231,7 +295,11 @@ def _conv2d_1x1_gemm(x, w, bias, *, stride, kept, activation, epilogue, sides):
     xm = x.permute(0, 2, 3, 1).reshape(nb * oh * ow, c)
     wm = w.reshape(o, c).t()
     sm = [s.permute(0, 2, 3, 1).reshape(nb * oh * ow, o) for s in sides]
-    y = matmul(xm, wm, bias, activation=activation, epilogue=epilogue, epilogue_sides=sm)
+    if w.dtype == torch.int8:
+        y = qmatmul(xm, wm, w_scale, bias, x_scale=x_scale, activation=activation,
+                    epilogue=epilogue, epilogue_sides=sm)
+    else:
+        y = matmul(xm, wm, bias, activation=activation, epilogue=epilogue, epilogue_sides=sm)
     return y.reshape(nb, oh, ow, o).permute(0, 3, 1, 2).contiguous()
 
 
@@ -243,6 +311,8 @@ def conv2d(
     stride: int = 1,
     padding="SAME",
     kept: Optional[torch.Tensor] = None,
+    w_scale: Optional[torch.Tensor] = None,
+    x_scale: Optional[float] = None,
     groups: int = 1,
     dilation: int = 1,
     activation: Optional[str] = None,
@@ -254,22 +324,36 @@ def conv2d(
     ``stride``; ``kept`` (live input-channel indices of a channel-pruned
     conv) makes the kernel contract only ``C' = len(kept)`` channels.
 
+    Scheme, from the operands: f32 ``w`` is **f32**; int8 ``w`` with
+    ``w_scale [O]`` is **W8** (f32 activations, int8 filters), and with a
+    calibrated ``x_scale`` too **W8A8** (activations quantized to int8
+    here, int32 sums in the kernel, ``x_scale`` folded into the rescale).
+    Raises for int8 weights without ``w_scale`` and for ``x_scale`` with f32
+    weights.
+
     Routing, in order: the **1x1 fast path** (:func:`conv_gemm1x1_elected`,
     counted per scheme in :func:`conv_fastpath_counts`) lowers to
-    :func:`matmul`; the **fallback matrix**
-    (:func:`conv_fallback_reason`) routes to the plain version, counted in
+    :func:`matmul` / :func:`qmatmul`; the **fallback matrix**
+    (:func:`conv_fallback_reason`) routes to the plain version (dequantized
+    filters, fake-quantized activations for W8A8), counted in
     :func:`conv_fallback_counts`; everything else runs the implicit-GEMM
     conv kernel."""
     epilogue = tuple(tuple(s) for s in epilogue)
     sides = tuple(epilogue_sides)
     _, c_in, h, w_in = x.shape
     _, _, kh, kw_ = w.shape
+    is_q = w.dtype == torch.int8
+    if is_q and w_scale is None:
+        raise ValueError("int8 conv weights need w_scale")
+    if x_scale is not None and not is_q:
+        raise ValueError("x_scale (W8A8) requires int8 weights")
+    scheme = "f32" if not is_q else ("w8a8" if x_scale is not None else "w8")
     c_live = int(kept.shape[0]) if kept is not None else c_in
     if conv_gemm1x1_elected(kh, kw_, groups, padding, c_live):
-        _metrics.registry().counter(_CONV_FASTPATH_METRIC, scheme="f32").inc()
+        _metrics.registry().counter(_CONV_FASTPATH_METRIC, scheme=scheme).inc()
         return _conv2d_1x1_gemm(
-            x, w, bias, stride=stride, kept=kept, activation=activation,
-            epilogue=epilogue, sides=sides,
+            x, w, bias, stride=stride, kept=kept, w_scale=w_scale, x_scale=x_scale,
+            activation=activation, epilogue=epilogue, sides=sides,
         )
     reason = conv_fallback_reason(
         c_live, h, w_in, kh, kw_, stride, padding, groups=groups, dilation=dilation,
@@ -277,13 +361,21 @@ def conv2d(
     if reason is not None:
         _metrics.registry().counter(_CONV_FALLBACK_METRIC, reason=reason).inc()
         return _conv2d_fallback(
-            x, w, bias, stride=stride, padding=padding, kept=kept, groups=groups,
-            dilation=dilation, activation=activation, epilogue=epilogue, sides=sides,
+            x, w, bias, stride=stride, padding=padding, kept=kept, w_scale=w_scale,
+            x_scale=x_scale, groups=groups, dilation=dilation, activation=activation,
+            epilogue=epilogue, sides=sides,
         )
+    ws = None
+    if is_q:
+        ws = w_scale.float()
+        if scheme == "w8a8":
+            s = scale_tensor(x_scale, x)
+            x = quantize_array(x, s)
+            ws = ws * s
     return _conv2d_gemm(
         x.contiguous(), w.contiguous(), bias, *(s.contiguous() for s in sides),
-        kept=kept, stride=stride, padding=padding, activation=activation,
-        epilogue=epilogue,
+        ws=None if ws is None else ws.contiguous(), kept=kept, stride=stride,
+        padding=padding, activation=activation, epilogue=epilogue,
     )
 
 

@@ -19,12 +19,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..quant.qtensor import fake_quant
+
 __all__ = [
     "ACTIVATIONS",
     "apply_steps_ref",
     "fused_elementwise_ref",
     "matmul_ref",
+    "qmatmul_ref",
     "conv2d_ref",
+    "qconv2d_ref",
     "xla_conv_pads",
 ]
 
@@ -87,11 +91,41 @@ def matmul_ref(
     *,
     activation: Optional[str] = None,
     out_dtype=None,
+    acc_dtype=torch.float32,
 ) -> torch.Tensor:
-    acc = x.float() @ w.float()
+    """``act(x @ w + bias)`` with operands cast to ``acc_dtype`` (float64
+    makes an int8 x int8 product exact: its sums stay far below 2^53)."""
+    acc = x.to(acc_dtype) @ w.to(acc_dtype)
     if bias is not None:
-        acc = acc + bias.float()
+        acc = acc + bias.to(acc_dtype)
     return _ACT[activation](acc).to(out_dtype or x.dtype)
+
+
+def qmatmul_ref(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    x_scale: Optional[float] = None,
+    activation: Optional[str] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """f32 oracle for the quantized matmul (both schemes).
+
+    ``x`` is always the *float* activation; ``x_scale`` (the calibrated
+    static activation scale) selects W8A8 -- the activation is fake-quantized
+    with the same round/clip the kernel path applies, so
+    ``(q_x * sx) @ (q_w * sw)`` reproduces the kernel's
+    ``(q_x @ q_w) * sx * sw`` up to f32 rounding.  Without ``x_scale`` this
+    is the W8-only path: full-precision activations against the dequantized
+    int8 weight.
+    """
+    w = w_q.float() * w_scale.float()[None, :]
+    xf = x.float()
+    if x_scale is not None:
+        xf = fake_quant(xf, x_scale)
+    return matmul_ref(xf, w, bias, activation=activation, out_dtype=out_dtype or torch.float32)
 
 
 def xla_conv_pads(h: int, k: int, stride: int, padding, axis: int) -> Tuple[int, int]:
@@ -120,27 +154,58 @@ def conv2d_ref(
     dilation: int = 1,
     activation: Optional[str] = None,
     out_dtype=None,
+    acc_dtype=torch.float32,
 ) -> torch.Tensor:
-    """f32 plain conv: ``x [N, C, H, W]`` NCHW, ``w [O, C/groups, kh, kw]``
+    """Plain conv: ``x [N, C, H, W]`` NCHW, ``w [O, C/groups, kh, kw]``
     OIHW, XLA padding semantics.  Written as the GEMM the kernel computes --
-    an explicit ``F.pad``, the im2col matrix from ``F.unfold``, one f32
-    matmul per group -- so it never takes a library convolution (which
+    an explicit ``F.pad``, the im2col matrix from ``F.unfold``, one matmul
+    per group in ``acc_dtype`` (f32 by default; float64 makes an int8 x
+    int8 conv exact) -- so it never takes a library convolution (which
     convolves f32 in TF32 on the card by default)."""
     n, _, h, wd = x.shape
     o, cg, kh, kw = w.shape
     ekh, ekw = (kh - 1) * dilation + 1, (kw - 1) * dilation + 1
     ph = xla_conv_pads(h, ekh, stride, padding, 0)
     pw = xla_conv_pads(wd, ekw, stride, padding, 1)
-    xp = F.pad(x.float(), (pw[0], pw[1], ph[0], ph[1]))
+    xp = F.pad(x.to(acc_dtype), (pw[0], pw[1], ph[0], ph[1]))
     oh = max((xp.shape[2] - ekh) // stride + 1, 0)
     ow = max((xp.shape[3] - ekw) // stride + 1, 0)
     if cg == 0 or oh == 0 or ow == 0:  # an empty contraction (or output)
-        y = torch.zeros((n, o, oh, ow), dtype=torch.float32, device=x.device)
+        y = torch.zeros((n, o, oh, ow), dtype=acc_dtype, device=x.device)
     else:
         cols = F.unfold(xp, (kh, kw), dilation=dilation, stride=stride)
         cols = cols.reshape(n, groups, cg * kh * kw, oh * ow)
-        wm = w.float().reshape(groups, o // groups, cg * kh * kw)
+        wm = w.to(acc_dtype).reshape(groups, o // groups, cg * kh * kw)
         y = torch.matmul(wm, cols).reshape(n, o, oh, ow)
     if bias is not None:
-        y = y + bias.float()[None, :, None, None]
+        y = y + bias.to(acc_dtype)[None, :, None, None]
     return _ACT[activation](y).to(out_dtype or x.dtype)
+
+
+def qconv2d_ref(
+    x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    x_scale: Optional[float] = None,
+    stride: int = 1,
+    padding="SAME",
+    groups: int = 1,
+    dilation: int = 1,
+    activation: Optional[str] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """f32 oracle for the quantized conv (both schemes), mirroring
+    :func:`qmatmul_ref`: ``w_q [O, C, kh, kw]`` int8 with per-output-channel
+    ``w_scale [O]``; ``x_scale`` selects W8A8 (activations fake-quantized
+    with the kernel path's round/clip), else W8-only (f32 activations
+    against the dequantized weight)."""
+    w = w_q.float() * w_scale.float()[:, None, None, None]
+    xf = x.float()
+    if x_scale is not None:
+        xf = fake_quant(xf, x_scale)
+    return conv2d_ref(
+        xf, w, bias, stride=stride, padding=padding, groups=groups,
+        dilation=dilation, activation=activation, out_dtype=out_dtype or torch.float32,
+    )

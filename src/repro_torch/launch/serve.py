@@ -14,6 +14,13 @@ and prints the pass summary, the plan's stats and the speed:
 * without it: latency mode -- one frame per plan call, ``--frames`` calls;
   prints the median ms/frame.
 
+``--quantize`` serves the INT8 plan instead: it calibrates activation
+ranges on the f32 reference plan over ``--calib-batches`` random batches,
+runs the ``quantize`` pass with the app's skip sets (``APP_QUANT_SKIP``,
+``APP_ACT_SKIP``), compiles the result for the ``quant`` backend, and prints
+a ``quantize:`` line (max error against the f32 plan on a probe batch,
+weight MB before and after, the ratio, MB saved).
+
 ``--device`` defaults to ``cuda`` (raises without a GPU); ``--device cpu``
 runs the kernels' plain PyTorch versions.  Unlike the JAX package's CLI,
 ``--frames`` counts frames, not batches.
@@ -30,7 +37,8 @@ import torch
 
 from ..convert import resolve_device
 from ..core.graph import PassContext, PassManager, compile_plan
-from ..models.cnn import APP_INPUT_CHANNELS, APPS, app_masks
+from ..models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP, APPS, app_masks
+from ..quant import calibrate_plan
 from ..serving.engine import PlanServer
 
 __all__ = ["main", "serve_graph_app"]
@@ -55,20 +63,25 @@ def serve_graph_app(args) -> dict:
     go = pm.run(g, ctx)
     print(pm.summary(ctx))
 
-    plan = compile_plan(go, backend="kernel", device=dev)
     c_in = APP_INPUT_CHANNELS[args.graph_app]
     batch = args.batch_size or 1
-    mem = plan.memory_estimate((batch, c_in, args.size, args.size))
+    shape = (batch, c_in, args.size, args.size)
+    rng = np.random.default_rng(args.seed)
+    backend = "kernel"
+    if args.quantize:
+        go, backend = quantize_app(args, go, dev, shape, rng), "quant"
+    plan = compile_plan(go, backend=backend, device=dev)
+    mem = plan.memory_estimate(shape)
     print(
-        f"plan: backend=kernel device={dev} steps={len(plan.steps)} "
+        f"plan: backend={backend} device={dev} steps={len(plan.steps)} "
         f"peak_act@batch{batch}={mem['peak_activation_bytes'] / 1e6:.2f}MB "
         f"params={mem['param_bytes'] / 1e6:.2f}MB"
     )
-    rng = np.random.default_rng(args.seed)
     frames = torch.from_numpy(
         rng.standard_normal((args.frames, c_in, args.size, args.size)).astype(np.float32)
     ).to(dev)
-    report = {"app": args.graph_app, "device": str(dev), "steps": len(plan.steps)}
+    report = {"app": args.graph_app, "device": str(dev), "steps": len(plan.steps),
+              "backend": backend}
 
     if args.batch_size is not None:
         server = PlanServer(plan, go.params, args.batch_size, name=args.graph_app)
@@ -109,6 +122,34 @@ def serve_graph_app(args) -> dict:
     return report
 
 
+def quantize_app(args, go, dev, shape, rng):
+    """Calibrate ``go`` on its f32 reference plan, run the ``quantize`` pass
+    with the app's skip sets and print the ``quantize:`` line; returns the
+    quantized graph."""
+    plan_f32 = compile_plan(go, backend="reference", device=dev)
+
+    def batch():
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    table = calibrate_plan(plan_f32, go.params, [batch() for _ in range(args.calib_batches)])
+    qctx = PassContext(calibration=table, quant_skip=APP_QUANT_SKIP[args.graph_app],
+                       act_quant_skip=APP_ACT_SKIP[args.graph_app])
+    gq = PassManager(("quantize",)).run(go, qctx)
+    plan_q = compile_plan(gq, backend="quant", device=dev)
+    probe = batch()
+    with torch.no_grad():
+        err = float((plan_q(gq.params, probe) - plan_f32(go.params, probe)).abs().max())
+    mem_f, mem_q = plan_f32.memory_estimate(shape), plan_q.memory_estimate(shape)
+    print(
+        f"quantize: calibrated {table.batches} batches over {len(table.ranges)} values; "
+        f"max_abs_err={err:.2e} weights {mem_f['param_bytes'] / 1e6:.2f}MB -> "
+        f"{mem_q['param_bytes'] / 1e6:.2f}MB "
+        f"({mem_f['param_bytes'] / mem_q['param_bytes']:.2f}x, "
+        f"{mem_q['weight_bytes_saved'] / 1e6:.2f}MB saved)"
+    )
+    return gq
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph-app", required=True, choices=sorted(APPS),
@@ -122,6 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu")
+    ap.add_argument("--quantize", action="store_true",
+                    help="serve the INT8 plan (calibrate, quantize, quant backend)")
+    ap.add_argument("--calib-batches", type=int, default=2,
+                    help="random batches to calibrate activation ranges on (--quantize)")
     return ap
 
 

@@ -18,6 +18,7 @@ from repro_torch.core.graph import GraphBuilder, compile_plan
 from repro_torch.kernels import conv2d as tconv
 from repro_torch.kernels import dense_matmul as tdense
 from repro_torch.kernels import fused_elementwise as tfused
+from repro_torch.kernels import quant_matmul as tquant
 from repro_torch.launch import serve as tserve
 from repro_torch.models import cnn as tcnn
 
@@ -111,6 +112,20 @@ def test_wrappers_refuse_devices_without_a_kernel():
                           torch.empty(3, 2, 3, 3, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         tdense.dense_matmul(torch.zeros(4, 3), torch.empty(3, 2, device="meta"))
+
+
+def test_int8_wrappers_refuse_devices_without_a_kernel():
+    i8 = dict(dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tquant.quant_matmul(torch.empty(4, 3, **i8), torch.empty(3, 2, **i8),
+                            torch.empty(2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tconv.conv2d_gemm(torch.empty(1, 2, 5, 5, device="meta"), torch.empty(3, 2, 3, 3, **i8),
+                          ws=torch.empty(3, device="meta"))
+    with pytest.raises(TypeError, match="int8"):
+        tquant.quant_matmul(torch.zeros(4, 3), torch.zeros(3, 2), torch.ones(2))
+    with pytest.raises(ValueError, match="needs a ws"):
+        tconv.conv2d_gemm(torch.zeros(1, 2, 5, 5), torch.zeros(3, 2, 3, 3, dtype=torch.int8))
 
 
 def test_chip_smoke_alone_exits_nonzero_without_a_result(tmp_path):
