@@ -55,6 +55,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the f32 FMA rate on
@@ -62,6 +64,7 @@ ROOT = Path(__file__).resolve().parent
 #: int8 tensor-core rate (the least time of an int8 x int8 contraction)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 
 SEED = 0
@@ -108,7 +111,26 @@ KERNELS = {
     "quant_matmul": (
         "src/repro_torch/kernels/csrc/quant_matmul.cu", "src/repro/kernels/quant_matmul.py:62",
     ),
+    # the decoder path (qwen2.5-3b): the dense kernel once more for its bf16
+    # instances; one flash kernel replaces both TPU functions (:31 without
+    # lengths, :71 with them -- the main path passes lengths)
+    "dense_matmul_bf16": (
+        "src/repro_torch/kernels/csrc/dense_matmul.cu", "src/repro/kernels/dense_matmul.py:85",
+    ),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:71",
+    ),
+    "ffn_gateup": (
+        "src/repro_torch/kernels/csrc/fused_ffn.cu", "src/repro/kernels/fused_ffn.py:29",
+    ),
 }
+
+#: the decoder phases: the JAX CLI's ``serve --llm`` defaults (3 prompts of
+#: 4..16 tokens, 12 new tokens each, 4 sequences decoding together, a
+#: 64 x 16-token KV pool) on the kernel backend
+LLM_ARGS = dict(arch="qwen2.5-3b", batch=4, prompt_len=16, new_tokens=12, frames=3,
+                kv_pages=64, kv_page_size=16, max_queue=1024, seed=SEED, device="cuda")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -177,10 +199,13 @@ def main_path_launches(ops):
     scheme)."""
     counts = ops.kernel_launch_counts()
     by_scheme = ops.conv_scheme_launch_counts()
+    by_dtype = ops.dense_dtype_launch_counts()
     return {
         "conv2d": by_scheme["f32"], "conv2d_w8": by_scheme["w8"],
-        "conv2d_w8a8": by_scheme["w8a8"], "dense_matmul": counts["dense_matmul"],
+        "conv2d_w8a8": by_scheme["w8a8"], "dense_matmul": by_dtype["f32"],
         "fused_elementwise": counts["fused_elementwise"], "quant_matmul": counts["quant_matmul"],
+        "dense_matmul_bf16": by_dtype["bf16"], "flash_attention": counts["flash_attention"],
+        "ffn_gateup": counts["ffn_gateup"],
     }
 
 
@@ -409,6 +434,162 @@ def phase_kernels(torch):
     return results
 
 
+def attention_work(q_shape, kv_shape, lengths, causal):
+    """Keys each query row reads under the kernel's rule (a row reads its
+    valid prefix: ``col < length`` and, causal, ``col <= row``; a row with
+    no valid key reads every key, masked), as ``(key rows per (b, kv
+    group), query-key pairs)``."""
+    b, h, sq, _ = q_shape
+    g, skv = kv_shape[1], kv_shape[2]
+    kv_rows = pairs = 0
+    for bi in range(b):
+        n = skv if lengths is None else int(lengths[bi])
+        if n <= 0:
+            row_keys = [skv] * sq
+        else:
+            n = min(n, skv)
+            row_keys = [min(n, r + 1) if causal else n for r in range(sq)]
+        kv_rows += g * max(row_keys)
+        pairs += h * sum(row_keys)
+    return kv_rows, pairs
+
+
+def phase_llm_kernels(torch, results):
+    """The decoder's kernels at qwen2.5-3b's shapes (d_model 2048, 16 heads,
+    2 KV heads, head_dim 128, d_ff 11008) against their plain versions:
+    flash attention (prefill, decode, no lengths), the fused gate/up FFN and
+    the bf16 dense matmul of the q / k / v / o / down projections."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import dense_matmul as kdense
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import fused_ffn as kffn
+    from repro_torch.kernels.ref import _ACT, bf16_ulp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def record(name, label, out, want, kernel, plain, library, nb, flops, peak_ops):
+        out, want = out.float(), want.float()
+        err = (out - want).abs().max().item()
+        top = want.abs().max().item()
+        # f32 outputs: the f32 sums differ in order only; bf16 outputs: the
+        # same f32 sums rounded once, so one bf16 ulp of the largest value
+        bf = kernel().dtype == torch.bfloat16
+        tol = bf16_ulp(top) if bf else 1e-4 * max(1.0, top)
+        b_ms, b_by = bound(nb, flops, peak_ops)
+        ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain, reps=5)
+        lib_ms, lib_how = (None, None) if library is None else library_ms(torch, library)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}" + (
+            "(events)" if lib_how == "events" else "")
+        print(f"  {name:18s} {label:42s} max_err={err:.3e} (tol {tol:.1e}) "
+              f"ms={ms:.4f} call_ms={call_ms(torch, kernel):.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by})")
+        check(err <= tol, f"{name} {label}: max_err {err} > {tol}")
+        results.setdefault(name, []).append(dict(
+            label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
+
+    # -- flash_attention ----------------------------------------------------- #
+    def flash_case(label, b, h, g, sq, skv, d, lengths, causal, q_dtype, kv_dtype):
+        # the executor's layouts: q [B, S, H*d] and k/v [B, S, G*d] viewed as
+        # [B, heads, S, d] (strided, no copy)
+        q = randn(b, sq, h, d, dtype=q_dtype).permute(0, 2, 1, 3)
+        k = randn(b, skv, g, d, dtype=kv_dtype).permute(0, 2, 1, 3)
+        v = randn(b, skv, g, d, dtype=kv_dtype).permute(0, 2, 1, 3)
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal)
+        out = kflash.flash_attention(q, k, v, lens, **kw)
+        want = kflash.flash_attention_plain(q, k, v, lens, **kw)
+        # library yardstick: SDPA on the same function -- KV groups repeated
+        # and a boolean mask built outside the timing, q in k's type
+        rep = h // g
+        kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        ql = q.to(kv_dtype)
+        cols = torch.arange(skv, device=dev)
+        mask = torch.ones(b, 1, sq, skv, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= cols[None, None, None, :] <= torch.arange(sq, device=dev)[None, None, :, None]
+        if lens is not None:
+            mask &= cols[None, None, None, :] < lens[:, None, None, None]
+
+        def library():
+            return F.scaled_dot_product_attention(ql, kr, vr, attn_mask=mask)
+
+        kv_rows, pairs = attention_work(q.shape, k.shape, lengths, causal)
+        esz_q, esz_kv = q.element_size(), k.element_size()
+        nb = 2 * q.numel() * esz_q + 2 * kv_rows * d * esz_kv + (0 if lens is None else 4 * b)
+        both_bf16 = q_dtype == bf16 and kv_dtype == bf16
+        record("flash_attention", label, out, want,
+               lambda: kflash.flash_attention(q, k, v, lens, **kw),
+               lambda: kflash.flash_attention_plain(q, k, v, lens, **kw), library, nb,
+               4.0 * pairs * d, PEAK_BF16_FLOPS if both_bf16 else PEAK_F32_FLOPS)
+
+    flash_case("decode q bf16 kv f32 B3 H16/G2 span1024 +len", 3, 16, 2, 1, 1024, 128,
+               [1000, 517, 64], False, bf16, torch.float32)
+    flash_case("prefill bf16 B3 H16/G2 S16 causal +len", 3, 16, 2, 16, 16, 128,
+               [16, 11, 5], True, bf16, bf16)
+    flash_case("bf16 B3 H16/G2 S100 causal, no lengths", 3, 16, 2, 100, 100, 128,
+               None, True, bf16, bf16)
+    flash_case("f32 B2 H4/G2 Sq3 Skv37 d32 +len (0 incl.)", 2, 4, 2, 3, 37, 32,
+               [0, 29], False, torch.float32, torch.float32)
+
+    # -- ffn_gateup ---------------------------------------------------------- #
+    def ffn_case(label, m, k, f, dtype, act="silu"):
+        x = randn(m, k, dtype=dtype)
+        wg = randn(k, f, scale=k ** -0.5, dtype=dtype)
+        wu = randn(k, f, scale=k ** -0.5, dtype=dtype)
+        out = kffn.ffn_gateup(x, wg, wu, activation=act)
+        want = kffn.ffn_gateup_plain(x, wg, wu, activation=act)
+        actf = _ACT[act]
+
+        def library():
+            return actf(torch.matmul(x, wg)) * torch.matmul(x, wu)
+
+        peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS
+        record("ffn_gateup", label, out, want,
+               lambda: kffn.ffn_gateup(x, wg, wu, activation=act),
+               lambda: kffn.ffn_gateup_plain(x, wg, wu, activation=act), library,
+               nbytes(x, wg, wu, out), 4.0 * m * k * f, peak)
+
+    ffn_case("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16)
+    ffn_case("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16)
+    ffn_case("M=5 K=70 F=50 f32 gelu (ragged)", 5, 70, 50, torch.float32, "gelu")
+    ffn_case("M=20 K=130 F=77 bf16 silu (ragged)", 20, 130, 77, bf16)
+
+    # -- dense_matmul, bf16 -------------------------------------------------- #
+    def dense_bf16_case(label, m, k, n, bias=True, add=False):
+        x = randn(m, k, dtype=bf16)
+        wt = randn(k, n, scale=k ** -0.5, dtype=bf16)
+        b = randn(n, scale=0.1, dtype=bf16) if bias else None
+        sides = (randn(m, n, dtype=bf16),) if add else ()
+        kw = dict(epilogue=(("add", 0),) if add else ())
+        out = kdense.dense_matmul(x, wt, b, *sides, **kw)
+        want = kdense.dense_matmul_plain(x, wt, b, *sides, **kw)
+
+        def library():
+            y = torch.addmm(b, x, wt) if bias else torch.matmul(x, wt)
+            return y + sides[0] if add else y
+
+        record("dense_matmul_bf16", label, out, want,
+               lambda: kdense.dense_matmul(x, wt, b, *sides, **kw),
+               lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw), library,
+               nbytes(x, wt, b, *sides, out), 2.0 * m * n * k, PEAK_BF16_FLOPS)
+
+    dense_bf16_case("q decode M=3 2048->2048 +bias", 3, 2048, 2048)
+    dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256)
+    dense_bf16_case("o decode M=3 2048->2048 +add", 3, 2048, 2048, bias=False, add=True)
+    dense_bf16_case("down decode M=3 11008->2048 +add", 3, 11008, 2048, bias=False, add=True)
+    dense_bf16_case("q prefill M=48 2048->2048 +bias", 48, 2048, 2048)
+    dense_bf16_case("M=5 K=70 N=50 +add (ragged)", 5, 70, 50, add=True)
+    torch.cuda.synchronize()
+    return results
+
+
 def serve_measured(torch, ops, plan, params, frames, app):
     """Serve ``frames`` through ``PlanServer(batch_size=BATCH)``: one warm-up
     run, then ``TIMING_REPS`` timed runs with every launch count and the
@@ -597,7 +778,10 @@ def phase_int8(torch, np, apps):
 
 #: kernel-name fragments of the port's own kernels
 _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
-        "fused_ew": "fused_elementwise", "quant_matmul_kernel": "quant_matmul"}
+        "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
+        "quant_matmul_kernel": "quant_matmul", "flash_attention_kernel": "flash_attention",
+        "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
+        "Memcpy": "memcpy"}
 #: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
 
@@ -609,10 +793,10 @@ def _family(key: str) -> str:
     return name or "other:" + key.split("(")[0].split("<")[0][:48]
 
 
-def profile_serving(torch, app, serve):
+def profile_serving(torch, app, serve, top_n=6):
     """Where one serving run's device time goes (torch.profiler): device
     time per kernel family, and the device's idle share of the wall time
-    (inflated by the profiler's own host overhead)."""
+    (inflated by the profiler's own host overhead).  Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -631,10 +815,114 @@ def profile_serving(torch, app, serve):
         by[name] = by.get(name, 0.0) + us
     busy = sum(by.values())
     check(busy > 0, f"{app}: the profiler saw no device time")
-    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:top_n]
     parts = " ".join(f"{k}={v / 1e3:.3f}ms({v / busy:.0%})" for k, v in top)
     print(f"    profile {app}: device {busy / 1e3:.3f}ms of wall {wall_us / 1e3:.3f}ms "
           f"(idle {1 - busy / wall_us:.0%}) {parts}")
+    return dict(busy_us=busy, wall_us=wall_us, by=by)
+
+
+def phase_llm(torch, smoke: bool):
+    """The port's ``serve --llm`` path on the card (``repro_torch.launch.
+    serve``'s functions, as the CLI runs them): qwen2.5-3b at full width in
+    bf16, or its smoke config in f32; weights from a CUDA generator seeded
+    with SEED.  One warm-up run, one timed run with the launch counts set to
+    0 just before it and read just after (checked per plan call), one
+    profiled run; then greedy parity of every served sequence against the
+    plain ``forward`` -- exact in f32, the bf16 near-tie rule of
+    ``serve.PARITY_BF16_ULPS`` at full width."""
+    import argparse
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    args = argparse.Namespace(smoke=smoke, **LLM_ARGS)
+    dev = torch.device(args.device)
+    t0 = time.perf_counter()
+    llm = serve.build_llm(args, dev)
+    torch.cuda.synchronize()
+    cfg, plans = llm["cfg"], llm["plans"]
+    n_layers = cfg.n_layers
+    steps = {ph: len(p.steps) for ph, p in plans.items()}
+    check(steps == {"prefill": 9 * n_layers + 2, "decode": 9 * n_layers + 2},
+          f"llm plan steps {steps}, want 9 x {n_layers} + 2 each")
+    param_gb = sum(t.numel() * t.element_size() for p in plans["decode"].graph.params.values()
+                   for t in p.values()) / 1e9
+    print(f"  {cfg.name} {cfg.dtype}: {n_layers} layers d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"params={param_gb:.3f}GB built in {time.perf_counter() - t0:.1f}s; "
+          f"plan steps prefill={steps['prefill']} decode={steps['decode']}")
+    prompts = serve.llm_prompts(args, cfg)
+
+    serve.serve_llm_traffic(llm, prompts, args)  # warm-up
+    ops.reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.serve_llm_traffic(llm, prompts, args)
+    launches = main_path_launches(ops)
+    peak = torch.cuda.max_memory_allocated()
+    st, occ = run["stats"], run["occupancy"]
+    calls = st["prefill_batches"] + st["decode_batches"]
+    dense = "dense_matmul" if smoke else "dense_matmul_bf16"
+    per_call = {dense: 5 * n_layers, "flash_attention": n_layers, "ffn_gateup": n_layers}
+    for name, want in launches.items():
+        n = per_call.get(name, 0) * calls
+        check(want == n, f"llm: {name} launched {want} times over {calls} plan calls, "
+                         f"want {per_call.get(name, 0)} per call")
+    check(st["failed"] == 0 and st["completed"] == len(prompts), f"llm: stats {st}")
+    check(occ["used_pages"] == 0, f"llm: {occ['used_pages']} KV pages leaked")
+    toks = sum(len(h.result()) for h in run["handles"])
+    check(toks == len(prompts) * args.new_tokens, f"llm: {toks} tokens served")
+    ms_decode = st["decode_seconds"] / st["decode_batches"] * 1e3
+    ms_prefill = st["prefill_seconds"] / st["prefill_batches"] * 1e3
+    print(f"  served {len(prompts)} sequences, {toks} tokens in {run['seconds']:.3f}s "
+          f"({toks / run['seconds']:.1f} tok/s): {st['prefill_batches']} prefill + "
+          f"{st['decode_batches']} decode plan calls, {ms_prefill:.2f} ms/prefill "
+          f"{ms_decode:.2f} ms/decode step; per-call launches {dense}={5 * n_layers} "
+          f"flash_attention={n_layers} ffn_gateup={n_layers}; failed={st['failed']}; "
+          f"KV pages {occ['num_pages']}x{occ['page_size']} peak={occ['peak_used']} "
+          f"leaked={occ['used_pages']}; peak_alloc={peak / 1e9:.3f}GB")
+    prof = profile_serving(torch, f"llm {cfg.name}",
+                           lambda: serve.serve_llm_traffic(llm, prompts, args), top_n=8)
+
+    # correctness: finite prefill logits of the right shape, near the
+    # reference backend's and the plain forward's; greedy parity per sequence
+    from repro_torch.core.graph import compile_plan
+    from repro_torch.models.transformer import forward
+
+    p0 = prompts[0]
+    n0 = len(p0)
+    inputs = (p0[None], np.arange(n0, dtype=np.int32)[None], np.array([n0], np.int32))
+    with torch.no_grad():
+        logits = plans["prefill"](plans["prefill"].graph.params, *inputs)[0].float()
+        ref_plan = compile_plan(plans["prefill"].graph, backend="reference", device=dev)
+        ref = ref_plan(ref_plan.graph.params, *inputs)[0].float()
+        fwd = forward(llm["params"], cfg, torch.from_numpy(p0[None]).to(dev))[0].float()
+    check(tuple(logits.shape) == (1, n0, cfg.vocab_padded), f"llm: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "llm: non-finite logits")
+    v = cfg.vocab
+    err_ref = (logits[..., :v] - ref[..., :v]).abs().max().item()
+    err_fwd = (logits[..., :v] - fwd[..., :v]).abs().max().item()
+    top = fwd[..., :v].abs().max().item()
+    if smoke:  # f32: the kernels' sums differ from torch's in order only
+        check(err_fwd <= 1e-4 * max(1.0, top), f"llm smoke: prefill vs forward {err_fwd}")
+    parity = [serve.greedy_parity(llm, p, [int(t) for t in h.result()])
+              for p, h in zip(prompts, run["handles"])]
+    if smoke:
+        check(all(par["exact"] for par in parity), f"llm smoke: greedy parity {parity}")
+    compared = sum(par["compared"] for par in parity)
+    ties = [par["near_tie"] for par in parity if par["near_tie"] is not None]
+    tie_txt = "; ".join(f"margin {m:.4f} < {t:.4f}" for m, t in ties) or "none"
+    print(f"  prefill logits vs reference plan {err_ref:.3e}, vs plain forward {err_fwd:.3e} "
+          f"(max|logit| {top:.3f}); greedy parity ok: {compared}/{toks} tokens compared and "
+          f"equal to the plain forward loop (exact={all(par['exact'] for par in parity)}; "
+          f"near-ties: {tie_txt}; smallest top-2 margin "
+          f"{min(par['min_margin'] for par in parity):.4f}); teacher-forced: every served "
+          f"token within {max(par['max_forced_gap'] for par in parity):.4f} of forward's best "
+          f"logit (tolerance {'0 (f32)' if smoke else f'{serve.PARITY_BF16_ULPS} bf16 ulps'})")
+    del llm, plans, ref_plan
+    torch.cuda.empty_cache()
+    return launches, dict(tok_per_s=toks / run["seconds"], ms_decode=ms_decode,
+                          ms_prefill=ms_prefill, peak=peak, profile=prof)
 
 
 def main() -> int:
@@ -650,7 +938,6 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -661,11 +948,18 @@ def main() -> int:
     phase_build()
     print("== kernels")
     results = phase_kernels(torch)
+    phase_llm_kernels(torch, results)
     print(f"== apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
     launches, apps = phase_apps(torch, np)
     print(f"== int8 apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
     int8_launches = phase_int8(torch, np, apps)
     for name, n in int8_launches.items():
+        launches[name] += n
+    print("== llm smoke (f32)")
+    for name, n in phase_llm(torch, smoke=True)[0].items():
+        launches[name] += n
+    print("== llm (qwen2.5-3b, full width, bf16)")
+    for name, n in phase_llm(torch, smoke=False)[0].items():
         launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")

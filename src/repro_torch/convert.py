@@ -3,7 +3,12 @@
 ``params_from_numpy`` takes a ``{node_name: {key: array}}`` tree (the shape
 of ``Graph.params``; any array type numpy can read, e.g. params built by the
 JAX package and passed through ``numpy.asarray``) and returns the same tree
-of torch tensors on ``device``.  Floats become f32, int8 payloads (the
+of torch tensors on ``device``; ``lm_params_from_numpy`` does the same for
+the nested tree ``models.transformer.init_lm`` builds (dicts and lists of
+layer dicts).  bf16 arrays stay bf16 -- numpy has no bf16 of its own, so
+they arrive as the ``bfloat16`` dtype of ``ml_dtypes`` (kind ``'V'``), which
+is recognised by its name and moved as its 16-bit patterns, without
+importing ``ml_dtypes`` -- other floats become f32, int8 payloads (the
 quantized weights of ``qlinear`` / ``qconv2d`` nodes) stay int8, and every
 other integer array (the ``kept`` index arrays) becomes int32:
 ``index_select`` and the CUDA kernels take int32 indices, so the port stores
@@ -21,7 +26,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "resolve_device"]
+__all__ = ["params_from_numpy", "lm_params_from_numpy", "resolve_device"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -39,6 +44,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bit patterns
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
     if arr.dtype.kind == "f":
         arr = arr.astype(np.float32, copy=False)
     elif arr.dtype.kind in "iu" and arr.dtype != np.int8:
@@ -54,3 +62,19 @@ def params_from_numpy(
     return {
         node: {k: _to_tensor(v, dev) for k, v in p.items()} for node, p in tree.items()
     }
+
+
+def lm_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A nested param tree (dicts, lists and tuples of arrays, e.g. the JAX
+    package's ``init_lm`` output) -> the same structure of tensors on
+    ``device``, converted as :func:`params_from_numpy` converts."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return _to_tensor(node, dev)
+
+    return conv(tree)

@@ -126,6 +126,8 @@ def registered_ops(backend: str = "kernel") -> List[str]:
 #
 #   ("activation", fn) | ("add", j) | ("mul", j)
 #   ("norm_layer", pkey, eps) | ("norm_instance", pkey, eps)
+#   ("norm_rms", pkey, eps)          decoder RMSNorm (scale only)
+#   ("rope", j, heads, theta)        RoPE by the position ids in input j
 
 
 def _steps_local(steps, xs, p):
@@ -144,6 +146,13 @@ def _steps_local(steps, xs, p):
             pkey, eps = step[1], step[2]
             norms.append((p[f"{pkey}_scale"], p[f"{pkey}_bias"]))
             out.append(("norm" if kind == "norm_layer" else kind, len(norms) - 1, eps))
+        elif kind == "norm_rms":  # decoder RMSNorm: scale-only, no bias param
+            pkey, eps = step[1], step[2]
+            norms.append((p[f"{pkey}_scale"], None))
+            out.append((kind, len(norms) - 1, eps))
+        elif kind == "rope":  # position ids stream in as a side operand
+            sides.append(xs[step[1]])
+            out.append((kind, len(sides) - 1, step[2], step[3]))
         else:
             raise NotImplementedError(f"step {kind}")
     return out, sides, norms
@@ -162,8 +171,10 @@ def _kernel_epilogue(epilogue, xs, out_shape):
     """Translate an epilogue into the kernels' in-tile form: ``(steps,
     sides)`` with slots renumbered into ``sides``.  Returns ``(None, None)``
     when the program cannot run in the kernel (norm steps need whole rows or
-    planes; broadcast sides are not output-shaped) -- callers then run the
-    kernel without it and apply :func:`_apply_epilogue` after."""
+    planes; a rope step needs whole heads; broadcast sides are not
+    output-shaped) -- callers then run the kernel without it and apply
+    :func:`_apply_epilogue` after, so the kernel and reference backends
+    round at the same places (the JAX package's rule)."""
     steps, sides = [], []
     for step in epilogue:
         kind = step[0]
@@ -175,7 +186,7 @@ def _kernel_epilogue(epilogue, xs, out_shape):
                 return None, None
             sides.append(s)
             steps.append((kind, len(sides) - 1))
-        else:  # norm_layer / norm_instance
+        else:  # norm_layer / norm_instance / norm_rms / rope
             return None, None
     return tuple(steps), tuple(sides)
 
@@ -487,6 +498,146 @@ def _broadcast_spatial(p, xs, a, rt):
     # fuse a [N, C] global feature into a [N, C, H, W] map
     g, ref = xs
     return g[:, :, None, None].expand(g.shape[0], g.shape[1], ref.shape[2], ref.shape[3])
+
+
+# --------------------------------------------------------------------------- #
+# handlers: decoder-block ops (the transformer lowering)                       #
+# --------------------------------------------------------------------------- #
+#
+# Node contracts (see models/transformer_graph.py, the builder):
+#
+#   embed      in (tokens [B, S] int),              params {table [V, D]}
+#   rmsnorm    in (x [..., D]),                     params {scale [D]}, attrs eps
+#   rope       in (x [..., S, H*dh], pos [..., S]), attrs heads, theta
+#   attention  phase="prefill": in (q, k, v [B, S, H|G * dh], lengths [B])
+#              phase="decode":  in (q [B, 1, H*dh], k_new, v_new [B, 1, G*dh],
+#                                   k_ctx, v_ctx [B, L, S, G, dh], lengths [B])
+#              attrs n_heads, n_kv_heads (+ layer for decode)
+#   ffn        in (x [..., D]),  params {w_gate, w_up [D, F]}, attrs activation
+#   unembed    in (x [..., D]),  params {w [D, V_pad]}, attrs vocab
+#
+# ``lengths`` is the live token count per row: prefill masks each row to its
+# own prompt (the batch is padded to a common S), decode masks the gathered
+# page span and places the new token at slot == length (so the valid prefix
+# stays contiguous -- ``gqa_decode_step``'s slot = pos semantics).
+
+
+def _attn_heads(q, k, v, a, *, repeat: bool = True):
+    """[B, S, H*dh] projections -> [B, H, S, dh] head views (no copy).  With
+    ``repeat`` the KV groups are repeated to the query head count (GQA: head
+    gi*rep+ri reads group gi, the ``q.reshape(b, s, g, rep, dh)`` grouping
+    of models/attention.py); without it k/v keep their G heads and the
+    attention kernel reads group ``h // rep`` itself."""
+    h, g = a["n_heads"], a["n_kv_heads"]
+    b, s, hd = q.shape
+    dh = hd // h
+    qh = q.reshape(b, s, h, dh).transpose(1, 2)
+    kh = k.reshape(b, k.shape[1], g, dh).transpose(1, 2)
+    vh = v.reshape(b, v.shape[1], g, dh).transpose(1, 2)
+    if repeat and g != h:
+        kh = kh.repeat_interleave(h // g, dim=1)
+        vh = vh.repeat_interleave(h // g, dim=1)
+    return qh, kh, vh, (b, s, hd)
+
+
+def _attn_decode_merge(xs, a, *, repeat: bool = True):
+    """Merge the step's fresh k/v into the gathered cache span at
+    slot == length, then head-split.  Returns (qh, kh, vh, shape, lengths+1).
+    The span is the cache's type (f32) and the fresh k/v the model's:
+    ``torch.where`` promotes to the wider, as ``jnp.where`` does."""
+    q, k_new, v_new, k_ctx, v_ctx, lengths = xs
+    g = a["n_kv_heads"]
+    dh = k_new.shape[-1] // g
+    kc = k_ctx[:, a["layer"]]  # [B, S, G, dh]
+    vc = v_ctx[:, a["layer"]]
+    b, s_ctx = kc.shape[0], kc.shape[1]
+    slot = (
+        torch.arange(s_ctx, dtype=torch.int32, device=kc.device)[None, :, None, None]
+        == lengths[:, None, None, None]
+    )
+    k = torch.where(slot, k_new.reshape(b, 1, g, dh), kc).reshape(b, s_ctx, -1)
+    v = torch.where(slot, v_new.reshape(b, 1, g, dh), vc).reshape(b, s_ctx, -1)
+    qh, kh, vh, shape = _attn_heads(q, k, v, a, repeat=repeat)
+    return qh, kh, vh, shape, lengths + 1
+
+
+def _merge_heads(out, shape):
+    b, s, hd = shape
+    return out.transpose(1, 2).reshape(b, s, hd)
+
+
+@register_op("attention", backends=("kernel",))
+def _attention_kernel(p, xs, a, rt):
+    """The flash-attention kernel over the KV groups as they are (no repeat,
+    no padding): prefill causal with per-row lengths, decode one query row
+    against the merged span with lengths + 1."""
+    if a.get("phase") == "decode":
+        qh, kh, vh, shape, lens = _attn_decode_merge(xs, a, repeat=False)
+        out = kops.attention(qh, kh, vh, lens, causal=False)
+    else:
+        q, k, v, lengths = xs
+        qh, kh, vh, shape = _attn_heads(q, k, v, a, repeat=False)
+        out = kops.attention(qh, kh, vh, lengths, causal=True)
+    return _merge_heads(out, shape)
+
+
+@register_op("attention", backends=("reference",))
+def _attention_ref(p, xs, a, rt):
+    """Plain oracle (naive masked softmax at f32) -- also the meta-tensor
+    body ``memory_estimate`` walks."""
+    if a.get("phase") == "decode":
+        qh, kh, vh, shape, lens = _attn_decode_merge(xs, a)
+        out = kref.flash_attention_ref(qh, kh, vh, lens, causal=False)
+    else:
+        q, k, v, lengths = xs
+        qh, kh, vh, shape = _attn_heads(q, k, v, a)
+        out = kref.flash_attention_ref(qh, kh, vh, lengths, causal=True)
+    return _merge_heads(out, shape)
+
+
+@register_op("embed")
+def _embed(p, xs, a, rt):
+    return p["table"][xs[0].long()]
+
+
+@register_op("rmsnorm")
+def _rmsnorm(p, xs, a, rt):
+    # identical math to models/layers.rmsnorm: f32 compute, cast back
+    # *before* the scale multiply
+    x = xs[0]
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + a.get("eps", 1e-6))).to(x.dtype) * p["scale"]
+
+
+@register_op("rope")
+def _rope(p, xs, a, rt):
+    return kref.rope_ref(xs[0], xs[1], a["heads"], a.get("theta", 10000.0))
+
+
+@register_op("ffn", backends=("kernel",))
+def _ffn_kernel(p, xs, a, rt):
+    return kops.ffn_gateup(xs[0], p["w_gate"], p["w_up"], activation=a.get("activation", "silu"))
+
+
+@register_op("ffn", backends=("reference",))
+def _ffn_ref(p, xs, a, rt):
+    return kref.ffn_gateup_ref(
+        xs[0], p["w_gate"], p["w_up"], activation=a.get("activation", "silu")
+    )
+
+
+@register_op("unembed")
+def _unembed(p, xs, a, rt):
+    # model-dtype product (outside any kernel, as the JAX package leaves it
+    # to XLA), pad-vocab classes masked: transformer._unembed's math
+    logits = xs[0] @ p["w"]
+    v, vp = a["vocab"], p["w"].shape[1]
+    if v != vp:
+        keep = torch.arange(vp, device=logits.device) < v
+        logits = torch.where(keep, logits, torch.full((), -1e30, dtype=logits.dtype,
+                                                      device=logits.device))
+    return logits
 
 
 # --------------------------------------------------------------------------- #

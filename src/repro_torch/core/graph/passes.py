@@ -426,6 +426,16 @@ def _epilogue_candidate(g: Graph, n: Node):
         return n.inputs[0], [
             (kind, ("param", p["scale"], p["bias"]), n.attrs.get("eps", 1e-5))
         ]
+    if n.op == "rmsnorm":
+        p = g.params.get(n.name, {})
+        return n.inputs[0], [
+            ("norm_rms", ("param", p["scale"], None), n.attrs.get("eps", 1e-6))
+        ]
+    if n.op == "rope":
+        return n.inputs[0], [
+            ("rope", ("side", n.inputs[1]), n.attrs["heads"],
+             n.attrs.get("theta", 10000.0))
+        ]
     if n.op == "fused_elementwise":
         if n.inputs.count(n.inputs[0]) != 1:
             return None
@@ -452,11 +462,11 @@ def _epilogue_candidate(g: Graph, n: Node):
 
 def fuse_epilogue(g: Graph) -> Graph:
     """Fold an elementwise follower (``activation``/``add``/``mul``/
-    ``norm(instance|layer)``/``fused_elementwise``) into its GEMM/conv
-    producer's **epilogue program** -- a ``("epilogue", ...)`` attr executed
-    by the producer's handler: inside the kernel for activation / add / mul
-    on output-shaped sides, as a post-kernel tail for norm steps (still one
-    plan step instead of two).
+    ``norm(instance|layer)``/``rmsnorm``/``rope``/``fused_elementwise``) into
+    its GEMM/conv producer's **epilogue program** -- a ``("epilogue", ...)``
+    attr executed by the producer's handler: inside the kernel for
+    activation / add / mul on output-shaped sides, as a post-kernel tail
+    for norm and rope steps (still one plan step instead of two).
 
     The fused node takes the *follower's* name, so consumers and graph
     outputs are untouched.  Epilogue side slots index the fused node's own
@@ -499,12 +509,18 @@ def fuse_epilogue(g: Graph) -> Graph:
                     if side not in new_inputs:
                         new_inputs.append(side)
                     steps.append((kind, new_inputs.index(side)))
-                else:  # norm_layer / norm_instance
+                elif kind == "rope":  # position ids become a side operand
+                    side = step[1][1]
+                    if side not in new_inputs:
+                        new_inputs.append(side)
+                    steps.append((kind, new_inputs.index(side), *step[2:]))
+                else:  # norm_layer / norm_instance / norm_rms
                     _, scale, bias = step[1]
                     pkey = f"e{n_norm}"
                     n_norm += 1
                     new_params[f"{pkey}_scale"] = scale
-                    new_params[f"{pkey}_bias"] = bias
+                    if bias is not None:  # rms norm: scale only
+                        new_params[f"{pkey}_bias"] = bias
                     steps.append((kind, pkey, step[2]))
             params.pop(n.name, None)  # follower params absorbed above
             params[n.name] = new_params

@@ -43,6 +43,8 @@ __all__ = [
     "pointer_array",
     "addr",
     "stream_handle",
+    "FLOAT_CODES",
+    "skinny_plan",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -59,6 +61,13 @@ _STEP_CODES = {"activation": 0, "add": 1, "mul": 2, "norm": 3}
 #: arithmetic schemes of the GEMM-shaped kernels (csrc/scheme.cuh)
 SCHEME_CODES = {"f32": 0, "w8": 1, "w8a8": 2}
 _ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
+#: element types of the float kernels (``dtype`` argument of their entry points)
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the skinny split-K GEMM's fixed shape (csrc/skinny_gemm.cuh): rows per
+#: block, most K rows a block stages, and the blocks to aim for (two per SM
+#: of an H100's 132)
+SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS = 8, 1024, 264
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -132,8 +141,12 @@ def build() -> Path:
 
 def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll.repro_dense_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P, I, P, P]
+    cdll.repro_dense_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P, I, P, I, P, P, I, I, P]
     cdll.repro_dense_matmul.restype = I
+    cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P, I, I, P]
+    cdll.repro_ffn_gateup.restype = I
+    cdll.repro_flash_attention.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P, P]
+    cdll.repro_flash_attention.restype = I
     cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P, P]
     cdll.repro_conv2d.restype = I
     cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P, P]
@@ -251,3 +264,16 @@ def pointer_array(tensors: Sequence[torch.Tensor]):
 def addr(arr) -> int:
     """Address of a ctypes array, for a ``c_void_p`` argument."""
     return ctypes.addressof(arr)
+
+
+def skinny_plan(m: int, n: int, k: int, vec: int) -> Tuple[int, int, int]:
+    """``(kchunk, nsplit, tiles)`` of a skinny split-K launch (M <= 8): the
+    K chunk per block (at most ``SKINNY_KC``), the number of K splits, and
+    the number of output tiles (one counter each).  The splits are chosen
+    so that the grid has about ``SKINNY_TARGET_BLOCKS`` blocks."""
+    tiles = -(-n // (32 * vec)) * -(-m // SKINNY_MT)
+    nsplit = max(-(-SKINNY_TARGET_BLOCKS // tiles), -(-k // SKINNY_KC), 1)
+    nsplit = min(nsplit, max(1, -(-k // 64)))  # at least 64 K rows per block
+    nsplit = max(nsplit, -(-k // SKINNY_KC))
+    kchunk = -(-k // nsplit)
+    return kchunk, -(-k // kchunk), tiles

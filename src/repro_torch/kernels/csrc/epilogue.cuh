@@ -8,11 +8,74 @@
 //   (STEP_NORM, slot) layer norm over the row with scale/bias pair `slot`
 //                     (fused_elementwise only; eps in `eps[step]`)
 // It travels to the kernel by value, with fixed maxima; the wrappers check
-// the program against these before they launch.
+// the program against these before they launch.  Side operands are stored
+// as float pointers; a kernel whose sides hold another element type (bf16)
+// reads them through apply_pointwise_steps<S>, which converts to f32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+// Element types of the port's float kernels: f32 and bf16, computed in f32.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);  // round to nearest even, as astype / .to do
+}
+
+// How many elements of T one 32-bit word holds, and how to widen them.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int PER_WORD = 1;
+  static __device__ __forceinline__ void unpack(uint32_t w, float* o) { o[0] = __uint_as_float(w); }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int PER_WORD = 2;
+  // little-endian: element 0 is the low half; bf16 -> f32 is exact
+  static __device__ __forceinline__ void unpack(uint32_t w, float* o) {
+    o[0] = __uint_as_float(w << 16);
+    o[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+
+// Load VEC consecutive elements of T at p as f32, in 16-, 8- or 4-byte
+// words (p must be aligned to the load's width; the wrappers check it).
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  constexpr int BYTES = VEC * (int)sizeof(T);
+  constexpr int PW = Elem<T>::PER_WORD;
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      Elem<T>::unpack(r.x, out + (4 * i + 0) * PW);
+      Elem<T>::unpack(r.y, out + (4 * i + 1) * PW);
+      Elem<T>::unpack(r.z, out + (4 * i + 2) * PW);
+      Elem<T>::unpack(r.w, out + (4 * i + 3) * PW);
+    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    Elem<T>::unpack(r.x, out);
+    Elem<T>::unpack(r.y, out + PW);
+  } else if constexpr (BYTES == 4) {
+    Elem<T>::unpack(__ldg(reinterpret_cast<const unsigned int*>(p)), out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = to_f32(p[i]);
+  }
+}
 
 #define REPRO_MAX_STEPS 8
 #define REPRO_MAX_SIDES 4
@@ -64,9 +127,11 @@ __device__ __forceinline__ const float* side_ptr(const StepProgram& p, int i) {
 
 // Bias-free tail of a GEMM/conv output element at flat index `idx`: the
 // add/mul/activation steps (no norm: a GEMM tile never holds whole rows).
+// S is the side operands' element type (read as S, summed in f32).
 // Kept rolled: unrolling it into every output of every GEMM/conv tile
 // shape multiplies the build time (about 10x, measured) for no gain, the
 // epilogue being a small share of a tile's work.
+template <typename S = float>
 __device__ __forceinline__ float apply_pointwise_steps(const StepProgram& p, float v,
                                                        long long idx) {
 #pragma unroll 1
@@ -75,9 +140,9 @@ __device__ __forceinline__ float apply_pointwise_steps(const StepProgram& p, flo
     if (kind == STEP_ACT) {
       v = apply_act(arg, v);
     } else if (kind == STEP_ADD) {
-      v += side_ptr(p, arg)[idx];
+      v += to_f32(reinterpret_cast<const S*>(side_ptr(p, arg))[idx]);
     } else if (kind == STEP_MUL) {
-      v *= side_ptr(p, arg)[idx];
+      v *= to_f32(reinterpret_cast<const S*>(side_ptr(p, arg))[idx]);
     }
   }
   return v;

@@ -3,7 +3,8 @@ for the ported paths).
 
 These do the layout work so the executor calls one function per op:
 leading-batch flattening, the 1x1-conv direct-GEMM fast path, the conv
-fallback matrix, and the INT8 schemes' activation quantization (W8A8
+fallback matrix, the decoder's attention and gated-FFN calls, and the INT8
+schemes' activation quantization (W8A8
 activations are quantized here, before the kernel, as the JAX wrappers do,
 and their scale is folded into the kernel's per-column rescale).  Each
 routes to a kernel wrapper in this package, whose device picks the route
@@ -31,7 +32,9 @@ from ..obs import metrics as _metrics
 from ..quant.qtensor import fake_quant, quantize_array, scale_tensor
 from . import conv2d as _conv2d_mod
 from . import dense_matmul as _dense_mod
+from . import flash_attention as _flash_mod
 from . import fused_elementwise as _fused_mod
+from . import fused_ffn as _ffn_mod
 from . import quant_matmul as _quant_mod
 from .conv2d import conv2d_gemm as _conv2d_gemm
 from .conv2d import conv_out_hw, conv_pad_hw, conv_padding_token
@@ -46,6 +49,8 @@ __all__ = [
     "qmatmul",
     "conv2d",
     "fused_elementwise",
+    "ffn_gateup",
+    "attention",
     "conv_out_hw",
     "conv_pad_hw",
     "conv_padding_token",
@@ -57,6 +62,7 @@ __all__ = [
     "reset_conv_fastpaths",
     "kernel_launch_counts",
     "conv_scheme_launch_counts",
+    "dense_dtype_launch_counts",
     "reset_kernel_launches",
 ]
 
@@ -66,6 +72,8 @@ _KERNEL_MODULES = {
     "dense_matmul": _dense_mod,
     "fused_elementwise": _fused_mod,
     "quant_matmul": _quant_mod,
+    "flash_attention": _flash_mod,
+    "ffn_gateup": _ffn_mod,
 }
 
 
@@ -81,9 +89,17 @@ def conv_scheme_launch_counts() -> Dict[str, int]:
     return dict(_conv2d_mod.scheme_launches)
 
 
+def dense_dtype_launch_counts() -> Dict[str, int]:
+    """The dense-matmul kernel's launches since the last reset, by element
+    type (``f32``, ``bf16``)."""
+    return dict(_dense_mod.dtype_launches)
+
+
 def reset_kernel_launches() -> None:
     for mod in _KERNEL_MODULES.values():
         mod.launches = 0
+    for dtype in _dense_mod.dtype_launches:
+        _dense_mod.dtype_launches[dtype] = 0
     for scheme in _conv2d_mod.scheme_launches:
         _conv2d_mod.scheme_launches[scheme] = 0
 
@@ -403,3 +419,41 @@ def fused_elementwise(
     s2 = [s.reshape(-1, d).contiguous() for s in sides]
     y = _fused_elementwise(x2, s2, tuple(tuple(s) for s in steps), tuple(norm_params))
     return y.reshape(x.shape)
+
+
+# --------------------------------------------------------------------------- #
+# decoder: gated FFN and attention                                             #
+# --------------------------------------------------------------------------- #
+
+
+def ffn_gateup(
+    x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *, activation: str = "silu"
+) -> torch.Tensor:
+    """Fused ``act(x @ w_gate) * (x @ w_up)`` for arbitrary leading batch dims
+    (no padding: the kernel masks ragged edges)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = _ffn_mod.ffn_gateup(
+        x2, w_gate.contiguous(), w_up.contiguous(), activation=activation
+    )
+    return out.reshape(*lead, w_gate.shape[1])
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lengths: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash attention over ``q [B, H, Sq, d]`` and ``k / v [B, G, Skv, d]``
+    (``G`` divides ``H``; ``G == H`` is plain multi-head attention).
+    ``kv_lengths [B]`` masks each row to its valid KV prefix -- the paged-KV
+    path, where Skv is the gathered page span, not the live length.  Unlike
+    the JAX wrapper nothing is padded to block multiples (the kernel masks
+    ragged edges), so non-causal attention without lengths takes any
+    shape.  The result on every row equals the JAX wrapper's on its valid
+    rows."""
+    return _flash_mod.flash_attention(q, k, v, kv_lengths, causal=causal, scale=scale)

@@ -14,6 +14,7 @@ explicit pad pairs, negative ones included, pass through).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +31,10 @@ __all__ = [
     "conv2d_ref",
     "qconv2d_ref",
     "xla_conv_pads",
+    "ffn_gateup_ref",
+    "rope_ref",
+    "flash_attention_ref",
+    "bf16_ulp",
 ]
 
 _ACT = {
@@ -59,6 +64,13 @@ def apply_steps_ref(y, steps, sides=(), norm_params=()):
             y = y + sides[step[1]]
         elif kind == "mul":
             y = y * sides[step[1]]
+        elif kind == "norm_rms":
+            scale, _ = norm_params[step[1]]
+            yf = y.float()
+            var = (yf * yf).mean(dim=-1, keepdim=True)
+            y = (yf * torch.rsqrt(var + step[2])).to(y.dtype) * scale
+        elif kind == "rope":
+            y = rope_ref(y, sides[step[1]], step[2], step[3])
         elif kind in ("norm", "norm_instance"):
             scale, bias = norm_params[step[1]]
             dims = (-1,) if kind == "norm" else (2, 3)
@@ -209,3 +221,69 @@ def qconv2d_ref(
         xf, w, bias, stride=stride, padding=padding, groups=groups,
         dilation=dilation, activation=activation, out_dtype=out_dtype or torch.float32,
     )
+
+
+def ffn_gateup_ref(
+    x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *, activation: str = "silu"
+) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)`` at f32, cast to ``x``'s type."""
+    xf = x.float()
+    g = _ACT[activation](xf @ w_gate.float())
+    u = xf @ w_up.float()
+    return (g * u).to(x.dtype)
+
+
+def rope_ref(
+    x: torch.Tensor, positions: torch.Tensor, heads: int, theta: float = 10000.0
+) -> torch.Tensor:
+    """Split-half RoPE over a flattened head axis: ``x [..., S, heads*dh]``,
+    ``positions [..., S]`` ints; f32 compute, cast back (``models.layers.
+    apply_rope`` on the unflattened heads)."""
+    *lead, s, hd = x.shape
+    dh = hd // heads
+    xh = x.reshape(*lead, s, heads, dh).float()
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32, device=x.device) / dh))
+    angles = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = xh[..., : dh // 2], xh[..., dh // 2 :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype).reshape(*lead, s, hd)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 unit in the last place (8 significant bits) at magnitude
+    ``x``: the tolerance unit of a bf16 result whose f32 value was rounded
+    once."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+#: the masked-score value of the attention kernels (a finite stand-in for
+#: -inf: a row whose every key is masked averages V uniformly, never NaN)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lengths: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = True,
+    scale=None,
+) -> torch.Tensor:
+    """Naive softmax attention at f32: ``q/k/v [B, H, S, d]``; ``causal``
+    keeps ``col <= row`` (top-left aligned), ``kv_lengths [B]`` keeps
+    ``col < length``; masked scores are ``-1e30``.  Output in ``q``'s
+    type."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    sq, skv = s.shape[-2:]
+    if causal:
+        mask = torch.arange(skv, device=q.device)[None, :] <= torch.arange(sq, device=q.device)[:, None]
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    if kv_lengths is not None:
+        valid = torch.arange(skv, device=q.device)[None, :] < kv_lengths.to(q.device)[:, None]
+        s = torch.where(valid[:, None, None, :], s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,7 +1,10 @@
-"""Serve one of the paper's demo apps through the port's plan compiler.
+"""Serve one of the paper's demo apps, or a decoder LM, through the port's
+plan compiler.
 
     python -m repro_torch.launch.serve --graph-app super_resolution \\
         --size 256 --base 32 --frames 10 --batch-size 4
+    python -m repro_torch.launch.serve --llm                  # qwen2.5-3b, bf16
+    python -m repro_torch.launch.serve --llm --smoke --device cpu
 
 Builds the app (weights from ``--seed``), prunes it with the paper's recipe
 (``app_masks``), compiles it with ``PassManager`` + ``compile_plan``
@@ -21,9 +24,29 @@ runs the ``quantize`` pass with the app's skip sets (``APP_QUANT_SKIP``,
 a ``quantize:`` line (max error against the f32 plan on a probe batch,
 weight MB before and after, the ratio, MB saved).
 
+``--llm`` serves ``--arch`` (``--smoke``: its reduced f32 config) through
+the decoder plans: ``init_lm`` draws the weights from a
+``torch.Generator`` seeded with ``--seed`` on the device,
+``build_decoder_graph`` lowers them to a prefill and a decode graph,
+``optimize`` fuses them, ``compile_plan`` compiles both for the kernel
+backend, and ``AsyncPlanServer.submit_llm`` streams ``--frames``
+random prompts of 4..``--prompt-len`` tokens, ``--new-tokens`` each, with
+``--batch`` sequences decoding together over a ``PagedKVCache`` of
+``--kv-pages`` x ``--kv-page-size`` tokens.  It prints the plan steps, the
+tokens per second, ms per decode step, the cache's peak and leaked pages
+and a greedy-parity probe: the served tokens of the first prompt against a
+greedy loop over the port's plain ``forward``.  In f32 every token must
+match.  In bf16 the plan and ``forward`` round at other places, so tokens
+are compared up to the first step whose top-2 logit margin in ``forward``
+is below ``PARITY_BF16_ULPS`` bf16 ulps of its largest logit (a near-tie
+either path may break either way); a mismatch before it fails.  Beside it,
+teacher-forced: ``forward`` over the prompt and the served tokens, where
+every served token must be the row's best logit (f32) or within that
+tolerance of it (bf16), at every step.
+
 ``--device`` defaults to ``cuda`` (raises without a GPU); ``--device cpu``
 runs the kernels' plain PyTorch versions.  Unlike the JAX package's CLI,
-``--frames`` counts frames, not batches.
+``--frames`` counts frames (``--llm``: prompts), not batches.
 """
 
 from __future__ import annotations
@@ -35,13 +58,20 @@ import time
 import numpy as np
 import torch
 
+from ..configs import ARCH_IDS, get_config, smoke_config
 from ..convert import resolve_device
 from ..core.graph import PassContext, PassManager, compile_plan
+from ..kernels.ref import bf16_ulp
 from ..models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP, APPS, app_masks
 from ..quant import calibrate_plan
 from ..serving.engine import PlanServer
 
-__all__ = ["main", "serve_graph_app"]
+__all__ = ["main", "serve_graph_app", "serve_llm", "build_llm", "serve_llm_traffic",
+           "greedy_parity", "llm_prompts"]
+
+#: the bf16 near-tie threshold of the greedy-parity probe, in bf16 ulps of
+#: the largest logit (see the module doc)
+PARITY_BF16_ULPS = 8
 
 
 def _sync(device: torch.device) -> None:
@@ -150,10 +180,170 @@ def quantize_app(args, go, dev, shape, rng):
     return gq
 
 
+def build_llm(args, dev: torch.device) -> dict:
+    """``init_lm`` on ``dev`` from a generator seeded with ``args.seed``,
+    the optimized prefill / decode graphs and their plans."""
+    from ..core.graph import compile_plan
+    from ..core.graph.passes import optimize
+    from ..models.transformer import init_lm
+    from ..models.transformer_graph import build_decoder_graph
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    params = init_lm(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    graphs = {ph: optimize(build_decoder_graph(params, cfg, phase=ph))
+              for ph in ("prefill", "decode")}
+    plans = {ph: compile_plan(g, backend="kernel", device=dev) for ph, g in graphs.items()}
+    return dict(cfg=cfg, params=params, graphs=graphs, plans=plans, device=dev)
+
+
+def llm_prompts(args, cfg) -> list:
+    """``args.frames`` prompts of 4..``args.prompt_len`` random tokens (numpy
+    seed ``args.seed``), as the JAX package's CLI draws them."""
+    rng = np.random.default_rng(args.seed)
+    return [
+        rng.integers(0, cfg.vocab, size=int(rng.integers(4, args.prompt_len + 1))).astype(np.int32)
+        for _ in range(max(1, args.frames))
+    ]
+
+
+def serve_llm_traffic(llm: dict, prompts, args) -> dict:
+    """Serve ``prompts`` through a fresh ``AsyncPlanServer`` (scheduler
+    thread) over a fresh ``PagedKVCache``; returns the handles, the wall
+    seconds, the model's stats and the cache's occupancy (checked for
+    invariants)."""
+    from ..models.transformer_graph import decoder_cache_spec
+    from ..serving import AsyncPlanServer, PagedKVCache
+
+    cache = PagedKVCache(num_pages=args.kv_pages, page_size=args.kv_page_size,
+                         **decoder_cache_spec(llm["cfg"]))
+    server = AsyncPlanServer(max_queue=args.max_queue)
+    server.add_llm("lm", prefill=llm["plans"]["prefill"], decode=llm["plans"]["decode"],
+                   cache=cache, max_batch=args.batch)
+    with server:
+        server.start()
+        t0 = time.perf_counter()
+        handles = [server.submit_llm("lm", p, max_new_tokens=args.new_tokens) for p in prompts]
+        for h in handles:
+            h.result()
+        dt = time.perf_counter() - t0
+    cache.check_invariants()
+    return dict(handles=handles, seconds=dt, stats=server.stats["per_llm"]["lm"],
+                occupancy=cache.occupancy())
+
+
+def _bf16_tol(top: float) -> float:
+    """``PARITY_BF16_ULPS`` bf16 ulps at magnitude ``top``."""
+    return PARITY_BF16_ULPS * bf16_ulp(top)
+
+
+def greedy_parity(llm: dict, prompt, got) -> dict:
+    """The served tokens ``got`` of ``prompt`` against the port's plain
+    ``forward``, two ways (pad classes excluded):
+
+    * free-running: a greedy loop over ``forward`` from the prompt; in f32
+      every token must match; in bf16 tokens are compared up to the first
+      step whose top-2 margin is below the bf16 tolerance (module doc);
+    * teacher-forced: one ``forward`` over ``prompt + got``; at every step
+      the served token's logit must be the row's maximum (f32), or within
+      the bf16 tolerance of it (bf16).
+
+    Returns what it compared; raises on a mismatch."""
+    from ..models.transformer import forward
+
+    cfg, params, dev = llm["cfg"], llm["params"], llm["device"]
+    v, n0 = cfg.vocab, len(prompt)
+    bf16 = cfg.dtype == "bfloat16"
+    seq = [int(t) for t in prompt]
+    want, margins = [], []
+    with torch.no_grad():
+        for _ in range(len(got)):
+            logits, _ = forward(params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev))
+            row = logits[0, -1, :v].float()
+            top2 = torch.topk(row, 2).values
+            want.append(int(row.argmax()))
+            margins.append((float(top2[0] - top2[1]), float(row.abs().max())))
+            seq.append(want[-1])
+        forced = [int(t) for t in prompt] + list(got[:-1])
+        rows = forward(params, cfg, torch.tensor([forced], dtype=torch.int32, device=dev))[0]
+        rows = rows[0, n0 - 1:, :v].float()
+        idx = torch.arange(len(got), device=rows.device)
+        gaps = (rows.max(dim=-1).values - rows[idx, torch.tensor(got, device=rows.device)])
+        gaps = gaps.cpu().tolist()
+        tops = rows.abs().max(dim=-1).values.cpu().tolist()
+    compared, tie = len(got), None
+    if bf16:
+        for i, (margin, top) in enumerate(margins):
+            if margin < _bf16_tol(top):
+                compared, tie = i, (margin, _bf16_tol(top))
+                break
+    if got[:compared] != want[:compared]:
+        raise AssertionError(f"greedy parity: served {got} vs forward {want} "
+                             f"(compared the first {compared})")
+    for i, (gap, top) in enumerate(zip(gaps, tops)):
+        if gap > (_bf16_tol(top) if bf16 else 0.0):
+            raise AssertionError(f"greedy parity: served token {got[i]} at step {i} is "
+                                 f"{gap} below forward's best logit")
+    return dict(compared=compared, total=len(got), exact=got == want, near_tie=tie,
+                min_margin=min(m for m, _ in margins) if margins else None,
+                max_forced_gap=max(gaps) if gaps else 0.0)
+
+
+def serve_llm(args) -> dict:
+    """The ``--llm`` path: build, serve once to warm up, serve the timed run,
+    probe greedy parity; returns the numbers it prints."""
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    llm = build_llm(args, dev)
+    cfg, plans = llm["cfg"], llm["plans"]
+    print(f"llm: {args.arch}{' (smoke)' if args.smoke else ''} {cfg.dtype}: "
+          f"backend=kernel device={dev} prefill_steps={len(plans['prefill'].steps)} "
+          f"decode_steps={len(plans['decode'].steps)}")
+    prompts = llm_prompts(args, cfg)
+    serve_llm_traffic(llm, prompts, args)  # warm-up: allocator, first launches
+    run = serve_llm_traffic(llm, prompts, args)
+    st, occ, dt = run["stats"], run["occupancy"], run["seconds"]
+    toks = sum(len(h.result()) for h in run["handles"])
+    ms_decode = st["decode_seconds"] / max(st["decode_batches"], 1) * 1e3
+    print(f"llm: {len(prompts)} sequences, {toks} tokens in {dt:.3f}s ({toks / dt:.1f} tok/s) -- "
+          f"{st['prefill_batches']} prefill + {st['decode_batches']} decode batches, "
+          f"{st['decode_tokens']} batched decode tokens, {ms_decode:.2f} ms/decode step, "
+          f"failed={st['failed']}")
+    print(f"llm: cache {occ['num_pages']}x{occ['page_size']} pages: "
+          f"peak_used={occ['peak_used']} leaked={occ['used_pages']}")
+    got = [int(t) for t in run["handles"][0].result()]
+    par = greedy_parity(llm, prompts[0], got)
+    how = "every token" if par["near_tie"] is None else (
+        f"up to a near-tie at step {par['compared']} (margin {par['near_tie'][0]:.4f} < "
+        f"{par['near_tie'][1]:.4f})")
+    print(f"llm: greedy parity ok ({par['compared']}/{par['total']} tokens match the plain "
+          f"forward loop, {how}; exact={par['exact']}; teacher-forced: every served token "
+          f"within {par['max_forced_gap']:.4f} of forward's best logit)")
+    return dict(tokens=toks, seconds=dt, tok_per_s=toks / dt, ms_per_decode_step=ms_decode,
+                stats=st, occupancy=occ, parity=par, steps={ph: len(p.steps) for ph, p in
+                                                             plans.items()})
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--graph-app", required=True, choices=sorted(APPS),
+    ap.add_argument("--graph-app", choices=sorted(APPS),
                     help="the demo app to compile and serve")
+    ap.add_argument("--llm", action="store_true",
+                    help="serve --arch through the decoder plans (prefill + decode) with a "
+                         "paged KV-cache and token-level continuous batching")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
+    ap.add_argument("--smoke", action="store_true", help="llm: the arch's reduced f32 config")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="llm: sequences decoding together (AsyncPlanServer max_batch)")
+    ap.add_argument("--prompt-len", type=int, default=16, help="llm: longest random prompt")
+    ap.add_argument("--new-tokens", type=int, default=12, help="llm: tokens per sequence")
+    ap.add_argument("--kv-pages", type=int, default=64,
+                    help="llm: total pages in the paged KV-cache pool")
+    ap.add_argument("--kv-page-size", type=int, default=16, help="llm: tokens per KV page")
+    ap.add_argument("--max-queue", type=int, default=1024,
+                    help="llm: bounded admission queue (waiting + active sequences)")
+
     ap.add_argument("--size", type=int, default=64, help="frame height and width")
     ap.add_argument("--base", type=int, default=16, help="channel width of the app")
     ap.add_argument("--frames", type=int, default=3, help="frames to serve")
@@ -171,7 +361,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    return serve_graph_app(build_parser().parse_args(argv))
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.llm == (args.graph_app is not None):
+        ap.error("give exactly one of --graph-app and --llm")
+    return serve_llm(args) if args.llm else serve_graph_app(args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Plan serving: :class:`PlanServer` (a port of ``repro.serving.engine``'s
-``PlanServer``; the LM engine and the async scheduler come with later
-slices).
+``PlanServer``; the LM engine of that module comes with a later slice, and
+autoregressive serving lives in ``scheduler.py``).
 
 Frames queue up and execute in fixed-size batches via
 :meth:`ExecutionPlan.batched`, padding only the tail batch.

@@ -156,4 +156,5 @@ def test_cpu_calls_launch_no_kernel():
     tops.conv2d(x, T(_arr(rng, 3, 4, 1, 1)))
     tops.fused_elementwise(x, [x], (("add", 0),))
     assert tops.kernel_launch_counts() == {"conv2d": 0, "dense_matmul": 0, "fused_elementwise": 0,
-                                           "quant_matmul": 0}
+                                           "quant_matmul": 0, "flash_attention": 0,
+                                           "ffn_gateup": 0}
