@@ -5,12 +5,14 @@ of ``Graph.params``; any array type numpy can read, e.g. params built by the
 JAX package and passed through ``numpy.asarray``) and returns the same tree
 of torch tensors on ``device``; ``lm_params_from_numpy`` does the same for
 the nested tree ``models.transformer.init_lm`` builds (dicts and lists of
-layer dicts).  bf16 arrays stay bf16 -- numpy has no bf16 of its own, so
-they arrive as the ``bfloat16`` dtype of ``ml_dtypes`` (kind ``'V'``), which
-is recognised by its name and moved as its 16-bit patterns, without
-importing ``ml_dtypes`` -- other floats become f32, int8 payloads (the
-quantized weights of ``qlinear`` / ``qconv2d`` nodes) stay int8, and every
-other integer array (the ``kept`` index arrays) becomes int32:
+layer dicts, packed pruned layers included: 4-D ``values``, int32
+``block_rows`` / ``kept``, and a ``bands`` entry, which stays a tuple of
+``(start, stop, count)`` ints).  bf16 arrays stay bf16 -- numpy has no bf16
+of its own, so they arrive as the ``bfloat16`` dtype of ``ml_dtypes`` (kind
+``'V'``), which is recognised by its name and moved as its 16-bit patterns,
+without importing ``ml_dtypes`` -- other floats become f32, int8 payloads
+(the quantized weights of ``qlinear`` / ``qconv2d`` nodes) stay int8, and
+every other integer array (the ``kept`` index arrays) becomes int32:
 ``index_select`` and the CUDA kernels take int32 indices, so the port stores
 exactly what the reference stores.
 
@@ -72,7 +74,8 @@ def lm_params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 
     def conv(node):
         if isinstance(node, Mapping):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: tuple(tuple(int(i) for i in b) for b in v) if k == "bands" else conv(v)
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         return _to_tensor(node, dev)

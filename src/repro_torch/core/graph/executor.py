@@ -218,20 +218,32 @@ def _linear_ref(p, xs, a, rt):
 
 @register_op("sparse_linear", backends=("kernel",))
 def _sparse_linear_kernel(p, xs, a, rt):
+    """colcompact / channelcompact: the dense-matmul kernel on the compact
+    weight.  pbcsr: the band-dispatched block-sparse kernel.  Tile-fusable
+    epilogues run on the f32 accumulator inside the kernel (for pbcsr, in
+    every band's launch); norm / rope steps and broadcast sides run as the
+    plain tail after it."""
     fmt = a["format"]
-    if fmt not in ("colcompact", "channelcompact"):
-        raise NotImplementedError(f"sparse format {fmt} is not ported yet")
+    if fmt not in ("colcompact", "channelcompact", "pbcsr"):
+        raise NotImplementedError(f"sparse format {fmt}")
     epi = a.get("epilogue") or ()
     values = p["values"]
-    out_shape = (*xs[0].shape[:-1], values.shape[1])
+    if fmt == "pbcsr":
+        nb, _, _, bn = values.shape
+        out_shape = (*xs[0].shape[:-1], nb * bn)
+    else:
+        out_shape = (*xs[0].shape[:-1], values.shape[1])
     steps, sides = _kernel_epilogue(epi, xs, out_shape)
     kw = dict(activation=a.get("activation"))
     if steps is not None:
         kw.update(epilogue=steps, epilogue_sides=sides)
     if fmt == "colcompact":
         y = kops.col_matmul(xs[0], values, p["kept"], p.get("b"), **kw)
-    else:
+    elif fmt == "channelcompact":
         y = kops.matmul(xs[0], values, p.get("b"), **kw)
+    else:
+        y = kops.bsr_matmul(xs[0], values, p["block_rows"], p.get("b"), bands=a.get("bands"),
+                            **kw)
     return y if steps is not None else _apply_epilogue(y, epi, xs, p)
 
 
@@ -245,8 +257,14 @@ def _sparse_linear_ref(p, xs, a, rt):
         )
     elif fmt == "channelcompact":
         y = kref.matmul_ref(xs[0], p["values"], p.get("b"), activation=a.get("activation"))
+    elif fmt == "pbcsr":
+        x = xs[0]
+        y = kref.bsr_matmul_ref(
+            x.reshape(-1, x.shape[-1]), p["values"], p["block_rows"], p.get("b"),
+            activation=a.get("activation"),
+        ).reshape(*x.shape[:-1], -1)
     else:
-        raise NotImplementedError(f"sparse format {fmt} is not ported yet")
+        raise NotImplementedError(f"sparse format {fmt}")
     return _apply_epilogue(y, a.get("epilogue") or (), xs, p)
 
 

@@ -10,8 +10,7 @@ Pass pipeline for deployment (see :func:`optimize`):
 1. ``fold_norm``         Conv/Linear + BatchNorm -> folded Conv/Linear
 2. ``fuse_activation``   Conv/Linear + Activation -> fused epilogue attr
 3. ``substitute_sparse`` pruned weights -> compact formats + sparse ops
-                         (ColumnCompact / ChannelCompact; the block-sparse
-                         PBCSR form comes with a later slice)
+                         (ColumnCompact / ChannelCompact / PBCSR+reorder)
 4. ``fold_gathers``      compaction gathers folded into adjacent weights
 5. ``cse`` / ``fuse_elementwise`` / ``fuse_epilogue``
 6. ``quantize``          GEMM/conv weights -> INT8 ``qlinear`` / ``qconv2d``
@@ -31,7 +30,9 @@ import torch
 
 from ...quant.qtensor import QTensor
 from ..pruning.structures import Block, Channel, Column, Structure
-from ..sparse.formats import ChannelCompact, ColumnCompact
+from ..sparse.formats import PBCSR, ChannelCompact, ColumnCompact
+from ..sparse.packing import block_mask
+from ..sparse.reorder import apply_column_perm, plan_reorder
 from .ir import Graph, Node
 
 __all__ = [
@@ -142,14 +143,15 @@ def substitute_sparse(
     * Column  -> ``sparse_linear(format=colcompact)``: gather + smaller GEMM.
     * Channel -> ``sparse_linear(format=channelcompact)`` + ``gather_channels``
       glue node (folded into the next layer by :func:`fold_gathers`).
-    * Block   -> PBCSR with reorder bands in the JAX package; not ported yet
-      (raises ``NotImplementedError``).
+    * Block   -> ``sparse_linear(format=pbcsr)`` with reorder bands; the
+      output block-column permutation is recorded as a ``gather_channels``
+      glue node (foldable) when it is not the identity.
     * any conv structure (pattern / column-as-channel) -> masked conv whose
       fully-dead input channels are compacted away (``format=channelcompact``
       + a ``kept`` param): the conv kernel gathers the live channels and
       contracts a K shrunk by the pruned ratio.
 
-    ``max_bands`` belongs to the Block rule and is accepted for parity.
+    ``max_bands`` caps the reorder bands of the Block rule.
     """
     for stale in list(g.nodes):
         if stale.name not in masks or masks[stale.name] is None:
@@ -198,9 +200,45 @@ def substitute_sparse(
                 )
                 g = _insert_after(g, node.name, glue)
             elif isinstance(st, Block):
-                raise NotImplementedError(
-                    f"{node.name}: block-sparse (PBCSR) substitution is not ported yet"
+                bmask = block_mask(mask, st.bm, st.bn).cpu().numpy()
+                plan = plan_reorder(bmask, max_bands=max_bands, bm=st.bm, bn=st.bn)
+                w_perm = apply_column_perm(w, plan.order, st.bn)
+                m_perm = apply_column_perm(mask, plan.order, st.bn)
+                fmt = PBCSR.from_dense(w_perm, m_perm, st.bm, st.bn)
+                bias = p.get("b")
+                elem_order = (
+                    np.asarray(plan.order)[:, None] * st.bn + np.arange(st.bn)[None, :]
+                ).reshape(-1)
+                if bias is not None:
+                    bias = bias.index_select(0, torch.as_tensor(elem_order, device=bias.device))
+                g.params[node.name] = {
+                    "values": fmt.values,
+                    "block_rows": fmt.block_rows,
+                    **({"b": bias} if bias is not None else {}),
+                }
+                g = g.replace_node(
+                    node.name,
+                    node.replace(
+                        op="sparse_linear",
+                        attrs={
+                            **node.attrs,
+                            "format": "pbcsr",
+                            "bands": tuple((b.start, b.stop, b.count) for b in plan.bands),
+                            "bn": st.bn,
+                        },
+                    ),
                 )
+                if not plan.identity:
+                    # undo the column permutation for consumers (foldable)
+                    inv = np.empty_like(elem_order)
+                    inv[elem_order] = np.arange(len(elem_order))
+                    glue = Node(
+                        op="gather_channels",
+                        name=node.name + "_unperm",
+                        inputs=(node.name,),
+                        attrs={"mode": "gather", "idx": inv, "n": w.shape[1]},
+                    )
+                    g = _insert_after(g, node.name, glue)
             else:  # masked dense fallback (NM, bank, unstructured)
                 g.params[node.name] = {**p, "w": w}
         elif node.op == "conv2d":

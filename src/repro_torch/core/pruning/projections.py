@@ -1,13 +1,15 @@
 """Euclidean projections onto the structured-sparsity sets (a port of
-``repro.core.pruning.projections`` for the sets the slice's recipes use).
+``repro.core.pruning.projections`` for the sets the compiler consumes:
+Column, Channel, Block and PatternKernel).
 
 The ADMM Z-step is ``Z = Pi_S(W + U)`` -- the closest point (Frobenius norm)
 in the structure set.  For every magnitude-type structure this is "keep the
 largest-magnitude prune-units, zero the rest", with the unit's magnitude
 pooled as the group L2 norm.  Every projection returns ``(projected, mask)``
-with ``mask`` broadcastable to the weight shape.  The reduction shapes, the
-pattern argmax (first maximum wins) and ``topk_mask``'s stable double
-argsort follow the JAX code, so masks agree bit for bit.
+with ``mask`` broadcastable to the weight shape.  The reduction shapes (a
+block's norm is pooled in f32), the pattern argmax (first maximum wins) and
+``topk_mask``'s stable double argsort follow the JAX code, so masks agree
+bit for bit.
 
 Shapes follow structures.py: 2-D ``W[K, N]`` for matrix structures, 4-D
 ``W[C_out, C_in, kh, kw]`` for PatternKernel.
@@ -20,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .structures import Channel, Column, PatternKernel, Structure
+from .structures import Block, Channel, Column, PatternKernel, Structure
 
 __all__ = ["project", "mask_for", "topk_mask"]
 
@@ -57,6 +59,21 @@ def _project_channel(w: torch.Tensor, s: Channel) -> Tuple[torch.Tensor, torch.T
     return w * mask, mask.expand(w.shape)
 
 
+def _project_block(w: torch.Tensor, s: Block) -> Tuple[torch.Tensor, torch.Tensor]:
+    kb, nb = s.grid(w.shape)
+    blocks = w.reshape(kb, s.bm, nb, s.bn)
+    norms = torch.sqrt(torch.sum(blocks.float() ** 2, dim=(1, 3)))  # [kb, nb]
+    if s.balanced:
+        # the same number of kept blocks in every block-COLUMN (output
+        # feature group): every output tile of the block-sparse kernel then
+        # does identical work
+        bmask = topk_mask(norms, s.n_kept(kb), axis=0)
+    else:
+        bmask = topk_mask(norms.reshape(-1), s.n_kept(kb * nb)).reshape(kb, nb)
+    mask = bmask[:, None, :, None].expand(blocks.shape).reshape(w.shape).to(w.dtype)
+    return w * mask, mask
+
+
 def _pattern_library(s: PatternKernel) -> np.ndarray:
     """[P, kh*kw] 0/1 library matrix (static, numpy)."""
     ksz = s.kernel_size * s.kernel_size
@@ -90,6 +107,7 @@ def _project_pattern(w: torch.Tensor, s: PatternKernel) -> Tuple[torch.Tensor, t
 _DISPATCH = {
     Column: _project_column,
     Channel: _project_channel,
+    Block: _project_block,
     PatternKernel: _project_pattern,
 }
 

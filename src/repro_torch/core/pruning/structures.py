@@ -1,9 +1,9 @@
 """Structured-sparsity set definitions (the ``S_i`` of the paper's Eq. 1).
 
 A copy of ``repro.core.pruning.structures`` (plain dataclasses, no array
-code).  The port projects onto Column, Channel and PatternKernel so far
+code).  The port projects onto Column, Channel, Block and PatternKernel
 (``projections.py``); the other sets are declared for the compiler layer and
-their projections raise ``NotImplementedError`` until a later slice.
+their projections raise ``NotImplementedError``.
 
 Each structure describes *what unit is pruned as a whole* for a 2-D weight
 matrix ``W[K, N]`` (input-features x output-features; convolutions are viewed
@@ -28,8 +28,8 @@ connectivity        ``PatternKernel(connectivity=...)``
 ==================  =============================================
 
 ``Block`` is the TPU-native prune unit of the JAX package: a pruned block is
-skipped entirely by its BSR kernel, so the surviving compute still runs as
-dense matrix-unit tiles (the port's block-sparse path is a later slice).
+skipped entirely by the block-sparse kernel (``kernels/bsr_matmul.py``), so
+the surviving compute still runs as dense tiles.
 """
 
 from __future__ import annotations

@@ -1,5 +1,17 @@
-"""Compact sparse weight formats (port)."""
+"""Compact sparse weight formats and the matrix reorder (port)."""
 
-from .formats import ChannelCompact, ColumnCompact
+from .formats import PBCSR, ChannelCompact, ColumnCompact, dense_nbytes
+from .packing import block_mask
+from .reorder import Band, ReorderPlan, balance_stats, plan_reorder
 
-__all__ = ["ChannelCompact", "ColumnCompact"]
+__all__ = [
+    "PBCSR",
+    "Band",
+    "ChannelCompact",
+    "ColumnCompact",
+    "ReorderPlan",
+    "balance_stats",
+    "block_mask",
+    "dense_nbytes",
+    "plan_reorder",
+]

@@ -1,7 +1,16 @@
 """Compact sparse weight storage (paper section 3, "Sparse model storage").
 
-A port of ``repro.core.sparse.formats`` for the two formats the slice's
-recipes produce; PBCSR (block pruning) comes with the block-sparse slice.
+A port of ``repro.core.sparse.formats`` for the formats the compiler
+produces (the storage-only CSR baseline is not ported).  They pack torch
+tensors on the tensors' device, so a bf16 weight on the card packs there.
+
+``PBCSR``
+    Packed Block Compressed Sparse (column-major) storage for block pruning:
+    one int32 per surviving ``(bm, bn)`` block.  Stored output-column-major
+    (``values[Nb, S, bm, bn]``, ``block_rows[Nb, S]``, -1 = pad) so the
+    block-sparse kernel walks one output block-column's blocks in order;
+    the per-column counts are equalized by the balanced projection or by
+    the reorder pass (bands).
 
 ``ColumnCompact``
     For column pruning along K: the kept rows of ``W[K, N]`` are physically
@@ -13,7 +22,7 @@ recipes produce; PBCSR (block pruning) comes with the block-sparse slice.
     indices; the graph pass folds the index map into the *next* layer, so
     runtime cost is zero.
 
-Both round-trip exactly through ``to_dense`` and report ``nbytes``.
+All round-trip exactly through ``to_dense`` and report ``nbytes``.
 """
 
 from __future__ import annotations
@@ -23,7 +32,16 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["ColumnCompact", "ChannelCompact"]
+from .packing import block_mask
+
+__all__ = ["PBCSR", "ColumnCompact", "ChannelCompact", "dense_nbytes"]
+
+
+def dense_nbytes(shape: Tuple[int, ...], dtype=torch.bfloat16) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n * torch.empty((), dtype=dtype).element_size()
 
 
 def _kept_index(live: torch.Tensor) -> torch.Tensor:
@@ -31,6 +49,76 @@ def _kept_index(live: torch.Tensor) -> torch.Tensor:
     if idx.numel() == 0:
         idx = torch.zeros(1, dtype=torch.int64, device=live.device)
     return idx.to(torch.int32)
+
+
+@dataclasses.dataclass
+class PBCSR:
+    """Packed block storage, output-column-major, padded to uniform count.
+
+    ``values[j, s]`` is the s-th surviving (bm, bn) block of output
+    block-column j; ``block_rows[j, s]`` its block-row index in the dense
+    weight (-1 marks padding; padded values are zero, so accumulating them
+    is exact, merely wasted work -- the reorder pass exists to minimize it).
+    Kept rows are stored in ascending order, pads last.
+    """
+
+    values: torch.Tensor  # [Nb, S, bm, bn]
+    block_rows: torch.Tensor  # [Nb, S] int32, -1 = pad
+    shape: Tuple[int, int]
+    bm: int = 128
+    bn: int = 128
+
+    @classmethod
+    def from_dense(
+        cls, w: torch.Tensor, mask: torch.Tensor, bm: int = 128, bn: int = 128
+    ) -> "PBCSR":
+        k, n = w.shape
+        if k % bm or n % bn:
+            raise ValueError(f"blocks ({bm},{bn}) do not tile {tuple(w.shape)}")
+        w = w * mask.to(w.dtype)
+        kb, nb = k // bm, n // bn
+        bmask = block_mask(mask, bm, bn)  # [Kb, Nb]
+        counts = bmask.sum(dim=0)  # per output block-column
+        s_max = max(int(counts.max()) if nb else 0, 1)
+        # per column: kept block-rows first, ascending (a stable sort of the
+        # "pruned" flags), then the pruned ones, cut to s_max
+        order = torch.argsort((~bmask).t().to(torch.int8), dim=1, stable=True)
+        rows = order[:, :s_max]
+        valid = torch.arange(s_max, device=w.device)[None, :] < counts[:, None]
+        blocks = w.reshape(kb, bm, nb, bn).permute(2, 0, 1, 3)  # [Nb, Kb, bm, bn]
+        picked = blocks[torch.arange(nb, device=w.device)[:, None], rows]  # [Nb, S, bm, bn]
+        values = torch.where(valid[..., None, None], picked, torch.zeros((), dtype=w.dtype,
+                                                                         device=w.device))
+        block_rows = torch.where(valid, rows, torch.full_like(rows, -1)).to(torch.int32)
+        return cls(values=values.contiguous(), block_rows=block_rows.contiguous(),
+                   shape=(k, n), bm=bm, bn=bn)
+
+    def to_dense(self) -> torch.Tensor:
+        k, n = self.shape
+        kb, nb = k // self.bm, n // self.bn
+        out = self.values.new_zeros((kb, nb, self.bm, self.bn))
+        j, s = torch.nonzero(self.block_rows >= 0, as_tuple=True)
+        out[self.block_rows[j, s].long(), j] = self.values[j, s]
+        return out.permute(0, 2, 1, 3).reshape(k, n)
+
+    @property
+    def n_blocks(self) -> int:
+        return int((self.block_rows >= 0).sum())
+
+    @property
+    def padded_blocks(self) -> int:
+        return self.block_rows.numel() - self.n_blocks
+
+    @property
+    def nbytes(self) -> int:
+        """True storage cost: surviving blocks + one int32 each (padding is an
+        execution artefact, not a storage one -- serialized form stores
+        ragged)."""
+        return self.n_blocks * (self.bm * self.bn * self.values.element_size() + 4)
+
+    @property
+    def nbytes_padded(self) -> int:
+        return self.values.numel() * self.values.element_size() + self.block_rows.numel() * 4
 
 
 @dataclasses.dataclass

@@ -155,6 +155,8 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.repro_fused_elementwise.restype = I
     cdll.repro_fused_elementwise_max_d.argtypes = []
     cdll.repro_fused_elementwise_max_d.restype = I
+    cdll.repro_bsr_matmul.argtypes = [P] * 5 + [I] * 11 + [P, I, P] + [I] * 3 + [P, P, P]
+    cdll.repro_bsr_matmul.restype = I
     cdll.repro_error_string.argtypes = [I]
     cdll.repro_error_string.restype = ctypes.c_char_p
     return cdll

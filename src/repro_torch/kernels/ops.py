@@ -3,10 +3,11 @@ for the ported paths).
 
 These do the layout work so the executor calls one function per op:
 leading-batch flattening, the 1x1-conv direct-GEMM fast path, the conv
-fallback matrix, the decoder's attention and gated-FFN calls, and the INT8
-schemes' activation quantization (W8A8
-activations are quantized here, before the kernel, as the JAX wrappers do,
-and their scale is folded into the kernel's per-column rescale).  Each
+fallback matrix, the block-sparse matmul's band dispatch, the decoder's
+attention and gated-FFN calls, and the INT8 schemes' activation
+quantization (W8A8 activations are quantized here, before the kernel, as
+the JAX wrappers do, and their scale is folded into the kernel's
+per-column rescale).  Each
 routes to a kernel wrapper in this package, whose device picks the route
 (CPU tensor: plain version; CUDA tensor: the CUDA kernel or an error).
 
@@ -19,7 +20,10 @@ Differences from the JAX wrappers, by design:
   ``degenerate`` and routes them to the plain version (never to a library
   convolution), counted in ``conv_fallback_total{reason}`` as the JAX
   package counts its ``lax.conv`` route.  Its TPU-only ``vmem`` reason is
-  gone: the CUDA kernel tiles its own shared memory at any width.
+  gone: the CUDA kernel tiles its own shared memory at any width;
+* ``bsr_matmul``'s bands write into one preallocated output (no concat),
+  and an empty band runs the kernel's epilogue-only launch instead of a
+  plain-torch epilogue of zeros.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from ..obs import metrics as _metrics
 from ..quant.qtensor import fake_quant, quantize_array, scale_tensor
+from . import bsr_matmul as _bsr_mod
 from . import conv2d as _conv2d_mod
 from . import dense_matmul as _dense_mod
 from . import flash_attention as _flash_mod
@@ -46,6 +51,7 @@ from .ref import apply_steps_ref, conv2d_ref
 __all__ = [
     "matmul",
     "col_matmul",
+    "bsr_matmul",
     "qmatmul",
     "conv2d",
     "fused_elementwise",
@@ -74,6 +80,7 @@ _KERNEL_MODULES = {
     "quant_matmul": _quant_mod,
     "flash_attention": _flash_mod,
     "ffn_gateup": _ffn_mod,
+    "bsr_matmul": _bsr_mod,
 }
 
 
@@ -180,6 +187,58 @@ def col_matmul(
         x.index_select(-1, kept), values, bias, activation=activation,
         epilogue=epilogue, epilogue_sides=epilogue_sides,
     )
+
+
+def bsr_matmul(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    block_rows: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    activation: Optional[str] = None,
+    epilogue: Sequence[Tuple] = (),
+    epilogue_sides: Sequence[torch.Tensor] = (),
+    bands: Optional[Sequence[Tuple[int, int, int]]] = None,
+) -> torch.Tensor:
+    """Block-sparse ``epilogue(act(x @ W + bias))`` over PBCSR-packed weights
+    for arbitrary leading batch dims.
+
+    ``bands`` (from the reorder pass): ``(start, stop, count)`` over output
+    block-columns, in order and covering all of them; one kernel launch per
+    band with the exact trip count ``count`` -- an empty band (``count ==
+    0``) launches too and outputs only the epilogue of a zero accumulator.
+    Without bands, one launch over every column with all ``S`` steps.  Each
+    launch writes its band's columns of one output (no concat) and reads
+    the bias and side operands at those columns.  ``epilogue`` is the
+    :func:`matmul` step program, run on the f32 accumulator in each band's
+    launch.  The plain route (CPU tensors) walks the same band loop."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m = x2.shape[0]
+    nb, s, _, bn = values.shape
+    n = nb * bn
+    sides2 = []
+    for sv in epilogue_sides:
+        if tuple(sv.shape) not in ((*lead, n), (m, n)):
+            raise ValueError(f"bsr_matmul: side {tuple(sv.shape)} vs output {(*lead, n)}")
+        sides2.append(sv.reshape(m, n).contiguous())
+    bands = tuple(tuple(int(v) for v in b) for b in bands) if bands else ((0, nb, s),)
+    covered = 0
+    for start, stop, _ in bands:
+        if start != covered or stop < start:
+            raise ValueError(f"bsr_matmul: bands {bands} do not tile {nb} block-columns")
+        covered = stop
+    if covered != nb:
+        raise ValueError(f"bsr_matmul: bands {bands} do not tile {nb} block-columns")
+    epilogue = tuple(tuple(st) for st in epilogue)
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    for band in bands:
+        if band[1] > band[0]:
+            _bsr_mod.bsr_matmul(
+                x2, values, block_rows, bias, *sides2, activation=activation,
+                epilogue=epilogue, band=band, out=out,
+            )
+    return out.reshape(*lead, n)
 
 
 def qmatmul(

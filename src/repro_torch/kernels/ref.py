@@ -30,6 +30,8 @@ __all__ = [
     "qmatmul_ref",
     "conv2d_ref",
     "qconv2d_ref",
+    "pbcsr_to_dense_ref",
+    "bsr_matmul_ref",
     "xla_conv_pads",
     "ffn_gateup_ref",
     "rope_ref",
@@ -111,6 +113,41 @@ def matmul_ref(
     if bias is not None:
         acc = acc + bias.to(acc_dtype)
     return _ACT[activation](acc).to(out_dtype or x.dtype)
+
+
+
+def pbcsr_to_dense_ref(
+    values: torch.Tensor, block_rows: torch.Tensor, k: int
+) -> torch.Tensor:
+    """Rebuild the dense [K, N] weight from packed blocks ``values [Nb, S,
+    bm, bn]`` and ``block_rows [Nb, S]`` (-1 = pad): each packed slot is
+    added into its block-row (pads add zeros at row 0), as the JAX
+    reference does."""
+    nb, s, bm, bn = values.shape
+    kb = k // bm
+    dense = values.new_zeros((kb, nb, bm, bn))
+    rows = block_rows.clamp(min=0).long()
+    valid = (block_rows >= 0)[..., None, None]
+    cols = torch.arange(nb, device=values.device)
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    for si in range(s):
+        dense.index_put_((rows[:, si], cols), torch.where(valid[:, si], values[:, si], zero),
+                         accumulate=True)
+    return dense.permute(0, 2, 1, 3).reshape(kb * bm, nb * bn)
+
+
+def bsr_matmul_ref(
+    x: torch.Tensor,
+    values: torch.Tensor,
+    block_rows: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    activation: Optional[str] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """``act(x @ W + bias)`` over PBCSR-packed ``W`` (dense rebuild, f32 sum)."""
+    w = pbcsr_to_dense_ref(values, block_rows, x.shape[-1])
+    return matmul_ref(x, w, bias, activation=activation, out_dtype=out_dtype or x.dtype)
 
 
 def qmatmul_ref(

@@ -6,7 +6,10 @@ Layouts follow the JAX package: activations ``[B, S, D]``, per-head
 tensors ``[B, S, H, dh]``, KV caches ``{"k", "v": [B, S_max, G, dh], "pos":
 [B]}``.  Attention is causal over the full sequence (the JAX package's
 ``impl="full"``); MLA, cross-attention, sliding windows, prefix-LM masks and
-the chunked (online-softmax) ``sdpa`` come with a later slice.
+the chunked (online-softmax) ``sdpa`` come with a later slice.  Under
+``cfg.prune`` with a ``bsr`` execution mode the q and o projections are
+block-pruned (packed params), and every projection dispatches on its params
+(``layers.linear_auto``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
-from .layers import apply_rope, init_linear, init_rmsnorm, linear, rmsnorm
+from .layers import (
+    apply_rope,
+    init_linear,
+    init_pruned_linear,
+    init_rmsnorm,
+    linear_auto,
+    rmsnorm,
+)
 
 __all__ = [
     "sdpa",
@@ -69,14 +79,21 @@ def sdpa(
 
 
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
-    if cfg.prune.enabled and cfg.prune.exec_mode in ("bsr_xla", "bsr"):
-        raise NotImplementedError("block-pruned attention comes with the PBCSR slice")
     dh = cfg.resolved_head_dim
+    # the paper's attention recipe: block pruning of the q/o projections
+    pruned = cfg.prune.enabled and cfg.prune.exec_mode in ("bsr_xla", "bsr")
+
+    def lin(d_in, d_out, bias=False, prune=False):
+        if prune:
+            return init_pruned_linear(gen, d_in, d_out, exec_mode=cfg.prune.exec_mode,
+                                      sparsity=cfg.prune.sparsity, bias=bias, dtype=dtype)
+        return init_linear(gen, d_in, d_out, bias=bias, dtype=dtype)
+
     p: Params = {
-        "w_q": init_linear(gen, cfg.d_model, cfg.n_heads * dh, bias=cfg.qkv_bias, dtype=dtype),
-        "w_k": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, bias=cfg.qkv_bias, dtype=dtype),
-        "w_v": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, bias=cfg.qkv_bias, dtype=dtype),
-        "w_o": init_linear(gen, cfg.n_heads * dh, cfg.d_model, dtype=dtype),
+        "w_q": lin(cfg.d_model, cfg.n_heads * dh, cfg.qkv_bias, pruned),
+        "w_k": lin(cfg.d_model, cfg.n_kv_heads * dh, cfg.qkv_bias),
+        "w_v": lin(cfg.d_model, cfg.n_kv_heads * dh, cfg.qkv_bias),
+        "w_o": lin(cfg.n_heads * dh, cfg.d_model, prune=pruned),
     }
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(dh, dtype, gen.device)
@@ -89,9 +106,9 @@ def gqa_project_qkv(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = linear(p["w_q"], x, mode=mode).reshape(b, s, cfg.n_heads, dh)
-    k = linear(p["w_k"], x, mode=mode).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear(p["w_v"], x, mode=mode).reshape(b, s, cfg.n_kv_heads, dh)
+    q = linear_auto(p["w_q"], x, mode).reshape(b, s, cfg.n_heads, dh)
+    k = linear_auto(p["w_k"], x, mode).reshape(b, s, cfg.n_kv_heads, dh)
+    v = linear_auto(p["w_v"], x, mode).reshape(b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -114,7 +131,7 @@ def gqa_attention(
     pos1d = positions[0]
     out = sdpa(q, k, v, pos1d, pos1d)
     b, s = x.shape[:2]
-    return linear(p["w_o"], out.reshape(b, s, -1), mode=mode)
+    return linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
 
 
 def gqa_prefill(
@@ -131,7 +148,7 @@ def gqa_prefill(
     q, k, v = gqa_project_qkv(p, cfg, x, positions, mode=mode)
     pos1d = positions[0]
     out = sdpa(q, k, v, pos1d, pos1d)
-    y = linear(p["w_o"], out.reshape(b, s, -1), mode=mode)
+    y = linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
     pad = max(max_len - s, 0)
     kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, :max_len]
     vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, :max_len]
@@ -172,5 +189,5 @@ def gqa_decode_step(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float())
     out = out.reshape(b, 1, cfg.n_heads * dh).to(x_t.dtype)
-    y = linear(p["w_o"], out, mode=mode)
+    y = linear_auto(p["w_o"], out, mode)
     return y, {"k": k, "v": v, "pos": pos + 1}

@@ -1,7 +1,9 @@
-"""Dense gated FFN (SwiGLU / GeGLU): a port of ``repro.models.ffn``'s
+"""Gated FFN (SwiGLU / GeGLU): a port of ``repro.models.ffn``'s
 ``init_mlp`` / ``mlp``.  ``fused=True`` runs the first half through the
-fused gate/up kernel (:func:`repro_torch.kernels.ops.ffn_gateup`).  The
-column-pruned FFN and MoE come with later slices.
+fused gate/up kernel (:func:`repro_torch.kernels.ops.ffn_gateup`).
+``init_mlp(prune=(mode, sparsity))`` draws the paper's column-pruned FFN
+(packed params), which ``mlp`` dispatches on (``layers.linear_auto``).
+MoE comes with a later slice.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops as kops
-from .layers import init_linear, linear
+from .layers import init_linear, init_pruned_linear, linear_auto
 
 __all__ = ["init_mlp", "mlp"]
 
@@ -22,13 +24,14 @@ def init_mlp(
     gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.bfloat16,
     prune: Optional[Tuple[str, float]] = None,
 ) -> Params:
-    if prune is not None:
-        raise NotImplementedError("the column-pruned FFN comes with the PBCSR slice")
-    return {
-        "w_gate": init_linear(gen, d_model, d_ff, dtype=dtype),
-        "w_up": init_linear(gen, d_model, d_ff, dtype=dtype),
-        "w_down": init_linear(gen, d_ff, d_model, dtype=dtype),
-    }
+    def lin(d_in, d_out):
+        if prune is None:
+            return init_linear(gen, d_in, d_out, dtype=dtype)
+        # the paper's FFN recipe: column pruning -> packed smaller GEMMs
+        return init_pruned_linear(gen, d_in, d_out, exec_mode=prune[0], sparsity=prune[1],
+                                  dtype=dtype)
+
+    return {"w_gate": lin(d_model, d_ff), "w_up": lin(d_model, d_ff), "w_down": lin(d_ff, d_model)}
 
 
 def mlp(
@@ -46,7 +49,7 @@ def mlp(
             wu = wu * p["w_up"]["mask"].to(wu.dtype)
         h = kops.ffn_gateup(x, wg, wu, activation=activation)
     else:
-        g = linear(p["w_gate"], x, mode=mode, activation=activation)
-        u = linear(p["w_up"], x, mode=mode)
+        g = linear_auto(p["w_gate"], x, mode, activation=activation)
+        u = linear_auto(p["w_up"], x, mode)
         h = g * u
-    return linear(p["w_down"], h, mode=mode)
+    return linear_auto(p["w_down"], h, mode)

@@ -1,16 +1,25 @@
-"""Shared decoder layers (a port of the dense parts of ``repro.models.layers``;
-params are nested dicts of tensors).
+"""Shared decoder layers (a port of ``repro.models.layers``' linear,
+norm, embedding and RoPE parts; params are nested dicts of tensors).
 
-``linear`` runs the ``dense`` and ``masked`` execution modes as plain
-``x @ w`` (the plan compiler's ``linear`` nodes are what run the
-dense-matmul kernel).  The packed
-modes of the JAX package (``bsr``, ``bsr_xla``, ``colpack``, ``colpack_xla``
-and their ``init_pruned_linear``) come with the PBCSR slice and raise
-``NotImplementedError`` here.
+``linear`` is the integration point of the paper's technique: one layer
+whose *execution mode* is chosen by the compiler layer --
 
-Initializers draw from an explicit ``torch.Generator`` on the generator's
-device, in f32, and cast to the model dtype -- at full width the weights are
-drawn on the card, never on the host.
+* ``dense``       plain ``x @ w`` (the plan compiler's ``linear`` nodes are
+                  what run the dense-matmul kernel),
+* ``masked``      ``x @ (w * mask)``,
+* ``bsr``         packed PBCSR blocks through the block-sparse kernel
+                  (``ops.bsr_matmul``, honouring ``p["bands"]``),
+* ``bsr_xla``     the same packed blocks in plain torch: a gather of the x
+                  block-rows each output block-column needs, one einsum,
+* ``colpack``     ColumnCompact gather + the smaller dense GEMM
+                  (``ops.col_matmul``),
+* ``colpack_xla`` the same in plain torch.
+
+``init_pruned_linear`` draws packed params of those shapes with the JAX
+package's deterministic stripe patterns.  Initializers draw from an
+explicit ``torch.Generator`` on the generator's device, in f32, and cast to
+the model dtype -- at full width the weights are drawn on the card, never
+on the host.
 """
 
 from __future__ import annotations
@@ -20,11 +29,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..kernels import ops as kops
 from ..kernels.ref import _ACT
 
 __all__ = [
     "init_linear",
     "linear",
+    "init_pruned_linear",
+    "linear_auto",
     "init_rmsnorm",
     "rmsnorm",
     "init_embedding",
@@ -34,8 +46,6 @@ __all__ = [
 ]
 
 Params = Dict[str, Any]
-
-_PACKED_MODES = ("bsr", "bsr_xla", "colpack", "colpack_xla")
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -61,18 +71,82 @@ def linear(
     mode: str = "dense",
     activation: Optional[str] = None,
 ) -> torch.Tensor:
-    """Apply a dense (or masked: ``w * mask``) linear layer."""
+    """Apply a (possibly pruned) linear layer; packed modes expect the packed
+    params the compiler layer produces (values/kept or values/block_rows)."""
     if mode in ("dense", "masked"):
         w = p["w"]
         if mode == "masked":
             w = w * p["mask"].to(w.dtype)
         y = x @ w
-        if "b" in p:
-            y = y + p["b"]
-        return _ACT[activation](y)
-    if mode in _PACKED_MODES:
-        raise NotImplementedError(f"linear mode {mode!r} comes with the PBCSR slice")
-    raise ValueError(f"unknown linear mode {mode!r}")
+    elif mode == "bsr":
+        return kops.bsr_matmul(
+            x, p["values"], p["block_rows"], p.get("b"),
+            activation=activation, bands=p.get("bands"),
+        )
+    elif mode == "bsr_xla":
+        # gather the x block-rows each output block-column needs, one einsum
+        # (pads clamp to block-row 0 against zero values, as in the JAX code)
+        values, rows = p["values"], p["block_rows"]  # [Nb,S,bm,bn], [Nb,S]
+        nb, _, bm, bn = values.shape
+        lead = x.shape[:-1]
+        xb = x.reshape(*lead, x.shape[-1] // bm, bm)
+        xg = xb[..., rows.clamp(min=0).long(), :]  # [..., Nb, S, bm]
+        y = torch.einsum("...jsb,jsbn->...jn", xg, values).reshape(*lead, nb * bn)
+    elif mode == "colpack":
+        return kops.col_matmul(x, p["values"], p["kept"], p.get("b"), activation=activation)
+    elif mode == "colpack_xla":
+        y = x.index_select(-1, p["kept"]) @ p["values"]
+    else:
+        raise ValueError(f"unknown linear mode {mode!r}")
+    if "b" in p:
+        y = y + p["b"]
+    return _ACT[activation](y)
+
+
+def linear_auto(p: Params, x: torch.Tensor, mode: str = "dense", activation=None):
+    """``linear`` with the mode picked from the params: packed layers carry
+    ``values`` (with ``block_rows``: ``bsr_xla``, else ``colpack_xla``), as
+    the JAX package's ``_linear_auto`` dispatches."""
+    if "values" in p:
+        mode = "bsr_xla" if "block_rows" in p else "colpack_xla"
+    return linear(p, x, mode=mode, activation=activation)
+
+
+def init_pruned_linear(
+    gen: torch.Generator,
+    d_in: int,
+    d_out: int,
+    *,
+    exec_mode: str,
+    sparsity: float,
+    bm: int = 128,
+    bn: int = 128,
+    bias: bool = False,
+    dtype=torch.bfloat16,
+) -> Params:
+    """Packed-parameter init for the sparse execution modes: shapes are what
+    the compiler emits; kept rows / block rows are the JAX package's
+    deterministic stripes (``kept = arange * (d_in // k_kept)``; block-column
+    j reads block-rows ``(j + i) % kb``)."""
+    scale = 1.0 / math.sqrt(d_in)
+    dev = gen.device
+    if exec_mode in ("colpack", "colpack_xla"):
+        k_kept = max(1, int(round(d_in * (1.0 - sparsity))))
+        p: Params = {
+            "values": _normal(gen, (k_kept, d_out), scale, dtype),
+            "kept": torch.arange(k_kept, dtype=torch.int32, device=dev) * (d_in // k_kept),
+        }
+    elif exec_mode in ("bsr", "bsr_xla"):
+        kb, nb = d_in // bm, d_out // bn
+        s = max(1, int(round(kb * (1.0 - sparsity))))
+        j = torch.arange(nb, dtype=torch.int32, device=dev)[:, None]
+        i = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+        p = {"values": _normal(gen, (nb, s, bm, bn), scale, dtype), "block_rows": (j + i) % kb}
+    else:
+        raise ValueError(exec_mode)
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
+    return p
 
 
 def init_rmsnorm(d: int, dtype=torch.bfloat16, device=None) -> Params:

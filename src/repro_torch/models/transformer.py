@@ -5,7 +5,11 @@ for attention blocks): ``block_kinds``, ``init_layer``, ``init_lm``,
 Every layer is a pre-norm GQA attention block and a pre-norm gated MLP.
 ``forward`` runs whole sequences with plain torch ops (no remat, no scan,
 no patch embeds); it is the reference the plan-compiled decoder is held to.
-The MoE, SSM and hybrid families come with a later slice.
+Under ``cfg.prune.enabled`` the layers carry the paper's recipe as packed
+params (block-pruned q/o for a ``bsr`` execution mode, column-pruned FFN),
+which ``forward`` runs in plain torch (``bsr_xla`` / ``colpack_xla``), as
+the JAX package does.  The MoE, SSM and hybrid families come with a later
+slice.
 
 ``init_lm`` draws every weight from one ``torch.Generator`` on that
 generator's device, in order (embedding, layers, lm_head): pass a CUDA
@@ -53,13 +57,13 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, i: int, dtype=torch.bfloat16) -> Params:
     _check_ported(cfg)
-    if cfg.prune.enabled:
-        raise NotImplementedError("pruned decoder layers come with the PBCSR slice")
+    # paper recipe: column-prune the FFN
+    prune = ("colpack_xla", cfg.prune.sparsity) if cfg.prune.enabled else None
     return {
         "norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
         "attn": attn_mod.init_gqa(gen, cfg, dtype),
         "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "ffn": ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, prune=prune),
     }
 
 

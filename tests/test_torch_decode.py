@@ -414,10 +414,16 @@ def test_mlp_matches_jax(lm, fused):
 
 
 def test_packed_modes_wait_for_the_pbcsr_slice(lm):
+    """The PBCSR slice has landed: the packed modes run (held against the
+    JAX package in ``tests/test_torch_decode_pruned.py``); an unknown mode
+    and the unported model families still raise."""
     from repro_torch.models.layers import linear
 
-    with pytest.raises(NotImplementedError, match="PBCSR"):
-        linear({"values": torch.zeros(2, 2)}, torch.zeros(1, 2), mode="bsr")
+    p = {"values": torch.ones(1, 1, 8, 8), "block_rows": torch.zeros(1, 1, dtype=torch.int32)}
+    for mode in ("bsr", "bsr_xla"):
+        assert torch.equal(linear(p, torch.ones(1, 8), mode=mode), torch.full((1, 8), 8.0))
+    with pytest.raises(ValueError, match="unknown linear mode"):
+        linear(p, torch.ones(1, 8), mode="sparse")
     with pytest.raises(NotImplementedError):
         init_lm(torch.Generator(), dataclasses.replace(lm["cfg"], family="moe",
                                                        moe=jsmoke_config("deepseek-v2-lite-16b").moe))
