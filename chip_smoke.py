@@ -11,7 +11,8 @@ Phases (each prints its own lines):
 3. kernels -- each CUDA kernel against its plain PyTorch version on the card,
               at the main path's shapes and ragged ones, the INT8 schemes of
               the conv kernel and both schemes of the quant matmul included:
-              max error; device ms per call (profiler kernel time) of the
+              max error; device ms per call (profiler kernel time, or CUDA
+              events where no profiler session saw device time) of the
               kernel, the plain version and the library call; the kernel's
               per-call time as the stream sees it (``call_ms``, host launch
               overhead included); and the least time the card could take
@@ -163,28 +164,45 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+#: profiler sessions tried before a timing gives up on the profiler: now and
+#: then a session returns no device events at all for kernels that ran (seen
+#: once for a 6 us kernel that other sessions of the same script timed)
+PROFILE_ATTEMPTS = 3
+
+
 def profiled_us(torch, fn, reps: int, warmup: int = 3) -> float:
     """Device time of ``reps`` calls of ``fn``: the time of every kernel they
     launch, from torch.profiler (host work between launches is not
-    counted)."""
+    counted).  A session that sees no device time is tried again, up to
+    ``PROFILE_ATTEMPTS`` sessions; 0 if none saw any."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
+    for _ in range(PROFILE_ATTEMPTS):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us
+    return 0.0
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``, averaged over ``reps`` calls."""
+    """Device time of one call of ``fn``, averaged over ``reps`` calls; where
+    no profiler session saw device time, its time on the stream between CUDA
+    events instead (said on a line of its own)."""
     us = profiled_us(torch, fn, reps)
-    check(us > 0, "the profiler saw no device time")
-    return us / reps / 1e3
+    if us > 0:
+        return us / reps / 1e3
+    ms = call_ms(torch, fn, reps)
+    print(f"  (the profiler saw no device time in {PROFILE_ATTEMPTS} sessions; "
+          f"timed with CUDA events: {ms:.4f} ms)")
+    return ms
 
 
 def library_ms(torch, fn, reps: int = 20):
@@ -917,20 +935,23 @@ def profile_serving(torch, app, serve, top_n=6):
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        serve()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by = {}
-    for e in prof.key_averages():
-        # device-side kernel events only: a host op's entry repeats the
-        # device time of the kernels it launched
-        us = e.self_device_time_total
-        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
-            continue
-        name = _family(e.key)
-        by[name] = by.get(name, 0.0) + us
-    busy = sum(by.values())
+    for _ in range(PROFILE_ATTEMPTS):  # a session may see no device events
+        with profile(activities=activities, acc_events=True) as prof:
+            t0 = time.perf_counter()
+            serve()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by = {}
+        for e in prof.key_averages():
+            # device-side kernel events only: a host op's entry repeats the
+            # device time of the kernels it launched
+            us = e.self_device_time_total
+            if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+                continue
+            name = _family(e.key)
+            by[name] = by.get(name, 0.0) + us
+        busy = sum(by.values())
+        if busy > 0:
+            break
     check(busy > 0, f"{app}: the profiler saw no device time")
     top = sorted(by.items(), key=lambda kv: -kv[1])[:top_n]
     parts = " ".join(f"{k}={v / 1e3:.3f}ms({v / busy:.0%})" for k, v in top)
