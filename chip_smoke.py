@@ -10,7 +10,10 @@ Phases (each prints its own lines):
               built) into ``build/repro_torch_kernels/``;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the card,
               at the main path's shapes and ragged ones, the INT8 schemes of
-              the conv kernel and both schemes of the quant matmul included:
+              the conv kernel and both schemes of the quant matmul included,
+              the pipelined (K-slab ring) GEMMs at depth 2 and 3 also
+              ``torch.equal`` to the tiled kernel, and every tile of each
+              kernel family once (``torch.equal`` to the default tile):
               max error; device ms per call (profiler kernel time, or CUDA
               events where no profiler session saw device time) of the
               kernel, the plain version and the library call; the kernel's
@@ -40,7 +43,18 @@ Phases (each prints its own lines):
               against the quant reference plan; prints the error against the
               f32 plan, the weight bytes before and after, ms/frame beside
               the f32 plan's, and a profile line;
-6. llm smoke -- the decoder's ``serve --llm`` path at qwen2.5-3b's smoke
+6. tune    -- the port's ``launch/tune`` for the three apps with
+              ``--quantize`` at the served shapes (every key ``|sm90``,
+              every ``matmul`` / ``qmatmul`` / ``conv2d`` key swept), then
+              each app's f32 and INT8 plans served on the loaded winners
+              (outputs ``torch.equal`` to the untuned plans', no cache
+              misses, tuned against untuned ms/frame), then with every
+              ``matmul`` / ``qmatmul`` entry replaced by a depth-2 and a
+              depth-3 tile: exact pipelined-kernel launches per plan call,
+              no tiled launch for those nodes, outputs equal again; the
+              cache is cleared and tuning turned off after it (every earlier
+              phase runs with tuning off and an empty cache);
+7. llm smoke -- the decoder's ``serve --llm`` path at qwen2.5-3b's smoke
               config in f32 (prefill / decode plans, ``submit_llm`` over a
               paged KV-cache; exact launches per plan call, zero failed
               sequences and leaked pages, exact greedy parity with the
@@ -49,10 +63,10 @@ Phases (each prints its own lines):
               balanced=False)`` (bands, unperm glue and a standalone rope
               on the card; exact parity against ``forward`` on the masked
               params);
-7. llm      -- qwen2.5-3b at full width in bf16, as phase 6 (greedy parity
+8. llm      -- qwen2.5-3b at full width in bf16, as phase 7 (greedy parity
               up to the first bf16 near-tie, teacher-forced within 8 bf16
               ulps);
-8. llm block-pruned -- phase 7's params pruned with the paper's attention
+9. llm block-pruned -- phase 8's params pruned with the paper's attention
               recipe ``Block(0.5, 64, 64)`` on q / o and served again:
               72 ``bsr_matmul`` and 108 bf16 ``dense_matmul`` launches per
               plan call, the packed q / o bytes at most half the dense
@@ -60,7 +74,8 @@ Phases (each prints its own lines):
               masked params.
 
 The line before the last is a JSON object with every kernel's numbers (the
-conv kernel once per scheme the main path launches); the last line is
+conv kernel once per scheme the main path launches; the pipelined kernels
+launch only in the tune phase's serving); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints no
@@ -149,6 +164,15 @@ KERNELS = {
     # sparse_linear(pbcsr) nodes)
     "bsr_matmul": (
         "src/repro_torch/kernels/csrc/bsr_matmul.cu", "src/repro/kernels/bsr_matmul.py:41",
+    ),
+    # the tuning path: matmul / qmatmul winners with pipeline depth >= 2
+    "dense_matmul_pipelined": (
+        "src/repro_torch/kernels/csrc/dense_matmul_pipelined.cu",
+        "src/repro/kernels/dense_matmul.py:121",
+    ),
+    "quant_matmul_pipelined": (
+        "src/repro_torch/kernels/csrc/quant_matmul_pipelined.cu",
+        "src/repro/kernels/quant_matmul.py:104",
     ),
 }
 
@@ -249,6 +273,8 @@ def main_path_launches(ops):
         "fused_elementwise": counts["fused_elementwise"], "quant_matmul": counts["quant_matmul"],
         "dense_matmul_bf16": by_dtype["bf16"], "flash_attention": counts["flash_attention"],
         "ffn_gateup": counts["ffn_gateup"], "bsr_matmul": counts["bsr_matmul"],
+        "dense_matmul_pipelined": counts["dense_matmul_pipelined"],
+        "quant_matmul_pipelined": counts["quant_matmul_pipelined"],
     }
 
 
@@ -285,10 +311,13 @@ def phase_kernels(torch):
     """Every kernel against its plain version at the main path's shapes."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import conv2d as kconv
     from repro_torch.kernels import dense_matmul as kdense
+    from repro_torch.kernels import dense_matmul_pipelined as kdense_pipe
     from repro_torch.kernels import fused_elementwise as kfused
     from repro_torch.kernels import quant_matmul as kquant
+    from repro_torch.kernels import quant_matmul_pipelined as kquant_pipe
     from repro_torch.kernels.ref import _ACT, xla_conv_pads
     from repro_torch.quant import QTensor, quantize_array
 
@@ -316,9 +345,23 @@ def phase_kernels(torch):
         results[name].append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
+    def tiles_line(name, label, call, ref, want, tol, tiles):
+        """Every tile of a kernel family once (``call(tile)``): torch.equal
+        to the default tile's output ``ref`` and within ``tol`` of the plain
+        version's ``want``; device ms of each."""
+        parts = []
+        for t in tiles:
+            out = call(t)
+            check(torch.equal(out, ref), f"{name} tile {t} {label}: differs from the default tile")
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= tol, f"{name} tile {t} {label}: max_err {err} > {tol}")
+            parts.append(f"{'x'.join(map(str, t))}={device_ms(torch, lambda t=t: call(t), 10):.4f}")
+        print(f"  {name:18s} every tile, {label}: {' '.join(parts)} ms "
+              f"(each torch.equal to the default tile)")
+
     # -- conv2d -------------------------------------------------------------- #
     def conv_case(label, n, c_in, hw, o, k, stride, c_live=None, act=None, add_side=False,
-                  scheme="f32"):
+                  scheme="f32", tiles=False):
         h, w_ = hw
         x = randn(n, c_in, h, w_)
         c = c_live or c_in
@@ -359,12 +402,16 @@ def phase_kernels(torch):
         nb = nbytes(xg, wt, kw.get("ws"), b, kept, *sides, out)
         flops = 2.0 * n * oh * ow * o * c * k * k
         name = "conv2d" if scheme == "f32" else f"conv2d_{scheme}"
+        rtol = 1e-5 if scheme == "w8a8" else 1e-4
         record(name, label, out, want, lambda: kconv.conv2d_gemm(x, wt, b, *sides, **kw),
                lambda: kconv.conv2d_plain(x, wt, b, *sides, **kw), library, nb, flops,
-               rtol=1e-5 if scheme == "w8a8" else 1e-4,
-               peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+               rtol=rtol, peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+        if tiles:
+            tiles_line(name, label, lambda t: kconv.conv2d_gemm(
+                x, wt, b, *sides, **kw, block_m=t[0], block_n=t[1], block_k=t[2]),
+                out, want, rtol * max(1.0, want.abs().max().item()), _build.CONV_TILES)
 
-    conv_case("7x7 s1 3->32 @256^2 n4", BATCH, 3, (SIZE, SIZE), BASE, 7, 1)
+    conv_case("7x7 s1 3->32 @256^2 n4", BATCH, 3, (SIZE, SIZE), BASE, 7, 1, tiles=True)
     conv_case("3x3 s2 16-of-32->64 @256^2 n4", BATCH, 32, (SIZE, SIZE), 64, 3, 2, c_live=16)
     conv_case("3x3 s1 96-of-192->32 +add @256^2 n4", BATCH, 192, (SIZE, SIZE), 32, 3, 1,
               c_live=96, add_side=True)
@@ -373,20 +420,40 @@ def phase_kernels(torch):
     conv_case("3x3 s2 24->40 relu @37x29 n2", 2, 24, (37, 29), 40, 3, 2, act="relu")
     # INT8 schemes: the first case of each is its headline (main-path shape)
     conv_case("w8 3x3 s1 96-of-192->32 +add @256^2 n4", BATCH, 192, (SIZE, SIZE), 32, 3, 1,
-              c_live=96, add_side=True, scheme="w8")
+              c_live=96, add_side=True, scheme="w8", tiles=True)
     conv_case("w8 3x3 s2 16-of-32->64 @256^2 n4", BATCH, 32, (SIZE, SIZE), 64, 3, 2,
               c_live=16, scheme="w8")
     conv_case("w8 3x3 s2 24->40 relu @37x29 n2", 2, 24, (37, 29), 40, 3, 2, act="relu",
               scheme="w8")
     conv_case("w8a8 3x3 s1 64-of-128->128 relu @64^2 n4", BATCH, 128, (64, 64), 128, 3, 1,
-              c_live=64, act="relu", scheme="w8a8")
+              c_live=64, act="relu", scheme="w8a8", tiles=True)
     conv_case("w8a8 3x3 s2 32-of-64->64 relu @128^2 n4", BATCH, 64, (128, 128), 64, 3, 2,
               c_live=32, act="relu", scheme="w8a8")
     conv_case("w8a8 3x3 s2 24->40 +add @37x29 n2", 2, 24, (37, 29), 40, 3, 2, add_side=True,
               scheme="w8a8")
 
+    def gemm_call(tiled, pipelined):
+        """``call(tile)`` for tiles_line: the tiled kernel at depth 1, the
+        pipelined one above it."""
+        def call(t, *args, **kw):
+            if t[3] == 1:
+                return tiled(*args, **kw, block_m=t[0], block_n=t[1], block_k=t[2])
+            return pipelined(*args, **kw, block_m=t[0], block_n=t[1], block_k=t[2], depth=t[3])
+        return call
+
+    def pipelined_cases(name, label, fn, plain, out, want, library, nb, flops, **rec):
+        """The pipelined kernel at depth 2 and 3 on the case's inputs (its
+        default tile): torch.equal to the tiled kernel's ``out``, and within
+        tolerance of the plain version as ``record`` checks."""
+        for depth in (2, 3):
+            got = fn(depth)
+            check(torch.equal(got, out), f"{name} depth {depth} {label}: differs from the "
+                                         f"tiled kernel")
+            record(name, f"d{depth} {label}", got, want, lambda d=depth: fn(d), plain, library,
+                   nb, flops, **rec)
+
     # -- dense_matmul -------------------------------------------------------- #
-    def dense_case(label, m, k, n, act=None, sides_epi=False):
+    def dense_case(label, m, k, n, act=None, sides_epi=False, pipelined=False, tiles=False):
         x = randn(m, k)
         wt = randn(k, n, scale=k ** -0.5)
         b = randn(n, scale=0.1)
@@ -400,17 +467,27 @@ def phase_kernels(torch):
             y = _ACT[act](torch.addmm(b, x, wt))
             return (y + sides[0]) * sides[1] if sides_epi else y
 
+        nb, flops = nbytes(x, wt, b, *sides, out), 2.0 * m * n * k
         record("dense_matmul", label, out, want,
                lambda: kdense.dense_matmul(x, wt, b, *sides, **kw),
-               lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw), library,
-               nbytes(x, wt, b, *sides, out), 2.0 * m * n * k)
+               lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw), library, nb, flops)
+        if pipelined:
+            pipelined_cases("dense_matmul_pipelined", label, lambda d: kdense_pipe.
+                            dense_matmul_pipelined(x, wt, b, *sides, **kw, depth=d),
+                            lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw),
+                            out, want, library, nb, flops)
+        if tiles:
+            call = gemm_call(kdense.dense_matmul, kdense_pipe.dense_matmul_pipelined)
+            tiles_line("dense_matmul", label, lambda t: call(t, x, wt, b, *sides, **kw), out,
+                       want, 1e-4 * max(1.0, want.abs().max().item()), _build.GEMM_TILES)
 
-    dense_case("M=4*256^2 K=32 N=192 relu", BATCH * SIZE * SIZE, BASE, 6 * BASE, act="relu")
+    dense_case("M=4*256^2 K=32 N=192 relu", BATCH * SIZE * SIZE, BASE, 6 * BASE, act="relu",
+               pipelined=True, tiles=True)
     dense_case("M=4 K=64 N=64", BATCH, 2 * BASE, 2 * BASE)
-    dense_case("M=1000 K=50 N=70 add+mul", 1000, 50, 70, sides_epi=True)
+    dense_case("M=1000 K=50 N=70 add+mul", 1000, 50, 70, sides_epi=True, pipelined=True)
 
     # -- quant_matmul -------------------------------------------------------- #
-    def quant_case(label, m, k, n, scheme, act=None, sides_epi=False):
+    def quant_case(label, m, k, n, scheme, act=None, sides_epi=False, tiles=False):
         x = randn(m, k)
         qt = QTensor.from_float(randn(k, n, scale=k ** -0.5), axis=1)
         wq, ws = qt.values, qt.scale
@@ -441,17 +518,26 @@ def phase_kernels(torch):
             def library():
                 return tail(torch.addmm(b, x, w_deq))
 
+        nb, flops = nbytes(x, wq, ws, b, *sides, out), 2.0 * m * n * k
+        rec = dict(rtol=1e-5 if scheme == "w8a8" else 1e-4,
+                   peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
         record("quant_matmul", label, out, want,
                lambda: kquant.quant_matmul(x, wq, ws, b, *sides, **kw),
-               lambda: kquant.quant_matmul_plain(x, wq, ws, b, *sides, **kw), library,
-               nbytes(x, wq, ws, b, *sides, out), 2.0 * m * n * k,
-               rtol=1e-5 if scheme == "w8a8" else 1e-4,
-               peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+               lambda: kquant.quant_matmul_plain(x, wq, ws, b, *sides, **kw), library, nb, flops,
+               **rec)
+        pipelined_cases("quant_matmul_pipelined", label, lambda d: kquant_pipe.
+                        quant_matmul_pipelined(x, wq, ws, b, *sides, **kw, depth=d),
+                        lambda: kquant.quant_matmul_plain(x, wq, ws, b, *sides, **kw),
+                        out, want, library, nb, flops, **rec)
+        if tiles:
+            call = gemm_call(kquant.quant_matmul, kquant_pipe.quant_matmul_pipelined)
+            tiles_line("quant_matmul", label, lambda t: call(t, x, wq, ws, b, *sides, **kw), out,
+                       want, rec["rtol"] * max(1.0, want.abs().max().item()), _build.GEMM_TILES)
 
     quant_case("w8 M=4*256^2 K=32 N=192 relu", BATCH * SIZE * SIZE, BASE, 6 * BASE, "w8",
-               act="relu")
+               act="relu", tiles=True)
     quant_case("w8a8 M=4*64^2 K=128 N=64 relu", BATCH * 64 * 64, 4 * BASE, 2 * BASE, "w8a8",
-               act="relu")
+               act="relu", tiles=True)
     quant_case("w8a8 M=4 K=64 N=64 relu", BATCH, 2 * BASE, 2 * BASE, "w8a8", act="relu")
     quant_case("w8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8", sides_epi=True)
     quant_case("w8a8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8a8", sides_epi=True)
@@ -504,7 +590,9 @@ def phase_llm_kernels(torch, results):
     the bf16 dense matmul of the q / k / v / o / down projections."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import dense_matmul as kdense
+    from repro_torch.kernels import dense_matmul_pipelined as kdense_pipe
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import fused_ffn as kffn
     from repro_torch.kernels.ref import _ACT, bf16_ulp
@@ -605,7 +693,7 @@ def phase_llm_kernels(torch, results):
     ffn_case("M=20 K=130 F=77 bf16 silu (ragged)", 20, 130, 77, bf16)
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
-    def dense_bf16_case(label, m, k, n, bias=True, add=False):
+    def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False):
         x = randn(m, k, dtype=bf16)
         wt = randn(k, n, scale=k ** -0.5, dtype=bf16)
         b = randn(n, scale=0.1, dtype=bf16) if bias else None
@@ -618,17 +706,45 @@ def phase_llm_kernels(torch, results):
             y = torch.addmm(b, x, wt) if bias else torch.matmul(x, wt)
             return y + sides[0] if add else y
 
+        nb, flops = nbytes(x, wt, b, *sides, out), 2.0 * m * n * k
+        plain = lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw)  # noqa: E731
         record("dense_matmul_bf16", label, out, want,
-               lambda: kdense.dense_matmul(x, wt, b, *sides, **kw),
-               lambda: kdense.dense_matmul_plain(x, wt, b, *sides, **kw), library,
-               nbytes(x, wt, b, *sides, out), 2.0 * m * n * k, PEAK_BF16_FLOPS)
+               lambda: kdense.dense_matmul(x, wt, b, *sides, **kw), plain, library, nb, flops,
+               PEAK_BF16_FLOPS)
+        if not pipelined:
+            return
+        # the ring kernel at depth 2 and 3 (bit-equal to the tiled kernel),
+        # then every GEMM tile once (bit-equal to the default tile)
+        for depth in (2, 3):
+            fn = lambda d=depth: kdense_pipe.dense_matmul_pipelined(  # noqa: E731
+                x, wt, b, *sides, **kw, depth=d)
+            got = fn()
+            check(torch.equal(got, out), f"dense_matmul_pipelined bf16 d{depth} {label}: "
+                                         f"differs from the tiled kernel")
+            record("dense_matmul_pipelined", f"d{depth} bf16 {label}", got, want, fn, plain,
+                   library, nb, flops, PEAK_BF16_FLOPS)
+        parts = []
+        for t in _build.GEMM_TILES:
+            def call(t=t):
+                if t[3] == 1:
+                    return kdense.dense_matmul(x, wt, b, *sides, **kw, block_m=t[0],
+                                               block_n=t[1], block_k=t[2])
+                return kdense_pipe.dense_matmul_pipelined(
+                    x, wt, b, *sides, **kw, block_m=t[0], block_n=t[1], block_k=t[2], depth=t[3])
+            check(torch.equal(call(), out), f"dense_matmul bf16 tile {t} {label}: differs from "
+                                            f"the default tile")
+            parts.append(f"{'x'.join(map(str, t))}={device_ms(torch, call, 10):.4f}")
+        print(f"  {'dense_matmul_bf16':18s} every tile, {label}: {' '.join(parts)} ms "
+              f"(each torch.equal to the default tile)")
 
     dense_bf16_case("q decode M=3 2048->2048 +bias", 3, 2048, 2048)
     dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256)
     dense_bf16_case("o decode M=3 2048->2048 +add", 3, 2048, 2048, bias=False, add=True)
     dense_bf16_case("down decode M=3 11008->2048 +add", 3, 11008, 2048, bias=False, add=True)
-    dense_bf16_case("q prefill M=48 2048->2048 +bias", 48, 2048, 2048)
+    dense_bf16_case("q prefill M=48 2048->2048 +bias", 48, 2048, 2048, pipelined=True)
     dense_bf16_case("M=5 K=70 N=50 +add (ragged)", 5, 70, 50, add=True)
+    # odd K and N: bf16 rows not 4-byte aligned, staged by element loads
+    dense_bf16_case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, add=True, pipelined=True)
     phase_bsr_kernels(torch, record)
     torch.cuda.synchronize()
     return results
@@ -815,7 +931,8 @@ def phase_apps(torch, np):
               f"peak_alloc={run['peak'] / 1e6:.1f}MB est_peak_act@batch{BATCH}="
               f"{mem['peak_activation_bytes'] / 1e6:.1f}MB")
         profile_serving(torch, app, run["serve"])
-        apps[app] = dict(go=go, frames=frames, ref_plan=ref_plan, ms_per_frame=sec / FRAMES * 1e3)
+        apps[app] = dict(go=go, frames=frames, ref_plan=ref_plan, ms_per_frame=sec / FRAMES * 1e3,
+                         plan=plan, out=out)
     return launches, apps
 
 
@@ -908,6 +1025,134 @@ def phase_int8(torch, np, apps):
               f"(f32 plan {apps[app]['ms_per_frame']:.3f} ms/frame) "
               f"peak_alloc={run['peak'] / 1e6:.1f}MB")
         profile_serving(torch, app + " int8", run["serve"])
+        apps[app].update(gq=gq, int8_plan=plan, int8_out=out, int8_ms=sec / FRAMES * 1e3)
+    return launches
+
+
+def phase_tune(torch, apps):
+    """The tuning path on the card: ``launch/tune`` for the three apps with
+    ``--quantize`` at the served shapes, then each app's f32 and INT8 plans
+    (built by the apps and int8 phases from the same seed, so they resolve
+    the same keys) served on the loaded winners and on depth-pinned
+    entries.  Every serving's outputs must be ``torch.equal`` to the untuned
+    plan's: every tile and depth sums each output in the same order."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import tune
+
+    cache = ops.tuning_cache()
+    out_dir = ROOT / "build" / "tune"
+    path = out_dir / "tuning_cache.json"
+    argv = ["--graph-app", "all", "--quantize", "--size", str(SIZE), "--base", str(BASE),
+            "--batch", str(BATCH), "--seed", str(SEED), "--device", "cuda", "--out", str(path)]
+    # the CLI as a fresh process runs it: from an empty cache (the earlier
+    # phases recorded their keys' defaults)
+    cache.clear()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tune.main(argv)
+    dt = time.perf_counter() - t0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "report.txt").write_text(buf.getvalue())
+    print(f"  python -m repro_torch.launch.tune {' '.join(argv)}: {dt:.1f}s "
+          f"(report in {(out_dir / 'report.txt').relative_to(ROOT)})")
+    print("  " + buf.getvalue().strip().splitlines()[-1])
+    def default_tile(key):
+        """The tile the wrapper would run for ``key`` untuned."""
+        op, dims, _, fmt, _ = key.split("|")
+        d = [int(v) for v in dims.split("x")]
+        if op in ("matmul", "qmatmul"):
+            return _build.gemm_default_tile(d[1])
+        if op == "conv2d":  # fmt is {format}+{scheme}[+...]
+            return _build.conv_default_tile(fmt.split("+")[1], d[4])
+        return ops.TuningCache.CANDIDATES[op][0]
+
+    fams = {}
+    for key, e in cache.entries.items():
+        op = key.split("|")[0]
+        check(key.endswith("|sm90"), f"tune: key {key} is not an sm90 key")
+        if op in ("matmul", "qmatmul", "conv2d"):
+            check(e.source == "swept", f"tune: {key} was not swept ({e.source})")
+        f = fams.setdefault(op, {"keys": 0, "depth>=2": 0, "not default": 0, "winners": {}})
+        f["keys"] += 1
+        tile = "x".join(map(str, e.blocks))
+        f["winners"][tile] = f["winners"].get(tile, 0) + 1
+        f["not default"] += tuple(e.blocks) != default_tile(key)
+        if op in ("matmul", "qmatmul") and e.blocks[3] >= 2:
+            f["depth>=2"] += 1
+    for op, f in sorted(fams.items()):
+        st = cache.stats.get(op, {})
+        print(f"  tune {op}: {f['keys']} keys, {st.get('sweeps', 0)} sweeps, "
+              f"{f['not default']} winners other than the default tile, {f['depth>=2']} "
+              f"pipelined; winners by tile {f['winners']}")
+    for op in ("matmul", "qmatmul", "conv2d"):
+        check(fams.get(op, {}).get("keys", 0) > 0, f"tune: no {op} key")
+
+    launches = {name: 0 for name in KERNELS}
+
+    def serve_all(label, per_call_fn):
+        """Serve every app's f32 and INT8 plans on the cache as it stands;
+        outputs equal to the untuned plans', exact launches per call."""
+        for app, (_, n_conv, n_dense, n_fused) in EXPECTED.items():
+            a = apps[app]
+            _, conv_by_scheme, n_quant, n_dense_q, n_fused_q = EXPECTED_INT8[app]
+            variants = (
+                ("f32", a["plan"], a["go"].params, a["out"], a["ms_per_frame"],
+                 dict(conv2d=n_conv, dense=n_dense, quant=0, fused_elementwise=n_fused)),
+                ("int8", a["int8_plan"], a["gq"].params, a["int8_out"], a["int8_ms"],
+                 dict(conv2d=sum(conv_by_scheme.values()), dense=n_dense_q, quant=n_quant,
+                      fused_elementwise=n_fused_q)),
+            )
+            for variant, plan, params, untuned, untuned_ms, n in variants:
+                cache.stats.clear()
+                run = serve_measured(torch, ops, plan, params, a["frames"], app)
+                for fam in ("matmul", "qmatmul", "conv2d"):
+                    misses = cache.stats.get(fam, {}).get("misses", 0)
+                    check(misses == 0, f"{label} {app} {variant}: {misses} {fam} cache misses")
+                check(torch.equal(run["out"], untuned),
+                      f"{label} {app} {variant}: output differs from the untuned plan's")
+                check_per_call(f"{label} {app} {variant}", run["counts"], run["calls"],
+                               per_call_fn(n))
+                for kind in ("dense", "quant"):  # each GEMM node: tiled or pipelined
+                    c = run["counts"]
+                    got = c[f"{kind}_matmul"] + c[f"{kind}_matmul_pipelined"]
+                    check(got == n[kind] * run["calls"],
+                          f"{label} {app} {variant}: {got} {kind} GEMM launches over "
+                          f"{run['calls']} plan calls, want {n[kind]} per call")
+                for name, k in run["launches"].items():
+                    launches[name] += k
+                counts = {k: v // run["calls"] for k, v in run["counts"].items() if v}
+                ms = run["sec"] / FRAMES * 1e3
+                print(f"  {label:9s} {app:16s} {variant:4s} ms/frame={ms:.3f} "
+                      f"(untuned {untuned_ms:.3f}) per-call launches {counts} "
+                      f"output torch.equal to the untuned plan's; cache misses 0")
+
+    # 2. the loaded winners: the GEMM nodes run the tiled or the pipelined
+    # kernel, whichever won
+    cache.clear()
+    cache.enabled = False
+    cache.ops_filter = None
+    cache.load(str(path))
+    serve_all("tuned", lambda n: {
+        "conv2d": n["conv2d"], "fused_elementwise": n["fused_elementwise"]})
+    # 3. every matmul / qmatmul entry replaced by a depth-2, then a depth-3
+    # tile: each GEMM node launches the pipelined kernel, none the tiled one
+    for depth in (2, 3):
+        cache.clear()
+        cache.load(str(path))
+        for key, e in cache.entries.items():
+            if key.split("|")[0] in ("matmul", "qmatmul"):
+                e.blocks = (64, 64, 16, depth)
+        serve_all(f"depth {depth}", lambda n: {
+            "conv2d": n["conv2d"], "fused_elementwise": n["fused_elementwise"],
+            "dense_matmul": 0, "dense_matmul_pipelined": n["dense"],
+            "quant_matmul": 0, "quant_matmul_pipelined": n["quant"]})
+    # 4. back to no tuning and an empty cache
+    cache.clear()
+    cache.enabled = False
     return launches
 
 
@@ -916,7 +1161,8 @@ _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
         "quant_matmul_kernel": "quant_matmul", "flash_attention_kernel": "flash_attention",
         "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
-        "bsr_matmul_kernel": "bsr_matmul", "Memcpy": "memcpy"}
+        "bsr_matmul_kernel": "bsr_matmul", "pipelined_gemm_kernel": "gemm_pipelined",
+        "Memcpy": "memcpy"}
 #: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
 
@@ -1157,6 +1403,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every phase before the tune phase runs untuned, whatever REPRO_TUNE /
+    # REPRO_TUNE_CACHE say: tuning off, an empty cache
+    from repro_torch.kernels import ops
+
+    cache = ops.tuning_cache()
+    cache.clear()
+    cache.enabled = False
+    cache.path = None
+    cache.ops_filter = None
 
     print("== device")
     phase_device(torch)
@@ -1171,6 +1426,10 @@ def main() -> int:
     int8_launches = phase_int8(torch, np, apps)
     for name, n in int8_launches.items():
         launches[name] += n
+    print(f"== tune (base {BASE}, {SIZE}x{SIZE}, batch {BATCH})")
+    for name, n in phase_tune(torch, apps).items():
+        launches[name] += n
+    del apps
     from repro_torch.core.pruning import Block
 
     print("== llm smoke (f32)")

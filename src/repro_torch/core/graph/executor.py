@@ -278,11 +278,13 @@ def _conv_out_shape(p, xs, a, wkey="w"):
 
 
 def _conv_call_kwargs(p, a):
-    """Shared kwarg plumbing for the conv kernel handlers."""
+    """Shared kwarg plumbing for the conv kernel handlers (``_format`` keys
+    the tuning cache, as in the JAX package)."""
     return dict(
         stride=a.get("stride", 1), padding=a.get("padding", "SAME"),
         groups=a.get("groups", 1), dilation=a.get("dilation", 1),
         kept=p.get("kept"), activation=a.get("activation"),
+        _format=a.get("format", "dense"),
     )
 
 
@@ -340,7 +342,8 @@ def _qlinear_quant(p, xs, a, rt):
     epi = a.get("epilogue") or ()
     out_shape = (*xs[0].shape[:-1], p["values"].shape[1])
     steps, sides = _kernel_epilogue(epi, xs, out_shape)
-    kw = dict(x_scale=a.get("x_scale"), activation=a.get("activation"))
+    kw = dict(x_scale=a.get("x_scale"), activation=a.get("activation"),
+              _format=a.get("format", "dense"))
     if steps is not None:
         kw.update(epilogue=steps, epilogue_sides=sides)
     y = kops.qmatmul(x, p["values"], p["w_scale"], p.get("b"), **kw)

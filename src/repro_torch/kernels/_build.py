@@ -45,6 +45,13 @@ __all__ = [
     "stream_handle",
     "FLOAT_CODES",
     "skinny_plan",
+    "GEMM_TILES",
+    "CONV_TILES",
+    "TileError",
+    "gemm_default_tile",
+    "conv_default_tile",
+    "check_gemm_tile",
+    "check_conv_tile",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -68,6 +75,69 @@ FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: block, most K rows a block stages, and the blocks to aim for (two per SM
 #: of an H100's 132)
 SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS = 8, 1024, 264
+
+#: the tiles the GEMM kernels are built for, ``(block_m, block_n, block_k,
+#: pipeline_depth)``: depth 1 is the tiled kernel (``csrc/dense_matmul.cu``,
+#: ``csrc/quant_matmul.cu``), depth >= 2 the K-slab ring
+#: (``csrc/*_pipelined.cu``); each for every element type (f32, bf16) and
+#: scheme (W8, W8A8).  ``csrc/tiles.cuh`` lists the same tiles.
+GEMM_TILES = (
+    (128, 32, 16, 1), (64, 64, 16, 1), (128, 64, 16, 1), (64, 64, 32, 1),
+    (128, 32, 16, 2), (64, 64, 16, 2), (128, 32, 16, 3), (64, 64, 16, 3),
+)
+#: the conv kernel's tiles, ``(BM, BN, BK)``: output pixels x output
+#: channels x K slab, each for every scheme (``csrc/tiles.cuh``)
+CONV_TILES = (
+    (256, 4, 16), (256, 16, 16), (128, 32, 16), (64, 64, 16), (256, 32, 16), (128, 64, 16),
+)
+
+
+class TileError(ValueError):
+    """A tile the kernels are not built for (from a pin or a cache entry)."""
+
+
+def gemm_default_tile(n: int) -> Tuple[int, int, int, int]:
+    """The GEMM kernels' tile when neither a pin nor the tuning cache names
+    one: by the output width, as the kernels chose before the cache."""
+    return (128, 32, 16, 1) if n <= 32 else (64, 64, 16, 1)
+
+
+def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
+    """The conv kernel's default tile: by the output-channel count, over four
+    tiles for f32 and two for the INT8 schemes, as before the cache."""
+    if scheme == "f32" and o <= 4:
+        return (256, 4, 16)
+    if scheme == "f32" and o <= 16:
+        return (256, 16, 16)
+    return (128, 32, 16) if o <= 32 else (64, 64, 16)
+
+
+_GEMM_TILE_SET = frozenset(GEMM_TILES)
+_CONV_TILE_SET = frozenset(CONV_TILES)
+
+
+def _check_tile(tile, tiles, built, kernels, what):
+    if type(tile) is tuple and tile in built:  # the per-call path: no copy
+        return tile
+    t = tuple(int(v) for v in tile)
+    if t not in built:
+        what = what() if callable(what) else what
+        raise TileError(f"{what}: tile {t} is not instantiated ({kernels} have {list(tiles)})")
+    return t
+
+
+def check_gemm_tile(tile: Sequence[int], what="GEMM") -> Tuple[int, int, int, int]:
+    """``tile`` as a tuple if the GEMM kernels are built for it, else raise
+    :class:`TileError` naming ``what`` (a tuning key or the wrapper; a
+    callable is called only to build the message)."""
+    return _check_tile(tile, GEMM_TILES, _GEMM_TILE_SET, "the GEMM kernels", what)
+
+
+def check_conv_tile(tile: Sequence[int], what="conv2d") -> Tuple[int, int, int]:
+    """``tile`` as a tuple if the conv kernel is built for it, else raise
+    :class:`TileError` (``what`` as for :func:`check_gemm_tile`)."""
+    return _check_tile(tile, CONV_TILES, _CONV_TILE_SET, "the conv kernel", what)
+
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -141,16 +211,20 @@ def build() -> Path:
 
 def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll.repro_dense_matmul.argtypes = [P, P, P, P, I, I, I, I, I, P, I, P, I, P, P, I, I, P]
+    cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 5 + [P]
     cdll.repro_dense_matmul.restype = I
+    cdll.repro_dense_matmul_pipelined.argtypes = [P] * 4 + [I] * 5 + [P, I, P] + [I] * 5 + [P]
+    cdll.repro_dense_matmul_pipelined.restype = I
     cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P, I, I, P]
     cdll.repro_ffn_gateup.restype = I
     cdll.repro_flash_attention.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P, P]
     cdll.repro_flash_attention.restype = I
-    cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P, P]
+    cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P] + [I] * 3 + [P]
     cdll.repro_conv2d.restype = I
-    cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P, P]
+    cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 3 + [P]
     cdll.repro_quant_matmul.restype = I
+    cdll.repro_quant_matmul_pipelined.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 4 + [P]
+    cdll.repro_quant_matmul_pipelined.restype = I
     cdll.repro_fused_elementwise.argtypes = [P, P, L, I, I, P, P, I, P, I, P, P]
     cdll.repro_fused_elementwise.restype = I
     cdll.repro_fused_elementwise_max_d.argtypes = []

@@ -23,9 +23,11 @@ builds each im2col slab in shared memory only, and writes NCHW.
 What bounds it on an H100: the demo apps' 3x3 / 7x7 layers contract
 K = 147..1728 per output element, so multiply-add throughput on the CUDA
 cores bounds them (true f32, no TF32: the plan tolerances assume it; exact
-int32 for W8A8); the tile shape follows the output-channel count so narrow
-heads waste little of a tile.  The INT8 schemes stage int8 filters (and,
-for W8A8, int8 patches) at a quarter of the f32 bytes.
+int32 for W8A8); the tile is one of ``_build.CONV_TILES`` (``ops.conv2d``
+resolves it through the tuning cache), by default chosen by the
+output-channel count so narrow heads waste little of a tile.  The INT8
+schemes stage int8 filters (and, for W8A8, int8 patches) at a quarter of
+the f32 bytes.
 
 The plain version accumulates the INT8 schemes in float64 -- exact for
 W8A8, whose integer sums pass 2^24 (127^2 x 1728 = 2.8e7) where a float32
@@ -151,11 +153,17 @@ def conv2d_gemm(
     padding="SAME",
     activation: Optional[str] = None,
     epilogue: Tuple[Tuple, ...] = (),
+    block_m: Optional[int] = None,
+    block_n: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """``epilogue(act(conv(x[:, kept], w) * ws + bias))``; see the module
     doc.  Takes what the kernel takes: ungrouped, undilated, non-negative
     padding, at least one output pixel (``ops.conv2d`` routes the rest to
-    the plain version)."""
+    the plain version).  The tile ``(block_m, block_n, block_k)`` -- output
+    pixels x output channels x K slab -- must be one of
+    ``_build.CONV_TILES`` (else ``_build.TileError``); sizes left as
+    ``None`` come from the default tile for the scheme and ``O``."""
     global launches
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv2d_gemm: x{tuple(x.shape)} / w{tuple(w.shape)} must be 4-D")
@@ -189,6 +197,8 @@ def conv2d_gemm(
         raise ValueError(f"unknown activation {activation!r}")
     epilogue = tuple(tuple(s) for s in epilogue)
     validate_epilogue(epilogue, len(sides))
+    dm, dn, dk = _build.conv_default_tile(scheme, o)
+    tile = _build.check_conv_tile((block_m or dm, block_n or dn, block_k or dk), "conv2d_gemm")
     named = {f"side{i}": s for i, s in enumerate(sides)}
     int8 = {"w8": ("w",), "w8a8": ("x", "w")}.get(scheme, ())
     dev = _build.kernel_device(
@@ -209,7 +219,7 @@ def conv2d_gemm(
         None if kept is None else kept.data_ptr(), out.data_ptr(),
         nb, c_in, h, wd, c, o, kh, kw, stride, pt, pl, oh, ow,
         _build.activation_code(activation), _build.SCHEME_CODES[scheme],
-        prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
+        prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs), *tile,
         _build.stream_handle(),
     )
     _build.check(err, "conv2d_gemm")

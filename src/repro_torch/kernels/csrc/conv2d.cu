@@ -32,17 +32,19 @@
 //
 // What bounds it here: the demo apps' 3x3 / 7x7 layers carry K = 147..1728
 // per output, so multiply-add throughput on the CUDA cores (f32 FMA, or
-// integer multiply-add for W8A8) bounds them, not memory; the f32 tile
-// shape is picked per layer by its output-channel count so narrow heads
-// (O = 2..12) do not waste most of a 64-wide tile.  The INT8 schemes take
-// two tile shapes (O <= 32, wider) to keep the build short: the apps'
-// quantized convs are 32..128 channels wide.  Tensor cores (wgmma in TF32
-// or lower, s8 for W8A8) are later work.
+// integer multiply-add for W8A8) bounds them, not memory.  Every scheme is
+// built for the six tiles of tiles.cuh and the wrapper picks one: the
+// tuning cache's winner, a pin, or the default -- for f32 by output-channel
+// count, so narrow heads (O = 2..12) do not waste most of a 64-wide tile;
+// for the INT8 schemes the O <= 32 / wider pair, the apps' quantized convs
+// being 32..128 channels wide.  Tensor cores (wgmma in TF32 or lower, s8
+// for W8A8) are later work.
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
 #include "scheme.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -191,43 +193,36 @@ void launch(const void* x, const void* w, const float* ws, const float* bias, co
       ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act, prog);
 }
 
+// The tile (bm, bn, bk) must be one of tiles.cuh's REPRO_CONV_TILES (the
+// wrapper picks it: the tuning cache's winner, a pin, or the default by
+// scheme and output-channel count); returns false for any other.
 template <int S>
-void dispatch(const void* x, const void* w, const float* ws, const float* bias, const int* kept,
+bool dispatch(const void* x, const void* w, const float* ws, const float* bias, const int* kept,
               float* out, int Nb, int C_in, int H, int W, int C, int O, int kh, int kw,
               int stride, int pad_t, int pad_l, int OH, int OW, int act, const StepProgram& p,
-              cudaStream_t st) {
-#define REPRO_CONV_LAUNCH(BM, BN, BK, TM, TN)                                               \
-  launch<S, BM, BN, BK, TM, TN>(x, w, ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw,   \
-                                stride, pad_t, pad_l, OH, OW, act, p, st)
-  if constexpr (S == SCHEME_F32) {
-    if (O <= 4) {
-      REPRO_CONV_LAUNCH(256, 4, 16, 4, 1);
-    } else if (O <= 16) {
-      REPRO_CONV_LAUNCH(256, 16, 16, 4, 4);
-    } else if (O <= 32) {
-      REPRO_CONV_LAUNCH(128, 32, 16, 4, 4);
-    } else {
-      REPRO_CONV_LAUNCH(64, 64, 16, 4, 4);
-    }
-  } else {
-    if (O <= 32) {
-      REPRO_CONV_LAUNCH(128, 32, 16, 4, 4);
-    } else {
-      REPRO_CONV_LAUNCH(64, 64, 16, 4, 4);
-    }
+              int bm, int bn, int bk, cudaStream_t st) {
+#define REPRO_TRY_TILE(BM, BN, BK, TM, TN)                                                  \
+  if (bm == BM && bn == BN && bk == BK) {                                                   \
+    launch<S, BM, BN, BK, TM, TN>(x, w, ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, \
+                                  stride, pad_t, pad_l, OH, OW, act, p, st);                \
+    return true;                                                                            \
   }
-#undef REPRO_CONV_LAUNCH
+  REPRO_CONV_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return false;
 }
 
 }  // namespace
 
 // scheme: SCHEME_F32 (x, w f32; ws null), SCHEME_W8 (x f32, w int8) or
-// SCHEME_W8A8 (x, w int8); the INT8 schemes need ws.
+// SCHEME_W8A8 (x, w int8); the INT8 schemes need ws.  The tile (bm, bn,
+// bk) must be one of tiles.cuh's (else cudaErrorInvalidValue).
 extern "C" int repro_conv2d(const void* x, const void* w, const void* ws, const void* bias,
                             const void* kept, void* out, int Nb, int C_in, int H, int W, int C,
                             int O, int kh, int kw, int stride, int pad_t, int pad_l, int OH,
                             int OW, int act, int scheme, int n_steps, const int* prog,
-                            int n_sides, const void* const* sides, void* stream) {
+                            int n_sides, const void* const* sides, int bm, int bn, int bk,
+                            void* stream) {
   StepProgram p;
   if (Nb < 0 || C_in < 0 || C < 0 || O < 0 || kh < 1 || kw < 1 || stride < 1 || OH < 0 ||
       OW < 0 || scheme < SCHEME_F32 || scheme > SCHEME_W8A8 ||
@@ -244,15 +239,17 @@ extern "C" int repro_conv2d(const void* x, const void* w, const void* ws, const 
   const int* kp = static_cast<const int*>(kept);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool known;
   if (scheme == SCHEME_W8A8) {
-    dispatch<SCHEME_W8A8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t,
-                          pad_l, OH, OW, act, p, st);
+    known = dispatch<SCHEME_W8A8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride,
+                                  pad_t, pad_l, OH, OW, act, p, bm, bn, bk, st);
   } else if (scheme == SCHEME_W8) {
-    dispatch<SCHEME_W8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t,
-                        pad_l, OH, OW, act, p, st);
+    known = dispatch<SCHEME_W8>(x, w, wsf, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride,
+                                pad_t, pad_l, OH, OW, act, p, bm, bn, bk, st);
   } else {
-    dispatch<SCHEME_F32>(x, w, nullptr, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride,
-                         pad_t, pad_l, OH, OW, act, p, st);
+    known = dispatch<SCHEME_F32>(x, w, nullptr, bf, kp, of, Nb, C_in, H, W, C, O, kh, kw, stride,
+                                 pad_t, pad_l, OH, OW, act, p, bm, bn, bk, st);
   }
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -13,13 +13,16 @@
 // Layout: x [M, K], w [K, N], out [M, N], row-major; side operands of the
 // epilogue are [M, N] like the output.  Two kernels:
 //
-// * tiled (every f32 call; bf16 with M > 8): each thread block owns a
-//   BM x BN output tile and walks K in BK slabs staged in shared memory;
+// * tiled (every f32 call; bf16 with M > 8 or a tile named): each thread
+//   block owns a BM x BN output tile (one of tiles.cuh's, chosen by the
+//   wrapper) and walks K in BK slabs staged in shared memory;
 //   each thread accumulates a TM x TN micro-tile in registers with FMA on
 //   the CUDA cores (true f32, no TF32).  Ragged M / N / K edges are masked
 //   (zero-filled loads, guarded stores), so the wrapper pads nothing.
-// * skinny split-K (bf16 with M <= 8: the decoder's q/k/v/o/down
-//   projections at decode, csrc/skinny_gemm.cuh).
+// * skinny split-K (bf16 with M <= 8 and no tile named: the decoder's
+//   q/k/v/o/down projections at decode, csrc/skinny_gemm.cuh).
+// The pipelined variant (K slabs through a cp.async ring, tuning winners
+// with depth >= 2) is dense_matmul_pipelined.cu.
 //
 // What bounds it here: on the CNN path (1x1 convs, M = N*H*W pixels, K and
 // N in 32..192) the arithmetic intensity is a few FLOP/byte, so device
@@ -28,12 +31,13 @@
 // element per row): the skinny kernel spreads them over every SM.  The
 // design keeps the whole epilogue (bias, activation, residual add/mul) on
 // the accumulator before the single store, so no intermediate makes a
-// second trip through memory.  No wgmma, TMA or multistage pipeline yet.
+// second trip through memory.  No wgmma or TMA yet.
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
 #include "skinny_gemm.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -115,18 +119,25 @@ void launch(const T* x, const T* w, const T* bias, T* out, int M, int N, int K, 
       <<<grid, block, 0, stream>>>(x, w, bias, out, M, N, K, act, prog);
 }
 
+// The tile (bm, bn, bk) must be one of tiles.cuh's REPRO_GEMM_TILED_TILES
+// (the wrapper picks it: the tuning cache's winner, a pin, or the
+// shape-based default); returns false for any other.
 template <typename T>
-void launch_tiled(const void* x, const void* w, const void* bias, void* out, int M, int N,
-                  int K, int act, const StepProgram& p, cudaStream_t st) {
+bool launch_tiled(const void* x, const void* w, const void* bias, void* out, int M, int N,
+                  int K, int act, const StepProgram& p, int bm, int bn, int bk,
+                  cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* bt = static_cast<const T*>(bias);
   T* ot = static_cast<T*>(out);
-  if (N <= 32) {
-    launch<T, 128, 32, 16, 4, 4>(xt, wt, bt, ot, M, N, K, act, p, st);
-  } else {
-    launch<T, 64, 64, 16, 4, 4>(xt, wt, bt, ot, M, N, K, act, p, st);
+#define REPRO_TRY_TILE(BM, BN, BK)                                  \
+  if (bm == BM && bn == BN && bk == BK) {                           \
+    launch<T, BM, BN, BK, 4, 4>(xt, wt, bt, ot, M, N, K, act, p, st); \
+    return true;                                                    \
   }
+  REPRO_GEMM_TILED_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return false;
 }
 
 // The skinny kernel's epilogue: bias, activation, step program, one store.
@@ -156,11 +167,13 @@ extern "C" const char* repro_error_string(int err) {
 // dtype: 0 = f32, 1 = bf16.  kchunk > 0 selects the skinny split-K kernel
 // (bf16, M <= 8) with vec columns per lane (8 or 1) and, when K spans more
 // than one chunk, the f32 workspace ws [ceil(K / kchunk), M, N] and zeroed
-// tile counters; kchunk == 0 selects the tiled kernel.
+// tile counters; kchunk == 0 selects the tiled kernel with the tile
+// (bm, bn, bk), which must be one of tiles.cuh's (else cudaErrorInvalidValue).
 extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias, void* out,
                                   int M, int N, int K, int act, int n_steps, const int* prog,
                                   int n_sides, const void* const* sides, int dtype, void* ws,
-                                  void* counters, int kchunk, int vec, void* stream) {
+                                  void* counters, int kchunk, int vec, int bm, int bn, int bk,
+                                  void* stream) {
   StepProgram p;
   if (M < 0 || N < 0 || K < 0 || dtype < 0 || dtype > 1 ||
       !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
@@ -186,10 +199,9 @@ extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias
     if (vec != 1) return (int)cudaErrorInvalidValue;
     return launch_skinny<B, 1, 1>(xb, wb, nullptr, M, N, K, kchunk, wsf, cnt, epi, st);
   }
-  if (dtype == 0) {
-    launch_tiled<float>(x, w, bias, out, M, N, K, act, p, st);
-  } else {
-    launch_tiled<__nv_bfloat16>(x, w, bias, out, M, N, K, act, p, st);
-  }
+  const bool known =
+      dtype == 0 ? launch_tiled<float>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, st)
+                 : launch_tiled<__nv_bfloat16>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, st);
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -17,22 +17,24 @@
 // converted to f32 (round to nearest), times ws[n], plus bias, the
 // activation, then the epilogue steps, before the one store.
 //
-// Structure as dense_matmul.cu: each block owns a BM x BN output tile and
-// walks K in BK slabs; each thread accumulates a TM x TN micro-tile in
-// registers.  Ragged M / N / K edges are masked (zero-filled loads, guarded
-// stores), so nothing is padded in device memory.
+// Structure as dense_matmul.cu: each block owns a BM x BN output tile (one
+// of tiles.cuh's, chosen by the wrapper) and walks K in BK slabs; each
+// thread accumulates a TM x TN micro-tile in registers.  Ragged M / N / K
+// edges are masked (zero-filled loads, guarded stores), so nothing is
+// padded in device memory.
 //
 // What bounds it here: the main path's calls are 1x1 convs over M = batch *
 // H * W pixels with K, N in 32..192 and the M = batch qlinear: a few
 // operations per byte, so device memory bounds them.  The integer
 // multiply-add runs on the CUDA cores; __dp4a, mma.sync s8 or wgmma s8 are
-// later work.
+// later work.  The pipelined variant is quant_matmul_pipelined.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
 #include "scheme.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -120,23 +122,31 @@ void launch(const void* x, const int8_t* w, const float* ws, const float* bias, 
       static_cast<const typename Scheme<S>::X*>(x), w, ws, bias, out, M, N, K, act, prog);
 }
 
+// The tile (bm, bn, bk) must be one of tiles.cuh's REPRO_GEMM_TILED_TILES;
+// returns false for any other.
 template <int S>
-void dispatch(const void* x, const int8_t* w, const float* ws, const float* bias, float* out,
-              int M, int N, int K, int act, const StepProgram& prog, cudaStream_t stream) {
-  if (N <= 32) {
-    launch<S, 128, 32, 16, 4, 4>(x, w, ws, bias, out, M, N, K, act, prog, stream);
-  } else {
-    launch<S, 64, 64, 16, 4, 4>(x, w, ws, bias, out, M, N, K, act, prog, stream);
+bool dispatch(const void* x, const int8_t* w, const float* ws, const float* bias, float* out,
+              int M, int N, int K, int act, const StepProgram& prog, int bm, int bn, int bk,
+              cudaStream_t stream) {
+#define REPRO_TRY_TILE(BM, BN, BK)                                                  \
+  if (bm == BM && bn == BN && bk == BK) {                                           \
+    launch<S, BM, BN, BK, 4, 4>(x, w, ws, bias, out, M, N, K, act, prog, stream); \
+    return true;                                                                    \
   }
+  REPRO_GEMM_TILED_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return false;
 }
 
 }  // namespace
 
-// a8 != 0: W8A8 (x int8), else W8 (x f32).  ws is required.
+// a8 != 0: W8A8 (x int8), else W8 (x f32).  ws is required.  The tile
+// (bm, bn, bk) must be one of tiles.cuh's (else cudaErrorInvalidValue).
 extern "C" int repro_quant_matmul(const void* x, const void* w, const void* ws,
                                   const void* bias, void* out, int M, int N, int K, int a8,
                                   int act, int n_steps, const int* prog, int n_sides,
-                                  const void* const* sides, void* stream) {
+                                  const void* const* sides, int bm, int bn, int bk,
+                                  void* stream) {
   StepProgram p;
   if (M < 0 || N < 0 || K < 0 || ws == nullptr ||
       !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
@@ -151,10 +161,8 @@ extern "C" int repro_quant_matmul(const void* x, const void* w, const void* ws,
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a8) {
-    dispatch<SCHEME_W8A8>(x, wq, wsf, bf, of, M, N, K, act, p, st);
-  } else {
-    dispatch<SCHEME_W8>(x, wq, wsf, bf, of, M, N, K, act, p, st);
-  }
+  const bool known = a8 ? dispatch<SCHEME_W8A8>(x, wq, wsf, bf, of, M, N, K, act, p, bm, bn, bk, st)
+                        : dispatch<SCHEME_W8>(x, wq, wsf, bf, of, M, N, K, act, p, bm, bn, bk, st);
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,7 @@ from repro_torch.kernels import dense_matmul as tdense
 from repro_torch.kernels import fused_elementwise as tfused
 from repro_torch.kernels import quant_matmul as tquant
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import tune as ttune
 from repro_torch.models import cnn as tcnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,6 +98,8 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
             build(base=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--graph-app", "coloring", "--size", "8", "--base", "4", "--frames", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttune.main(["--smoke", "--graph-app", "coloring"])
     # asking for the CPU explicitly is the only way onto it
     assert compile_plan(_tiny_graph(), device="cpu").device.type == "cpu"
 
@@ -112,6 +115,19 @@ def test_wrappers_refuse_devices_without_a_kernel():
                           torch.empty(3, 2, 3, 3, device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         tdense.dense_matmul(torch.zeros(4, 3), torch.empty(3, 2, device="meta"))
+
+
+def test_pipelined_wrappers_refuse_devices_without_a_kernel():
+    from repro_torch.kernels import dense_matmul_pipelined as tdp
+    from repro_torch.kernels import quant_matmul_pipelined as tqp
+
+    x = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tdp.dense_matmul_pipelined(x, torch.empty(3, 2, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tqp.quant_matmul_pipelined(torch.empty(4, 3, dtype=torch.int8, device="meta"),
+                                   torch.empty(3, 2, dtype=torch.int8, device="meta"),
+                                   torch.empty(2, device="meta"))
 
 
 def test_int8_wrappers_refuse_devices_without_a_kernel():

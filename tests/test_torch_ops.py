@@ -157,4 +157,6 @@ def test_cpu_calls_launch_no_kernel():
     tops.fused_elementwise(x, [x], (("add", 0),))
     assert tops.kernel_launch_counts() == {"conv2d": 0, "dense_matmul": 0, "fused_elementwise": 0,
                                            "quant_matmul": 0, "flash_attention": 0,
-                                           "ffn_gateup": 0, "bsr_matmul": 0}
+                                           "ffn_gateup": 0, "bsr_matmul": 0,
+                                           "dense_matmul_pipelined": 0,
+                                           "quant_matmul_pipelined": 0}
