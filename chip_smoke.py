@@ -7,13 +7,18 @@ Phases (each prints its own lines):
 
 1. device  -- the card's name and power limit, as nvidia-smi reports them;
 2. build   -- compile ``src/repro_torch/kernels/csrc/*.cu`` (or find them
-              built) into ``build/repro_torch_kernels/``;
+              built) into ``build/repro_torch_kernels/``; the library's SASS
+              (``cuobjdump``) must show HMMA in every bf16 tensor-core GEMM
+              and no bf16 instance of the CUDA-core GEMMs;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the card,
               at the main path's shapes and ragged ones, the INT8 schemes of
               the conv kernel and both schemes of the quant matmul included,
               the pipelined (K-slab ring) GEMMs at depth 2 and 3 also
               ``torch.equal`` to the tiled kernel, and every tile of each
-              kernel family once (``torch.equal`` to the default tile):
+              kernel family once (``torch.equal`` to the default tile; the
+              bf16 GEMM's own tile list on a prefill and an odd-K case);
+              every GEMM shape the decoder plans launch, at decode and
+              prefill, with a sum of their device ms per plan call:
               max error; device ms per call (profiler kernel time, or CUDA
               events where no profiler session saw device time) of the
               kernel, the plain version and the library call; the kernel's
@@ -67,11 +72,12 @@ Phases (each prints its own lines):
               up to the first bf16 near-tie, teacher-forced within 8 bf16
               ulps);
 9. llm block-pruned -- phase 8's params pruned with the paper's attention
-              recipe ``Block(0.5, 64, 64)`` on q / o and served again:
-              72 ``bsr_matmul`` and 108 bf16 ``dense_matmul`` launches per
-              plan call, the packed q / o bytes at most half the dense
-              ones, teacher-forced parity against ``forward`` on the
-              masked params.
+              recipe ``Block(0.5, 64, 64)`` on q / o and served again,
+              the dense model released first: 72 ``bsr_matmul`` and 108
+              bf16 ``dense_matmul`` launches per plan call, the packed q /
+              o bytes at most half the dense ones, the plans' params and
+              peak allocated below the dense ones, teacher-forced parity
+              against ``forward`` on the masked params.
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -181,6 +187,9 @@ KERNELS = {
 #: 64 x 16-token KV pool) on the kernel backend
 LLM_ARGS = dict(arch="qwen2.5-3b", batch=4, prompt_len=16, new_tokens=12, frames=3,
                 kv_pages=64, kv_page_size=16, max_queue=1024, seed=SEED, device="cuda")
+#: qwen2.5-3b's layers: each launches 5 bf16 dense_matmul (q, k, v, o, down)
+#: and one ffn_gateup per plan call
+LLM_LAYERS = 36
 
 
 def check(cond: bool, msg: str) -> None:
@@ -305,6 +314,37 @@ def phase_build():
     for line in log.splitlines():
         if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    sass_check(path)
+
+
+#: the CUDA-core GEMM templates that must hold no bf16 instance: bf16 runs
+#: the tensor-core kernel (mma_gemm_kernel) and the skinny kernel
+_FMA_GEMMS = ("dense_matmul_kernel", "ffn_gateup_kernel", "pipelined_gemm_kernel")
+
+
+def sass_check(lib_path):
+    """The built library's SASS (cuobjdump): every tensor-core GEMM kernel
+    issues HMMA, and no CUDA-core GEMM kernel is instantiated for bf16."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    hmma, fma_bf16 = {}, []
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "mma_gemm_kernel" in name:
+            hmma[name] = chunk.count("HMMA")
+        if any(k in name for k in _FMA_GEMMS) and "bfloat16" in name:
+            fma_bf16.append(name)
+    check(hmma and min(hmma.values()) > 0,
+          f"sass: tensor-core kernels without HMMA: {[n for n, c in hmma.items() if not c]}")
+    check(not fma_bf16, f"sass: CUDA-core bf16 GEMM instances remain: {fma_bf16[:3]}")
+    print(f"  sass: {len(hmma)} mma_gemm_kernel instances, HMMA per kernel "
+          f"{min(hmma.values())}..{max(hmma.values())}; no bf16 instance of "
+          f"{', '.join(_FMA_GEMMS)}")
 
 
 def phase_kernels(torch):
@@ -669,8 +709,12 @@ def phase_llm_kernels(torch, results):
     flash_case("f32 B2 H4/G2 Sq3 Skv37 d32 +len (0 incl.)", 2, 4, 2, 3, 37, 32,
                [0, 29], False, torch.float32, torch.float32)
 
+    #: device ms of the decoder's GEMM launches by phase and role, for the
+    #: per-plan-call sums below
+    per_call = {"prefill": {}, "decode": {}}
+
     # -- ffn_gateup ---------------------------------------------------------- #
-    def ffn_case(label, m, k, f, dtype, act="silu"):
+    def ffn_case(label, m, k, f, dtype, act="silu", role=None):
         x = randn(m, k, dtype=dtype)
         wg = randn(k, f, scale=k ** -0.5, dtype=dtype)
         wu = randn(k, f, scale=k ** -0.5, dtype=dtype)
@@ -686,14 +730,18 @@ def phase_llm_kernels(torch, results):
                lambda: kffn.ffn_gateup(x, wg, wu, activation=act),
                lambda: kffn.ffn_gateup_plain(x, wg, wu, activation=act), library,
                nbytes(x, wg, wu, out), 4.0 * m * k * f, peak)
+        if role:
+            per_call[role[0]][role[1]] = results["ffn_gateup"][-1]["ms"]
 
-    ffn_case("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16)
-    ffn_case("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16)
+    ffn_case("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16,
+             role=("decode", "ffn"))
+    ffn_case("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16,
+             role=("prefill", "ffn"))
     ffn_case("M=5 K=70 F=50 f32 gelu (ragged)", 5, 70, 50, torch.float32, "gelu")
     ffn_case("M=20 K=130 F=77 bf16 silu (ragged)", 20, 130, 77, bf16)
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
-    def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False):
+    def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False, role=None):
         x = randn(m, k, dtype=bf16)
         wt = randn(k, n, scale=k ** -0.5, dtype=bf16)
         b = randn(n, scale=0.1, dtype=bf16) if bias else None
@@ -711,10 +759,12 @@ def phase_llm_kernels(torch, results):
         record("dense_matmul_bf16", label, out, want,
                lambda: kdense.dense_matmul(x, wt, b, *sides, **kw), plain, library, nb, flops,
                PEAK_BF16_FLOPS)
+        if role:
+            per_call[role[0]][role[1]] = results["dense_matmul_bf16"][-1]["ms"]
         if not pipelined:
             return
         # the ring kernel at depth 2 and 3 (bit-equal to the tiled kernel),
-        # then every GEMM tile once (bit-equal to the default tile)
+        # then every bf16 GEMM tile once (bit-equal to the default tile)
         for depth in (2, 3):
             fn = lambda d=depth: kdense_pipe.dense_matmul_pipelined(  # noqa: E731
                 x, wt, b, *sides, **kw, depth=d)
@@ -724,7 +774,7 @@ def phase_llm_kernels(torch, results):
             record("dense_matmul_pipelined", f"d{depth} bf16 {label}", got, want, fn, plain,
                    library, nb, flops, PEAK_BF16_FLOPS)
         parts = []
-        for t in _build.GEMM_TILES:
+        for t in _build.BF16_GEMM_TILES:
             def call(t=t):
                 if t[3] == 1:
                     return kdense.dense_matmul(x, wt, b, *sides, **kw, block_m=t[0],
@@ -737,14 +787,32 @@ def phase_llm_kernels(torch, results):
         print(f"  {'dense_matmul_bf16':18s} every tile, {label}: {' '.join(parts)} ms "
               f"(each torch.equal to the default tile)")
 
-    dense_bf16_case("q decode M=3 2048->2048 +bias", 3, 2048, 2048)
-    dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256)
-    dense_bf16_case("o decode M=3 2048->2048 +add", 3, 2048, 2048, bias=False, add=True)
-    dense_bf16_case("down decode M=3 11008->2048 +add", 3, 11008, 2048, bias=False, add=True)
-    dense_bf16_case("q prefill M=48 2048->2048 +bias", 48, 2048, 2048, pipelined=True)
+    # every projection the decoder plans launch, at decode (M = 3 rows, the
+    # skinny kernel) and at prefill (M = 48, the tensor-core kernel)
+    dense_bf16_case("q decode M=3 2048->2048 +bias", 3, 2048, 2048, role=("decode", "q"))
+    dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256, role=("decode", "kv"))
+    dense_bf16_case("o decode M=3 2048->2048 +add", 3, 2048, 2048, bias=False, add=True,
+                    role=("decode", "o"))
+    dense_bf16_case("down decode M=3 11008->2048 +add", 3, 11008, 2048, bias=False, add=True,
+                    role=("decode", "down"))
+    dense_bf16_case("q prefill M=48 2048->2048 +bias", 48, 2048, 2048, pipelined=True,
+                    role=("prefill", "q"))
+    dense_bf16_case("k/v prefill M=48 2048->256 +bias", 48, 2048, 256, role=("prefill", "kv"))
+    dense_bf16_case("o prefill M=48 2048->2048 +add", 48, 2048, 2048, bias=False, add=True,
+                    role=("prefill", "o"))
+    dense_bf16_case("down prefill M=48 11008->2048 +add", 48, 11008, 2048, bias=False, add=True,
+                    role=("prefill", "down"))
     dense_bf16_case("M=5 K=70 N=50 +add (ragged)", 5, 70, 50, add=True)
     # odd K and N: bf16 rows not 4-byte aligned, staged by element loads
     dense_bf16_case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, add=True, pipelined=True)
+    # device ms of one plan call's GEMM launches: per layer q, k, v, o, down
+    # (5 dense_matmul) and one ffn_gateup, over qwen2.5-3b's 36 layers
+    for phase, t in per_call.items():
+        dense = LLM_LAYERS * (t["q"] + 2 * t["kv"] + t["o"] + t["down"])
+        ffn = LLM_LAYERS * t["ffn"]
+        print(f"  per {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
+              f"dense_matmul_bf16 {5 * LLM_LAYERS} launches {dense:.3f} ms, ffn_gateup "
+              f"{LLM_LAYERS} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms")
     phase_bsr_kernels(torch, record)
     torch.cuda.synchronize()
     return results
@@ -1224,19 +1292,26 @@ def phase_llm(torch, smoke: bool, block=None):
     llm = serve.build_llm(args, dev)
     torch.cuda.synchronize()
     cfg = llm["cfg"]
-    param_gb = sum(t.numel() * t.element_size() for p in llm["plans"]["decode"].graph.params
-                   .values() for t in p.values()) / 1e9
+    param_b = plan_param_bytes(*llm["plans"].values())
     print(f"  {cfg.name} {cfg.dtype}: {cfg.n_layers} layers d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
-          f"params={param_gb:.3f}GB built in {time.perf_counter() - t0:.1f}s")
+          f"params={param_b / 1e9:.3f}GB built in {time.perf_counter() - t0:.1f}s")
     dense = "dense_matmul" if smoke else "dense_matmul_bf16"
-    launches = serve_llm_checked(torch, llm, args, smoke, cfg.name, {dense: 5 * cfg.n_layers})
+    launches, dense_peak = serve_llm_checked(torch, llm, args, smoke, cfg.name,
+                                             {dense: 5 * cfg.n_layers})
     if block is not None:
         if not smoke:
             print(f"== llm block-pruned ({cfg.name}, full width, bf16)")
         t0 = time.perf_counter()
         pruned = block_pruned_llm(torch, llm, block)
         torch.cuda.synchronize()
+        dense_b = sum(nbytes(lp["attn"]["w_q"]["w"], lp["attn"]["w_o"]["w"])
+                      for lp in llm["params"]["layers"])
+        # the dense model goes before the pruned one serves: its plans and
+        # its q / o weights (the pruned plans share every other tensor), so
+        # the pruned run's peak is the pruned plans' own
+        del llm
+        torch.cuda.empty_cache()
         graph = pruned["plans"]["decode"].graph
         pbcsr = [n for n in graph.nodes
                  if n.op == "sparse_linear" and n.attrs["format"] == "pbcsr"]
@@ -1247,11 +1322,17 @@ def phase_llm(torch, smoke: bool, block=None):
         packed = sum(nbytes(graph.params[n.name]["values"], graph.params[n.name]["block_rows"])
                      for n in pbcsr)
         blocks = sum(int((graph.params[n.name]["block_rows"] >= 0).sum()) for n in pbcsr)
-        dense_b = sum(nbytes(lp["attn"]["w_q"]["w"], lp["attn"]["w_o"]["w"])
-                      for lp in llm["params"]["layers"])
+        pruned_b = plan_param_bytes(*pruned["plans"].values())
         print(f"  {block}: {len(pbcsr)} pbcsr nodes, {n_bands} bands, {len(glue)} unperm glue "
               f"nodes; q/o weights {dense_b / 1e6:.3f}MB dense -> {packed / 1e6:.3f}MB packed "
-              f"({blocks} blocks); pruned in {time.perf_counter() - t0:.1f}s")
+              f"({blocks} blocks); pruned plans' params {pruned_b / 1e9:.3f}GB (dense "
+              f"{param_b / 1e9:.3f}GB); pruned in {time.perf_counter() - t0:.1f}s")
+        # the params memory_estimate counts lose at most the q / o bytes the
+        # packing saves (the bands' unperm glue, where there is any, adds
+        # its index tensors)
+        check(0 < param_b - pruned_b <= dense_b - packed,
+              f"pruned llm: plan params {pruned_b} B against dense {param_b} B, q/o "
+              f"{dense_b} B -> {packed} B")
         if not smoke:  # the paper's balanced recipe: one band a node, no glue,
             # at most half the dense bytes + one int32 per kept block
             check(n_bands == 2 * cfg.n_layers and not glue,
@@ -1262,13 +1343,30 @@ def phase_llm(torch, smoke: bool, block=None):
             check(n_bands > len(pbcsr) and glue and any(
                 n.op == "rope" for n in graph.nodes), "pruned llm smoke: no bands / glue")
         per_call = {dense: 3 * cfg.n_layers, "bsr_matmul": n_bands}
-        for name, n in serve_llm_checked(torch, pruned, args, smoke, f"{cfg.name} pruned",
-                                         per_call, n_glue=len(glue)).items():
+        pruned_launches, pruned_peak = serve_llm_checked(
+            torch, pruned, args, smoke, f"{cfg.name} pruned", per_call, n_glue=len(glue))
+        for name, n in pruned_launches.items():
             launches[name] += n
+        if not smoke:  # at full width the halved q / o bytes show in the peak
+            check(pruned_peak < dense_peak,
+                  f"pruned llm: peak {pruned_peak} B, dense {dense_peak} B")
         del pruned
-    del llm
+    else:
+        del llm
     torch.cuda.empty_cache()
     return launches
+
+
+def plan_param_bytes(*plans) -> int:
+    """The param bytes of ``plans`` as ``memory_estimate`` counts them (every
+    leaf of ``plan.graph.params``), a tensor the plans share counted once:
+    what the card holds for them."""
+    leaves = {}
+    for plan in plans:
+        for p in plan.graph.params.values():
+            for t in p.values():
+                leaves[(t.data_ptr(), t.numel(), t.dtype)] = t.numel() * t.element_size()
+    return sum(leaves.values())
 
 
 def block_pruned_llm(torch, llm, block):
@@ -1277,7 +1375,9 @@ def block_pruned_llm(torch, llm, block):
     with those masks (``substitute_sparse`` packs them as PBCSR nodes) and
     compile both phases for the kernel backend.  The returned llm's
     ``params`` are the masked-dense tree, which the plain ``forward`` of
-    the parity check runs."""
+    the parity check runs; its masked q / o weights wait in host memory
+    (``params_on_host``) until the parity check, so that the serving run's
+    peak is the pruned plans' own."""
     from repro_torch.core.graph import compile_plan
     from repro_torch.core.graph.passes import optimize
     from repro_torch.core.pruning import project
@@ -1290,13 +1390,24 @@ def block_pruned_llm(torch, llm, block):
         for key, node in (("w_q", f"q_{i}"), ("w_o", f"o_{i}")):
             w, masks[node] = project(attn[key]["w"], block)
             structures[node] = block
-            attn[key] = {**attn[key], "w": w}
+            attn[key] = {**attn[key], "w": w.cpu()}
         layers.append({**lp, "attn": attn})
     graphs = {ph: optimize(build_decoder_graph(params, cfg, phase=ph), masks, structures)
               for ph in ("prefill", "decode")}
+    # each phase's optimize packs its own copy of every pruned weight: the
+    # prefill graph takes the decode graph's (the same bits), so the card
+    # holds one copy, as the dense plans share one set of weights
+    dec = graphs["decode"].params
+    for n in graphs["prefill"].nodes:
+        if n.op == "sparse_linear" and n.attrs["format"] == "pbcsr":
+            mine, theirs = graphs["prefill"].params[n.name], dec[n.name]
+            check(mine.keys() == theirs.keys() and all(
+                torch.equal(mine[k], theirs[k]) for k in mine),
+                f"pruned llm: {n.name} packs differently in the two phases")
+            graphs["prefill"].params[n.name] = theirs
     plans = {ph: compile_plan(g, backend="kernel", device=dev) for ph, g in graphs.items()}
     return dict(cfg=cfg, params={**params, "layers": layers}, graphs=graphs, plans=plans,
-                device=dev)
+                device=dev, params_on_host=True)
 
 
 def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
@@ -1306,7 +1417,9 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
     profiled run; then finite prefill logits near the reference plan's and
     the plain ``forward``'s, and greedy parity of every served sequence
     against ``forward`` -- exact in f32, the bf16 near-tie rule of
-    ``serve.PARITY_BF16_ULPS`` at full width."""
+    ``serve.PARITY_BF16_ULPS`` at full width.  Returns the launches and
+    the timed run's peak allocated bytes (beside ``memory_estimate``'s
+    figure for the prefill plan at the served prompts)."""
     from repro_torch.core.graph import compile_plan
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -1340,15 +1453,26 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
     ms_decode = st["decode_seconds"] / st["decode_batches"] * 1e3
     ms_prefill = st["prefill_seconds"] / st["prefill_batches"] * 1e3
     launch_txt = " ".join(f"{k}={v}" for k, v in per_call.items())
+    s_max = max(len(p) for p in prompts)
+    est = plans["prefill"].memory_estimate(
+        torch.zeros(len(prompts), s_max, dtype=torch.int32),
+        torch.zeros(len(prompts), s_max, dtype=torch.int32),
+        torch.zeros(len(prompts), dtype=torch.int32))
     print(f"  {label}: plan steps prefill={steps['prefill']} decode={steps['decode']}; served "
           f"{len(prompts)} sequences, {toks} tokens in {run['seconds']:.3f}s "
           f"({toks / run['seconds']:.1f} tok/s): {st['prefill_batches']} prefill + "
           f"{st['decode_batches']} decode plan calls, {ms_prefill:.2f} ms/prefill "
           f"{ms_decode:.2f} ms/decode step; per-call launches {launch_txt}; "
           f"failed={st['failed']}; KV pages {occ['num_pages']}x{occ['page_size']} "
-          f"peak={occ['peak_used']} leaked={occ['used_pages']}; peak_alloc={peak / 1e9:.3f}GB")
+          f"peak={occ['peak_used']} leaked={occ['used_pages']}; peak_alloc={peak / 1e9:.3f}GB "
+          f"(memory_estimate, prefill of {len(prompts)}x{s_max}: params "
+          f"{est['param_bytes'] / 1e9:.3f}GB + activations "
+          f"{est['peak_activation_bytes'] / 1e9:.3f}GB = {est['peak_total_bytes'] / 1e9:.3f}GB)")
+    check(peak >= est["param_bytes"], f"{label}: peak {peak} B below the params' bytes")
     profile_serving(torch, f"llm {label}",
                     lambda: serve.serve_llm_traffic(llm, prompts, args), top_n=8)
+    if llm.pop("params_on_host", False):  # the parity tree back on the card
+        llm["params"] = _to_device(llm["params"], dev)
 
     # correctness: finite prefill logits of the right shape, near the
     # reference backend's and the plain forward's; greedy parity per sequence
@@ -1384,7 +1508,17 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
           f"token within {max(par['max_forced_gap'] for par in parity):.4f} of forward's best "
           f"logit (tolerance {'0 (f32)' if smoke else f'{serve.PARITY_BF16_ULPS} bf16 ulps'})")
     del ref_plan
-    return launches
+    return launches, peak
+
+
+def _to_device(tree, dev):
+    """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
+    tensor on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    return tree.to(dev) if hasattr(tree, "to") and hasattr(tree, "device") else tree
 
 
 def main() -> int:

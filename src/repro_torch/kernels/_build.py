@@ -45,10 +45,16 @@ __all__ = [
     "stream_handle",
     "FLOAT_CODES",
     "skinny_plan",
+    "skinny_plan_f32",
+    "gemm_split",
+    "split_counters",
     "GEMM_TILES",
+    "BF16_GEMM_TILES",
     "CONV_TILES",
     "TileError",
     "gemm_default_tile",
+    "bf16_default_tile",
+    "default_gemm_tile",
     "conv_default_tile",
     "check_gemm_tile",
     "check_conv_tile",
@@ -71,10 +77,16 @@ _ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 #: element types of the float kernels (``dtype`` argument of their entry points)
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: the skinny split-K GEMM's fixed shape (csrc/skinny_gemm.cuh): rows per
-#: block, most K rows a block stages, and the blocks to aim for (two per SM
-#: of an H100's 132)
-SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS = 8, 1024, 264
+#: the skinny split-K GEMMs (M <= SKINNY_MT rows: csrc/skinny_bf16.cuh for
+#: bf16, csrc/skinny_gemm.cuh for the f32 gate/up): most rows, most K rows
+#: a block stages, the blocks to aim for (two per SM of an H100's 132), and
+#: the fewest K rows of a bf16 range
+SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS, SKINNY_MIN_K = 8, 1024, 264, 128
+#: the bf16 tensor-core GEMM's K split (csrc/mma_gemm.cuh): the blocks to
+#: aim for (one per SM), the fewest and the most K rows of a range (a block
+#: walks its range's slabs one after another), and the multiple a range is
+#: rounded up to
+SPLIT_TARGET_BLOCKS, SPLIT_MIN_K, SPLIT_MAX_K, SPLIT_ALIGN = 132, 128, 1536, 64
 
 #: the tiles the GEMM kernels are built for, ``(block_m, block_n, block_k,
 #: pipeline_depth)``: depth 1 is the tiled kernel (``csrc/dense_matmul.cu``,
@@ -84,6 +96,17 @@ SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS = 8, 1024, 264
 GEMM_TILES = (
     (128, 32, 16, 1), (64, 64, 16, 1), (128, 64, 16, 1), (64, 64, 32, 1),
     (128, 32, 16, 2), (64, 64, 16, 2), (128, 32, 16, 3), (64, 64, 16, 3),
+)
+#: the bf16 tensor-core kernel's tiles (``csrc/mma_gemm.cuh``), its own
+#: list: ``(block_m, block_n, block_k, depth)``, depth 1 in
+#: ``dense_matmul`` and ``ffn_gateup``, 2 and 3 in
+#: ``dense_matmul_pipelined`` (a ring of depth + 2 slots).  The first three
+#: are the shape-based defaults (:func:`bf16_default_tile`), each also at
+#: depth 2 and 3.  ``csrc/tiles.cuh`` lists the same tiles.
+BF16_GEMM_TILES = (
+    (64, 64, 64, 1), (64, 32, 64, 1), (128, 64, 32, 1), (64, 64, 128, 1),
+    (64, 64, 64, 2), (64, 32, 64, 2), (128, 64, 32, 2),
+    (64, 64, 64, 3), (64, 32, 64, 3), (128, 64, 32, 3),
 )
 #: the conv kernel's tiles, ``(BM, BN, BK)``: output pixels x output
 #: channels x K slab, each for every scheme (``csrc/tiles.cuh``)
@@ -102,6 +125,22 @@ def gemm_default_tile(n: int) -> Tuple[int, int, int, int]:
     return (128, 32, 16, 1) if n <= 32 else (64, 64, 16, 1)
 
 
+def bf16_default_tile(m: int, n: int) -> Tuple[int, int, int, int]:
+    """The bf16 tensor-core kernel's tile when neither a pin nor the cache
+    names one: 64 rows up to M = 64 (the decoder's prefill, M = batch x
+    prompt), else 128; 32 columns up to N = 256 (k / v), else 64."""
+    if m > 64:
+        return (128, 64, 32, 1)
+    return (64, 32 if n <= 256 else 64, 64, 1)
+
+
+def default_gemm_tile(m: int, n: int, dtype) -> Tuple[int, int, int, int]:
+    """The default tile of a dense GEMM of ``dtype``: the bf16 kernel's
+    (:func:`bf16_default_tile`) or the f32 / INT8 kernels'
+    (:func:`gemm_default_tile`)."""
+    return bf16_default_tile(m, n) if dtype == torch.bfloat16 else gemm_default_tile(n)
+
+
 def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
     """The conv kernel's default tile: by the output-channel count, over four
     tiles for f32 and two for the INT8 schemes, as before the cache."""
@@ -113,6 +152,7 @@ def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
 
 
 _GEMM_TILE_SET = frozenset(GEMM_TILES)
+_BF16_TILE_SET = frozenset(BF16_GEMM_TILES)
 _CONV_TILE_SET = frozenset(CONV_TILES)
 
 
@@ -126,10 +166,14 @@ def _check_tile(tile, tiles, built, kernels, what):
     return t
 
 
-def check_gemm_tile(tile: Sequence[int], what="GEMM") -> Tuple[int, int, int, int]:
-    """``tile`` as a tuple if the GEMM kernels are built for it, else raise
+def check_gemm_tile(tile: Sequence[int], what="GEMM",
+                    dtype=torch.float32) -> Tuple[int, int, int, int]:
+    """``tile`` as a tuple if the GEMM kernels of ``dtype`` are built for it
+    (bf16: :data:`BF16_GEMM_TILES`, else :data:`GEMM_TILES`), else raise
     :class:`TileError` naming ``what`` (a tuning key or the wrapper; a
     callable is called only to build the message)."""
+    if dtype == torch.bfloat16:
+        return _check_tile(tile, BF16_GEMM_TILES, _BF16_TILE_SET, "the bf16 GEMM kernels", what)
     return _check_tile(tile, GEMM_TILES, _GEMM_TILE_SET, "the GEMM kernels", what)
 
 
@@ -213,9 +257,10 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 5 + [P]
     cdll.repro_dense_matmul.restype = I
-    cdll.repro_dense_matmul_pipelined.argtypes = [P] * 4 + [I] * 5 + [P, I, P] + [I] * 5 + [P]
+    cdll.repro_dense_matmul_pipelined.argtypes = (
+        [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 5 + [P])
     cdll.repro_dense_matmul_pipelined.restype = I
-    cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P, I, I, P]
+    cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 5 + [P]
     cdll.repro_ffn_gateup.restype = I
     cdll.repro_flash_attention.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P, P]
     cdll.repro_flash_attention.restype = I
@@ -342,14 +387,72 @@ def addr(arr) -> int:
     return ctypes.addressof(arr)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def skinny_plan(m: int, n: int, k: int, vec: int) -> Tuple[int, int, int]:
-    """``(kchunk, nsplit, tiles)`` of a skinny split-K launch (M <= 8): the
-    K chunk per block (at most ``SKINNY_KC``), the number of K splits, and
-    the number of output tiles (one counter each).  The splits are chosen
-    so that the grid has about ``SKINNY_TARGET_BLOCKS`` blocks."""
-    tiles = -(-n // (32 * vec)) * -(-m // SKINNY_MT)
-    nsplit = max(-(-SKINNY_TARGET_BLOCKS // tiles), -(-k // SKINNY_KC), 1)
-    nsplit = min(nsplit, max(1, -(-k // 64)))  # at least 64 K rows per block
-    nsplit = max(nsplit, -(-k // SKINNY_KC))
-    kchunk = -(-k // nsplit)
-    return kchunk, -(-k // kchunk), tiles
+    """``(kchunk, nsplit, tiles)`` of a bf16 skinny launch
+    (``csrc/skinny_bf16.cuh``, M <= 8): the K rows of a range (a multiple
+    of 32, at most ``SKINNY_KC``), the number of ranges, and the number of
+    column tiles (``8 * vec`` columns each, one counter each).  The ranges
+    are the fewest that give about ``SKINNY_TARGET_BLOCKS`` blocks, each at
+    least ``SKINNY_MIN_K`` rows long (or all of K); fixed by the shape."""
+    tiles = _cdiv(n, 8 * vec)
+    nsplit = min(_cdiv(SKINNY_TARGET_BLOCKS, tiles), max(1, k // SKINNY_MIN_K))
+    nsplit = max(nsplit, _cdiv(k, SKINNY_KC), 1)
+    kchunk = min(SKINNY_KC, _cdiv(_cdiv(k, nsplit), 32) * 32)
+    return kchunk, _cdiv(k, kchunk), tiles
+
+
+def skinny_plan_f32(m: int, n: int, k: int, vec: int) -> Tuple[int, int, int]:
+    """``(kchunk, nsplit, tiles)`` of the f32 gate/up skinny launch
+    (``csrc/skinny_gemm.cuh``, M <= 8): the K chunk per block (at most
+    ``SKINNY_KC``), the number of K splits, and the number of output tiles
+    (one counter each).  The splits are chosen so that the grid has about
+    ``SKINNY_TARGET_BLOCKS`` blocks, at least 64 K rows each."""
+    tiles = _cdiv(n, 32 * vec) * _cdiv(m, SKINNY_MT)
+    nsplit = max(_cdiv(SKINNY_TARGET_BLOCKS, tiles), _cdiv(k, SKINNY_KC), 1)
+    nsplit = min(nsplit, max(1, _cdiv(k, 64)))  # at least 64 K rows per block
+    nsplit = max(nsplit, _cdiv(k, SKINNY_KC))
+    kchunk = _cdiv(k, nsplit)
+    return kchunk, _cdiv(k, kchunk), tiles
+
+
+def gemm_split(m: int, n: int, k: int) -> Tuple[int, int]:
+    """``(kchunk, nsplit)``: the K ranges of a bf16 tensor-core GEMM
+    (``csrc/mma_gemm.cuh``), fixed by the shape alone -- never by the tile
+    or depth a call runs, so every tile and depth sums each output over the
+    same ranges and stays bit-equal.  One range where the default tile's
+    grid (:func:`bf16_default_tile`) alone holds ``SPLIT_TARGET_BLOCKS``
+    blocks; else enough ranges for that many blocks and for ranges of at
+    most ``SPLIT_MAX_K`` rows, none shorter than ``SPLIT_MIN_K`` rows; each
+    a multiple of ``SPLIT_ALIGN`` rows (the last may be shorter)."""
+    if k <= 0:
+        return 1, 1
+    bm, bn, _, _ = bf16_default_tile(m, n)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    nsplit = 1
+    if tiles < SPLIT_TARGET_BLOCKS:
+        nsplit = max(_cdiv(SPLIT_TARGET_BLOCKS, tiles), _cdiv(k, SPLIT_MAX_K))
+        nsplit = max(1, min(nsplit, k // SPLIT_MIN_K))
+    kchunk = _cdiv(_cdiv(k, nsplit), SPLIT_ALIGN) * SPLIT_ALIGN
+    return kchunk, _cdiv(k, kchunk)
+
+
+#: (device, stream) -> int32 tile counters, zero between launches: the
+#: split kernels of csrc/mma_gemm.cuh and csrc/skinny_bf16.cuh reset each
+#: counter they use before they exit
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tile counters for a split launch on the
+    current stream, from a buffer kept per device and stream (the kernels
+    leave them zeroed, so no memset per call)."""
+    key = (device, stream_handle())
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf

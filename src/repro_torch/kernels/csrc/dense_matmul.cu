@@ -4,39 +4,46 @@
 // (wrapper dense_matmul): out = epilogue(act(x @ w + bias)).
 //
 // Element type T: f32 or bf16 (x, w, bias, the epilogue's side operands and
-// out share it).  Operands are converted to f32 as tiles are staged, the
-// accumulator and the whole epilogue run in f32, and the one store rounds
-// to T -- the TPU kernel's jnp.dot(..., preferred_element_type=f32) and
-// astype(x.dtype).  The f32 instances compute exactly what they computed
-// before bf16 was added.
+// out share it).  The accumulator and the whole epilogue run in f32, and
+// the one store rounds to T -- the TPU kernel's jnp.dot(...,
+// preferred_element_type=f32) and astype(x.dtype).
 //
 // Layout: x [M, K], w [K, N], out [M, N], row-major; side operands of the
-// epilogue are [M, N] like the output.  Two kernels:
+// epilogue are [M, N] like the output.  Three kernels:
 //
-// * tiled (every f32 call; bf16 with M > 8 or a tile named): each thread
-//   block owns a BM x BN output tile (one of tiles.cuh's, chosen by the
-//   wrapper) and walks K in BK slabs staged in shared memory;
-//   each thread accumulates a TM x TN micro-tile in registers with FMA on
-//   the CUDA cores (true f32, no TF32).  Ragged M / N / K edges are masked
-//   (zero-filled loads, guarded stores), so the wrapper pads nothing.
-// * skinny split-K (bf16 with M <= 8 and no tile named: the decoder's
-//   q/k/v/o/down projections at decode, csrc/skinny_gemm.cuh).
-// The pipelined variant (K slabs through a cp.async ring, tuning winners
-// with depth >= 2) is dense_matmul_pipelined.cu.
+// * f32, tiled: each thread block owns a BM x BN output tile (one of
+//   tiles.cuh's REPRO_GEMM_TILED_TILES, chosen by the wrapper) and walks K
+//   in BK slabs staged in shared memory as f32; each thread accumulates a
+//   TM x TN micro-tile in registers with FMA on the CUDA cores (true f32,
+//   no TF32).  Ragged M / N / K edges are masked (zero-filled loads,
+//   guarded stores), so the wrapper pads nothing.
+// * bf16 with M > 8 or a tile named: the tensor-core kernel of
+//   csrc/mma_gemm.cuh at ring depth 1 (tiles.cuh's REPRO_BF16_TILED_TILES):
+//   bf16 slabs through a 3-slot cp.async ring, ldmatrix + mma.sync
+//   m16n8k16 into f32 accumulators, K split into ranges fixed by the shape
+//   (the wrapper's _build.gemm_split) so that the decoder's M = 48 prefill
+//   GEMMs fill the card; bit-equal to the pipelined entries.
+// * bf16 with M <= 8 and no tile named (the decoder's q/k/v/o/down
+//   projections at decode): the weight-streaming split-K kernel of
+//   csrc/skinny_bf16.cuh.
+// The pipelined variant (tuning winners with depth >= 2) is
+// dense_matmul_pipelined.cu.
 //
 // What bounds it here: on the CNN path (1x1 convs, M = N*H*W pixels, K and
 // N in 32..192) the arithmetic intensity is a few FLOP/byte, so device
 // memory bounds it: x is read once per N-tile and the output written once.
-// At decode the weights' bytes bound it (M = batch rows, one FMA per weight
-// element per row): the skinny kernel spreads them over every SM.  The
-// design keeps the whole epilogue (bias, activation, residual add/mul) on
-// the accumulator before the single store, so no intermediate makes a
-// second trip through memory.  No wgmma or TMA yet.
+// On the decoder's path (M = 48 at prefill, M <= 4 at decode) the weights'
+// bytes bound it: the tensor cores keep the math far below the copy time,
+// and the K split and the skinny kernel spread the weights over every SM.
+// The design keeps the whole epilogue (bias, activation, residual add/mul)
+// on the accumulator before the single store, so no intermediate makes a
+// second trip through memory.
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
-#include "skinny_gemm.cuh"
+#include "mma_gemm.cuh"
+#include "skinny_bf16.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -119,13 +126,13 @@ void launch(const T* x, const T* w, const T* bias, T* out, int M, int N, int K, 
       <<<grid, block, 0, stream>>>(x, w, bias, out, M, N, K, act, prog);
 }
 
-// The tile (bm, bn, bk) must be one of tiles.cuh's REPRO_GEMM_TILED_TILES
-// (the wrapper picks it: the tuning cache's winner, a pin, or the
-// shape-based default); returns false for any other.
-template <typename T>
-bool launch_tiled(const void* x, const void* w, const void* bias, void* out, int M, int N,
-                  int K, int act, const StepProgram& p, int bm, int bn, int bk,
-                  cudaStream_t st) {
+// f32: the tile (bm, bn, bk) must be one of tiles.cuh's
+// REPRO_GEMM_TILED_TILES (the wrapper picks it: the tuning cache's winner,
+// a pin, or the shape-based default); returns false for any other.
+bool launch_tiled_f32(const void* x, const void* w, const void* bias, void* out, int M, int N,
+                      int K, int act, const StepProgram& p, int bm, int bn, int bk,
+                      cudaStream_t st) {
+  using T = float;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* bt = static_cast<const T*>(bias);
@@ -140,7 +147,7 @@ bool launch_tiled(const void* x, const void* w, const void* bias, void* out, int
   return false;
 }
 
-// The skinny kernel's epilogue: bias, activation, step program, one store.
+// The bf16 kernels' epilogue: bias, activation, step program, one store.
 template <typename T>
 struct DenseEpilogue {
   const T* bias;
@@ -164,11 +171,17 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = f32, 1 = bf16.  kchunk > 0 selects the skinny split-K kernel
-// (bf16, M <= 8) with vec columns per lane (8 or 1) and, when K spans more
-// than one chunk, the f32 workspace ws [ceil(K / kchunk), M, N] and zeroed
-// tile counters; kchunk == 0 selects the tiled kernel with the tile
-// (bm, bn, bk), which must be one of tiles.cuh's (else cudaErrorInvalidValue).
+// dtype: 0 = f32, 1 = bf16.
+// * f32: the tiled kernel with the tile (bm, bn, bk), one of tiles.cuh's
+//   REPRO_GEMM_TILED_TILES (ws, counters, kchunk and vec unused: 0).
+// * bf16, vec > 0: the skinny kernel (M <= 8) with vec columns per lane (8
+//   or 1), K ranges of kchunk rows and, with more than one range, the f32
+//   workspace ws [ceil(K / kchunk), M, N] and zeroed tile counters.
+// * bf16, vec == 0: the tensor-core kernel with the tile (bm, bn, bk), one
+//   of REPRO_BF16_TILED_TILES, K ranges of kchunk rows and, with more than
+//   one range, ws [ceil(K / kchunk), M, N] and zeroed tile counters
+//   (ceil(M / bm) * ceil(N / bn)).
+// A tile not built gives cudaErrorInvalidValue.
 extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias, void* out,
                                   int M, int N, int K, int act, int n_steps, const int* prog,
                                   int n_sides, const void* const* sides, int dtype, void* ws,
@@ -184,24 +197,27 @@ extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias
   }
   if (M == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kchunk > 0) {
-    if (dtype != 1 || M > SKINNY_MT) return (int)cudaErrorInvalidValue;
-    using B = __nv_bfloat16;
-    const B* xb = static_cast<const B*>(x);
-    const B* wb = static_cast<const B*>(w);
-    DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
-    float* wsf = static_cast<float*>(ws);
-    int* cnt = static_cast<int*>(counters);
-    if (vec == 8) {
-      if (N % 8 || reinterpret_cast<uintptr_t>(w) % 16) return (int)cudaErrorInvalidValue;
-      return launch_skinny<B, 1, 8>(xb, wb, nullptr, M, N, K, kchunk, wsf, cnt, epi, st);
+  if (dtype == 0) {
+    if (!launch_tiled_f32(x, w, bias, out, M, N, K, act, p, bm, bn, bk, st)) {
+      return (int)cudaErrorInvalidValue;
     }
-    if (vec != 1) return (int)cudaErrorInvalidValue;
-    return launch_skinny<B, 1, 1>(xb, wb, nullptr, M, N, K, kchunk, wsf, cnt, epi, st);
+    return (int)cudaGetLastError();
   }
-  const bool known =
-      dtype == 0 ? launch_tiled<float>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, st)
-                 : launch_tiled<__nv_bfloat16>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, st);
-  if (!known) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  using B = __nv_bfloat16;
+  const B* xb = static_cast<const B*>(x);
+  const B* wb = static_cast<const B*>(w);
+  DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  if (vec > 0) {
+    return skinny_bf16::launch<1>(xb, wb, nullptr, M, N, K, kchunk, vec, wsf, cnt, epi, st);
+  }
+#define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                 \
+  if (bm == BM && bn == BN && bk == BK) {                                                 \
+    return (int)mma_gemm::launch<BM, BN, BK, DEPTH, 1>(xb, wb, nullptr, M, N, K, kchunk, wsf, \
+                                                       cnt, epi, st);                    \
+  }
+  REPRO_BF16_TILED_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,7 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "mma_gemm.cuh"
 #include "pipelined_gemm.cuh"
 #include "tiles.cuh"
 
@@ -44,14 +45,17 @@ struct DenseEpilogue {
     const long long idx = (long long)m * N + n;
     out[idx] = from_f32<T>(apply_pointwise_steps<T>(prog, v, idx));
   }
+  __device__ __forceinline__ void operator()(int m, int n, const float* v) const {
+    (*this)(m, n, v[0]);
+  }
 };
 
-// The tile must be one of tiles.cuh's REPRO_GEMM_PIPELINED_TILES; returns
-// cudaErrorInvalidValue for any other.
-template <typename T>
-int dispatch(const void* x, const void* w, const void* bias, void* out, int M, int N, int K,
-             int act, const StepProgram& p, int bm, int bn, int bk, int depth,
-             cudaStream_t st) {
+// f32: the tile must be one of tiles.cuh's REPRO_GEMM_PIPELINED_TILES;
+// returns cudaErrorInvalidValue for any other.
+int dispatch_f32(const void* x, const void* w, const void* bias, void* out, int M, int N, int K,
+                 int act, const StepProgram& p, int bm, int bn, int bk, int depth,
+                 cudaStream_t st) {
+  using T = float;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const int xvb = pipelined::copy_bytes(x, (long long)K * sizeof(T));
@@ -67,15 +71,39 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, int M, i
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16: the tile must be one of tiles.cuh's REPRO_BF16_PIPELINED_TILES.
+int dispatch_bf16(const void* x, const void* w, const void* bias, void* out, int M, int N, int K,
+                  int act, const StepProgram& p, int bm, int bn, int bk, int depth, void* ws,
+                  void* counters, int kchunk, cudaStream_t st) {
+  using B = __nv_bfloat16;
+  const B* xb = static_cast<const B*>(x);
+  const B* wb = static_cast<const B*>(w);
+  const DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+#define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                 \
+  if (bm == BM && bn == BN && bk == BK && depth == DEPTH) {                               \
+    return (int)mma_gemm::launch<BM, BN, BK, DEPTH, 1>(xb, wb, nullptr, M, N, K, kchunk, wsf, \
+                                                       cnt, epi, st);                    \
+  }
+  REPRO_BF16_PIPELINED_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16; (bm, bn, bk, depth) one of tiles.cuh's
-// pipelined tiles.
+// pipelined tiles of that type (REPRO_GEMM_PIPELINED_TILES for f32,
+// REPRO_BF16_PIPELINED_TILES for bf16).  bf16 takes K ranges of kchunk
+// rows and, with more than one range, the f32 workspace ws
+// [ceil(K / kchunk), M, N] and zeroed tile counters; f32 ignores them.
 extern "C" int repro_dense_matmul_pipelined(const void* x, const void* w, const void* bias,
                                             void* out, int M, int N, int K, int act,
                                             int n_steps, const int* prog, int n_sides,
-                                            const void* const* sides, int dtype, int bm, int bn,
-                                            int bk, int depth, void* stream) {
+                                            const void* const* sides, int dtype, void* ws,
+                                            void* counters, int kchunk, int bm, int bn, int bk,
+                                            int depth, void* stream) {
   StepProgram p;
   if (M < 0 || N < 0 || K < 0 || dtype < 0 || dtype > 1 ||
       !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
@@ -86,6 +114,7 @@ extern "C" int repro_dense_matmul_pipelined(const void* x, const void* w, const 
   }
   if (M == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, depth, st);
-  return dispatch<__nv_bfloat16>(x, w, bias, out, M, N, K, act, p, bm, bn, bk, depth, st);
+  if (dtype == 0) return dispatch_f32(x, w, bias, out, M, N, K, act, p, bm, bn, bk, depth, st);
+  return dispatch_bf16(x, w, bias, out, M, N, K, act, p, bm, bn, bk, depth, ws, counters, kchunk,
+                       st);
 }

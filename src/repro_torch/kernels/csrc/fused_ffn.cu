@@ -5,31 +5,40 @@
 // weights, keeps two f32 accumulators, and applies the gate in the
 // epilogue, so neither [M, F] projection ever reaches device memory.
 //
-// Element type T: f32 or bf16 (x, Wg, Wu and out share it); operands are
-// widened to f32 as they are loaded, both accumulators are f32, and the one
-// store rounds act(g) * u to T (the TPU kernel's preferred_element_type=f32
-// and astype(x.dtype)).  Activations: relu, gelu (tanh form), silu, tanh.
+// Element type T: f32 or bf16 (x, Wg, Wu and out share it); both
+// accumulators are f32, and the one store rounds act(g) * u to T (the TPU
+// kernel's preferred_element_type=f32 and astype(x.dtype)).  Activations:
+// relu, gelu (tanh form), silu, tanh.
 //
-// Layout: x [M, K], Wg / Wu [K, F], out [M, F], row-major.  Two kernels:
+// Layout: x [M, K], Wg / Wu [K, F], out [M, F], row-major.  Kernels:
 //
-// * tiled (M > 8, prefill): a 64 x 64 output tile per block, K walked in
-//   16-deep slabs staged in shared memory (one x slab, one slab of each
-//   weight); each thread holds a 4 x 4 micro-tile of both accumulators.
-//   Ragged M / F / K are masked.
-// * skinny split-K (M <= 8, decode; csrc/skinny_gemm.cuh with two weights):
-//   128 columns per block, the K range split so that about two blocks run
-//   per SM (qwen2.5-3b, F = 11008, K = 2048: 86 column tiles x 4 splits).
+// * bf16, M > 8 (prefill): the tensor-core kernel of csrc/mma_gemm.cuh
+//   with two weights (NW = 2): each x fragment is loaded once (ldmatrix)
+//   and multiplied into the gate and the up accumulators (mma.sync
+//   m16n8k16), both weight slabs ride the same 3-slot cp.async ring, and
+//   act(g) * u is applied on the accumulators before the one store.  Tile
+//   (one of tiles.cuh's REPRO_BF16_TILED_TILES) and K ranges come from the
+//   wrapper, fixed by the shape.
+// * bf16, M <= 8 (decode): the weight-streaming split-K kernel of
+//   csrc/skinny_bf16.cuh with two weights.
+// * f32: a 64 x 64 output tile per block, K walked in 16-deep slabs staged
+//   in shared memory as f32, 4 x 4 micro-tiles of both accumulators with
+//   FMA on the CUDA cores (M > 8); the split-K kernel of
+//   csrc/skinny_gemm.cuh (M <= 8).  Ragged M / F / K are masked.
 //
-// What bounds it here: at decode (M = batch <= 4) the bytes of Wg + Wu --
-// 2 x 2048 x 11008 x 2 B = 90 MB a layer for qwen2.5-3b, at least 27 us at
-// 3.35 TB/s -- so the design is about spreading F (and K) over all 132 SMs
-// with wide loads; at prefill M = B * S rows share each weight tile.  No
-// tensor cores (mma.sync / wgmma) or TMA yet.
+// What bounds it here: the bytes of Wg + Wu -- 2 x 2048 x 11008 x 2 B = 90
+// MB a layer for qwen2.5-3b, at least 27 us at 3.35 TB/s -- at decode and
+// at the M = 48 prefill alike (the tensor cores do the prefill's 4.3 GFLOP
+// in ~4 us); so the design streams both weights through one ring (prefill)
+// or spreads them over every SM with 16-byte loads (decode).
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "mma_gemm.cuh"
+#include "skinny_bf16.cuh"
 #include "skinny_gemm.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -105,7 +114,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-// The skinny kernel's epilogue: act(g) * u, one store.
+// The split-K and tensor-core kernels' epilogue: act(g) * u, one store.
 template <typename T>
 struct GateUpEpilogue {
   T* out;
@@ -116,9 +125,9 @@ struct GateUpEpilogue {
   }
 };
 
-template <typename T>
-int run(const void* x, const void* wg, const void* wu, void* out, int M, int F, int K, int act,
-        void* ws, void* counters, int kchunk, int vec, cudaStream_t st) {
+int run_f32(const void* x, const void* wg, const void* wu, void* out, int M, int F, int K,
+            int act, void* ws, void* counters, int kchunk, int vec, cudaStream_t st) {
+  using T = float;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(wg);
   const T* ut = static_cast<const T*>(wu);
@@ -146,20 +155,51 @@ int run(const void* x, const void* wg, const void* wu, void* out, int M, int F, 
   return (int)cudaGetLastError();
 }
 
+int run_bf16(const void* x, const void* wg, const void* wu, void* out, int M, int F, int K,
+             int act, void* ws, void* counters, int kchunk, int vec, int bm, int bn, int bk,
+             cudaStream_t st) {
+  using B = __nv_bfloat16;
+  const B* xb = static_cast<const B*>(x);
+  const B* gb = static_cast<const B*>(wg);
+  const B* ub = static_cast<const B*>(wu);
+  const GateUpEpilogue<B> epi{static_cast<B*>(out), F, act};
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  if (vec > 0) {
+    return skinny_bf16::launch<2>(xb, gb, ub, M, F, K, kchunk, vec, wsf, cnt, epi, st);
+  }
+#define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                   \
+  if (bm == BM && bn == BN && bk == BK) {                                                   \
+    return (int)mma_gemm::launch<BM, BN, BK, DEPTH, 2>(xb, gb, ub, M, F, K, kchunk, wsf, cnt, \
+                                                       epi, st);                           \
+  }
+  REPRO_BF16_TILED_TILES(REPRO_TRY_TILE)
+#undef REPRO_TRY_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  kchunk > 0 selects the skinny split-K kernel
-// (M <= 8) with vec columns per lane (4 or 1) and, when K spans more than
-// one chunk, the f32 workspace ws [ceil(K / kchunk), 2, M, F] and zeroed
-// tile counters; kchunk == 0 selects the tiled kernel.
+// dtype: 0 = f32, 1 = bf16.
+// * f32: kchunk > 0 selects the split-K kernel of skinny_gemm.cuh (M <= 8)
+//   with vec columns per lane (4 or 1) and, when K spans more than one
+//   chunk, the f32 workspace ws [ceil(K / kchunk), 2, M, F] and zeroed tile
+//   counters; kchunk == 0 the tiled kernel (bm, bn, bk unused).
+// * bf16, vec > 0: the split-K kernel of skinny_bf16.cuh (M <= 8) with vec
+//   columns per lane (8 or 1), K ranges of kchunk rows and, with more than
+//   one range, ws [ceil(K / kchunk), 2, M, F] and zeroed tile counters.
+// * bf16, vec == 0: the tensor-core kernel with the tile (bm, bn, bk), one
+//   of REPRO_BF16_TILED_TILES, K ranges of kchunk rows and, with more than
+//   one range, ws [ceil(K / kchunk), 2, M, F] and zeroed tile counters.
 extern "C" int repro_ffn_gateup(const void* x, const void* wg, const void* wu, void* out,
                                 int M, int F, int K, int act, int dtype, void* ws,
-                                void* counters, int kchunk, int vec, void* stream) {
+                                void* counters, int kchunk, int vec, int bm, int bn, int bk,
+                                void* stream) {
   if (M < 0 || F < 0 || K < 0 || act < ACT_NONE || act > ACT_TANH || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (M == 0 || F == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, st);
-  return run<__nv_bfloat16>(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, st);
+  if (dtype == 0) return run_f32(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, st);
+  return run_bf16(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, bm, bn, bk, st);
 }

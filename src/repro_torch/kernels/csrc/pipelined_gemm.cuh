@@ -33,9 +33,11 @@
 // plain version.
 //
 // Arithmetic: the slabs stay in their element types (an async copy cannot
-// widen) and every term is widened at the multiply-add: f32 and bf16 take
-// one fmaf per term into an f32 accumulator, W8 widens the int8 weight to
-// f32, W8A8 sums int8 x int8 products in an exact int32 accumulator.  Each
+// widen) and every term is widened at the multiply-add: f32 takes one fmaf
+// per term into an f32 accumulator, W8 widens the int8 weight to f32, W8A8
+// sums int8 x int8 products in an exact int32 accumulator.  (bf16 runs the
+// tensor-core kernel of mma_gemm.cuh, which stages its slabs with stage()
+// below.)  Each
 // output sums k in ascending order from zero, with the zero-filled tail of
 // the last slab, exactly as the tiled kernels do (dense_matmul.cu,
 // quant_matmul.cu), so the result is bit-equal to theirs for every tile.
@@ -85,9 +87,6 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 
 // One multiply-add term, widened as the tiled kernels widen it.
 __device__ __forceinline__ float mac(float acc, float a, float b) { return fmaf(a, b, acc); }
-__device__ __forceinline__ float mac(float acc, __nv_bfloat16 a, __nv_bfloat16 b) {
-  return fmaf(to_f32(a), to_f32(b), acc);
-}
 __device__ __forceinline__ float mac(float acc, float a, int8_t b) {
   return fmaf(a, (float)b, acc);
 }

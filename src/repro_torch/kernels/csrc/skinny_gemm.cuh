@@ -1,11 +1,11 @@
-// Split-K "skinny" GEMM for a few rows: out = epi(x @ w0 [, x @ w1]).
+// Split-K "skinny" GEMM for a few f32 rows: out = epi(x @ w0 [, x @ w1]).
 //
-// Shared by dense_matmul.cu (one weight) and fused_ffn.cu (gate and up
-// weights, NW = 2).  It serves the decode step, where M is the batch (a
-// handful of rows) and every weight byte is read once: the bound is the
-// weights' bytes over the memory rate.  A tiled GEMM launches one block
-// per 64-column tile there (32 blocks for N = 2048) and leaves most SMs
-// idle; this kernel spreads the work over about two blocks per SM:
+// fused_ffn.cu's f32 gate/up route at M <= 8 (gate and up weights, NW = 2;
+// the f32 decoder's decode step).  The bf16 routes run csrc/skinny_bf16.cuh.
+// M is the batch (a handful of rows) and every weight byte is read once: the
+// bound is the weights' bytes over the memory rate.  A tiled GEMM launches
+// one block per 64-column tile there and leaves most SMs idle; this kernel
+// spreads the work over about two blocks per SM:
 //
 //   grid (ceil(N / BN), nsplit, ceil(M / MT)), BN = 32 * VEC columns,
 //   MT = 8 rows, 8 warps per block.

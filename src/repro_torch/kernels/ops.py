@@ -27,7 +27,8 @@ Differences from the JAX wrappers, by design:
   ``sm{major}{minor}`` (the card, ``sm90`` on an H100) instead of
   ``interpret`` / ``hw``, so a TPU winner never steers the card and a card
   winner never the TPU; ``DEFAULTS`` and ``CANDIDATES`` name the CUDA
-  kernels' own tiles (``_build.GEMM_TILES`` / ``CONV_TILES``), and a tile
+  kernels' own tiles (``_build.GEMM_TILES`` / ``CONV_TILES``; bf16
+  ``matmul`` keys sweep ``_build.BF16_GEMM_TILES``), and a tile
   they are not built for raises (from a pin or a loaded entry) or is
   skipped (in a sweep);
 * the bf16 skinny split-K route (M <= 8, decode) stays outside the cache:
@@ -217,7 +218,7 @@ class TuningCache:
     #: depth >= 2 the K-slab ring; ``conv2d`` is the conv kernel's (BM, BN,
     #: BK); ``fused_elementwise`` rows per block and ``bsr_matmul`` rows per
     #: M tile, each the one configuration of its kernel.  The wrappers pass
-    #: their shape-based default (``_build.gemm_default_tile`` /
+    #: their shape-based default (``_build.default_gemm_tile`` /
     #: ``conv_default_tile``); these are the families' fallbacks.
     DEFAULTS: Dict[str, Tuple[int, ...]] = {
         "matmul": (64, 64, 16, 1),
@@ -234,6 +235,19 @@ class TuningCache:
         "fused_elementwise": ((4,),),
         "bsr_matmul": ((8,),),
     }
+    #: the grids of families whose bf16 instances run other kernels: bf16
+    #: ``matmul`` sweeps the tensor-core kernel's own tiles (same keys, the
+    #: dtype field tells them apart)
+    BF16_CANDIDATES: Dict[str, Tuple[Tuple[int, ...], ...]] = {
+        "matmul": _build.BF16_GEMM_TILES,
+    }
+
+    @classmethod
+    def candidates(cls, op: str, dtype: Any) -> Tuple[Tuple[int, ...], ...]:
+        """The sweep grid of ``op`` for operands of ``dtype``."""
+        if _dtype_name(dtype) == "bfloat16" and op in cls.BF16_CANDIDATES:
+            return cls.BF16_CANDIDATES[op]
+        return cls.CANDIDATES[op]
 
     def __init__(self, enabled: Optional[bool] = None, path: Optional[str] = None):
         env = os.environ.get("REPRO_TUNE")
@@ -330,7 +344,7 @@ class TuningCache:
         stat["misses"] += 1
         if can_sweep:
             best, best_ms = None, float("inf")
-            for cand in self.CANDIDATES[op]:
+            for cand in self.candidates(op, dtype):
                 try:
                     ms = _time_candidate(runner, cand, reps, mode != "cpu")
                 except _build.TileError:
@@ -466,7 +480,7 @@ def _gemm_tile(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, mode: str,
     never from the cache (a winner for the free dims was timed with other
     pins).  A tile the kernels lack raises, naming the key."""
     block_m, block_n, block_k, pipeline = pins
-    default = _build.gemm_default_tile(n)
+    default = _build.default_gemm_tile(m, n, dtype)
     if block_m is None and block_n is None and block_k is None:
         tile = _blocks4(_TUNING.resolve(op, m, n, k, dtype, fmt, mode, runner, default=default))
         if pipeline is not None:
@@ -474,7 +488,8 @@ def _gemm_tile(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, mode: str,
     else:
         tile = (block_m or default[0], block_n or default[1], block_k or default[2],
                 pipeline or 1)
-    return _build.check_gemm_tile(tile, lambda: TuningCache.key(op, m, n, k, dtype, fmt, mode))
+    return _build.check_gemm_tile(tile, lambda: TuningCache.key(op, m, n, k, dtype, fmt, mode),
+                                  dtype)
 
 
 def _one_config(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, device) -> None:
