@@ -91,6 +91,7 @@ result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -302,6 +303,12 @@ def phase_device(torch) -> str:
     return smi
 
 
+#: registers a thread of each conv kernel instance, by (scheme, BM, BN, BK),
+#: from the build log's ptxas report (phase_build fills it)
+CONV_REGISTERS = {}
+_CONV_ENTRY = re.compile(r"conv2d_igemm(?:_int8)?_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -311,9 +318,18 @@ def phase_build():
     dt = time.perf_counter() - t0
     print(f"build: {dt:.1f}s -> {path.relative_to(ROOT)}")
     log = (path.parent / "build.log").read_text()
+    entry = None
     for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = _CONV_ENTRY.search(m.group(1))
         if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and entry:
+            CONV_REGISTERS[tuple(int(v) for v in entry.groups())] = int(regs.group(1))
+    check(len(CONV_REGISTERS) == 3 * 6, f"build log: {len(CONV_REGISTERS)} conv kernel "
+                                        f"instances with registers, want 18")
     sass_check(path)
 
 
@@ -324,9 +340,9 @@ _FMA_GEMMS = ("dense_matmul_kernel", "ffn_gateup_kernel", "pipelined_gemm_kernel
 
 def sass_check(lib_path):
     """The built library's SASS (cuobjdump): every tensor-core GEMM kernel
-    issues HMMA, and no CUDA-core GEMM kernel is instantiated for bf16."""
-    import re
-
+    (the dense ``mma_gemm_kernel`` and the block-sparse
+    ``bsr_matmul_mma_kernel``) issues HMMA, and no CUDA-core GEMM kernel is
+    instantiated for bf16."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
@@ -335,15 +351,18 @@ def sass_check(lib_path):
     hmma, fma_bf16 = {}, []
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "mma_gemm_kernel" in name:
+        if "mma_gemm_kernel" in name or "bsr_matmul_mma_kernel" in name:
             hmma[name] = chunk.count("HMMA")
         if any(k in name for k in _FMA_GEMMS) and "bfloat16" in name:
             fma_bf16.append(name)
     check(hmma and min(hmma.values()) > 0,
           f"sass: tensor-core kernels without HMMA: {[n for n, c in hmma.items() if not c]}")
     check(not fma_bf16, f"sass: CUDA-core bf16 GEMM instances remain: {fma_bf16[:3]}")
-    print(f"  sass: {len(hmma)} mma_gemm_kernel instances, HMMA per kernel "
-          f"{min(hmma.values())}..{max(hmma.values())}; no bf16 instance of "
+    check(sum("bsr_matmul_mma_kernel" in n for n in hmma) == 4,
+          f"sass: {sum('bsr_matmul_mma_kernel' in n for n in hmma)} bsr_matmul_mma_kernel "
+          f"instances, want 4")
+    print(f"  sass: {len(hmma)} mma_gemm_kernel / bsr_matmul_mma_kernel instances, HMMA per "
+          f"kernel {min(hmma.values())}..{max(hmma.values())}; no bf16 instance of "
           f"{', '.join(_FMA_GEMMS)}")
 
 
@@ -446,6 +465,10 @@ def phase_kernels(torch):
         record(name, label, out, want, lambda: kconv.conv2d_gemm(x, wt, b, *sides, **kw),
                lambda: kconv.conv2d_plain(x, wt, b, *sides, **kw), library, nb, flops,
                rtol=rtol, peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+        tile = _build.conv_default_tile(scheme, o)
+        regs = CONV_REGISTERS[(_build.SCHEME_CODES[scheme], *tile)]
+        print(f"  {name:18s} {label:42s} tile {'x'.join(map(str, tile))}, {regs} registers a "
+              f"thread")
         if tiles:
             tiles_line(name, label, lambda t: kconv.conv2d_gemm(
                 x, wt, b, *sides, **kw, block_m=t[0], block_n=t[1], block_k=t[2]),
@@ -813,21 +836,28 @@ def phase_llm_kernels(torch, results):
         print(f"  per {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
               f"dense_matmul_bf16 {5 * LLM_LAYERS} launches {dense:.3f} ms, ffn_gateup "
               f"{LLM_LAYERS} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms")
-    phase_bsr_kernels(torch, record)
+    phase_bsr_kernels(torch, record, results)
     torch.cuda.synchronize()
     return results
 
 
-def phase_bsr_kernels(torch, record):
+def phase_bsr_kernels(torch, record, results):
     """The block-sparse kernel against its plain version: the full-width
     pruned q / o projections (qwen2.5-3b, ``Block(0.5, bm=64, bn=64)``
     balanced, packed on the card) at decode and prefill, then f32 cases with
     bands, pads and an empty band.  Each band is one wrapper call writing
     into one output, as ``ops.bsr_matmul`` makes them.  Bound: the real
     blocks' bytes + block_rows + x + out + bias + sides, and
-    2 * M * bm * bn per real block."""
+    2 * M * bm * bn per real block.  Each case prints its route and split
+    per band (``bsr_matmul.plan``); bf16 edge cases drive each route's
+    other instances (bm = 16 slabs, 32-column chunks, pads, a split
+    streaming launch, an empty band).  Then the pruned decoder's device
+    time per plan call in ``bsr_matmul`` (36 q + 36 o launches), and a
+    check that no split launch allocated tile counters (the kernels reset
+    the ones ``_build.split_counters`` keeps)."""
     from repro_torch.core.pruning import Block, project
     from repro_torch.core.sparse import PBCSR
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bsr_matmul as kbsr
     from repro_torch.kernels.ref import _ACT
 
@@ -854,6 +884,10 @@ def phase_bsr_kernels(torch, record):
         sides = (randn(m, n, dtype=x.dtype),) if add else ()
         epi = (("add", 0),) if add else ()
         args = (x, values, rows, bias, sides, bands, epi, act)
+        plans = [kbsr.plan_for(x, values, stop - start, count) for start, stop, count in bands]
+        print(f"  {'bsr_matmul':18s} {label:42s} route " + "; ".join(
+            f"{p.route} ({p.width} wide) x{p.nsplit} split{'s' if p.nsplit > 1 else ''} of "
+            f"{p.schunk} step{'' if p.schunk == 1 else 's'}" for p in plans))
         out = banded(kbsr.bsr_matmul, *args)
         want = banded(kbsr.bsr_matmul_plain, *args)
         live = torch.zeros_like(rows, dtype=torch.bool)
@@ -874,6 +908,7 @@ def phase_bsr_kernels(torch, record):
                2.0 * m * real * bm * bn, peak)
         return rows
 
+    allocs, splits = _build.counter_allocations, kbsr.split_launches
     # full width: the headline (decode q) first
     w_q = randn(2048, 2048, scale=2048 ** -0.5, dtype=bf16)
     w_o = randn(2048, 2048, scale=2048 ** -0.5, dtype=bf16)
@@ -890,6 +925,28 @@ def phase_bsr_kernels(torch, record):
          add=True)
     case("o prefill M=48 2048->2048 b64 S=16 +add", randn(48, 2048, dtype=bf16), w_o, m_o,
          64, 64, add=True)
+    # device ms of one plan call's bsr_matmul launches: q and o in each of
+    # qwen2.5-3b's 36 layers
+    t = {r["label"].split(" M=")[0]: r["ms"] for r in results["bsr_matmul"]}
+    for phase in ("prefill", "decode"):
+        ms = LLM_LAYERS * (t[f"q {phase}"] + t[f"o {phase}"])
+        print(f"  per pruned {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
+              f"bsr_matmul {2 * LLM_LAYERS} launches {ms:.3f} ms")
+    # bf16 edge shapes: bm = 16 slabs over 32-column chunks with pads (the
+    # tensor cores), a split streaming launch with pads, bands with an
+    # empty one
+    w3 = randn(192, 96, scale=192 ** -0.5, dtype=bf16)
+    case("bf16 M=13 192->96 b16x32 pads +add", randn(13, 192, dtype=bf16), w3,
+         project(w3, Block(0.5, bm=16, bn=32, balanced=False))[1], 16, 32, add=True)
+    w4 = randn(256, 384, scale=256 ** -0.5, dtype=bf16)
+    case("bf16 M=8 256->384 b32x24 pads +add", randn(8, 256, dtype=bf16), w4,
+         project(w4, Block(0.5, bm=32, bn=24, balanced=False))[1], 32, 24, add=True)
+    w5 = randn(256, 256, scale=256 ** -0.5, dtype=bf16)
+    m5 = project(w5, Block(0.5, bm=32, bn=32, balanced=False))[1]
+    s5 = int(PBCSR.from_dense(w5, m5, 32, 32).block_rows.shape[1])
+    case("bf16 M=20 256->256 b32 3 bands, 1 empty", randn(20, 256, dtype=bf16), w5, m5, 32, 32,
+         bias=randn(256, scale=0.1, dtype=bf16), act="gelu",
+         bands=((0, 1, 0), (1, 5, min(2, s5)), (5, 8, s5)))
     # the test MLP's first layer (256 -> 512, Block(0.5, 128, 128,
     # balanced=False)), numpy-seeded so its pads are known: two bands over
     # the unpermuted packing, pads inside them, an add side
@@ -907,6 +964,12 @@ def phase_bsr_kernels(torch, record):
     m2 = torch.kron(bmask, torch.ones((16, 24), device=dev))
     case("f32 M=5 48->96 b16x24 empty band +relu", randn(5, 48), randn(48, 96), m2, 16, 24,
          bias=randn(96), bands=((0, 2, 0), (2, 3, 2), (3, 4, 3)), act="relu")
+    splits = kbsr.split_launches - splits
+    check(splits > 0 and _build.counter_allocations == allocs,
+          f"bsr_matmul: {_build.counter_allocations - allocs} counter buffers allocated over "
+          f"{splits} split launches")
+    print(f"  {'bsr_matmul':18s} {splits} split launches, 0 counter buffers allocated "
+          f"(the kernels reset _build.split_counters' buffer)")
 
 
 def serve_measured(torch, ops, plan, params, frames, app):
@@ -1229,7 +1292,7 @@ _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
         "quant_matmul_kernel": "quant_matmul", "flash_attention_kernel": "flash_attention",
         "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
-        "bsr_matmul_kernel": "bsr_matmul", "pipelined_gemm_kernel": "gemm_pipelined",
+        "bsr_matmul": "bsr_matmul", "pipelined_gemm_kernel": "gemm_pipelined",
         "Memcpy": "memcpy"}
 #: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
@@ -1237,8 +1300,9 @@ _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
 
 def _family(key: str) -> str:
     name = next((v for k, v in _OWN.items() if k in key), None)
-    if name == "conv2d":
-        return _CONV_SCHEME.get(key.split("conv2d_igemm_kernel<")[-1][:1], name)
+    if name == "conv2d":  # conv2d_igemm_kernel<S, ...> or conv2d_igemm_int8_kernel<S, ...>
+        m = re.search(r"conv2d_igemm\w*<(\d)", key)
+        return _CONV_SCHEME.get(m.group(1) if m else "", name)
     return name or "other:" + key.split("(")[0].split("<")[0][:48]
 
 

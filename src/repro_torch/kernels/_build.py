@@ -142,13 +142,20 @@ def default_gemm_tile(m: int, n: int, dtype) -> Tuple[int, int, int, int]:
 
 
 def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
-    """The conv kernel's default tile: by the output-channel count, over four
-    tiles for f32 and two for the INT8 schemes, as before the cache."""
+    """The conv kernel's default tile, by the output-channel count: for f32
+    256 x 4 up to O = 4, 256 x 16 up to 16, 256 x 32 up to 32, 64 x 64
+    wider; W8 (the f32 body) 256 x 32 up to 32, 64 x 64 wider; W8A8 (its
+    own body) 128 x 32 up to 32, 64 x 64 wider.  256 x 32 is the f32 / W8
+    body's fastest tile on the apps' 32-channel convs at 256 x 256 (3x3
+    96-of-192->32 +add 0.534 ms against 128 x 32's 0.573, 7x7 3->32 0.145
+    against 0.156; H100, tools/bsr_conv_bench.py --tiles)."""
     if scheme == "f32" and o <= 4:
         return (256, 4, 16)
     if scheme == "f32" and o <= 16:
         return (256, 16, 16)
-    return (128, 32, 16) if o <= 32 else (64, 64, 16)
+    if o <= 32:
+        return (128, 32, 16) if scheme == "w8a8" else (256, 32, 16)
+    return (64, 64, 16)
 
 
 _GEMM_TILE_SET = frozenset(GEMM_TILES)
@@ -274,7 +281,7 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.repro_fused_elementwise.restype = I
     cdll.repro_fused_elementwise_max_d.argtypes = []
     cdll.repro_fused_elementwise_max_d.restype = I
-    cdll.repro_bsr_matmul.argtypes = [P] * 5 + [I] * 11 + [P, I, P] + [I] * 3 + [P, P, P]
+    cdll.repro_bsr_matmul.argtypes = [P] * 5 + [I] * 11 + [P, I, P] + [I] * 4 + [P, P, P]
     cdll.repro_bsr_matmul.restype = I
     cdll.repro_error_string.argtypes = [I]
     cdll.repro_error_string.restype = ctypes.c_char_p
@@ -441,18 +448,23 @@ def gemm_split(m: int, n: int, k: int) -> Tuple[int, int]:
 
 
 #: (device, stream) -> int32 tile counters, zero between launches: the
-#: split kernels of csrc/mma_gemm.cuh and csrc/skinny_bf16.cuh reset each
-#: counter they use before they exit
+#: split kernels of csrc/mma_gemm.cuh, csrc/skinny_bf16.cuh and
+#: csrc/bsr_matmul.cu reset each counter they use before they exit
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+#: counter buffers :func:`split_counters` has allocated (a zeroing
+#: allocation each), so a run can show that split launches make none
+counter_allocations = 0
 
 
 def split_counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 tile counters for a split launch on the
     current stream, from a buffer kept per device and stream (the kernels
     leave them zeroed, so no memset per call)."""
+    global counter_allocations
     key = (device, stream_handle())
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
+        counter_allocations += 1
     return buf

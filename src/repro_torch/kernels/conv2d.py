@@ -25,9 +25,15 @@ K = 147..1728 per output element, so multiply-add throughput on the CUDA
 cores bounds them (true f32, no TF32: the plan tolerances assume it; exact
 int32 for W8A8); the tile is one of ``_build.CONV_TILES`` (``ops.conv2d``
 resolves it through the tuning cache), by default chosen by the
-output-channel count so narrow heads waste little of a tile.  The INT8
-schemes stage int8 filters (and, for W8A8, int8 patches) at a quarter of
-the f32 bytes.
+output-channel count so narrow heads waste little of a tile.  The f32 and
+W8 body spends its issue slots on FMAs: 8 x 8 register micro-tiles read
+from shared memory as float4, double-buffered slabs with the next slab's
+gather in flight (4-byte ``cp.async``, zero-fill for the border), per-CTA
+and per-slab offset tables instead of per-element division, 32-bit
+offsets (an operand of 2^31 elements or more raises).  Each output sums K
+in ascending order in one FMA chain, so every tile is bit-equal to every
+other.  W8 widens its int8 filter as it stages it; W8A8 keeps its own body
+(int8 patches and filters, exact int32 sums).
 
 The plain version accumulates the INT8 schemes in float64 -- exact for
 W8A8, whose integer sums pass 2^24 (127^2 x 1728 = 2.8e7) where a float32
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -112,6 +119,21 @@ def conv_scheme(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
     if w_dtype == torch.int8:
         return "w8a8" if x_dtype == torch.int8 else "w8"
     return "f32"
+
+
+def check_extents(scheme: str, x_shape, w_shape, out_shape) -> None:
+    """Raise, naming the shapes, where the kernel cannot take a conv: the
+    f32 / W8 body indexes its operands with 32-bit offsets, so each of x, w
+    and the output must hold fewer than 2^31 elements, and it splits k by a
+    32-bit multiply-high, so K * kh * kw must stay under 2^32 (W8A8 indexes
+    in 64 bits)."""
+    if scheme == "w8a8":
+        return
+    k_khw = int(np.prod(w_shape[1:])) * int(w_shape[2]) * int(w_shape[3])
+    if max(int(np.prod(s)) for s in (x_shape, w_shape, out_shape)) >= 2 ** 31 or k_khw >= 2 ** 32:
+        raise ValueError(f"conv2d_gemm: x{tuple(x_shape)} w{tuple(w_shape)} -> "
+                         f"{tuple(out_shape)}: the {scheme} kernel takes operands of fewer "
+                         f"than 2^31 elements")
 
 
 def conv2d_plain(
@@ -208,6 +230,7 @@ def conv2d_gemm(
     if dev.type == "cpu":
         return conv2d_plain(x, w, bias, *sides, ws=ws, kept=kept, stride=stride,
                             padding=padding, activation=activation, epilogue=epilogue)
+    check_extents(scheme, tuple(x.shape), tuple(w.shape), (nb, o, oh, ow))
     pt, pl = conv_pad_hw(h, wd, kh, kw, stride, padding)
     out = torch.empty((nb, o, oh, ow), dtype=torch.float32, device=dev)
     prog = _build.encode_program(epilogue)

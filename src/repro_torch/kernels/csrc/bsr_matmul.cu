@@ -8,12 +8,11 @@
 // weight, -1 = pad).  Pruned blocks are never read.
 //
 // Element type T: f32 or bf16 (x, values, bias, the side operands and out
-// share it).  Operands are widened to f32 as they are loaded; the
-// accumulator, bias, activation and the step program (epilogue.cuh) run in
-// f32 and the one store rounds to T -- the TPU kernel's
-// preferred_element_type=f32, b_ref.astype(f32) and astype(o_ref.dtype).
-// A residual add side in bf16 is read as bf16 and added in f32 before that
-// store, which is the dense kernel's contract too.
+// share it).  The accumulator, bias, activation and the step program
+// (epilogue.cuh) run in f32 and the one store rounds to T -- the TPU
+// kernel's preferred_element_type=f32, b_ref.astype(f32) and
+// astype(o_ref.dtype).  A residual add side in bf16 is read as bf16 and
+// added in f32 before that store, which is the dense kernel's contract too.
 //
 // One launch covers one band: block-columns [col0, col0 + ncols) walked for
 // `count` packed steps each (the band's exact trip count; `s_stride` is the
@@ -24,42 +23,76 @@
 // bias [Nb * bn] at the output's column.  count == 0 is a valid launch: no
 // step, the epilogue of a zero accumulator (bias, activation, steps).
 //
-// Grid (ceil(bn / CW) * ncols, nsplit, ceil(M / 8)), 8 warps, CW = 32 * VEC
-// columns: output-stationary, one CTA per (8-row M tile, column chunk of
-// one block-column), walking that column's packed blocks in order.  Each
-// lane owns VEC adjacent columns and loads them as one wide word per weight
-// row; the 8 warps take interleaved rows of the block and meet in shared
-// memory in warp order.  For every block the CTA stages its x rows of that
-// block-row (x[m, r * bm : (r + 1) * bm], in chunks of at most 256) in
-// shared memory.  The wrapper masks nothing: ragged M and a ragged last
-// column chunk are masked here.
+// Three bodies, one chosen by the wrapper from the shape before the launch
+// (kernels/bsr_matmul.py:plan; the C entry refuses a route the shape does
+// not allow):
 //
-// Pads (block_rows -1) are skipped.  That is exact for finite x: the TPU
-// kernel clamps a pad to x block 0 and multiplies its product by 0, so with
-// a non-finite x it yields NaN where this kernel yields the finite sum.
+// * ROUTE_MMA, bf16 with M > 8 (prefill), bm % 16 == 0: tensor cores.  A
+//   CTA owns a 64-row M tile by a CN-column chunk (64 or 32) of one
+//   block-column and treats each packed block as BK-deep K slabs (BK = 64
+//   or 16, dividing bm) whose x columns start at block_rows[j, s] * bm.  The
+//   slabs run through a cp.async ring of STAGES slots (mma_gemm.cuh's
+//   stage16 copies, its ldmatrix / mma.sync.m16n8k16 fragments), so each
+//   weight block is read once per 64-row M tile -- not once per 8 rows --
+//   and several blocks are in flight behind the one being multiplied.  Its
+//   splits meet in a thread block cluster (below).
+// * ROUTE_STREAM, bf16 with M <= 8 (decode): weight streaming, like
+//   skinny_bf16.cuh.  8 warps over 16 columns of a block-column; lane l
+//   owns 8 adjacent columns (one 16-byte word of a block row, two lanes a
+//   32-byte sector) and the rows l / 2 + 16 * warp + 128 i of the CTA's
+//   packed rows, up to 8 loads a lane issued before x is staged and before
+//   any is used; only MT = M rounded up to 1, 2, 4 or 8 rows of x are
+//   staged (f32, shared memory).  Consecutive packed steps of a column are
+//   contiguous, so a lane's row address needs no division.  With 16
+//   columns a CTA the decoder's q / o projections (32 block-columns of 64)
+//   give 128 CTAs that each hold all their rows: no split.
+// * ROUTE_FMA, f32 (and any bf16 shape the other two do not take): CUDA
+//   cores.  8-row M tiles by a 32 * VEC column chunk of one block-column;
+//   each lane owns VEC adjacent columns, the 8 warps take interleaved rows
+//   of the block and meet in shared memory in warp order; the x rows of
+//   each block are staged in chunks of at most 256.  True f32 (no TF32).
 //
-// What bounds it here: at decode (M = batch <= 4) the packed weights'
-// bytes -- qwen2.5-3b's q projection pruned to half with 64 x 64 blocks is
-// 4 MiB, 1.25 us at 3.35 TB/s -- but there are only Nb = 32 block-columns,
-// so one CTA per column would leave 100 of 132 SMs idle.  The design
-// splits each column's S packed steps across CTAs (nsplit) until the grid
-// has about two CTAs per SM; each split writes its partial tile to an f32
-// workspace and the CTA that finishes a tile last (an atomic counter per
-// tile, zeroed by the wrapper) sums the splits in split order --
-// deterministic, no float atomics -- and runs the epilogue, as
-// skinny_gemm.cuh does.  At prefill the 8-row tiles re-read each weight
-// block once per tile (from L2: 4 MiB fits its 50 MB).  CUDA cores, no
-// tensor cores, TMA or multistage pipeline yet.
+// Every body splits a column's `count` steps over gridDim.y CTAs of
+// `schunk` steps when the grid is small (the split is a function of the
+// shape: kernels/bsr_matmul.py).  ROUTE_MMA's splits of a tile form one
+// thread block cluster and sum their partial tiles through distributed
+// shared memory, each CTA a share of the rows.  The other bodies write
+// each split's partial tile to the f32 workspace ws [nsplit, M, ncols *
+// bn]; the CTA that finishes a tile last (an int counter per tile, which
+// it resets to 0 for the next launch, so the wrapper keeps one zeroed
+// buffer per stream: _build.split_counters) sums the splits and runs the
+// epilogue.  Either way the splits are summed in split order --
+// deterministic, no float atomics.  The wrapper masks nothing: ragged M
+// and ragged column chunks are masked here.
+//
+// Pads (block_rows -1) contribute nothing.  That is exact for finite x: the
+// TPU kernel clamps a pad to x block 0 and multiplies its product by 0, so
+// with a non-finite x it yields NaN where this kernel yields the finite
+// sum.  ROUTE_MMA and ROUTE_FMA skip a pad's copies and products;
+// ROUTE_STREAM loads its weight rows with the others (the load is issued
+// before block_rows is known) and multiplies them by zero x, the weight
+// forced to 0.
+//
+// What bounds it here: the packed weights' bytes -- qwen2.5-3b's q
+// projection pruned to half with 64 x 64 blocks is 4 MiB, 1.25 us at
+// 3.35 TB/s -- at decode and, with 48 rows of x, at prefill too.  There are
+// only Nb = 32 block-columns, so the split is what fills 132 SMs.
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma_gemm.cuh"
+#include "pipelined_gemm.cuh"
 
-#define BSR_MT 8
-#define BSR_WARPS 8
-#define BSR_KC 256
+enum { ROUTE_FMA = 0, ROUTE_MMA = 1, ROUTE_STREAM = 2 };
 
 namespace {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
 
 // Bias, activation, step program, one store; n is the global output column.
 template <typename T>
@@ -69,13 +102,144 @@ struct BsrEpilogue {
   int ldo;
   int act;
   StepProgram prog;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    if (bias) v += to_f32(bias[n]);
+  // the bias of column n (0 without one), loadable ahead of the sum
+  __device__ __forceinline__ float bias_at(int n) const { return bias ? to_f32(bias[n]) : 0.f; }
+  // v already holds the bias
+  __device__ __forceinline__ void finish(int m, int n, float v) const {
     v = apply_act(act, v);
     const long long idx = (long long)m * ldo + n;
     out[idx] = from_f32<T>(apply_pointwise_steps<T>(prog, v, idx));
   }
+  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+    finish(m, n, v + bias_at(n));
+  }
+  // a one-step add program's side value at (m, n), loadable ahead of the
+  // sum, and the store that adds it (as the step program would)
+  __device__ __forceinline__ float side_at(int m, int n) const {
+    return to_f32(reinterpret_cast<const T*>(side_ptr(prog, prog.arg[0]))[(long long)m * ldo + n]);
+  }
+  __device__ __forceinline__ void finish_add(int m, int n, float v, float side) const {
+    out[(long long)m * ldo + n] = from_f32<T>(apply_act(act, v) + side);
+  }
+  // four columns n .. n + 3 of row m: the bias read as one word, and with
+  // no step program or with the residual add alone, the side read and the
+  // output written as one word each, where the addresses are aligned to a
+  // word of four elements (else element by element, as operator())
+  __device__ __forceinline__ float4 bias4(int n) const {
+    float b[4] = {0.f, 0.f, 0.f, 0.f};
+    if (bias && aligned4(bias + n)) {
+      load_vec<T, 4>(bias + n, b);
+    } else if (bias) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = to_f32(bias[n + c]);
+    }
+    return make_float4(b[0], b[1], b[2], b[3]);
+  }
+  __device__ __forceinline__ void finish4(int m, int n, float4 v) const {
+    const long long idx = (long long)m * ldo + n;
+    float r[4] = {apply_act(act, v.x), apply_act(act, v.y), apply_act(act, v.z),
+                  apply_act(act, v.w)};
+    const T* side = reinterpret_cast<const T*>(side_ptr(prog, prog.arg[0]));
+    const bool residual = prog.n_steps == 1 && prog.kind[0] == STEP_ADD;
+    if ((prog.n_steps == 0 || (residual && aligned4(side + idx))) && aligned4(out + idx)) {
+      if (residual) {
+        float sv[4];
+        load_vec<T, 4>(side + idx, sv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) r[c] += sv[c];
+      }
+      store4(out + idx, r);
+      return;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      out[idx + c] = from_f32<T>(apply_pointwise_steps<T>(prog, r[c], idx + c));
+    }
+  }
+  static __device__ __forceinline__ bool aligned4(const T* p) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+  }
+  static __device__ __forceinline__ void store4(float* p, const float (&r)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+  static __device__ __forceinline__ void store4(bf16* p, const float (&r)[4]) {
+    uint2 w;
+    w.x = pack2(r[0], r[1]);
+    w.y = pack2(r[2], r[3]);
+    *reinterpret_cast<uint2*>(p) = w;
+  }
+  static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  }
 };
+
+// The split tail shared by the three bodies, run by every thread of a CTA
+// after it wrote its partial tile (rows [m0, m0 + rows_t) x block columns
+// [c0, c0 + cols_t) of block-column jl) to ws: the CTA that finishes the
+// tile last sums every split in order, four columns a group (bn % 8 == 0,
+// c0 and cols_t multiples of 4), runs the epilogue, and resets the counter.
+// A thread takes U groups at a time and issues all their loads (the splits'
+// partials and the bias) before it stores any, so the tail costs one round
+// trip to L2 per U groups, not one per group.
+template <typename T, int NT>
+__device__ __forceinline__ void split_reduce(const float* __restrict__ ws,
+                                             int* __restrict__ counters, int t, int nsplit,
+                                             int M, int m0, int rows_t, int jl, int j, int c0,
+                                             int cols_t, int bn, long long wn,
+                                             const BsrEpilogue<T>& epi, int* s_last) {
+  constexpr int U = 4;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *s_last = atomicAdd(&counters[t], 1) == nsplit - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  const long long stride = (long long)M * wn;  // floats between splits
+  const int cg = cols_t / 4, groups = rows_t * cg;
+  for (int base = threadIdx.x; base < groups; base += NT * U) {
+    float4 sum[U], bv[U];
+    int mu[U], cu[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = base + u * NT;
+      mu[u] = m0 + e / cg;
+      cu[u] = c0 + (e % cg) * 4;
+      if (e >= groups || mu[u] >= M || cu[u] >= bn) {
+        mu[u] = -1;
+        continue;
+      }
+      const float* p = ws + (long long)mu[u] * wn + (long long)jl * bn + cu[u];
+      sum[u] = __ldcg(reinterpret_cast<const float4*>(p));
+      const int n = j * bn + cu[u];
+      bv[u] = epi.bias4(n);
+#pragma unroll 4
+      for (int sp = 1; sp < nsplit; ++sp) {
+        const float4 q = __ldcg(reinterpret_cast<const float4*>(p + sp * stride));
+        sum[u].x += q.x;
+        sum[u].y += q.y;
+        sum[u].z += q.z;
+        sum[u].w += q.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (mu[u] < 0) continue;
+      const int n = j * bn + cu[u];
+      epi.finish4(mu[u], n, make_float4(sum[u].x + bv[u].x, sum[u].y + bv[u].y,
+                                        sum[u].z + bv[u].z, sum[u].w + bv[u].w));
+    }
+  }
+  if (threadIdx.x == 0) counters[t] = 0;  // ready for the next launch
+}
+
+// ---------------------------------------------------------------------------
+// ROUTE_FMA: CUDA cores, f32 (and bf16 shapes the other routes refuse)
+// ---------------------------------------------------------------------------
+
+#define BSR_MT 8
+#define BSR_WARPS 8
+#define BSR_KC 256
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(BSR_WARPS * 32)
@@ -92,9 +256,9 @@ __global__ void __launch_bounds__(BSR_WARPS * 32)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nct = (bn + CW - 1) / CW;
-  const int jl = blockIdx.x / nct;       // block-column within the band
+  const int jl = blockIdx.x / nct;         // block-column within the band
   const int c0 = (blockIdx.x % nct) * CW;  // first column of the chunk in the block
-  const int j = col0 + jl;               // block-column of the packed weight
+  const int j = col0 + jl;                 // block-column of the packed weight
   const int m0 = blockIdx.z * BSR_MT;
   const int sb = blockIdx.y * schunk;
   const int se = min(count, sb + schunk);
@@ -167,41 +331,21 @@ __global__ void __launch_bounds__(BSR_WARPS * 32)
   for (int e = tid; e < BSR_MT * CW; e += blockDim.x) {
     const int mm = e / CW, cc = e % CW;
     const int m = m0 + mm, n = c0 + cc;
-    if (m < M && n < bn) ws[((long long)blockIdx.y * M + m) * wn + (long long)jl * bn + n] = tile[mm][cc];
+    if (m < M && n < bn) {
+      ws[((long long)blockIdx.y * M + m) * wn + (long long)jl * bn + n] = tile[mm][cc];
+    }
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const int t = blockIdx.z * gridDim.x + blockIdx.x;
-    s_last = atomicAdd(&counters[t], 1) == nsplit - 1;
-  }
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int e = tid; e < BSR_MT * CW; e += blockDim.x) {
-    const int mm = e / CW, cc = e % CW;
-    const int m = m0 + mm, n = c0 + cc;
-    if (m >= M || n >= bn) continue;
-    float sum = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp)
-      sum += __ldcg(&ws[((long long)sp * M + m) * wn + (long long)jl * bn + n]);
-    epi(m, j * bn + n, sum);
-  }
+  split_reduce<T, BSR_WARPS * 32>(ws, counters, blockIdx.z * gridDim.x + blockIdx.x, nsplit, M,
+                                  m0, BSR_MT, jl, j, c0, CW, bn, wn, epi, &s_last);
 }
 
 template <typename T, int VEC>
-int launch(const void* x, const void* values, const int* rows, const void* bias, void* out,
-           int M, int K, int nb_total, int s_stride, int bm, int bn, int col0, int ncols,
-           int count, int act, const StepProgram& prog, int nsplit, void* ws, void* counters,
-           cudaStream_t stream) {
+int launch_fma(const void* x, const void* values, const int* rows, int M, int K, int s_stride,
+               int bm, int bn, int ncols, int count, int schunk, int nsplit, void* ws,
+               void* counters, const BsrEpilogue<T>& epi, int col0, cudaStream_t stream) {
   constexpr int CW = 32 * VEC;
   if (bn % VEC) return (int)cudaErrorInvalidValue;
   const int nct = (bn + CW - 1) / CW;
-  const int schunk = count > 0 ? (count + nsplit - 1) / nsplit : 1;
-  if (count > 0 && (count + schunk - 1) / schunk != nsplit) return (int)cudaErrorInvalidValue;
-  if (nsplit > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
-  BsrEpilogue<T> epi{static_cast<const T*>(bias), static_cast<T*>(out), nb_total * bn, act,
-                     prog};
   dim3 grid(nct * ncols, nsplit, (M + BSR_MT - 1) / BSR_MT);
   bsr_matmul_kernel<T, VEC><<<grid, BSR_WARPS * 32, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(values), rows, M, K, bm, bn, s_stride,
@@ -209,25 +353,439 @@ int launch(const void* x, const void* values, const int* rows, const void* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_vec(int vec, const void* x, const void* values, const int* rows, const void* bias,
-               void* out, int M, int K, int nb_total, int s_stride, int bm, int bn, int col0,
-               int ncols, int count, int act, const StepProgram& prog, int nsplit, void* ws,
-               void* counters, cudaStream_t st) {
-  switch (vec) {
-    case 1:
-      return launch<T, 1>(x, values, rows, bias, out, M, K, nb_total, s_stride, bm, bn, col0,
-                          ncols, count, act, prog, nsplit, ws, counters, st);
-    case 2:
-      return launch<T, 2>(x, values, rows, bias, out, M, K, nb_total, s_stride, bm, bn, col0,
-                          ncols, count, act, prog, nsplit, ws, counters, st);
-    case 4:
-      return launch<T, 4>(x, values, rows, bias, out, M, K, nb_total, s_stride, bm, bn, col0,
-                          ncols, count, act, prog, nsplit, ws, counters, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// ROUTE_MMA: bf16 tensor cores, M > 8
+// ---------------------------------------------------------------------------
+
+namespace bsr_mma {
+
+constexpr int BM = 64;         // rows of x a CTA covers
+constexpr int STAGES = 4;      // ring slots: three slabs in flight behind the one multiplied
+constexpr int MAX_SPLIT = 8;   // CTAs of a cluster (the portable most)
+constexpr int MAX_STEPS = 256; // packed steps a CTA walks (its block_rows live in shared memory)
+
+template <int CN, int BK>
+struct Shape {
+  static constexpr int WM = BM / 32;  // warps along m
+  static constexpr int WN = CN / 32;  // warps along n
+  static constexpr int NT = WM * WN * 32;
+  static constexpr int MI = 2;  // m16 fragments a warp (32 rows)
+  static constexpr int NI = 4;  // n8 fragments a warp (32 columns)
+  static constexpr int XP = BK + 8;
+  static constexpr int WP = CN + 8;
+  static constexpr int TP = CN + 4;  // the f32 partial tile's row, after the loop
+  static constexpr int X_SLOT = BM * XP;
+  static constexpr int W_SLOT = BK * WP;
+  static constexpr size_t RING = (size_t)STAGES * (X_SLOT + W_SLOT) * sizeof(bf16);
+  static constexpr size_t TILE = (size_t)BM * TP * sizeof(float);
+  static constexpr size_t BYTES = RING > TILE ? RING : TILE;
+  static_assert(CN % 32 == 0 && BK % 16 == 0, "whole warp tiles and k16 steps");
+};
+
+}  // namespace bsr_mma
+
+// The splits of one output tile form a thread block cluster (gridDim.y = its
+// size = nsplit <= 8): after its slabs each CTA parks its f32 partial tile
+// in its own shared memory, and after one cluster barrier CTA `rank` sums
+// rows [rank * chunk, (rank + 1) * chunk) of the live tile over every
+// split, in split order, reading the others' partials through distributed
+// shared memory, and runs their epilogue.  No workspace, no counters, no
+// round trip to L2 between the splits.
+template <int CN, int BK>
+__global__ void __launch_bounds__(bsr_mma::Shape<CN, BK>::NT)
+    bsr_matmul_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ values,
+                          const int* __restrict__ rows, int M, int K, int bm, int bn,
+                          int s_stride, int count, int col0, int schunk,
+                          BsrEpilogue<bf16> epi) {
+  using S = bsr_mma::Shape<CN, BK>;
+  constexpr int BM = bsr_mma::BM, STAGES = bsr_mma::STAGES;
+  constexpr int NT = S::NT, WN = S::WN, MI = S::MI, NI = S::NI;
+  constexpr int XP = S::XP, WP = S::WP, TP = S::TP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* wsm = xs + STAGES * S::X_SLOT;
+  __shared__ int s_rows[bsr_mma::MAX_STEPS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int nct = (bn + CN - 1) / CN;
+  const int c0 = (blockIdx.x % nct) * CN;
+  const int j = col0 + blockIdx.x / nct;
+  const int m0 = blockIdx.z * BM;
+  const int sb = blockIdx.y * schunk;
+  const int ns = max(min(count, sb + schunk) - sb, 0);
+  const int spb = bm / BK;  // slabs a block
+  const int n_slabs = ns * spb;
+  const bf16* vj = values + ((long long)j * s_stride + sb) * bm * bn;
+
+  // slab t: sub-slab u of the CTA's packed step t / spb.  The weight copy
+  // needs no block_rows; a pad's x is not copied (its products are skipped)
+  auto issue_w = [&](int t) {
+    const int i = t / spb, u = t - i * spb;
+    mma_gemm::stage16<BK, CN, WP, NT>(wsm + (t % STAGES) * S::W_SLOT, vj + (long long)i * bm * bn,
+                                      bn, u * BK, c0, bm, bn, tid);
+  };
+  auto issue_x = [&](int t) {
+    const int i = t / spb, u = t - i * spb;
+    const int r = s_rows[i];
+    if (r >= 0) {
+      mma_gemm::stage16<BM, BK, XP, NT>(xs + (t % STAGES) * S::X_SLOT, x, K, m0,
+                                        r * bm + u * BK, M, K, tid);
+    }
+  };
+
+  // the warm-up's weights go out before block_rows arrives; each slab's x
+  // joins the commit group of its slab (groups complete in order)
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < n_slabs) issue_w(p);
   }
+  for (int i = tid; i < ns; i += NT) s_rows[i] = __ldg(rows + (long long)j * s_stride + sb + i);
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < n_slabs) issue_x(p);
+    pipelined::cp_async_commit();
+  }
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int q = 0; q < NI; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+
+  // per-lane ldmatrix offsets, as mma_gemm.cuh computes them
+  const int a_off = (wm * 32 + (lane & 15)) * XP + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * WP + wn * 32 + (lane >> 4) * 8;
+
+  for (int t = 0; t < n_slabs; ++t) {
+    const int ahead = t + STAGES - 1;
+    if (ahead < n_slabs) {
+      issue_w(ahead);
+      issue_x(ahead);
+    }
+    pipelined::cp_async_commit();
+    pipelined::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    if (s_rows[t / spb] >= 0) {  // the same for the whole CTA
+      const int slot = t % STAGES;
+      const bf16* xsl = xs + slot * S::X_SLOT;
+      const bf16* wsl = wsm + slot * S::W_SLOT;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[MI][4];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_gemm::ldmatrix_x4(a[i], xsl + a_off + i * 16 * XP + kk * 16);
+        }
+#pragma unroll
+        for (int jj = 0; jj < NI / 2; ++jj) {
+          uint32_t b[4];
+          mma_gemm::ldmatrix_x4_trans(b, wsl + b_off + kk * 16 * WP + jj * 16);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            mma_gemm::mma_m16n8k16(acc[i][2 * jj], a[i], b[0], b[1]);
+            mma_gemm::mma_m16n8k16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // slot t % STAGES may be refilled by the next step's prefetch
+  }
+  pipelined::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the partial tile from here on
+
+  // accumulator element e of fragment (i, q): row lane / 4 (+ 8 for e >= 2),
+  // column 2 * (lane % 4) (+ 1 for odd e)
+  float* tile = reinterpret_cast<float*>(smem);  // [BM][TP]
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int q = 0; q < NI; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + i * 16 + h * 8 + (lane >> 2);
+        const int c = wn * 32 + q * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(tile + r * TP + c) =
+            make_float2(acc[i][q][2 * h], acc[i][q][2 * h + 1]);
+      }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+
+  const int nsplit = gridDim.y;
+  const int rank = blockIdx.y;  // the cluster spans gridDim.y
+  const int live = min(BM, M - m0);
+  const int chunk = (live + nsplit - 1) / nsplit;
+  const int r0 = rank * chunk, r1 = min(live, r0 + chunk);
+  constexpr int G = CN / 4;  // float4 groups a row
+  const int groups = max(r1 - r0, 0) * G;
+  // a group at a time: every split's partial is requested (at most 8
+  // distributed-shared-memory loads in flight) before any is added
+  for (int e = tid; e < groups; e += NT) {
+    const int r = r0 + e / G, c = (e % G) * 4;
+    if (c0 + c >= bn) continue;
+    const float* own = tile + r * TP + c;
+    float4 part[bsr_mma::MAX_SPLIT];
+#pragma unroll
+    for (int sp = 0; sp < bsr_mma::MAX_SPLIT; ++sp) {
+      if (sp < nsplit) {
+        part[sp] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, sp));
+      }
+    }
+    const int n = j * bn + c0 + c;
+    const float4 bv = epi.bias4(n);
+    float4 sum = part[0];
+#pragma unroll
+    for (int sp = 1; sp < bsr_mma::MAX_SPLIT; ++sp) {
+      if (sp < nsplit) {
+        sum.x += part[sp].x;
+        sum.y += part[sp].y;
+        sum.z += part[sp].z;
+        sum.w += part[sp].w;
+      }
+    }
+    epi.finish4(m0 + r, n, make_float4(sum.x + bv.x, sum.y + bv.y, sum.z + bv.z, sum.w + bv.w));
+  }
+  cluster.sync();  // no CTA leaves while another reads its tile
 }
+
+template <int CN, int BK>
+int launch_mma(const bf16* x, const bf16* values, const int* rows, int M, int K, int s_stride,
+               int bm, int bn, int ncols, int count, int schunk, int nsplit,
+               const BsrEpilogue<bf16>& epi, int col0, cudaStream_t stream) {
+  using S = bsr_mma::Shape<CN, BK>;
+  auto kernel = bsr_matmul_mma_kernel<CN, BK>;
+  if constexpr (S::BYTES > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::BYTES);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nct = (bn + CN - 1) / CN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nct * ncols, nsplit, (M + bsr_mma::BM - 1) / bsr_mma::BM);
+  cfg.blockDim = dim3(S::NT);
+  cfg.dynamicSmemBytes = S::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, values, rows, M, K, bm, bn, s_stride,
+                                           count, col0, schunk, epi);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// ROUTE_STREAM: bf16 weight streaming, M <= 8
+// ---------------------------------------------------------------------------
+
+namespace bsr_stream {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int CW = 16;           // columns a CTA covers: 2 lanes x 8 bf16
+constexpr int LPR = CW / 8;      // lanes a packed row
+constexpr int RPW = 32 / LPR;    // packed rows a warp covers per pass
+constexpr int ROWS = WARPS * RPW;  // packed rows the CTA covers per pass
+constexpr int KC = 1024;         // most packed rows a CTA stages (schunk * bm)
+constexpr int UNROLL = 8;        // 16-byte loads in flight a lane
+constexpr int RG = 4;            // row groups a warp keeps after its shuffles
+
+template <int MT>
+struct Smem {
+  static constexpr int XS = MT * KC;                  // x rows of the CTA's steps, f32
+  static constexpr int RED = WARPS * RG * MT * CW;    // the row groups' partial sums
+  static constexpr int FLOATS = XS > RED ? XS : RED;  // one buffer, used in turn
+};
+
+}  // namespace bsr_stream
+
+// Lane l owns 8 columns (c0 + 8 (l % 2) ..) of the packed rows
+// l / 2 + 16 * warp + 128 i of the CTA's steps: the two lanes of a row read
+// one 32-byte sector, a warp 16 rows.  A CTA covers all the packed rows of
+// its 16 columns when they fit the x stage (KC), so at the decoder's shapes
+// the grid needs no split and the sum never leaves the CTA.  Without a
+// split, the output's bias and a residual add's side value are read at the
+// start, beside the weights.
+template <int MT>
+__global__ void __launch_bounds__(bsr_stream::THREADS)
+    bsr_matmul_stream_kernel(const bf16* __restrict__ x, const bf16* __restrict__ values,
+                             const int* __restrict__ rows, int M, int K, int bm, int bn,
+                             int s_stride, int count, int col0, int schunk,
+                             float* __restrict__ ws, int* __restrict__ counters,
+                             BsrEpilogue<bf16> epi) {
+  using namespace bsr_stream;
+  __shared__ __align__(16) float buf[Smem<MT>::FLOATS];
+  __shared__ int s_rows[KC / 8];
+  __shared__ int s_last;
+  float* xs = buf;   // [MT][KC] during the loop
+  float* red = buf;  // [WARPS][RG][MT][CW] after it
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int cg = lane % LPR;  // column group
+  const int rg = lane / LPR;  // row within the warp's RPW
+  const int nct = (bn + CW - 1) / CW;
+  const int jl = blockIdx.x / nct;
+  const int c0 = (blockIdx.x % nct) * CW;
+  const int j = col0 + jl;
+  const int sb = blockIdx.y * schunk;
+  const int ns = max(min(count, sb + schunk) - sb, 0);
+  const int kn = ns * bm;  // packed rows of the CTA's steps, contiguous in values
+  const int nc = c0 + cg * 8;
+  const bool live = nc < bn;
+  const int nsplit = gridDim.y;
+  // packed row f of the CTA (step sb + f / bm, row f % bm of its block)
+  const bf16* vrow = values + ((long long)j * s_stride + sb) * bm * bn + nc;
+  // the output this thread finishes without a split, and its bias, early
+  const int om = tid / CW, oc = c0 + tid % CW;
+  const bool owner = tid < MT * CW && om < M && oc < bn;
+  const float obias = (owner && nsplit == 1) ? epi.bias_at(j * bn + oc) : 0.f;
+  const bool residual = nsplit == 1 && epi.prog.n_steps == 1 && epi.prog.kind[0] == STEP_ADD;
+  const float oside = (owner && residual) ? epi.side_at(om, j * bn + oc) : 0.f;
+  // ceil(2^32 / bm): f / bm by multiply-high, exact for f < 2^32 / bm
+  const unsigned inv_bm = 0xffffffffu / (unsigned)bm + 1u;
+
+  float acc[MT][8];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[m][c] = 0.f;
+
+  int f = warp * RPW + rg;
+  for (int pass = 0; f < kn || pass == 0; ++pass) {
+    // this pass's weight words first: they do not wait for x
+    uint4 raw[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int fu = f + u * ROWS;
+      raw[u] = (live && fu < kn)
+                   ? __ldg(reinterpret_cast<const uint4*>(vrow + (long long)fu * bn))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (pass == 0) {
+      // the x rows of every step of the CTA (zero at pads and past M), a
+      // 16-byte word (8 of a block row) a copy: word q is (m, step i, part)
+      const int* rj = rows + (long long)j * s_stride + sb;
+      for (int i = tid; i < ns; i += THREADS) s_rows[i] = __ldg(rj + i);
+      const int parts = bm / 8;
+      for (int q = tid; q < MT * ns * parts; q += THREADS) {
+        const int mi = q / parts, part = q - mi * parts;
+        const int mm = mi / ns, i = mi - mm * ns;
+        const int r = __ldg(rj + i);
+        uint4 raw_x = make_uint4(0u, 0u, 0u, 0u);
+        if (mm < M && r >= 0) {
+          raw_x = __ldg(reinterpret_cast<const uint4*>(x + (long long)mm * K +
+                                                       (long long)r * bm + part * 8));
+        }
+        float v[8];
+        Elem<bf16>::unpack(raw_x.x, v + 0);
+        Elem<bf16>::unpack(raw_x.y, v + 2);
+        Elem<bf16>::unpack(raw_x.z, v + 4);
+        Elem<bf16>::unpack(raw_x.w, v + 6);
+        float4* d = reinterpret_cast<float4*>(xs + mm * KC + i * bm + part * 8);
+        d[0] = make_float4(v[0], v[1], v[2], v[3]);
+        d[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int fu = f + u * ROWS;
+      if (!live || fu >= kn) continue;
+      float wv[8];
+      Elem<bf16>::unpack(raw[u].x, wv + 0);
+      Elem<bf16>::unpack(raw[u].y, wv + 2);
+      Elem<bf16>::unpack(raw[u].z, wv + 4);
+      Elem<bf16>::unpack(raw[u].w, wv + 6);
+      const bool pad = s_rows[__umulhi((unsigned)fu, inv_bm)] < 0;  // fu / bm
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float xv = xs[m * KC + fu];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[m][c] = fmaf(xv, pad ? 0.f : wv[c], acc[m][c]);
+      }
+    }
+    f += UNROLL * ROWS;
+  }
+
+  // fold the warp's 16 rows to RG = 4 (lanes l, l ^ 8, l ^ 16, l ^ 24)
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float v = acc[m][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      acc[m][c] = v;
+    }
+  __syncthreads();  // every warp is done with xs: red reuses the buffer
+  if (lane < RG * LPR) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) red[((warp * RG + rg) * MT + m) * CW + cg * 8 + c] = acc[m][c];
+  }
+  __syncthreads();
+
+  // thread e < MT * CW owns output (m, c) = (e / CW, c0 + e % CW): the CTA's
+  // sum over its warps' row groups, in order
+  const long long wn = (long long)(gridDim.x / nct) * bn;
+  if (owner) {
+    float v = 0.f;
+#pragma unroll
+    for (int g = 0; g < WARPS * RG; ++g) v += red[g * MT * CW + tid];
+    if (nsplit == 1 && residual) {
+      epi.finish_add(om, j * bn + oc, v + obias, oside);
+    } else if (nsplit == 1) {
+      epi.finish(om, j * bn + oc, v + obias);
+    } else {
+      ws[((long long)blockIdx.y * M + om) * wn + (long long)jl * bn + oc] = v;
+    }
+  }
+  if (nsplit == 1) return;
+  split_reduce<bf16, THREADS>(ws, counters, blockIdx.x, nsplit, M, 0, MT, jl, j, c0, CW, bn, wn,
+                              epi, &s_last);
+}
+
+template <int MT>
+int launch_stream_mt(const bf16* x, const bf16* values, const int* rows, int M, int K,
+                     int s_stride, int bm, int bn, int ncols, int count, int schunk, int nsplit,
+                     float* ws, int* counters, const BsrEpilogue<bf16>& epi, int col0,
+                     cudaStream_t stream) {
+  const int nct = (bn + bsr_stream::CW - 1) / bsr_stream::CW;
+  dim3 grid(nct * ncols, nsplit);
+  bsr_matmul_stream_kernel<MT><<<grid, bsr_stream::THREADS, 0, stream>>>(
+      x, values, rows, M, K, bm, bn, s_stride, count, col0, schunk, ws, counters, epi);
+  return (int)cudaGetLastError();
+}
+
+int launch_stream(const bf16* x, const bf16* values, const int* rows, int M, int K, int s_stride,
+                  int bm, int bn, int ncols, int count, int schunk, int nsplit, float* ws,
+                  int* counters, const BsrEpilogue<bf16>& epi, int col0, cudaStream_t st) {
+  if (M <= 1)
+    return launch_stream_mt<1>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                               nsplit, ws, counters, epi, col0, st);
+  if (M <= 2)
+    return launch_stream_mt<2>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                               nsplit, ws, counters, epi, col0, st);
+  if (M <= 4)
+    return launch_stream_mt<4>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                               nsplit, ws, counters, epi, col0, st);
+  return launch_stream_mt<8>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                             nsplit, ws, counters, epi, col0, st);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -235,32 +793,95 @@ int launch_vec(int vec, const void* x, const void* values, const int* rows, cons
 // bm, bn]; rows [nb_total, s_stride] int32; bias [nb_total * bn] or null;
 // out and the sides [M, nb_total * bn].  The band is block-columns
 // [col0, col0 + ncols) with `count` packed steps each.  dtype: 0 = f32,
-// 1 = bf16.  vec (1, 2 or 4) columns per lane, dividing bn (the values
-// pointer aligned to vec elements).  nsplit > 1 splits the steps across
-// CTAs and needs the f32 workspace ws [nsplit, M, ncols * bn] and zeroed
-// counters [ceil(bn / (32 * vec)) * ncols * ceil(M / 8)].
+// 1 = bf16.  route: ROUTE_FMA with `width` = VEC (1, 2 or 4 columns a lane,
+// dividing bn, the values pointer aligned to VEC elements); ROUTE_MMA (bf16,
+// M > 8, bm % 16 == 0, x and values 16-byte aligned, at most 8 splits of at
+// most 256 steps) with `width` = CN (64 or 32 columns a CTA); ROUTE_STREAM
+// (bf16, M <= 8, schunk * bm <= 1024, x and values 16-byte aligned),
+// `width` ignored.  nsplit > 1 splits the steps across CTAs (ceil(count /
+// nsplit) a CTA, every split non-empty); ROUTE_FMA and ROUTE_STREAM then
+// need the f32 workspace ws [nsplit, M, ncols * bn] and zeroed counters,
+// one per tile of the route's grid, which the launch leaves zeroed.
 extern "C" int repro_bsr_matmul(const void* x, const void* values, const int* rows,
                                 const void* bias, void* out, int M, int K, int nb_total,
                                 int s_stride, int bm, int bn, int col0, int ncols, int count,
                                 int act, int n_steps, const int* prog, int n_sides,
-                                const void* const* sides, int dtype, int vec, int nsplit,
-                                void* ws, void* counters, void* stream) {
+                                const void* const* sides, int dtype, int route, int width,
+                                int nsplit, void* ws, void* counters, void* stream) {
   StepProgram p;
   if (M < 0 || bm <= 0 || bn <= 0 || bm % 8 || bn % 8 || K % bm || col0 < 0 || ncols < 0 ||
       col0 + ncols > nb_total || count < 0 || count > s_stride || nsplit < 1 ||
-      (count == 0 && nsplit != 1) || dtype < 0 || dtype > 1 ||
+      nsplit > 65535 || (count == 0 && nsplit != 1) || dtype < 0 || dtype > 1 ||
       !make_program(&p, n_steps, prog, nullptr, n_sides, sides, 0, nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int s = 0; s < n_steps; ++s) {
     if (p.kind[s] == STEP_NORM) return (int)cudaErrorInvalidValue;
   }
+  const int schunk = count > 0 ? (count + nsplit - 1) / nsplit : 1;
+  if (count > 0 && (count + schunk - 1) / schunk != nsplit) return (int)cudaErrorInvalidValue;
+  if (nsplit > 1 && route != ROUTE_MMA && (ws == nullptr || counters == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (M == 0 || ncols == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_vec<float>(vec, x, values, rows, bias, out, M, K, nb_total, s_stride, bm, bn,
-                             col0, ncols, count, act, p, nsplit, ws, counters, st);
+  float* wsf = static_cast<float*>(ws);
+  int* cnt = static_cast<int*>(counters);
+  const int ldo = nb_total * bn;
+  if (route == ROUTE_MMA || route == ROUTE_STREAM) {
+    if (dtype != 1 || !aligned16(values)) return (int)cudaErrorInvalidValue;
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* vb = static_cast<const bf16*>(values);
+    BsrEpilogue<bf16> epi{static_cast<const bf16*>(bias), static_cast<bf16*>(out), ldo, act, p};
+    if (route == ROUTE_STREAM) {
+      if (M > 8 || schunk * bm > bsr_stream::KC || !aligned16(x)) return (int)cudaErrorInvalidValue;
+      return launch_stream(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count, schunk, nsplit,
+                           wsf, cnt, epi, col0, st);
+    }
+    if (M <= 8 || bm % 16 || !aligned16(x) || (width != 64 && width != 32) ||
+        nsplit > bsr_mma::MAX_SPLIT || schunk > bsr_mma::MAX_STEPS) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (bm % 64 == 0) {
+      return width == 64 ? launch_mma<64, 64>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
+                                              schunk, nsplit, epi, col0, st)
+                         : launch_mma<32, 64>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
+                                              schunk, nsplit, epi, col0, st);
+    }
+    return width == 64 ? launch_mma<64, 16>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
+                                            schunk, nsplit, epi, col0, st)
+                       : launch_mma<32, 16>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
+                                            schunk, nsplit, epi, col0, st);
   }
-  return launch_vec<__nv_bfloat16>(vec, x, values, rows, bias, out, M, K, nb_total, s_stride,
-                                   bm, bn, col0, ncols, count, act, p, nsplit, ws, counters, st);
+  if (route != ROUTE_FMA) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    BsrEpilogue<float> epi{static_cast<const float*>(bias), static_cast<float*>(out), ldo, act, p};
+    switch (width) {
+      case 1:
+        return launch_fma<float, 1>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                    nsplit, ws, counters, epi, col0, st);
+      case 2:
+        return launch_fma<float, 2>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                    nsplit, ws, counters, epi, col0, st);
+      case 4:
+        return launch_fma<float, 4>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                    nsplit, ws, counters, epi, col0, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  BsrEpilogue<bf16> epi{static_cast<const bf16*>(bias), static_cast<bf16*>(out), ldo, act, p};
+  switch (width) {
+    case 1:
+      return launch_fma<bf16, 1>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                 nsplit, ws, counters, epi, col0, st);
+    case 2:
+      return launch_fma<bf16, 2>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                 nsplit, ws, counters, epi, col0, st);
+    case 4:
+      return launch_fma<bf16, 4>(x, values, rows, M, K, s_stride, bm, bn, ncols, count, schunk,
+                                 nsplit, ws, counters, epi, col0, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -23,39 +23,297 @@
 // are masked.  The rescale, bias, activation and the epilogue steps (add/mul
 // with NCHW side operands) run on the accumulator before the one store.
 //
-// INT8 schemes, one kernel body templated on the scheme: W8 stages f32
-// patches and converts each int8 filter element to f32 as it is staged
-// (f32 accumulator); W8A8 stages int8 patches and int8 filters (a quarter
-// of the f32 shared memory) and accumulates exact int32 sums.  The wrapper
-// quantizes W8A8 activations before the launch, as the TPU wrapper does
-// (round half to even, clip to +-127), so the kernel reads int8 NCHW.
-//
 // What bounds it here: the demo apps' 3x3 / 7x7 layers carry K = 147..1728
-// per output, so multiply-add throughput on the CUDA cores (f32 FMA, or
-// integer multiply-add for W8A8) bounds them, not memory.  Every scheme is
-// built for the six tiles of tiles.cuh and the wrapper picks one: the
-// tuning cache's winner, a pin, or the default -- for f32 by output-channel
-// count, so narrow heads (O = 2..12) do not waste most of a 64-wide tile;
-// for the INT8 schemes the O <= 32 / wider pair, the apps' quantized convs
-// being 32..128 channels wide.  Tensor cores (wgmma in TF32 or lower, s8
-// for W8A8) are later work.
+// per output, so multiply-add throughput on the CUDA cores bounds them (f32
+// FMA: true f32, no TF32, which would break the 1e-4 kernel tolerance),
+// not memory.  So the f32 and W8 body (conv2d_igemm_kernel) spends its
+// issue slots on FMAs:
+//
+// * register blocking: each thread owns a TM x TN micro-tile (8 x 8, or
+//   8 x 4 / 4 x 4 for the narrow heads) of 4-pixel and 4-channel groups,
+//   read from shared memory as float4 -- per k, TM / 4 + TN / 4 loads for
+//   TM * TN FMAs (16 per load at 8 x 8);
+// * overlap: the patch and filter slabs are double-buffered; the gather
+//   of slab k + 1 is issued as 4-byte cp.async copies (zero-fill for the
+//   border, the pruned channels and the ragged K tail) and the filter slab
+//   k + 1 loaded into registers while slab k is multiplied; one barrier a
+//   slab;
+// * a cheap gather: every thread gathers fixed pixels (their image base,
+//   first row and column computed once per CTA) over every k of the slab
+//   (the slab's channel offset, ki and kj computed once per slab, two
+//   slabs ahead, by BK threads into a shared table, k split by
+//   multiply-high), so an element costs two adds, two unsigned range
+//   checks and the copy: no per-element division, 32-bit offsets (the
+//   wrapper refuses extents past 2^31);
+// * an epilogue whose loads overlap: the common residual add (a one-step
+//   add program) reads the TN side values of a pixel together before it
+//   stores any output (a rolled step loop per output serialises them);
+// * W8 widens each int8 filter element to f32 as it is staged.
+//
+// Every output sums K in ascending k in one f32 FMA chain from +0, with no
+// split of K -- the same chain on every tile -- so every tile is bit-equal
+// to every other (and to the previous body of this kernel).
+//
+// W8A8 (int8 patches and filters, exact int32 sums) keeps its own body,
+// conv2d_igemm_int8_kernel: a 4 x 4 micro-tile of strided pixels and
+// channels, synchronous gathers.  cp.async has no 1-byte copy, and int8
+// tensor cores (mma.sync s8) are the route that would move it.
+//
+// Every scheme is built for the six tiles of tiles.cuh and the wrapper
+// picks one: the tuning cache's winner, a pin, or the default -- for f32 by
+// output-channel count, so narrow heads (O = 2..12) do not waste most of a
+// 64-wide tile; for the INT8 schemes the O <= 32 / wider pair, the apps'
+// quantized convs being 32..128 channels wide (_build.conv_default_tile).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "epilogue.cuh"
+#include "pipelined_gemm.cuh"
 #include "scheme.cuh"
 #include "tiles.cuh"
 
 namespace {
 
+// The f32 / W8 body's thread layout for a tile: TX threads along pixels,
+// TY along channels; thread (tx, ty) owns pixels g * 4 * TX + 4 * tx +
+// {0..3} (g < TM / 4) and channels g * 4 * TY + 4 * ty + {0..3} (g < TN / 4).
+// A warp is LX x LY of them (8 x 4 where TY allows), so its float4 reads of
+// a k row of either slab touch 8 and 4 distinct 16-byte words: one shared
+// memory wavefront each.  For the gather each thread owns PPT pixels
+// (tid % min(NT, BM) + p * NT) over every KT-th k of the slab from
+// tid / BM on: no thread gathers a pixel another does at the same k.
+template <int BM, int BN, int BK, int TM, int TN>
+struct ConvShape {
+  static constexpr int TX = BM / TM;
+  static constexpr int TY = BN / TN;
+  static constexpr int NT = TX * TY;
+  static constexpr int LY = TY < 4 ? TY : 4;  // a warp's threads along channels
+  static constexpr int LX = 32 / LY;          // ... and along pixels
+  static constexpr int WX = TX / LX;          // warps along pixels
+  static constexpr int PPT = BM > NT ? BM / NT : 1;  // pixels a thread gathers
+  static constexpr int KT = NT > BM ? NT / BM : 1;   // threads sharing a pixel
+  static constexpr int FPT = (BK * BN + NT - 1) / NT;  // filter elements a thread stages
+  static constexpr int BP = BN + 4;                // filter slab row (float4-aligned pad)
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles of 4-element groups");
+  static_assert(BM % TM == 0 && BN % TN == 0, "whole micro-tiles");
+  static_assert(TX % LX == 0 && TY % LY == 0 && NT % 32 == 0, "whole warps");
+  static_assert(BM % NT == 0 || NT % BM == 0, "gather: whole pixels a thread");
+  static_assert(BK % KT == 0, "gather: whole k a thread");
+};
+
+// sentinel row of a pixel past M or a k past K: any sum of two stays out
+// of [0, H)
+constexpr int OUT_OF_RANGE = -(1 << 30);
+
+// At most 128 registers a thread (512 / NT blocks an SM): at 8 x 8 the
+// compiler would take 129, and one block fewer an SM costs more than the
+// spill-free squeeze (measured on the 256 x 32 tile: 0.571 -> 0.565 ms).
 template <int S, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    conv2d_igemm_kernel(const typename Scheme<S>::X* __restrict__ x,
-                        const typename Scheme<S>::WG* __restrict__ w,
+__global__ void __launch_bounds__(ConvShape<BM, BN, BK, TM, TN>::NT,
+                                  512 / ConvShape<BM, BN, BK, TM, TN>::NT)
+    conv2d_igemm_kernel(const float* __restrict__ x, const typename Scheme<S>::WG* __restrict__ w,
                         const float* __restrict__ ws, const float* __restrict__ bias,
                         const int* __restrict__ kept, float* __restrict__ out, int Nb, int C_in,
                         int H, int W, int C, int O, int kh, int kw, int stride, int pad_t,
                         int pad_l, int OH, int OW, int act, StepProgram prog) {
+  using WG = typename Scheme<S>::WG;
+  using Sh = ConvShape<BM, BN, BK, TM, TN>;
+  constexpr int TX = Sh::TX, TY = Sh::TY, NT = Sh::NT, LX = Sh::LX, WX = Sh::WX;
+  constexpr int PPT = Sh::PPT, KT = Sh::KT, FPT = Sh::FPT, BP = Sh::BP;
+  constexpr int GP = NT < BM ? NT : BM;  // distinct pixels per gather pass
+  __shared__ __align__(16) float As[2][BK][BM];
+  __shared__ __align__(16) float Bs[2][BK][BP];
+  __shared__ int4 ktab[2][BK];  // (channel offset + ki * W + kj, ki, kj, -) of a slab's k
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tx = (warp % WX) * LX + lane % LX;
+  const int ty = (warp / WX) * Sh::LY + lane / LX;
+  const int gm = tid % GP;     // the gather's first pixel
+  const int gk = tid / GP;     // ... and first k (< KT)
+  const int M = Nb * OH * OW;  // < 2^31 (wrapper)
+  const int K = C * kh * kw;
+  const int khw = kh * kw;
+  const int HW = H * W;
+  const int OHW = OH * OW;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nslab = (K + BK - 1) / BK;
+
+  // the gather's pixels: image base + first row / column, once per CTA
+  int pbase[PPT], ih0[PPT], iw0[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int m = m0 + gm + j * NT;
+    if (m < M) {
+      const int n = m / OHW;
+      const int p = m - n * OHW;
+      const int oh = p / OW;
+      ih0[j] = oh * stride - pad_t;
+      iw0[j] = (p - oh * OW) * stride - pad_l;
+      pbase[j] = n * C_in * HW + ih0[j] * W + iw0[j];
+    } else {
+      ih0[j] = OUT_OF_RANGE;
+      iw0[j] = 0;
+      pbase[j] = 0;
+    }
+  }
+
+  // k = (c * kh + ki) * kw + kj by multiply-high with ceil(2^32 / d): exact
+  // for k < 2^32 / khw (the C entry's bound), two divisions a CTA
+  const unsigned inv_khw = 0xffffffffu / (unsigned)khw + 1u;
+  const unsigned inv_kw = 0xffffffffu / (unsigned)kw + 1u;
+  auto fill_ktab = [&](int t, int buf) {
+    if (tid < BK) {
+      const int k = t * BK + tid;
+      int4 e = make_int4(0, OUT_OF_RANGE, 0, 0);
+      if (k < K) {
+        const int c = (int)__umulhi((unsigned)k, inv_khw);
+        const int r = k - c * khw;
+        const int ki = (int)__umulhi((unsigned)r, inv_kw), kj = r - ki * kw;
+        const int ch = kept ? kept[c] : c;
+        e = make_int4(ch * HW + ki * W + kj, ki, kj, 0);
+      }
+      ktab[buf][tid] = e;
+    }
+  };
+  auto gather = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < BK / KT; ++q) {
+      const int kk = gk + q * KT;
+      const int4 e = ktab[buf][kk];
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const bool ok = (unsigned)(ih0[j] + e.y) < (unsigned)H &&
+                        (unsigned)(iw0[j] + e.z) < (unsigned)W;
+        pipelined::cp_async4(&As[buf][kk][gm + j * NT], x + (ok ? pbase[j] + e.x : 0),
+                             ok ? 4 : 0);
+      }
+    }
+    pipelined::cp_async_commit();
+  };
+  WG wreg[FPT];
+  auto load_w = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < FPT; ++i) {
+      const int e = tid + i * NT;
+      const int kk = e % BK, nn = e / BK;
+      const int k = t * BK + kk, o = n0 + nn;
+      wreg[i] = (e < BK * BN && k < K && o < O) ? w[o * K + k] : WG(0);
+    }
+  };
+  auto store_w = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < FPT; ++i) {
+      const int e = tid + i * NT;
+      if (e < BK * BN) Bs[buf][e % BK][e / BK] = float(wreg[i]);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  fill_ktab(0, 0);
+  fill_ktab(1, 1);
+  __syncthreads();
+  if (nslab > 0) {
+    gather(0);
+    load_w(0);
+    store_w(0);
+  }
+  for (int t = 0; t < nslab; ++t) {
+    const int buf = t & 1;
+    pipelined::cp_async_wait<0>();
+    __syncthreads();  // slab t landed; slab t - 1's readers are done
+    if (t + 1 < nslab) {
+      gather(buf ^ 1);
+      load_w(t + 1);
+    }
+    if (t + 2 < nslab) fill_ktab(t + 2, buf);  // slab t's gather was issued last step
+    // unrolled by two, not BK: a fully unrolled slab of 8 x 8 FMAs outgrows
+    // the instruction cache (measured: 0.70 -> 0.61 ms on the 128 x 32 tile)
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&As[buf][kk][g * 4 * TX + 4 * tx]);
+        a[4 * g] = v.x;
+        a[4 * g + 1] = v.y;
+        a[4 * g + 2] = v.z;
+        a[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(&Bs[buf][kk][g * 4 * TY + 4 * ty]);
+        b[4 * g] = v.x;
+        b[4 * g + 1] = v.y;
+        b[4 * g + 2] = v.z;
+        b[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (t + 1 < nslab) store_w(buf ^ 1);  // slab t - 1's readers passed the barrier
+  }
+
+  const bool residual = prog.n_steps == 1 && prog.kind[0] == STEP_ADD;
+  const float* side = side_ptr(prog, prog.arg[0]);
+  float wsv[TN], bv[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int o = n0 + (j / 4) * 4 * TY + 4 * ty + (j % 4);
+    wsv[j] = (ws && o < O) ? ws[o] : 1.f;
+    bv[j] = (bias && o < O) ? bias[o] : 0.f;
+  }
+#pragma unroll
+  for (int g = 0; g < TM / 4; ++g) {
+    const int mg = m0 + g * 4 * TX + 4 * tx;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int m = mg + ii;
+      if (m >= M) continue;
+      const int n = m / OHW;
+      const int ob = n * O * OHW + (m - n * OHW);
+      float sv[TN];
+      if (residual) {  // every side read of the pixel before its first store
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int o = n0 + (j / 4) * 4 * TY + 4 * ty + (j % 4);
+          sv[j] = o < O ? __ldg(side + ob + o * OHW) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int o = n0 + (j / 4) * 4 * TY + 4 * ty + (j % 4);
+        if (o >= O) continue;
+        const int idx = ob + o * OHW;
+        float v = acc[4 * g + ii][j];
+        if (ws) v *= wsv[j];
+        v = apply_act(act, v + bv[j]);
+        out[idx] = residual ? v + sv[j] : apply_pointwise_steps(prog, v, idx);
+      }
+    }
+  }
+}
+
+// The W8A8 body (S = SCHEME_W8A8): int8 patch and filter slabs staged by
+// synchronous loads, a TM x TN micro-tile of strided pixels and channels,
+// exact int32 sums.
+template <int S, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+    conv2d_igemm_int8_kernel(const typename Scheme<S>::X* __restrict__ x,
+                             const typename Scheme<S>::WG* __restrict__ w,
+                             const float* __restrict__ ws, const float* __restrict__ bias,
+                             const int* __restrict__ kept, float* __restrict__ out, int Nb,
+                             int C_in, int H, int W, int C, int O, int kh, int kw, int stride,
+                             int pad_t, int pad_l, int OH, int OW, int act, StepProgram prog) {
   using X = typename Scheme<S>::X;
   using SW = typename Scheme<S>::SW;
   using Acc = typename Scheme<S>::Acc;
@@ -187,10 +445,18 @@ void launch(const void* x, const void* w, const float* ws, const float* bias, co
             cudaStream_t stream) {
   const long long M = (long long)Nb * OH * OW;
   dim3 grid((unsigned)((M + BM - 1) / BM), (O + BN - 1) / BN);
-  dim3 block((BM / TM) * (BN / TN));
-  conv2d_igemm_kernel<S, BM, BN, BK, TM, TN><<<grid, block, 0, stream>>>(
-      static_cast<const typename Scheme<S>::X*>(x), static_cast<const typename Scheme<S>::WG*>(w),
-      ws, bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act, prog);
+  if constexpr (S == SCHEME_W8A8) {
+    constexpr int OTN = BN == 4 ? 1 : 4;  // the int8 body's micro-tile: 4 x 4, 4 x 1 at BN = 4
+    conv2d_igemm_int8_kernel<S, BM, BN, BK, 4, OTN><<<grid, (BM / 4) * (BN / OTN), 0, stream>>>(
+        static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), ws, bias, kept, out, Nb,
+        C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act, prog);
+  } else {
+    conv2d_igemm_kernel<S, BM, BN, BK, TM, TN>
+        <<<grid, ConvShape<BM, BN, BK, TM, TN>::NT, 0, stream>>>(
+            static_cast<const float*>(x), static_cast<const typename Scheme<S>::WG*>(w), ws,
+            bias, kept, out, Nb, C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act,
+            prog);
+  }
 }
 
 // The tile (bm, bn, bk) must be one of tiles.cuh's REPRO_CONV_TILES (the
@@ -234,6 +500,13 @@ extern "C" int repro_conv2d(const void* x, const void* w, const void* ws, const 
     if (p.kind[s] == STEP_NORM) return (int)cudaErrorInvalidValue;
   }
   if (Nb == 0 || O == 0 || OH == 0 || OW == 0) return (int)cudaSuccess;
+  const long long lim = 1LL << 31;  // the f32 / W8 body's offsets are 32-bit
+  if (scheme != SCHEME_W8A8 && ((long long)Nb * C_in * H * W >= lim ||
+                                (long long)Nb * O * OH * OW >= lim ||
+                                (long long)O * C * kh * kw >= lim ||
+                                (long long)C * kh * kw * kh * kw >= (1LL << 32))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float* wsf = static_cast<const float*>(ws);
   const float* bf = static_cast<const float*>(bias);
   const int* kp = static_cast<const int*>(kept);

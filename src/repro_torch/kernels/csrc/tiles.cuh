@@ -46,13 +46,17 @@
   X(64, 32, 64, 3)                    \
   X(128, 64, 32, 3)
 
-// conv2d.cu, every scheme: X(BM, BN, BK, TM, TN).  The first four are the
-// shape-based defaults by output-channel count (O <= 4, <= 16, <= 32,
-// wider; the INT8 schemes default to the last two).
+// conv2d.cu, every scheme: X(BM, BN, BK, TM, TN).  The shape-based
+// defaults by output-channel count (_build.conv_default_tile): f32 256 x 4
+// (O <= 4), 256 x 16 (<= 16), 256 x 32 (<= 32), 64 x 64 (wider); W8 256 x 32
+// and 64 x 64; W8A8 128 x 32 and 64 x 64.  TM x TN is the f32 /
+// W8 body's micro-tile (8 x 8; 8 x 4 for the narrow heads and the 64 x 64
+// tile, whose short K runs want more threads; 4 x 4 at BN = 4); the W8A8
+// body keeps its 4 x 4 (4 x 1 at BN = 4).
 #define REPRO_CONV_TILES(X) \
-  X(256, 4, 16, 4, 1)       \
-  X(256, 16, 16, 4, 4)      \
-  X(128, 32, 16, 4, 4)      \
-  X(64, 64, 16, 4, 4)       \
-  X(256, 32, 16, 4, 4)      \
-  X(128, 64, 16, 4, 4)
+  X(256, 4, 16, 4, 4)       \
+  X(256, 16, 16, 8, 4)      \
+  X(128, 32, 16, 8, 8)      \
+  X(64, 64, 16, 8, 4)       \
+  X(256, 32, 16, 8, 8)      \
+  X(128, 64, 16, 8, 8)

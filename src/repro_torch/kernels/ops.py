@@ -35,7 +35,8 @@ Differences from the JAX wrappers, by design:
   its split is planned from (M, N, K), not from tiles; a pinned tile sends
   such a call to the tiled kernel;
 * ``fused_elementwise`` and ``bsr_matmul`` record their keys but never
-  sweep: their kernels have one configuration each;
+  sweep: their kernels have one configuration for a shape (``bsr_matmul``
+  records the rows a CTA covers, 64 on its tensor-core route, else 8);
 * the conv fallback matrix keeps ``groups`` / ``dilation`` / ``padding`` /
   ``degenerate`` and routes them to the plain version (never to a library
   convolution), counted in ``conv_fallback_total{reason}`` as the JAX
@@ -217,7 +218,9 @@ class TuningCache:
     #: block_n, block_k, pipeline_depth) -- depth 1 is the tiled kernel,
     #: depth >= 2 the K-slab ring; ``conv2d`` is the conv kernel's (BM, BN,
     #: BK); ``fused_elementwise`` rows per block and ``bsr_matmul`` rows per
-    #: M tile, each the one configuration of its kernel.  The wrappers pass
+    #: M tile, each the one configuration of its kernel for a shape (bsr:
+    #: ``bsr_matmul.rows_per_tile``, 64 on the bf16 tensor-core route, else
+    #: 8).  The wrappers pass
     #: their shape-based default (``_build.default_gemm_tile`` /
     #: ``conv_default_tile``); these are the families' fallbacks.
     DEFAULTS: Dict[str, Tuple[int, ...]] = {
@@ -233,7 +236,7 @@ class TuningCache:
         "qmatmul": _build.GEMM_TILES,
         "conv2d": _build.CONV_TILES,
         "fused_elementwise": ((4,),),
-        "bsr_matmul": ((8,),),
+        "bsr_matmul": ((8,), (64,)),
     }
     #: the grids of families whose bf16 instances run other kernels: bf16
     #: ``matmul`` sweeps the tensor-core kernel's own tiles (same keys, the
@@ -492,15 +495,17 @@ def _gemm_tile(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, mode: str,
                                   dtype)
 
 
-def _one_config(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, device) -> None:
-    """Record the key of a kernel with one configuration (no runner: it
-    never sweeps), and raise if a loaded entry names another."""
+def _one_config(op: str, m: int, n: int, k: int, dtype: Any, fmt: str, device,
+                default: Optional[Tuple[int, ...]] = None) -> None:
+    """Record the key of a kernel with one configuration for the shape
+    (``default``, else the family's ``DEFAULTS`` entry; no runner: it never
+    sweeps), and raise if a loaded entry names another."""
     mode = device_mode(device)
-    blocks = tuple(_TUNING.resolve(op, m, n, k, dtype, fmt, mode))
-    if blocks not in TuningCache.CANDIDATES[op]:
+    want = default or TuningCache.DEFAULTS[op]
+    blocks = tuple(_TUNING.resolve(op, m, n, k, dtype, fmt, mode, default=want))
+    if blocks != want:
         raise _build.TileError(f"{TuningCache.key(op, m, n, k, dtype, fmt, mode)}: blocks "
-                               f"{blocks} are not the {op} kernel's "
-                               f"{TuningCache.CANDIDATES[op][0]}")
+                               f"{blocks} are not the {op} kernel's {want}")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -684,7 +689,8 @@ def bsr_matmul(
         raise ValueError(f"bsr_matmul: bands {bands} do not tile {nb} block-columns")
     epilogue = tuple(tuple(st) for st in epilogue)
     _one_config("bsr_matmul", m, n, x2.shape[1], x2.dtype,
-                _epilogue_fmt("pbcsr", epilogue, len(sides2)), x2.device)
+                _epilogue_fmt("pbcsr", epilogue, len(sides2)), x2.device,
+                (_bsr_mod.rows_per_tile(m, values.shape[2], x2.dtype),))
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     for band in bands:
         if band[1] > band[0]:

@@ -257,15 +257,18 @@ def test_defaults_carry_pipeline_depth_and_candidates_are_the_built_tiles():
 
 
 def test_default_tiles_are_the_shape_based_choice():
-    """With no cache entry the kernels run the tiles they chose from the
-    shape before the cache existed."""
+    """With no cache entry the kernels run the tiles chosen from the shape:
+    the GEMMs' as before the cache; the conv's by output-channel count, up
+    to 32 channels on the f32 / W8 body's fastest tile there (256 x 32) and
+    W8A8's own body on the one it had (128 x 32)."""
     assert _build.gemm_default_tile(32) == (128, 32, 16, 1)
     assert _build.gemm_default_tile(33) == (64, 64, 16, 1)
     want = {2: (256, 4, 16), 4: (256, 4, 16), 12: (256, 16, 16), 16: (256, 16, 16),
-            32: (128, 32, 16), 64: (64, 64, 16)}
+            32: (256, 32, 16), 64: (64, 64, 16)}
     assert {o: _build.conv_default_tile("f32", o) for o in want} == want
+    assert _build.conv_default_tile("w8", 4) == (256, 32, 16)
+    assert _build.conv_default_tile("w8a8", 4) == (128, 32, 16)
     for scheme in ("w8", "w8a8"):
-        assert _build.conv_default_tile(scheme, 4) == (128, 32, 16)
         assert _build.conv_default_tile(scheme, 64) == (64, 64, 16)
 
 
