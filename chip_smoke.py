@@ -28,7 +28,10 @@ Phases (each prints its own lines):
               -- the H100 SXM's memory rate and f32 CUDA-core peak -- over
               989 TFLOP/s for bf16, or over 1,979 TOP/s for int8, its
               tensor-core peaks; the block-sparse kernel's cases count the
-              real blocks' bytes and operations);
+              real blocks' bytes and operations); each bsr_matmul and
+              flash_attention case prints its route (every flash route is
+              launched), each W8A8 conv case whether it is torch.equal to
+              the plain version;
 4. apps    -- the paper's pipeline for each demo app at full width (base 32):
               build from a seeded ``torch.Generator``, prune with
               ``app_masks``, compile with ``PassManager`` + ``compile_plan``,
@@ -70,7 +73,8 @@ Phases (each prints its own lines):
               params);
 8. llm      -- qwen2.5-3b at full width in bf16, as phase 7 (greedy parity
               up to the first bf16 near-tie, teacher-forced within 8 bf16
-              ulps);
+              ulps); each llm phase prints flash_attention's device ms a
+              prefill and a decode plan call of its profiled run;
 9. llm block-pruned -- phase 8's params pruned with the paper's attention
               recipe ``Block(0.5, 64, 64)`` on q / o and served again,
               the dense model released first: 72 ``bsr_matmul`` and 108
@@ -336,34 +340,43 @@ def phase_build():
 #: the CUDA-core GEMM templates that must hold no bf16 instance: bf16 runs
 #: the tensor-core kernel (mma_gemm_kernel) and the skinny kernel
 _FMA_GEMMS = ("dense_matmul_kernel", "ffn_gateup_kernel", "pipelined_gemm_kernel")
+#: the bf16 tensor-core kernels, whose SASS must issue HMMA
+_TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
 
 
 def sass_check(lib_path):
-    """The built library's SASS (cuobjdump): every tensor-core GEMM kernel
-    (the dense ``mma_gemm_kernel`` and the block-sparse
-    ``bsr_matmul_mma_kernel``) issues HMMA, and no CUDA-core GEMM kernel is
+    """The built library's SASS (cuobjdump): every bf16 tensor-core kernel
+    (the dense ``mma_gemm_kernel``, the block-sparse
+    ``bsr_matmul_mma_kernel``, flash attention's prefill body) issues HMMA,
+    every W8A8 conv instance IMMA, and no CUDA-core GEMM kernel is
     instantiated for bf16."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    hmma, fma_bf16 = {}, []
+    hmma, fma_bf16, imma = {}, [], {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "mma_gemm_kernel" in name or "bsr_matmul_mma_kernel" in name:
+        if any(k in name for k in _TC_KERNELS):
             hmma[name] = chunk.count("HMMA")
+        if "conv2d_igemm_int8_kernel" in name:
+            imma[name] = chunk.count("IMMA")
         if any(k in name for k in _FMA_GEMMS) and "bfloat16" in name:
             fma_bf16.append(name)
     check(hmma and min(hmma.values()) > 0,
           f"sass: tensor-core kernels without HMMA: {[n for n, c in hmma.items() if not c]}")
     check(not fma_bf16, f"sass: CUDA-core bf16 GEMM instances remain: {fma_bf16[:3]}")
-    check(sum("bsr_matmul_mma_kernel" in n for n in hmma) == 4,
-          f"sass: {sum('bsr_matmul_mma_kernel' in n for n in hmma)} bsr_matmul_mma_kernel "
-          f"instances, want 4")
-    print(f"  sass: {len(hmma)} mma_gemm_kernel / bsr_matmul_mma_kernel instances, HMMA per "
-          f"kernel {min(hmma.values())}..{max(hmma.values())}; no bf16 instance of "
-          f"{', '.join(_FMA_GEMMS)}")
+    for kernel, want in (("bsr_matmul_mma_kernel", 4), ("flash_attention_tc_kernel", 3)):
+        got = sum(kernel in n for n in hmma)
+        check(got == want, f"sass: {got} {kernel} instances, want {want}")
+    check(len(imma) == 6 and min(imma.values()) > 0,
+          f"sass: W8A8 conv instances without IMMA: {[n for n, c in imma.items() if not c]} "
+          f"({len(imma)} instances, want 6)")
+    print(f"  sass: {len(hmma)} {' / '.join(_TC_KERNELS)} instances, HMMA per kernel "
+          f"{min(hmma.values())}..{max(hmma.values())}; {len(imma)} conv2d_igemm_int8_kernel "
+          f"instances, IMMA per kernel {min(imma.values())}..{max(imma.values())}; no bf16 "
+          f"instance of {', '.join(_FMA_GEMMS)}")
 
 
 def phase_kernels(torch):
@@ -467,8 +480,13 @@ def phase_kernels(torch):
                rtol=rtol, peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
         tile = _build.conv_default_tile(scheme, o)
         regs = CONV_REGISTERS[(_build.SCHEME_CODES[scheme], *tile)]
+        extra = ""
+        if scheme == "w8a8":  # the int8 tensor-core body's own tile; exact int32 sums
+            sh = _build.conv_w8a8_shape(tile)
+            extra = (f" (W8A8 body {sh['bm']}x{sh['bn']}x{sh['bk']}, {sh['threads']} threads; "
+                     f"torch.equal to the plain version: {torch.equal(out, want)})")
         print(f"  {name:18s} {label:42s} tile {'x'.join(map(str, tile))}, {regs} registers a "
-              f"thread")
+              f"thread{extra}")
         if tiles:
             tiles_line(name, label, lambda t: kconv.conv2d_gemm(
                 x, wt, b, *sides, **kw, block_m=t[0], block_n=t[1], block_k=t[2]),
@@ -494,6 +512,10 @@ def phase_kernels(torch):
               c_live=32, act="relu", scheme="w8a8")
     conv_case("w8a8 3x3 s2 24->40 +add @37x29 n2", 2, 24, (37, 29), 40, 3, 2, add_side=True,
               scheme="w8a8")
+    # ragged: 13 kept channels (K = 117: no 16-byte filter rows), O = 40
+    # against every derived tile width
+    conv_case("w8a8 3x3 s1 13-of-16->40 +add @37x29 n2", 2, 16, (37, 29), 40, 3, 1,
+              c_live=13, add_side=True, scheme="w8a8", tiles=True)
 
     def gemm_call(tiled, pipelined):
         """``call(tile)`` for tiles_line: the tiled kernel at depth 1, the
@@ -718,19 +740,41 @@ def phase_llm_kernels(torch, results):
         esz_q, esz_kv = q.element_size(), k.element_size()
         nb = 2 * q.numel() * esz_q + 2 * kv_rows * d * esz_kv + (0 if lens is None else 4 * b)
         both_bf16 = q_dtype == bf16 and kv_dtype == bf16
+        fp = kflash.plan_for(q, k, v, causal)
+        print(f"  {'flash_attention':18s} {label:42s} route {fp.route}"
+              + (f" ({fp.nsplit} splits of {fp.chunk} keys)" if fp.route == "split" else ""))
         record("flash_attention", label, out, want,
                lambda: kflash.flash_attention(q, k, v, lens, **kw),
                lambda: kflash.flash_attention_plain(q, k, v, lens, **kw), library, nb,
                4.0 * pairs * d, PEAK_BF16_FLOPS if both_bf16 else PEAK_F32_FLOPS)
 
+    f32 = torch.float32
+    routes0 = dict(kflash.route_launches)
     flash_case("decode q bf16 kv f32 B3 H16/G2 span1024 +len", 3, 16, 2, 1, 1024, 128,
-               [1000, 517, 64], False, bf16, torch.float32)
+               [1000, 517, 64], False, bf16, f32)
     flash_case("prefill bf16 B3 H16/G2 S16 causal +len", 3, 16, 2, 16, 16, 128,
                [16, 11, 5], True, bf16, bf16)
     flash_case("bf16 B3 H16/G2 S100 causal, no lengths", 3, 16, 2, 100, 100, 128,
                None, True, bf16, bf16)
     flash_case("f32 B2 H4/G2 Sq3 Skv37 d32 +len (0 incl.)", 2, 4, 2, 3, 37, 32,
-               [0, 29], False, torch.float32, torch.float32)
+               [0, 29], False, f32, f32)
+    flash_case("prefill bf16 B3 H16/G2 S512 causal +len", 3, 16, 2, 512, 512, 128,
+               [512, 300, 77], True, bf16, bf16)
+    flash_case("decode q bf16 kv f32 B3 H16/G2 span4096 +len", 3, 16, 2, 1, 4096, 128,
+               [4000, 2100, 64], False, bf16, f32)
+    flash_case("decode q bf16 kv f32 B1 H16/G2 span1024 +len", 1, 16, 2, 1, 1024, 128,
+               [1000], False, bf16, f32)
+    # splits wholly past row 1's length, and a length-0 row (a uniform average)
+    flash_case("decode bf16 B2 H16/G2 span512 +len [0, 40]", 2, 16, 2, 1, 512, 128,
+               [0, 40], False, bf16, bf16)
+    # the tensor-core route at d = 64 with G = H and a length-0 row; the
+    # SIMT route (f32 prefill, the smoke decoder's)
+    flash_case("bf16 B2 H8/G8 S40 d64 causal +len [40, 0]", 2, 8, 8, 40, 40, 64, [40, 0],
+               True, bf16, bf16)
+    flash_case("f32 B2 H4/G2 S20 d32 causal +len [20, 0]", 2, 4, 2, 20, 20, 32, [20, 0],
+               True, f32, f32)
+    unused = [r for r, n in kflash.route_launches.items() if n == routes0[r]]
+    check(not unused, f"flash_attention: routes {unused} not launched by the kernel cases")
 
     #: device ms of the decoder's GEMM launches by phase and role, for the
     #: per-plan-call sums below
@@ -830,12 +874,19 @@ def phase_llm_kernels(torch, results):
     dense_bf16_case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, add=True, pipelined=True)
     # device ms of one plan call's GEMM launches: per layer q, k, v, o, down
     # (5 dense_matmul) and one ffn_gateup, over qwen2.5-3b's 36 layers
+    # flash attention a plan call: the served prefill (S16 + lengths) and
+    # the decode span of the headline case, once a layer
+    t_flash = {r["label"]: r["ms"] for r in results["flash_attention"]}
+    per_call["prefill"]["flash"] = t_flash["prefill bf16 B3 H16/G2 S16 causal +len"]
+    per_call["decode"]["flash"] = t_flash["decode q bf16 kv f32 B3 H16/G2 span1024 +len"]
     for phase, t in per_call.items():
         dense = LLM_LAYERS * (t["q"] + 2 * t["kv"] + t["o"] + t["down"])
         ffn = LLM_LAYERS * t["ffn"]
+        flash = LLM_LAYERS * t["flash"]
         print(f"  per {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
               f"dense_matmul_bf16 {5 * LLM_LAYERS} launches {dense:.3f} ms, ffn_gateup "
-              f"{LLM_LAYERS} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms")
+              f"{LLM_LAYERS} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms; "
+              f"flash_attention {LLM_LAYERS} launches {flash:.3f} ms")
     phase_bsr_kernels(torch, record, results)
     torch.cuda.synchronize()
     return results
@@ -1290,7 +1341,7 @@ def phase_tune(torch, apps):
 #: kernel-name fragments of the port's own kernels
 _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
-        "quant_matmul_kernel": "quant_matmul", "flash_attention_kernel": "flash_attention",
+        "quant_matmul_kernel": "quant_matmul",
         "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
         "bsr_matmul": "bsr_matmul", "pipelined_gemm_kernel": "gemm_pipelined",
         "Memcpy": "memcpy"}
@@ -1298,7 +1349,15 @@ _OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
 
 
+#: flash attention's kernels by route (csrc/flash_attention.cu; the split
+#: route's combine kernel belongs to it)
+_FLASH_ROUTES = {"split": "split", "combine": "split", "tc": "tensor_core", "simt": "simt"}
+
+
 def _family(key: str) -> str:
+    m = re.search(r"flash_attention_(split|combine|tc|simt)_kernel", key)
+    if m:
+        return "flash_attention/" + _FLASH_ROUTES[m.group(1)]
     name = next((v for k, v in _OWN.items() if k in key), None)
     if name == "conv2d":  # conv2d_igemm_kernel<S, ...> or conv2d_igemm_int8_kernel<S, ...>
         m = re.search(r"conv2d_igemm\w*<(\d)", key)
@@ -1533,8 +1592,7 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
           f"{est['param_bytes'] / 1e9:.3f}GB + activations "
           f"{est['peak_activation_bytes'] / 1e9:.3f}GB = {est['peak_total_bytes'] / 1e9:.3f}GB)")
     check(peak >= est["param_bytes"], f"{label}: peak {peak} B below the params' bytes")
-    profile_serving(torch, f"llm {label}",
-                    lambda: serve.serve_llm_traffic(llm, prompts, args), top_n=8)
+    flash_per_call(torch, llm, prompts, args, label, n_layers)
     if llm.pop("params_on_host", False):  # the parity tree back on the card
         llm["params"] = _to_device(llm["params"], dev)
 
@@ -1573,6 +1631,47 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
           f"logit (tolerance {'0 (f32)' if smoke else f'{serve.PARITY_BF16_ULPS} bf16 ulps'})")
     del ref_plan
     return launches, peak
+
+
+def flash_per_call(torch, llm, prompts, args, label, n_layers):
+    """One profiled serving run (the profile line), then flash attention's
+    device ms a prefill and a decode plan call in it, beside the GEMM
+    kernels' (dense, gate/up, block-sparse) ms a plan call of either phase:
+    decode calls run the split route (one query row), prefill calls one
+    other route; the launches of each route in the run are checked against
+    that before the time of each route is divided by its calls."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.launch import serve
+
+    last = {}
+
+    def serve_once():
+        last["run"] = serve.serve_llm_traffic(llm, prompts, args)
+
+    routes0 = dict(kflash.route_launches)
+    prof = profile_serving(torch, f"llm {label}", serve_once, top_n=8)
+    st = last["run"]["stats"]
+    runs = sum(kflash.route_launches.values()) - sum(routes0.values())
+    calls = st["prefill_batches"] + st["decode_batches"]
+    routes = {r: n - routes0[r] for r, n in kflash.route_launches.items()}
+    by = {k.split("/", 1)[1]: v / 1e3 for k, v in prof["by"].items()
+          if k.startswith("flash_attention/")}
+    gemm = sum(v for k, v in prof["by"].items()
+               if k in ("dense_matmul", "ffn_gateup", "bsr_matmul")) / 1e3
+    prefill = [r for r, n in routes.items() if n and r != "split"]
+    if (runs != n_layers * calls or len(prefill) != 1
+            or routes["split"] != n_layers * st["decode_batches"]):
+        print(f"  flash_attention in the profiled run: routes {routes} over "
+              f"{st['prefill_batches']} prefill + {st['decode_batches']} decode plan calls "
+              f"(not one route a phase); device ms by route "
+              + " ".join(f"{r}={ms:.3f}" for r, ms in by.items()))
+        return
+    pre, dec = st["prefill_batches"], st["decode_batches"]
+    print(f"  flash_attention device ms a plan call (profiled run, {pre} prefill + {dec} decode "
+          f"plan calls): prefill {by.get(prefill[0], 0.0) / pre:.3f} ms ({prefill[0]}, "
+          f"{n_layers} launches), decode {by.get('split', 0.0) / dec:.3f} ms (split, "
+          f"{n_layers} launches); the GEMM kernels (dense_matmul, ffn_gateup, bsr_matmul) "
+          f"{gemm / calls:.3f} ms a plan call of either phase")
 
 
 def _to_device(tree, dev):

@@ -56,6 +56,7 @@ __all__ = [
     "bf16_default_tile",
     "default_gemm_tile",
     "conv_default_tile",
+    "conv_w8a8_shape",
     "check_gemm_tile",
     "check_conv_tile",
 ]
@@ -145,10 +146,13 @@ def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
     """The conv kernel's default tile, by the output-channel count: for f32
     256 x 4 up to O = 4, 256 x 16 up to 16, 256 x 32 up to 32, 64 x 64
     wider; W8 (the f32 body) 256 x 32 up to 32, 64 x 64 wider; W8A8 (its
-    own body) 128 x 32 up to 32, 64 x 64 wider.  256 x 32 is the f32 / W8
-    body's fastest tile on the apps' 32-channel convs at 256 x 256 (3x3
-    96-of-192->32 +add 0.534 ms against 128 x 32's 0.573, 7x7 3->32 0.145
-    against 0.156; H100, tools/bsr_conv_bench.py --tiles)."""
+    own body on int8 tensor cores, :func:`conv_w8a8_shape`) 128 x 32 up to
+    32, 64 x 64 wider.  256 x 32 is the f32 / W8 body's fastest tile on the
+    apps' 32-channel convs at 256 x 256 (3x3 96-of-192->32 +add 0.534 ms
+    against 128 x 32's 0.573, 7x7 3->32 0.145 against 0.156; H100,
+    tools/bsr_conv_bench.py --tiles); 64 x 64 stays W8A8's fastest on its
+    128-channel convs (3x3 64-of-128->128 0.0274 ms against 128 x 64's
+    0.0292)."""
     if scheme == "f32" and o <= 4:
         return (256, 4, 16)
     if scheme == "f32" and o <= 16:
@@ -156,6 +160,25 @@ def conv_default_tile(scheme: str, o: int) -> Tuple[int, int, int]:
     if o <= 32:
         return (128, 32, 16) if scheme == "w8a8" else (256, 32, 16)
     return (64, 64, 16)
+
+
+def conv_w8a8_shape(tile: Sequence[int]) -> Dict[str, int]:
+    """The W8A8 body's own tile, derived from a conv tile ``(BM, BN, BK)``
+    as ``csrc/conv2d.cu:Int8ConvShape`` derives it: ``bm`` pixels (two m16
+    blocks a warp), ``bn = max(2 * BN, 8)`` channels (the patch gather,
+    not the int8 mma, is that body's cost, so a CTA covers twice the f32
+    tile's channels for each gathered patch; a multiple of the mma's n8),
+    ``bk = 4 * BK`` k a slab (a multiple of the m16n8k32 mma's 32), warps
+    of 32 x ``warp_n`` outputs, ``threads`` a CTA, ``pixels`` a thread
+    gathers, and the shared memory in bytes (two patch and two filter slabs
+    of 16-byte-padded rows, two k tables)."""
+    bm, bn, bk = (int(v) for v in tile[:3])
+    bn8, bk8 = max(2 * bn, 8), 4 * bk
+    warp_n = min(bn8, 32)
+    threads = (bm // 32) * (bn8 // warp_n) * 32
+    smem = 2 * (bm + bn8) * (bk8 + 16) + 2 * bk8 * 16
+    return dict(bm=bm, bn=bn8, bk=bk8, warp_n=warp_n, threads=threads,
+                pixels=2 if bm >= 64 else 1, smem=smem)
 
 
 _GEMM_TILE_SET = frozenset(GEMM_TILES)
@@ -269,7 +292,8 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.repro_dense_matmul_pipelined.restype = I
     cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 5 + [P]
     cdll.repro_ffn_gateup.restype = I
-    cdll.repro_flash_attention.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P, P]
+    cdll.repro_flash_attention.argtypes = (
+        [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P] + [I] * 3 + [P, P])
     cdll.repro_flash_attention.restype = I
     cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P] + [I] * 3 + [P]
     cdll.repro_conv2d.restype = I

@@ -32,8 +32,11 @@ gather in flight (4-byte ``cp.async``, zero-fill for the border), per-CTA
 and per-slab offset tables instead of per-element division, 32-bit
 offsets (an operand of 2^31 elements or more raises).  Each output sums K
 in ascending order in one FMA chain, so every tile is bit-equal to every
-other.  W8 widens its int8 filter as it stages it; W8A8 keeps its own body
-(int8 patches and filters, exact int32 sums).
+other.  W8 widens its int8 filter as it stages it.  W8A8 has its own body on
+int8 tensor cores (``mma.sync`` m16n8k32 s8 on int8 patch and filter
+slabs, the patch gather of the next slab through registers, the filter by
+16-byte ``cp.async`` where ``K % 16 == 0``; exact int32 sums, so it gives
+the plain version's bits).
 
 The plain version accumulates the INT8 schemes in float64 -- exact for
 W8A8, whose integer sums pass 2^24 (127^2 x 1728 = 2.8e7) where a float32

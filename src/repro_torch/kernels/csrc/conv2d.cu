@@ -54,10 +54,24 @@
 // split of K -- the same chain on every tile -- so every tile is bit-equal
 // to every other (and to the previous body of this kernel).
 //
-// W8A8 (int8 patches and filters, exact int32 sums) keeps its own body,
-// conv2d_igemm_int8_kernel: a 4 x 4 micro-tile of strided pixels and
-// channels, synchronous gathers.  cp.async has no 1-byte copy, and int8
-// tensor cores (mma.sync s8) are the route that would move it.
+// W8A8 (int8 patches and filters, exact int32 sums) has its own body,
+// conv2d_igemm_int8_kernel, on int8 tensor cores: what bounded the old
+// int8 body was issue slots (scalar int multiply-adds on a 4 x 4
+// micro-tile, synchronous byte gathers, two barriers a slab), not bytes.
+// The new one runs mma.sync m16n8k32 s8 (2 x NI per k32 step a warp, the
+// fragments by ldmatrix from padded rows) on a [BM][BK8] patch slab and a
+// [BN8][BK8] filter slab, k contiguous; double-buffered, one barrier a
+// slab.  cp.async has no 1-byte copy, so the patch gather of slab k + 1
+// (one pixel a thread, from the per-CTA pixel base and the per-slab k
+// table as above, 4 bytes packed into a word) is loaded into registers
+// while slab k multiplies and stored after; the filter slab (w [O, K]
+// row-major is already the col-major B operand) comes by 16-byte cp.async
+// where K % 16 == 0, else by byte loads through registers the same way.
+// The epilogue keeps the old order -- int32 -> f32, * ws, + bias (never
+// fused into one rounding), activation, step program, one store -- and the
+// overlapped residual read.  Integer sums are exact in any order, so every
+// tile gives the bits of every other, of the old body and of the plain
+// version.
 //
 // Every scheme is built for the six tiles of tiles.cuh and the wrapper
 // picks one: the tuning cache's winner, a pin, or the default -- for f32 by
@@ -303,137 +317,307 @@ __global__ void __launch_bounds__(ConvShape<BM, BN, BK, TM, TN>::NT,
   }
 }
 
-// The W8A8 body (S = SCHEME_W8A8): int8 patch and filter slabs staged by
-// synchronous loads, a TM x TN micro-tile of strided pixels and channels,
-// exact int32 sums.
-template <int S, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    conv2d_igemm_int8_kernel(const typename Scheme<S>::X* __restrict__ x,
-                             const typename Scheme<S>::WG* __restrict__ w,
+// The W8A8 body (S = SCHEME_W8A8) on int8 tensor cores: per K slab an int8
+// patch [BM][BK8] and filter [BN8][BK8] (k contiguous: the row-major A and
+// col-major B operands of mma.sync m16n8k32 s8), double-buffered; exact
+// int32 sums, so any order and any tile give the same bits.  Its tile is
+// derived from the tiles.cuh tuple: BK8 = 4 * BK k a slab (the f32 body's
+// slab row of 16 floats is 64 bytes; a multiple of the mma's 32); BN8 =
+// max(2 * BN, 8) channels -- the byte gather of the patch, not the int8
+// mma, is what this body spends its time on, so a CTA multiplies each
+// gathered patch by twice the f32 tile's channels; warps of 32 x min(BN8,
+// 32) outputs.  A thread gathers PPT pixels (two from BM = 64 on, so that
+// one read of the slab's k table serves two elements) over every KT-th
+// word of a slab row.
+template <int BM, int BN, int BK>
+struct Int8ConvShape {
+  static constexpr int BN8 = 2 * BN < 8 ? 8 : 2 * BN;
+  static constexpr int BK8 = 4 * BK;
+  static constexpr int WTN = BN8 < 32 ? BN8 : 32;  // a warp's channels
+  static constexpr int NI = WTN / 8;               // n8 blocks a warp
+  static constexpr int WM = BM / 32;               // warps along pixels (2 m16 blocks each)
+  static constexpr int WN = BN8 / WTN;             // warps along channels
+  static constexpr int NT = WM * WN * 32;
+  // a slab row in bytes (16-byte pad: an ldmatrix's 8 rows on distinct banks)
+  static constexpr int AP = BK8 + 16;
+  static constexpr int GW = BK8 / 4;           // 4-byte words of a slab row
+  static constexpr int PPT = BM >= 64 ? 2 : 1;  // pixels a thread gathers
+  static constexpr int PS = BM / PPT;          // pixel slots (a thread's first pixel)
+  static constexpr int KT = NT / PS;           // threads sharing a pixel slot
+  static constexpr int WPT = GW / KT;          // words of each of its pixels a thread gathers
+  static constexpr int FW = (BN8 * GW + NT - 1) / NT;  // filter words a thread loads (unaligned K)
+  static constexpr int SMEM = 2 * (BM + BN8) * AP + 2 * BK8 * 16;  // + the k tables
+  static_assert(BM % 32 == 0 && BN8 % WTN == 0 && WTN % 8 == 0, "whole warp tiles");
+  static_assert(BK8 % 32 == 0, "whole k32 steps");
+  static_assert(PS % 32 == 0 && NT % PS == 0 && GW % KT == 0,
+                "gather: a warp on 32 pixels, whole words a thread");
+  static_assert(NT <= 1024 && BK8 <= NT, "one thread a k of the slab table");
+};
+
+// (channel offset + ki * W + kj, ki, kj) of a slab's k: 64-bit offsets,
+// the W8A8 scheme's extents are not bounded to 2^31
+struct KEntry {
+  long long off;
+  int ki, kj;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), exact s32
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// S is always SCHEME_W8A8; it leads the template arguments as in
+// conv2d_igemm_kernel, so the build log and the profiler name the scheme.
+template <int S, int BM, int BN, int BK>
+__global__ void __launch_bounds__(Int8ConvShape<BM, BN, BK>::NT)
+    conv2d_igemm_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                              const float* __restrict__ ws, const float* __restrict__ bias,
                              const int* __restrict__ kept, float* __restrict__ out, int Nb,
                              int C_in, int H, int W, int C, int O, int kh, int kw, int stride,
                              int pad_t, int pad_l, int OH, int OW, int act, StepProgram prog) {
-  using X = typename Scheme<S>::X;
-  using SW = typename Scheme<S>::SW;
-  using Acc = typename Scheme<S>::Acc;
-  constexpr int TX = BM / TM;  // threads along pixels (fastest: coalesced)
-  constexpr int TY = BN / TN;  // threads along output channels
-  constexpr int NT = TX * TY;
-  __shared__ X As[BK][BM];
-  __shared__ SW Bs[BK][BN + 1];
-  __shared__ long long s_xbase[BM];  // n * C_in * H * W, or -1 past M
-  __shared__ long long s_obase[BM];  // n * O * OH * OW + oh * OW + ow
-  __shared__ int s_ih0[BM];
-  __shared__ int s_iw0[BM];
-  __shared__ long long s_coff[BK];  // kept[c] * H * W, or -1 past K
-  __shared__ int s_ki[BK];
-  __shared__ int s_kj[BK];
+  static_assert(S == SCHEME_W8A8, "the int8 tensor-core body is W8A8's");
+  using Sh = Int8ConvShape<BM, BN, BK>;
+  constexpr int BN8 = Sh::BN8, BK8 = Sh::BK8, WTN = Sh::WTN, NI = Sh::NI, NT = Sh::NT;
+  constexpr int AP = Sh::AP, GW = Sh::GW, PPT = Sh::PPT, PS = Sh::PS, KT = Sh::KT;
+  constexpr int WPT = Sh::WPT, FW = Sh::FW;
+  // As[2][BM][AP], Bs[2][BN8][AP], ktab[2][BK8] in dynamic shared memory
+  // (the widest derived tile takes 52 KB)
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto As = reinterpret_cast<int8_t(*)[BM][AP]>(smem);
+  auto Bs = reinterpret_cast<int8_t(*)[BN8][AP]>(smem + 2 * BM * AP);
+  auto ktab = reinterpret_cast<KEntry(*)[BK8]>(smem + 2 * (BM + BN8) * AP);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % Sh::WM, wn = warp / Sh::WM;
   const long long M = (long long)Nb * OH * OW;
   const int K = C * kh * kw;
   const int khw = kh * kw;
   const long long HW = (long long)H * W;
   const long long OHW = (long long)OH * OW;
   const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * BN8;
+  const int nslab = (K + BK8 - 1) / BK8;
+  const bool w16 = K % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
 
-  for (int mm = tid; mm < BM; mm += NT) {
-    const long long m = m0 + mm;
+  // the gather's pixels (PPT a thread, PS apart) and its words (every
+  // KT-th of a row): image base and first row / column, once per CTA
+  const int ps = tid % PS, gk = tid / PS;
+  int ih0[PPT], iw0[PPT];
+  const int8_t* px[PPT];
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const long long m = m0 + ps + j * PS;
+    ih0[j] = OUT_OF_RANGE;
+    iw0[j] = 0;
+    px[j] = x;
     if (m < M) {
-      const int n = (int)(m / OHW);
-      const int p = (int)(m - (long long)n * OHW);
-      const int oh = p / OW, ow = p - (p / OW) * OW;
-      s_xbase[mm] = (long long)n * C_in * HW;
-      s_obase[mm] = (long long)n * O * OHW + p;
-      s_ih0[mm] = oh * stride - pad_t;
-      s_iw0[mm] = ow * stride - pad_l;
-    } else {
-      s_xbase[mm] = -1;
-      s_obase[mm] = -1;
-      s_ih0[mm] = 0;
-      s_iw0[mm] = 0;
+      const long long n = m / OHW;
+      const int p = (int)(m - n * OHW);
+      const int oh = p / OW;
+      ih0[j] = oh * stride - pad_t;
+      iw0[j] = (p - oh * OW) * stride - pad_l;
+      px[j] = x + n * C_in * HW + (long long)ih0[j] * W + iw0[j];
     }
   }
-  __syncthreads();  // K may be 0 (every channel pruned): the epilogue reads these
-
-  Acc acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int kk = tid; kk < BK; kk += NT) {
-      const int k = k0 + kk;
+  auto fill_ktab = [&](int t, int buf) {
+    if (tid < BK8) {
+      const int k = t * BK8 + tid;
+      KEntry e{0, OUT_OF_RANGE, 0};
       if (k < K) {
-        const int c = k / khw;
-        const int r = k - c * khw;
-        const int ch = kept ? kept[c] : c;
-        s_coff[kk] = (long long)ch * HW;
-        s_ki[kk] = r / kw;
-        s_kj[kk] = r - (r / kw) * kw;
+        const int c = k / khw, r = k - c * khw;
+        const int ki = r / kw, kj = r - ki * kw;
+        e.off = (long long)(kept ? kept[c] : c) * HW + (long long)ki * W + kj;
+        e.ki = ki;
+        e.kj = kj;
+      }
+      ktab[buf][tid] = e;
+    }
+  };
+  uint32_t areg[WPT][PPT], wreg[FW];
+  auto load_a = [&](int buf) {  // the slab's patch words into registers
+#pragma unroll
+    for (int i = 0; i < WPT; ++i) {
+      const int kw4 = gk + i * KT;
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) areg[i][j] = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const KEntry e = ktab[buf][4 * kw4 + b];
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const bool ok = (unsigned)(ih0[j] + e.ki) < (unsigned)H &&
+                          (unsigned)(iw0[j] + e.kj) < (unsigned)W;
+          const uint32_t byte = ok ? (uint32_t)(uint8_t)__ldg(px[j] + e.off) : 0u;
+          areg[i][j] |= byte << (8 * b);
+        }
+      }
+    }
+  };
+  auto store_a = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < WPT; ++i)
+#pragma unroll
+      for (int j = 0; j < PPT; ++j)
+        *reinterpret_cast<uint32_t*>(&As[buf][ps + j * PS][4 * (gk + i * KT)]) = areg[i][j];
+  };
+  auto load_w = [&](int t, int buf) {  // 16-byte cp.async, or words into registers
+    const int k0 = t * BK8;
+    if (w16) {
+      for (int e = tid; e < BN8 * (BK8 / 16); e += NT) {
+        const int nn = e / (BK8 / 16), c = (e % (BK8 / 16)) * 16;
+        const int o = n0 + nn, k = k0 + c;
+        const bool ok = o < O && k < K;
+        pipelined::cp_async16(&Bs[buf][nn][c], ok ? w + (long long)o * K + k : w, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < FW; ++i) {
+        const int e = tid + i * NT;
+        const int nn = e / GW, c = (e % GW) * 4;
+        const int o = n0 + nn;
+        uint32_t word = 0;
+        if (e < BN8 * GW && o < O) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int k = k0 + c + b;
+            if (k < K) word |= (uint32_t)(uint8_t)__ldg(w + (long long)o * K + k) << (8 * b);
+          }
+        }
+        wreg[i] = word;
+      }
+    }
+  };
+  auto store_w = [&](int buf) {
+    if (w16) return;
+#pragma unroll
+    for (int i = 0; i < FW; ++i) {
+      const int e = tid + i * NT;
+      if (e < BN8 * GW) *reinterpret_cast<uint32_t*>(&Bs[buf][e / GW][(e % GW) * 4]) = wreg[i];
+    }
+  };
+
+  int acc[2][NI][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  fill_ktab(0, 0);
+  fill_ktab(1, 1);
+  __syncthreads();
+  if (nslab > 0) {
+    load_a(0);
+    load_w(0, 0);
+    pipelined::cp_async_commit();
+    store_a(0);
+    store_w(0);
+  }
+  // per-lane ldmatrix rows: A rows lane % 16, k half lane / 16; B channels
+  // lane % 8 + 8 * (lane / 16), k half (lane / 8) % 2
+  const int a_row = wm * 32 + (lane & 15), a_k = (lane >> 4) * 16;
+  const int b_row = wn * WTN + (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 16;
+  for (int t = 0; t < nslab; ++t) {
+    const int buf = t & 1;
+    pipelined::cp_async_wait<0>();
+    __syncthreads();  // slab t landed; slab t - 1's readers are done
+    if (t + 1 < nslab) {
+      load_a(buf ^ 1);  // slab t + 1's words, in flight during this slab's mma
+      load_w(t + 1, buf ^ 1);
+      pipelined::cp_async_commit();
+    }
+    if (t + 2 < nslab) fill_ktab(t + 2, buf);  // slab t's table was read last step
+#pragma unroll
+    for (int ks = 0; ks < BK8 / 32; ++ks) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldsm_x4(a[i], &As[buf][a_row + i * 16][ks * 32 + a_k]);
+      if constexpr (NI == 1) {
+        uint32_t b[2];
+        ldsm_x2(b, &Bs[buf][b_row][ks * 32 + b_k]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_s8(acc[i][0], a[i], b[0], b[1]);
       } else {
-        s_coff[kk] = -1;
-        s_ki[kk] = 0;
-        s_kj[kk] = 0;
+#pragma unroll
+        for (int jj = 0; jj < NI / 2; ++jj) {
+          uint32_t b[4];
+          ldsm_x4(b, &Bs[buf][b_row + jj * 16][ks * 32 + b_k]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_s8(acc[i][2 * jj], a[i], b[0], b[1]);
+            mma_s8(acc[i][2 * jj + 1], a[i], b[2], b[3]);
+          }
+        }
       }
     }
-    __syncthreads();
-    // patch slab [BK, BM]: neighbouring threads gather neighbouring pixels
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int mm = e % BM, kk = e / BM;
-      X v = X(0);
-      const long long xb = s_xbase[mm], co = s_coff[kk];
-      if (xb >= 0 && co >= 0) {
-        const int ih = s_ih0[mm] + s_ki[kk];
-        const int iw = s_iw0[mm] + s_kj[kk];
-        if (ih >= 0 && ih < H && iw >= 0 && iw < W) v = x[xb + co + (long long)ih * W + iw];
-      }
-      As[kk][mm] = v;
+    if (t + 1 < nslab) {  // slab t - 1's readers passed the barrier
+      store_a(buf ^ 1);
+      store_w(buf ^ 1);
     }
-    // filter slab [BK, BN]: w is [O, K] row-major, neighbouring threads read
-    // neighbouring k; W8 converts each int8 filter element to f32 here
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int kk = e % BK, nn = e / BK;
-      const int k = k0 + kk, o = n0 + nn;
-      Bs[kk][nn] = (k < K && o < O) ? SW(w[(long long)o * K + k]) : SW(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      X a[TM];
-      SW b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][tx + i * TX];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][ty + j * TY];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
   }
 
+  // epilogue: int32 -> f32, * ws, + bias, activation, step program, one
+  // store; accumulator element e of fragment (i, j) is pixel row lane / 4
+  // (+ 8 for e >= 2), channel 2 * (lane % 4) (+ 1 for odd e)
+  const bool residual = prog.n_steps == 1 && prog.kind[0] == STEP_ADD;
+  const float* side = side_ptr(prog, prog.arg[0]);
+  float wsv[NI][2], bv[NI][2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int mm = tx + i * TX;
-    const long long ob = s_obase[mm];
-    if (ob < 0) continue;
+  for (int j = 0; j < NI; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int o = n0 + ty + j * TY;
-      if (o >= O) continue;
-      const long long idx = ob + (long long)o * OHW;
-      float v = (float)acc[i][j];
-      if (ws) v *= ws[o];
-      if (bias) v += bias[o];
-      v = apply_act(act, v);
-      out[idx] = apply_pointwise_steps(prog, v, idx);
+    for (int c = 0; c < 2; ++c) {
+      const int o = n0 + wn * WTN + j * 8 + 2 * (lane & 3) + c;
+      wsv[j][c] = o < O ? ws[o] : 1.f;
+      bv[j][c] = (bias && o < O) ? bias[o] : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long m = m0 + wm * 32 + i * 16 + (lane >> 2) + hr * 8;
+      if (m >= M) continue;
+      const long long n = m / OHW;
+      const long long ob = n * O * OHW + (m - n * OHW);
+      float sv[NI][2];
+      if (residual) {  // every side read of the pixel before its first store
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int o = n0 + wn * WTN + j * 8 + 2 * (lane & 3) + c;
+            sv[j][c] = o < O ? __ldg(side + ob + (long long)o * OHW) : 0.f;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int o = n0 + wn * WTN + j * 8 + 2 * (lane & 3) + c;
+          if (o >= O) continue;
+          const long long idx = ob + (long long)o * OHW;
+          // the order and roundings of the plain version: (f32) acc * ws,
+          // then + bias, never fused
+          float v = __fmul_rn((float)acc[i][j][2 * hr + c], wsv[j][c]);
+          if (bias) v = __fadd_rn(v, bv[j][c]);
+          v = apply_act(act, v);
+          out[idx] = residual ? v + sv[j][c] : apply_pointwise_steps(prog, v, idx);
+        }
     }
   }
 }
@@ -444,13 +628,20 @@ void launch(const void* x, const void* w, const float* ws, const float* bias, co
             int stride, int pad_t, int pad_l, int OH, int OW, int act, const StepProgram& prog,
             cudaStream_t stream) {
   const long long M = (long long)Nb * OH * OW;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (O + BN - 1) / BN);
   if constexpr (S == SCHEME_W8A8) {
-    constexpr int OTN = BN == 4 ? 1 : 4;  // the int8 body's micro-tile: 4 x 4, 4 x 1 at BN = 4
-    conv2d_igemm_int8_kernel<S, BM, BN, BK, 4, OTN><<<grid, (BM / 4) * (BN / OTN), 0, stream>>>(
+    using Sh = Int8ConvShape<BM, BN, BK>;
+    auto kernel = conv2d_igemm_int8_kernel<S, BM, BN, BK>;
+    if constexpr (Sh::SMEM > 48 * 1024) {
+      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM) !=
+          cudaSuccess)
+        return;  // the C entry reports cudaGetLastError()
+    }
+    const dim3 grid((unsigned)((M + BM - 1) / BM), (O + Sh::BN8 - 1) / Sh::BN8);
+    kernel<<<grid, Sh::NT, Sh::SMEM, stream>>>(
         static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), ws, bias, kept, out, Nb,
         C_in, H, W, C, O, kh, kw, stride, pad_t, pad_l, OH, OW, act, prog);
   } else {
+    const dim3 grid((unsigned)((M + BM - 1) / BM), (O + BN - 1) / BN);
     conv2d_igemm_kernel<S, BM, BN, BK, TM, TN>
         <<<grid, ConvShape<BM, BN, BK, TM, TN>::NT, 0, stream>>>(
             static_cast<const float*>(x), static_cast<const typename Scheme<S>::WG*>(w), ws,

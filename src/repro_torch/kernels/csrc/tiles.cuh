@@ -51,8 +51,10 @@
 // (O <= 4), 256 x 16 (<= 16), 256 x 32 (<= 32), 64 x 64 (wider); W8 256 x 32
 // and 64 x 64; W8A8 128 x 32 and 64 x 64.  TM x TN is the f32 /
 // W8 body's micro-tile (8 x 8; 8 x 4 for the narrow heads and the 64 x 64
-// tile, whose short K runs want more threads; 4 x 4 at BN = 4); the W8A8
-// body keeps its 4 x 4 (4 x 1 at BN = 4).
+// tile, whose short K runs want more threads; 4 x 4 at BN = 4).  The W8A8
+// body (int8 tensor cores) derives its own tile from the same tuple
+// (conv2d.cu Int8ConvShape): BK8 = 4 * BK k a slab, max(BN, 8) channels,
+// warps of 32 x min(BN, 32) outputs; TM and TN do not apply to it.
 #define REPRO_CONV_TILES(X) \
   X(256, 4, 16, 4, 4)       \
   X(256, 16, 16, 8, 4)      \

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time and check the block-sparse and conv kernels of one source tree on
-the card, without stopping at a disagreement.
+"""Time and check the block-sparse, conv and flash-attention kernels of one
+source tree on the card, without stopping at a disagreement.
 
     python3 tools/bsr_conv_bench.py [--src DIR] [--label NAME] [--tiles]
+                                    [--only bsr|conv|w8a8|flash]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default this repository's; give another checkout's to time it in the same
@@ -14,9 +15,12 @@ and its tolerance (one bf16 ulp of the largest value for bf16 outputs,
 ms (torch.profiler, 20 calls), the library call's (``torch.addmm`` on the
 dense weight, ``F.conv2d`` with TF32 off) and, on trees that have it, the
 ``bsr_matmul`` route and split.  ``--tiles`` adds every conv tile on the
-7x7, 3x3 96-of-192->32 and W8 3x3 s2 cases; ``--only`` runs one kernel's
-cases; ``--mma-target`` / ``--stream-target`` set the block-sparse
-routes' split targets for the run (a sweep of the split).  A case over its tolerance is marked ``FAIL`` and
+7x7, 3x3 96-of-192->32, W8 3x3 s2 and W8A8 cases; ``--only`` runs one
+kernel's cases (``w8a8``: the conv kernel's W8A8 cases alone; ``flash``:
+flash attention at qwen2.5-3b's shapes, with its route on trees that have
+one and ``F.scaled_dot_product_attention`` as the library call); ``--mma-target`` / ``--stream-target`` set the block-sparse
+routes' split targets for the run (a sweep of the split), ``--flash-target``
+/ ``--flash-chunk`` the flash split route's CTAs and most keys a split.  A case over its tolerance is marked ``FAIL`` and
 the script exits 1 after the last case.
 """
 
@@ -29,6 +33,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: kernels whose registers and spills the build log's lines are printed for
+_WATCHED = ("bsr_matmul", "conv2d_igemm", "flash_attention")
 
 
 def main() -> int:
@@ -36,9 +42,14 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--tiles", action="store_true")
-    ap.add_argument("--only", choices=("bsr", "conv"), help="one kernel's cases only")
+    ap.add_argument("--only", choices=("bsr", "conv", "w8a8", "flash"),
+                    help="one kernel's cases only")
     ap.add_argument("--mma-target", type=int, help="bsr_matmul.MMA_TARGET for this run")
     ap.add_argument("--stream-target", type=int, help="bsr_matmul.STREAM_TARGET for this run")
+    ap.add_argument("--flash-target", type=int,
+                    help="flash_attention.SPLIT_TARGET for this run (the split route's CTAs)")
+    ap.add_argument("--flash-chunk", type=int,
+                    help="flash_attention.SPLIT_MAX_CHUNK for this run (most keys a split)")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -70,9 +81,9 @@ def main() -> int:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
-        elif fn and ("bsr_matmul" in fn or "conv2d_igemm" in fn) and "Used" in line:
+        elif fn and any(k in fn for k in _WATCHED) and "Used" in line:
             print(f"  ptxas {fn[:90]}: {line.split(':', 1)[1].strip()}")
-        elif fn and ("bsr_matmul" in fn or "conv2d_igemm" in fn) and "spill" in line \
+        elif fn and any(k in fn for k in _WATCHED) and "spill" in line \
                 and " 0 bytes spill stores" not in line:
             print(f"  ptxas {fn[:90]}: {line.strip()}")
 
@@ -80,6 +91,14 @@ def main() -> int:
         kbsr.MMA_TARGET = args.mma_target
     if args.stream_target:
         kbsr.STREAM_TARGET = args.stream_target
+    if args.flash_target:
+        from repro_torch.kernels import flash_attention as kflash
+
+        kflash.SPLIT_TARGET = args.flash_target
+    if args.flash_chunk:
+        from repro_torch.kernels import flash_attention as kflash
+
+        kflash.SPLIT_MAX_CHUNK = args.flash_chunk
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     bf16 = torch.bfloat16
@@ -211,8 +230,69 @@ def main() -> int:
                              f"{'' if same else '(DIFFERS)'}")
             print(f"  conv  every tile, {scheme} {label}: {' '.join(parts)}")
 
+    # -- flash_attention ----------------------------------------------------- #
+    def flash(label, b, h, g, sq, skv, d, lengths, causal, q_dtype, kv_dtype):
+        from repro_torch.kernels import flash_attention as kflash
+
+        q = randn(b, sq, h, d, dtype=q_dtype).permute(0, 2, 1, 3)
+        k = randn(b, skv, g, d, dtype=kv_dtype).permute(0, 2, 1, 3)
+        v = randn(b, skv, g, d, dtype=kv_dtype).permute(0, 2, 1, 3)
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = kflash.flash_attention(q, k, v, lens, causal=causal)
+        want = kflash.flash_attention_plain(q, k, v, lens, causal=causal)
+        top = want.float().abs().max().item()
+        tol = bf16_ulp(top) if out.dtype == bf16 else 1e-4 * max(1.0, top)
+        rep = h // g
+        kr, vr, ql = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), q.to(kv_dtype)
+        cols = torch.arange(skv, device=dev)
+        mask = torch.ones(b, 1, sq, skv, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= cols[None, None, None, :] <= torch.arange(sq, device=dev)[None, None, :, None]
+        if lens is not None:
+            mask &= cols[None, None, None, :] < lens[:, None, None, None]
+        extra = ""
+        if hasattr(kflash, "plan_for"):
+            fp = kflash.plan_for(q, k, v, causal)
+            extra = f"route={fp.route} splits={fp.nsplit}x{fp.chunk}"
+        report("flash", label, out, want, tol,
+               lambda: kflash.flash_attention(q, k, v, lens, causal=causal),
+               lambda: F.scaled_dot_product_attention(ql, kr, vr, attn_mask=mask), extra)
+
+    if args.only in (None, "flash"):
+        f32 = torch.float32
+        flash("decode q bf16 kv f32 B3 H16/G2 span1024 +len", 3, 16, 2, 1, 1024, 128,
+              [1000, 517, 64], False, bf16, f32)
+        flash("prefill bf16 B3 H16/G2 S16 causal +len", 3, 16, 2, 16, 16, 128, [16, 11, 5],
+              True, bf16, bf16)
+        flash("bf16 B3 H16/G2 S100 causal, no lengths", 3, 16, 2, 100, 100, 128, None, True,
+              bf16, bf16)
+        flash("f32 B2 H4/G2 Sq3 Skv37 d32 +len (0 incl.)", 2, 4, 2, 3, 37, 32, [0, 29], False,
+              f32, f32)
+        flash("prefill bf16 B3 H16/G2 S512 causal +len", 3, 16, 2, 512, 512, 128,
+              [512, 300, 77], True, bf16, bf16)
+        flash("decode q bf16 kv f32 B3 H16/G2 span4096 +len", 3, 16, 2, 1, 4096, 128,
+              [4000, 2100, 64], False, bf16, f32)
+        flash("decode q bf16 kv f32 B1 H16/G2 span1024 +len", 1, 16, 2, 1, 1024, 128, [1000],
+              False, bf16, f32)
+        flash("decode bf16 B2 H16/G2 span512 +len [0, 40]", 2, 16, 2, 1, 512, 128, [0, 40],
+              False, bf16, bf16)
+        flash("bf16 B2 H8/G8 S40 d64 causal +len [40, 0]", 2, 8, 8, 40, 40, 64, [40, 0], True,
+              bf16, bf16)
+        flash("f32 B2 H4/G2 S20 d32 causal +len [20, 0]", 2, 4, 2, 20, 20, 32, [20, 0], True,
+              f32, f32)
+    if args.only in ("bsr", "flash"):
+        return 1 if failed else 0
     B, S = 4, 256
-    if args.only == "bsr":
+    if args.only == "w8a8":
+        conv("3x3 s1 64-of-128->128 relu @64^2 n4", B, 128, (64, 64), 128, 3, 1, c_live=64,
+             act="relu", scheme="w8a8", tiles=args.tiles)
+        conv("3x3 s2 32-of-64->64 relu @128^2 n4", B, 64, (128, 128), 64, 3, 2, c_live=32,
+             act="relu", scheme="w8a8")
+        conv("3x3 s2 24->40 +add @37x29 n2", 2, 24, (37, 29), 40, 3, 2, add=True, scheme="w8a8")
+        conv("3x3 s1 13-of-16->40 +add @37x29 n2 (ragged)", 2, 16, (37, 29), 40, 3, 1,
+             c_live=13, add=True, scheme="w8a8", tiles=args.tiles)
+        if failed:
+            print(f"FAILED: {failed}")
         return 1 if failed else 0
     conv("7x7 s1 3->32 @256^2 n4", B, 3, (S, S), 32, 7, 1, tiles=args.tiles)
     conv("3x3 s2 16-of-32->64 @256^2 n4", B, 32, (S, S), 64, 3, 2, c_live=16)
