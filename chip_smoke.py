@@ -8,8 +8,11 @@ Phases (each prints its own lines):
 1. device  -- the card's name and power limit, as nvidia-smi reports them;
 2. build   -- compile ``src/repro_torch/kernels/csrc/*.cu`` (or find them
               built) into ``build/repro_torch_kernels/``; the library's SASS
-              (``cuobjdump``) must show HMMA in every bf16 tensor-core GEMM
-              and no bf16 instance of the CUDA-core GEMMs;
+              (``cuobjdump``) must show HMMA in every bf16 tensor-core GEMM,
+              IMMA in every W8A8 conv and GEMM instance, and no bf16
+              instance of the CUDA-core GEMMs; registers a thread of every
+              f32 / INT8 GEMM instance (scheme x tile x layout), the ring
+              instances at most 8 above the same tile at depth 1;
 3. kernels -- each CUDA kernel against its plain PyTorch version on the card,
               at the main path's shapes and ragged ones, the INT8 schemes of
               the conv kernel and both schemes of the quant matmul included,
@@ -17,6 +20,11 @@ Phases (each prints its own lines):
               ``torch.equal`` to the tiled kernel, and every tile of each
               kernel family once (``torch.equal`` to the default tile; the
               bf16 GEMM's own tile list on a prefill and an odd-K case);
+              the 1x1-conv path through ``ops.conv2d`` in the GEMMs' NCHW
+              layout (super resolution's expand in f32 and W8, coloring's
+              1x1 in W8A8): ``torch.equal`` to the row-major kernel
+              permuted, one device kernel a call for f32 / W8, every tile
+              and depth equal, ``F.conv2d`` (TF32 off) as the library;
               every GEMM shape the decoder plans launch, at decode and
               prefill, with a sum of their device ms per plan call:
               max error; device ms per call (profiler kernel time, or CUDA
@@ -254,6 +262,24 @@ def library_ms(torch, fn, reps: int = 20):
     return call_ms(torch, fn, reps), "events"
 
 
+def device_kernels(torch, fn):
+    """The device kernels one call of ``fn`` launches, by name, in order
+    (torch.profiler; sessions that see none are tried again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    check(False, "the profiler saw no device kernel")
+
+
 def call_ms(torch, fn, reps: int = 20) -> float:
     """Time of one call of ``fn`` as the stream sees it: CUDA events around
     ``reps`` back-to-back calls (includes the host's launch overhead when
@@ -311,6 +337,14 @@ def phase_device(torch) -> str:
 #: from the build log's ptxas report (phase_build fills it)
 CONV_REGISTERS = {}
 _CONV_ENTRY = re.compile(r"conv2d_igemm(?:_int8)?_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d+)E")
+#: registers a thread of each f32 / INT8 GEMM instance, by (scheme, BM, BN,
+#: BK, depth, layout): the f32 / W8 body (simt_gemm_kernel<float | signed
+#: char, ...>) and the W8A8 body (int8_gemm_kernel<...>)
+GEMM_REGISTERS = {}
+_GEMM_ENTRY = re.compile(r"(simt_gemm_kernelI[fa]|int8_gemm_kernelI)"
+                         r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d)ELi(\d)E")
+_GEMM_SCHEME = {"simt_gemm_kernelIf": "f32", "simt_gemm_kernelIa": "w8",
+                "int8_gemm_kernelI": "w8a8"}
 
 
 def phase_build():
@@ -322,24 +356,52 @@ def phase_build():
     dt = time.perf_counter() - t0
     print(f"build: {dt:.1f}s -> {path.relative_to(ROOT)}")
     log = (path.parent / "build.log").read_text()
-    entry = None
+    entry = gemm = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = _CONV_ENTRY.search(m.group(1))
-        if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+            gemm = _GEMM_ENTRY.search(m.group(1))
+        spill = "spill" in line and " 0 bytes spill" not in line
+        if ("registers" in line and not gemm) or spill:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
         regs = re.search(r"Used (\d+) registers", line)
         if regs and entry:
             CONV_REGISTERS[tuple(int(v) for v in entry.groups())] = int(regs.group(1))
+        if regs and gemm:
+            g = gemm.groups()
+            GEMM_REGISTERS[(_GEMM_SCHEME[g[0]], *map(int, g[1:]))] = int(regs.group(1))
     check(len(CONV_REGISTERS) == 3 * 6, f"build log: {len(CONV_REGISTERS)} conv kernel "
                                         f"instances with registers, want 18")
+    gemm_registers()
     sass_check(path)
+
+
+def gemm_registers():
+    """Registers a thread of every f32 / INT8 GEMM instance (3 schemes x 8
+    tiles x 2 layouts), one line per scheme and layout; the f32 / W8 ring
+    instances (depth 2 / 3) hold at most 8 more than the same tile at depth
+    1."""
+    from repro_torch.kernels import _build
+
+    check(len(GEMM_REGISTERS) == 3 * len(_build.GEMM_TILES) * 2,
+          f"build log: {len(GEMM_REGISTERS)} GEMM instances with registers, want "
+          f"{3 * len(_build.GEMM_TILES) * 2}")
+    for scheme in ("f32", "w8", "w8a8"):
+        for layout, code in _build.LAYOUT_CODES.items():
+            regs = {t: GEMM_REGISTERS[(scheme, *t, code)] for t in _build.GEMM_TILES}
+            print(f"  gemm registers {scheme} {layout}: " + " ".join(
+                f"{'x'.join(map(str, t))}={r}" for t, r in regs.items()))
+            if scheme != "w8a8":
+                for t, r in regs.items():
+                    base = regs[(*t[:3], 1)]
+                    check(r <= base + 8, f"{scheme} {layout} tile {t}: {r} registers, depth 1 "
+                                         f"holds {base}")
 
 
 #: the CUDA-core GEMM templates that must hold no bf16 instance: bf16 runs
 #: the tensor-core kernel (mma_gemm_kernel) and the skinny kernel
-_FMA_GEMMS = ("dense_matmul_kernel", "ffn_gateup_kernel", "pipelined_gemm_kernel")
+_FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_kernel")
 #: the bf16 tensor-core kernels, whose SASS must issue HMMA
 _TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
 
@@ -348,20 +410,22 @@ def sass_check(lib_path):
     """The built library's SASS (cuobjdump): every bf16 tensor-core kernel
     (the dense ``mma_gemm_kernel``, the block-sparse
     ``bsr_matmul_mma_kernel``, flash attention's prefill body) issues HMMA,
-    every W8A8 conv instance IMMA, and no CUDA-core GEMM kernel is
+    every W8A8 conv and GEMM instance IMMA, and no CUDA-core GEMM kernel is
     instantiated for bf16."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    hmma, fma_bf16, imma = {}, [], {}
+    hmma, fma_bf16, imma, imma_gemm = {}, [], {}, {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.split("\n", 1)[0].strip()
         if any(k in name for k in _TC_KERNELS):
             hmma[name] = chunk.count("HMMA")
         if "conv2d_igemm_int8_kernel" in name:
             imma[name] = chunk.count("IMMA")
+        if "int8_gemm_kernel" in name:
+            imma_gemm[name] = chunk.count("IMMA")
         if any(k in name for k in _FMA_GEMMS) and "bfloat16" in name:
             fma_bf16.append(name)
     check(hmma and min(hmma.values()) > 0,
@@ -373,9 +437,14 @@ def sass_check(lib_path):
     check(len(imma) == 6 and min(imma.values()) > 0,
           f"sass: W8A8 conv instances without IMMA: {[n for n, c in imma.items() if not c]} "
           f"({len(imma)} instances, want 6)")
+    check(len(imma_gemm) == 16 and min(imma_gemm.values()) > 0,
+          f"sass: W8A8 GEMM instances without IMMA: "
+          f"{[n for n, c in imma_gemm.items() if not c]} ({len(imma_gemm)} instances, want 16)")
     print(f"  sass: {len(hmma)} {' / '.join(_TC_KERNELS)} instances, HMMA per kernel "
           f"{min(hmma.values())}..{max(hmma.values())}; {len(imma)} conv2d_igemm_int8_kernel "
-          f"instances, IMMA per kernel {min(imma.values())}..{max(imma.values())}; no bf16 "
+          f"instances, IMMA per kernel {min(imma.values())}..{max(imma.values())}; "
+          f"{len(imma_gemm)} int8_gemm_kernel instances, IMMA per kernel "
+          f"{min(imma_gemm.values())}..{max(imma_gemm.values())}; no bf16 "
           f"instance of {', '.join(_FMA_GEMMS)}")
 
 
@@ -388,6 +457,7 @@ def phase_kernels(torch):
     from repro_torch.kernels import dense_matmul as kdense
     from repro_torch.kernels import dense_matmul_pipelined as kdense_pipe
     from repro_torch.kernels import fused_elementwise as kfused
+    from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as kquant
     from repro_torch.kernels import quant_matmul_pipelined as kquant_pipe
     from repro_torch.kernels.ref import _ACT, xla_conv_pads
@@ -626,6 +696,70 @@ def phase_kernels(torch):
     quant_case("w8a8 M=4 K=64 N=64 relu", BATCH, 2 * BASE, 2 * BASE, "w8a8", act="relu")
     quant_case("w8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8", sides_epi=True)
     quant_case("w8a8 M=37 K=70 N=50 add+mul", 37, 70, 50, "w8a8", sides_epi=True)
+
+    # -- the 1x1-conv path: NCHW in and out, through ops.conv2d --------------- #
+    def rows(t):  # NCHW -> pixel-major rows, as the path permuted before
+        return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]).contiguous()
+
+    def conv1x1_case(label, n, c, hw, o, scheme, act="relu"):
+        """``ops.conv2d`` on a stride-1 1x1 conv: the GEMM kernel in its NCHW
+        layout, ``torch.equal`` to the row-major kernel on the permuted
+        operands (permuted back) and within tolerance of the NCHW plain
+        version; one device kernel a call for f32 / W8 (no layout copy);
+        every tile and depth ``torch.equal`` to the default; ``F.conv2d``
+        (TF32 off; the dequantized filter for INT8) as the library call."""
+        x = randn(n, c, *hw)
+        wt = randn(o, c, 1, 1, scale=c ** -0.5)
+        b = randn(o, scale=0.1)
+        kw = dict(activation=act)
+        w_lib, xk, pre = wt, x, ()
+        if scheme != "f32":
+            qt = QTensor.from_float(wt, axis=0)
+            wt, kw["w_scale"] = qt.values, qt.scale
+            w_lib = wt.float() * qt.scale[:, None, None, None]
+            ws = qt.scale.float()
+            if scheme == "w8a8":  # the operands as ops.qmatmul hands them to the kernel
+                kw["x_scale"] = x.abs().max().item() / 127.0
+                s = ops.scale_tensor(kw["x_scale"], x)
+                xk, ws = quantize_array(x, s), ws * s
+            pre = (ws,)
+        w2 = wt.reshape(o, c)
+        name = "dense_matmul" if scheme == "f32" else "quant_matmul"
+        tiled, piped, plain_fn = ((kdense.dense_matmul, kdense_pipe.dense_matmul_pipelined,
+                                   kdense.dense_matmul_plain) if scheme == "f32" else
+                                  (kquant.quant_matmul, kquant_pipe.quant_matmul_pipelined,
+                                   kquant.quant_matmul_plain))
+
+        def call():
+            return ops.conv2d(x, wt, b, **kw)
+
+        out = call()
+        row = tiled(rows(xk), w2.t().contiguous(), *pre, b, activation=act)
+        check(torch.equal(out, row.reshape(n, *hw, o).permute(0, 3, 1, 2)),
+              f"{name} {label}: NCHW differs from the row-major kernel permuted")
+        plain = lambda: plain_fn(xk, w2, *pre, b, activation=act, _layout="nchw")  # noqa: E731
+        kernels = device_kernels(torch, call)
+        gemm = [k for k in kernels if "gemm_kernel" in k]
+        check(len(gemm) == 1 and (scheme == "w8a8" or len(kernels) == 1),
+              f"{name} {label}: kernels of one ops.conv2d call: {kernels}")
+        nb = nbytes(xk, wt, *pre, b, out)
+        flops = 2.0 * n * hw[0] * hw[1] * o * c
+        rtol = 1e-5 if scheme == "w8a8" else 1e-4
+        kernel = lambda: tiled(xk, w2, *pre, b, activation=act, _layout="nchw")  # noqa: E731
+        record(name, f"nchw {scheme} {label}", out, plain(), kernel, plain,
+               lambda: _ACT[act](F.conv2d(x, w_lib, b)), nb, flops, rtol=rtol,
+               peak_ops=PEAK_INT8_OPS if scheme == "w8a8" else PEAK_F32_FLOPS)
+        print(f"  {name:18s} nchw {scheme} {label}: one ops.conv2d call launches "
+              f"{', '.join(k.split('(')[0][:60] for k in kernels)}")
+        call_t = gemm_call(tiled, piped)
+        tiles_line(name, f"nchw {scheme} {label}",
+                   lambda t: call_t(t, xk, w2, *pre, b, activation=act, _layout="nchw"), out,
+                   out, rtol * max(1.0, out.abs().max().item()), _build.GEMM_TILES)
+
+    # super resolution's res{i}_expand (f32, W8) and coloring's 1x1 (W8A8)
+    conv1x1_case("1x1 32->192 relu @256^2 n4", BATCH, BASE, (SIZE, SIZE), 6 * BASE, "f32")
+    conv1x1_case("1x1 32->192 relu @256^2 n4", BATCH, BASE, (SIZE, SIZE), 6 * BASE, "w8")
+    conv1x1_case("1x1 128->64 relu @64^2 n4", BATCH, 4 * BASE, (64, 64), 2 * BASE, "w8a8")
 
     # -- fused_elementwise --------------------------------------------------- #
     def fused_case(label, m, d, steps, n_sides, n_norms):
@@ -1339,12 +1473,11 @@ def phase_tune(torch, apps):
 
 
 #: kernel-name fragments of the port's own kernels
-_OWN = {"conv2d_igemm": "conv2d", "dense_matmul_kernel": "dense_matmul",
+_OWN = {"conv2d_igemm": "conv2d", "simt_gemm_kernel<float": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
-        "quant_matmul_kernel": "quant_matmul",
+        "simt_gemm_kernel<signed char": "quant_matmul", "int8_gemm_kernel": "quant_matmul",
         "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
-        "bsr_matmul": "bsr_matmul", "pipelined_gemm_kernel": "gemm_pipelined",
-        "Memcpy": "memcpy"}
+        "bsr_matmul": "bsr_matmul", "Memcpy": "memcpy"}
 #: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}
 
@@ -1392,8 +1525,10 @@ def profile_serving(torch, app, serve, top_n=6):
     check(busy > 0, f"{app}: the profiler saw no device time")
     top = sorted(by.items(), key=lambda kv: -kv[1])[:top_n]
     parts = " ".join(f"{k}={v / 1e3:.3f}ms({v / busy:.0%})" for k, v in top)
+    plain = sum(v for k, v in by.items() if k.startswith("other:"))
     print(f"    profile {app}: device {busy / 1e3:.3f}ms of wall {wall_us / 1e3:.3f}ms "
-          f"(idle {1 - busy / wall_us:.0%}) {parts}")
+          f"(idle {1 - busy / wall_us:.0%}) {parts}; plain torch {plain / 1e3:.3f}ms "
+          f"({plain / busy:.0%})")
     return dict(busy_us=busy, wall_us=wall_us, by=by)
 
 

@@ -57,6 +57,9 @@ __all__ = [
     "default_gemm_tile",
     "conv_default_tile",
     "conv_w8a8_shape",
+    "gemm_shape",
+    "gemm_w8a8_shape",
+    "LAYOUT_CODES",
     "check_gemm_tile",
     "check_conv_tile",
 ]
@@ -77,6 +80,10 @@ SCHEME_CODES = {"f32": 0, "w8": 1, "w8a8": 2}
 _ACT_CODES = {name: i for i, name in enumerate(ACTIVATIONS)}
 #: element types of the float kernels (``dtype`` argument of their entry points)
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: operand layouts of the f32 / INT8 GEMMs (csrc/simt_gemm.cuh): row-major
+#: ``x [M, K]``, ``w [K, N]``, ``out [M, N]``; or NCHW ``x [nb, K, OH, OW]``,
+#: ``w [N, K]``, ``out [nb, N, OH, OW]`` (the 1x1-conv path, in place)
+LAYOUT_CODES = {"row": 0, "nchw": 1}
 
 #: the skinny split-K GEMMs (M <= SKINNY_MT rows: csrc/skinny_bf16.cuh for
 #: bf16, csrc/skinny_gemm.cuh for the f32 gate/up): most rows, most K rows
@@ -179,6 +186,48 @@ def conv_w8a8_shape(tile: Sequence[int]) -> Dict[str, int]:
     smem = 2 * (bm + bn8) * (bk8 + 16) + 2 * bk8 * 16
     return dict(bm=bm, bn=bn8, bk=bk8, warp_n=warp_n, threads=threads,
                 pixels=2 if bm >= 64 else 1, smem=smem)
+
+
+def gemm_shape(tile: Sequence[int]) -> Dict[str, int]:
+    """The f32 / W8 GEMM body's layout for a tile ``(BM, BN, BK[, depth])``
+    of :data:`GEMM_TILES`, as ``csrc/simt_gemm.cuh:Shape`` derives it: an
+    ``tm x tn`` micro-tile of 4-pixel x 4-channel groups a thread (8 x 8
+    where the tile has 128 x 64 outputs or more, else 8 x 4), ``threads`` a
+    CTA, warps of ``lx`` x ``ly`` threads (pixels x channels), ``slots``
+    x slabs (depth + 1, ``depth`` in flight) of ``bk`` k x ``bm + 4``
+    floats and two w slabs of ``bk`` x ``bn + 4``, then the epilogue's
+    output tile (``bn`` rows of ``bm + 4`` floats or ``bm`` of ``bn + 4``,
+    the larger): ``smem`` bytes of dynamic shared memory."""
+    bm, bn, bk = (int(v) for v in tile[:3])
+    depth = int(tile[3]) if len(tile) > 3 else 1
+    tm, tn = 8, 8 if bm * bn // 64 >= 128 else 4
+    tx, ty = bm // tm, bn // tn
+    ly = min(ty, 4)
+    slots = depth + 1
+    return dict(bm=bm, bn=bn, bk=bk, depth=depth, tm=tm, tn=tn, tx=tx, ty=ty,
+                threads=tx * ty, lx=32 // ly, ly=ly, slots=slots,
+                w_per_thread=bk * bn // (tx * ty),
+                smem=4 * (slots * bk * (bm + 4) + 2 * bk * (bn + 4)
+                          + max(bm * (bn + 4), bn * (bm + 4))))
+
+
+def gemm_w8a8_shape(tile: Sequence[int]) -> Dict[str, int]:
+    """The W8A8 GEMM body's tile for a tile ``(BM, BN, BK[, depth])`` of
+    :data:`GEMM_TILES`, as ``csrc/int8_gemm.cuh:Shape`` derives it: ``bm``
+    x ``bn`` outputs, ``bk = 4 * BK`` k a slab (a multiple of the m16n8k32
+    mma's 32), warps of 32 x ``warp_n`` outputs, ``threads`` a CTA, and
+    ``slots`` slabs of ``bm + bn`` rows of ``bk + 16`` bytes, whose bytes
+    the epilogue's f32 output tile reuses: ``smem`` bytes (dynamic shared
+    memory), the larger of the two."""
+    bm, bn, bk = (int(v) for v in tile[:3])
+    depth = int(tile[3]) if len(tile) > 3 else 1
+    bk8 = 4 * bk
+    warp_n = min(bn, 32)
+    threads = (bm // 32) * (bn // warp_n) * 32
+    slots = depth + 1
+    return dict(bm=bm, bn=bn, bk=bk8, depth=depth, warp_n=warp_n, threads=threads,
+                slots=slots, smem=max(slots * (bm + bn) * (bk8 + 16),
+                                      4 * max(bm * (bn + 4), bn * (bm + 4))))
 
 
 _GEMM_TILE_SET = frozenset(GEMM_TILES)
@@ -285,10 +334,10 @@ def build() -> Path:
 
 def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 5 + [P]
+    cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 7 + [P]
     cdll.repro_dense_matmul.restype = I
     cdll.repro_dense_matmul_pipelined.argtypes = (
-        [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 5 + [P])
+        [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 7 + [P])
     cdll.repro_dense_matmul_pipelined.restype = I
     cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 5 + [P]
     cdll.repro_ffn_gateup.restype = I
@@ -297,9 +346,9 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.repro_flash_attention.restype = I
     cdll.repro_conv2d.argtypes = [P] * 6 + [I] * 15 + [I, P, I, P] + [I] * 3 + [P]
     cdll.repro_conv2d.restype = I
-    cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 3 + [P]
+    cdll.repro_quant_matmul.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 5 + [P]
     cdll.repro_quant_matmul.restype = I
-    cdll.repro_quant_matmul_pipelined.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 4 + [P]
+    cdll.repro_quant_matmul_pipelined.argtypes = [P] * 5 + [I] * 5 + [I, P, I, P] + [I] * 6 + [P]
     cdll.repro_quant_matmul_pipelined.restype = I
     cdll.repro_fused_elementwise.argtypes = [P, P, L, I, I, P, P, I, P, I, P, P]
     cdll.repro_fused_elementwise.restype = I

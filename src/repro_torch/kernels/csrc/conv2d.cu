@@ -83,6 +83,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "imma.cuh"
 #include "pipelined_gemm.cuh"
 #include "scheme.cuh"
 #include "tiles.cuh"
@@ -361,26 +362,6 @@ struct KEntry {
   int ki, kj;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
-}
-// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), exact s32
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // S is always SCHEME_W8A8; it leads the template arguments as in
 // conv2d_igemm_kernel, so the build log and the profiler name the scheme.
 template <int S, int BM, int BN, int BK>
@@ -547,21 +528,21 @@ __global__ void __launch_bounds__(Int8ConvShape<BM, BN, BK>::NT)
     for (int ks = 0; ks < BK8 / 32; ++ks) {
       uint32_t a[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) ldsm_x4(a[i], &As[buf][a_row + i * 16][ks * 32 + a_k]);
+      for (int i = 0; i < 2; ++i) imma::ldsm_x4(a[i], &As[buf][a_row + i * 16][ks * 32 + a_k]);
       if constexpr (NI == 1) {
         uint32_t b[2];
-        ldsm_x2(b, &Bs[buf][b_row][ks * 32 + b_k]);
+        imma::ldsm_x2(b, &Bs[buf][b_row][ks * 32 + b_k]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_s8(acc[i][0], a[i], b[0], b[1]);
+        for (int i = 0; i < 2; ++i) imma::mma_s8(acc[i][0], a[i], b[0], b[1]);
       } else {
 #pragma unroll
         for (int jj = 0; jj < NI / 2; ++jj) {
           uint32_t b[4];
-          ldsm_x4(b, &Bs[buf][b_row + jj * 16][ks * 32 + b_k]);
+          imma::ldsm_x4(b, &Bs[buf][b_row + jj * 16][ks * 32 + b_k]);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            mma_s8(acc[i][2 * jj], a[i], b[0], b[1]);
-            mma_s8(acc[i][2 * jj + 1], a[i], b[2], b[3]);
+            imma::mma_s8(acc[i][2 * jj], a[i], b[0], b[1]);
+            imma::mma_s8(acc[i][2 * jj + 1], a[i], b[2], b[3]);
           }
         }
       }

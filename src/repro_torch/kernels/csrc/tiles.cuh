@@ -8,8 +8,13 @@
 #pragma once
 
 // dense_matmul.cu / quant_matmul.cu, the f32 and INT8 tiled kernels
-// (pipeline depth 1): X(BM, BN, BK), every thread a 4 x 4 micro-tile.  The
-// first two are the shape-based defaults (N <= 32, wider).
+// (pipeline depth 1): X(BM, BN, BK).  The first two are the shape-based
+// defaults (N <= 32, wider).  Each body derives its thread layout from the
+// tuple: the f32 / W8 body (simt_gemm.cuh Shape) takes 8 x 8 micro-tiles
+// on 128 x 64 and 8 x 4 elsewhere, 128 threads a CTA, x slabs of BK k in
+// a ring of depth + 1 slots; the W8A8 body (int8_gemm.cuh Shape) takes
+// warps of 32 x min(BN, 32) outputs and slabs of 4 * BK k.
+// _build.gemm_shape / gemm_w8a8_shape derive the same.
 #define REPRO_GEMM_TILED_TILES(X) \
   X(128, 32, 16)                  \
   X(64, 64, 16)                   \
@@ -17,7 +22,7 @@
   X(64, 64, 32)
 
 // dense_matmul_pipelined.cu / quant_matmul_pipelined.cu, f32 and INT8:
-// X(BM, BN, BK, DEPTH), K slabs through a DEPTH-deep shared-memory ring.
+// X(BM, BN, BK, DEPTH), the same bodies with DEPTH slabs in flight.
 // Both default tiles at depth 2 and 3, so a pipeline pin alone always
 // names a tile.
 #define REPRO_GEMM_PIPELINED_TILES(X) \

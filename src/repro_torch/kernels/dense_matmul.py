@@ -13,9 +13,12 @@ Kernels (``csrc/dense_matmul.cu``), each masking ragged M / N / K itself,
 so nothing is padded in device memory (the TPU wrapper pads to
 128-blocks):
 
-* f32: a shared-memory tiled GEMM with FMA on the CUDA cores in true f32;
-  its tile ``(block_m, block_n, block_k)`` is one of ``_build.GEMM_TILES``
-  at depth 1;
+* f32: the CUDA-core body of ``csrc/simt_gemm.cuh`` (8 x 8 / 8 x 4
+  register micro-tiles, cp.async slabs, FMA in true f32) with a tile
+  ``(block_m, block_n, block_k)`` of ``_build.GEMM_TILES`` at depth 1, in
+  the row-major layout or, for the 1x1-conv path (``_layout="nchw"``),
+  reading ``x [nb, K, OH, OW]`` and writing ``out [nb, N, OH, OW]`` where
+  they lie, with ``w [N, K]`` (the OIHW filter's view);
 * bf16: the tensor-core kernel (``csrc/mma_gemm.cuh``: cp.async ring,
   ``ldmatrix`` + ``mma.sync`` m16n8k16, f32 accumulators) with a tile of
   ``_build.BF16_GEMM_TILES`` at depth 1, its K split into the ranges
@@ -40,6 +43,7 @@ keeps every intermediate out of memory.  Routing: a CPU tensor takes
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,7 +52,7 @@ from . import _build
 from .ref import _ACT, apply_steps_ref, matmul_ref
 
 __all__ = ["dense_matmul", "dense_matmul_plain", "validate_epilogue", "check_operands",
-           "split_buffers"]
+           "split_buffers", "layout_dims", "nchw_to_rows", "rows_to_nchw"]
 
 #: kernel launches made by :func:`dense_matmul` (CUDA route only), in all
 #: and by element type
@@ -62,6 +66,42 @@ def validate_epilogue(epilogue: Sequence[Tuple], n_sides: int) -> None:
     _build.validate_program(tuple(epilogue), n_sides)
 
 
+def layout_dims(name: str, x, w, sides, layout: str):
+    """``(m, n, k, p, out_shape)`` of a GEMM in ``layout``: ``"row"`` is
+    ``x [M, K]``, ``w [K, N]``, sides and output ``[M, N]`` (``p`` 1);
+    ``"nchw"`` is ``x [nb, K, *spatial]``, ``w [N, K]``, sides and output
+    ``[nb, N, *spatial]``, with ``p`` the spatial size and ``m = nb * p``."""
+    if layout == "row":
+        if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+            raise ValueError(f"{name}: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+        (m, k), n, p = x.shape, w.shape[1], 1
+        out_shape = (m, n)
+    elif layout == "nchw":
+        if x.dim() < 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
+            raise ValueError(f"{name}: bad NCHW shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+        nb, k = x.shape[:2]
+        n, p = w.shape[0], math.prod(x.shape[2:])
+        m, out_shape = nb * p, (nb, n, *x.shape[2:])
+    else:
+        raise ValueError(f"{name}: unknown layout {layout!r}")
+    for s in sides:
+        if tuple(s.shape) != out_shape:
+            raise ValueError(f"{name}: side {tuple(s.shape)} != {out_shape}")
+    return m, n, k, p, out_shape
+
+
+def nchw_to_rows(t: torch.Tensor) -> torch.Tensor:
+    """``[nb, C, *spatial]`` -> pixel-major ``[nb * prod(spatial), C]`` (a
+    copy: the plain versions' view of the NCHW layout)."""
+    return t.movedim(1, -1).reshape(-1, t.shape[1]).contiguous()
+
+
+def rows_to_nchw(y: torch.Tensor, out_shape) -> torch.Tensor:
+    """Pixel-major ``[M, N]`` back to ``out_shape`` ``[nb, N, *spatial]``."""
+    nb, n, *spatial = out_shape
+    return y.reshape(nb, *spatial, n).movedim(-1, 1).contiguous()
+
+
 def dense_matmul_plain(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -69,25 +109,30 @@ def dense_matmul_plain(
     *sides: torch.Tensor,
     activation: Optional[str] = None,
     epilogue: Tuple[Tuple, ...] = (),
+    _layout: str = "row",
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel (same arguments)."""
+    """The plain PyTorch version of the kernel (same arguments).  The NCHW
+    layout is permuted to rows, multiplied, and permuted back."""
+    if _layout == "nchw":
+        _, _, _, _, out_shape = layout_dims("dense_matmul_plain", x, w, sides, _layout)
+        y = dense_matmul_plain(nchw_to_rows(x), w.t().contiguous(), bias,
+                               *[nchw_to_rows(s) for s in sides], activation=activation,
+                               epilogue=epilogue)
+        return rows_to_nchw(y, out_shape)
     y = matmul_ref(x, w, bias, activation=activation, out_dtype=torch.float32)
     return apply_steps_ref(y, epilogue, [s.float() for s in sides]).to(x.dtype)
 
 
-def check_operands(name, x, w, bias, sides, activation, epilogue):
-    """The dense kernels' operand checks (shapes, activation, step program);
-    returns ``(m, n, k, epilogue, device)`` -- the device from
-    ``_build.kernel_device``, which checks what a CUDA launch takes."""
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
-    m, k = x.shape
-    n = w.shape[1]
+def check_operands(name, x, w, bias, sides, activation, epilogue, layout="row"):
+    """The dense kernels' operand checks (shapes in ``layout``, activation,
+    step program); returns ``(m, n, k, p, out_shape, epilogue, device)`` --
+    see :func:`layout_dims`; the device from ``_build.kernel_device``, which
+    checks what a CUDA launch takes."""
+    m, n, k, p, out_shape = layout_dims(name, x, w, sides, layout)
     if bias is not None and tuple(bias.shape) != (n,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} != ({n},)")
-    for s in sides:
-        if tuple(s.shape) != (m, n):
-            raise ValueError(f"{name}: side {tuple(s.shape)} != {(m, n)}")
+    if layout == "nchw" and x.dtype == torch.bfloat16:
+        raise TypeError(f"{name}: the NCHW layout is the f32 kernels' (bf16 runs row-major)")
     if activation not in _ACT:
         raise ValueError(f"unknown activation {activation!r}")
     epilogue = tuple(tuple(s) for s in epilogue)
@@ -95,7 +140,7 @@ def check_operands(name, x, w, bias, sides, activation, epilogue):
     named = {f"side{i}": s for i, s in enumerate(sides)}
     operands = dict(x=x, w=w, bias=bias, **named)
     dtypes = {op: x.dtype for op in operands} if x.dtype in _build.FLOAT_CODES else None
-    return m, n, k, epilogue, _build.kernel_device(name, dtypes, **operands)
+    return m, n, k, p, out_shape, epilogue, _build.kernel_device(name, dtypes, **operands)
 
 
 def dense_matmul(
@@ -108,22 +153,25 @@ def dense_matmul(
     block_m: Optional[int] = None,
     block_n: Optional[int] = None,
     block_k: Optional[int] = None,
+    _layout: str = "row",
 ) -> torch.Tensor:
-    """``epilogue(act(x @ w + bias))`` for 2-D operands; see the module doc.
-    Block sizes left as ``None`` come from the shape-based default tile of
-    x's element type; a tile the kernel is not built for raises
-    ``_build.TileError`` (on the CPU too, where the plain version ignores
-    the tile)."""
+    """``epilogue(act(x @ w + bias))`` for 2-D operands, or in the NCHW
+    layout (``_layout="nchw"``, f32: see :func:`layout_dims`); see the
+    module doc.  Block sizes left as ``None`` come from the shape-based
+    default tile of x's element type; a tile the kernel is not built for
+    raises ``_build.TileError`` (on the CPU too, where the plain version
+    ignores the tile)."""
     global launches
-    m, n, k, epilogue, dev = check_operands("dense_matmul", x, w, bias, sides, activation,
-                                            epilogue)
+    m, n, k, p, out_shape, epilogue, dev = check_operands(
+        "dense_matmul", x, w, bias, sides, activation, epilogue, _layout)
     named = block_m is not None or block_n is not None or block_k is not None
     dm, dn, dk, _ = _build.default_gemm_tile(m, n, x.dtype)
     tile = _build.check_gemm_tile((block_m or dm, block_n or dn, block_k or dk, 1),
                                   "dense_matmul", x.dtype)
     if dev.type == "cpu":
-        return dense_matmul_plain(x, w, bias, *sides, activation=activation, epilogue=epilogue)
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+        return dense_matmul_plain(x, w, bias, *sides, activation=activation, epilogue=epilogue,
+                                  _layout=_layout)
+    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
     ws = counters = None
@@ -143,7 +191,7 @@ def dense_matmul(
         prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
         _build.FLOAT_CODES[x.dtype], None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(), kchunk, vec, *tile[:3],
-        _build.stream_handle(),
+        _build.LAYOUT_CODES[_layout], p, _build.stream_handle(),
     )
     _build.check(err, "dense_matmul")
     launches += 1

@@ -11,13 +11,14 @@ must be one of the element type's tiles (``_build.GEMM_TILES``,
 ``_build.BF16_GEMM_TILES``) with depth >= 2.  The tuning cache
 selects it: a winner (or a pin) whose fourth field is 2 or more.
 
-The kernel (``csrc/dense_matmul_pipelined.cu``): for f32, the ring of
-``csrc/pipelined_gemm.cuh``, which keeps ``depth - 1`` slabs of x and w in
-flight with ``cp.async`` while it multiplies the current one and sums each
-output in the tiled kernel's order; for bf16, the tensor-core kernel of
-``csrc/mma_gemm.cuh`` at ring depth ``depth`` (``depth + 2`` slots), with
-the K ranges ``_build.gemm_split`` fixes from the shape.  Either way its
-result is bit-equal to the tiled kernel's.  What bounds it on an H100 is
+The kernel (``csrc/dense_matmul_pipelined.cu``) runs the tiled kernel's
+body at ring depth ``depth``: for f32, ``csrc/simt_gemm.cuh`` with
+``depth`` slabs of x in flight by ``cp.async`` (row-major or, with
+``_layout="nchw"``, the 1x1-conv layout of
+:func:`.dense_matmul.layout_dims`); for bf16, the tensor-core kernel of
+``csrc/mma_gemm.cuh`` (``depth + 2`` slots), with the K ranges
+``_build.gemm_split`` fixes from the shape.  Either way its result is
+bit-equal to the tiled kernel's.  What bounds it on an H100 is
 the tiled kernel's bound: device memory on the CNN path's GEMMs, the
 weights' bytes on the decoder's.  Routing: a CPU tensor takes the plain
 version (tile and depth ignored, but checked), a CUDA tensor launches the
@@ -52,21 +53,23 @@ def dense_matmul_pipelined(
     block_n: Optional[int] = None,
     block_k: Optional[int] = None,
     depth: int = 2,
+    _layout: str = "row",
 ) -> torch.Tensor:
     """``epilogue(act(x @ w + bias))`` through the ring kernel; block sizes
     left as ``None`` come from the shape-based default tile.  A tile (with
     ``depth``) the kernel is not built for raises ``_build.TileError``."""
     global launches
-    m, n, k, epilogue, dev = check_operands("dense_matmul_pipelined", x, w, bias, sides,
-                                            activation, epilogue)
+    m, n, k, p, out_shape, epilogue, dev = check_operands(
+        "dense_matmul_pipelined", x, w, bias, sides, activation, epilogue, _layout)
     dm, dn, dk, _ = _build.default_gemm_tile(m, n, x.dtype)
     tile = _build.check_gemm_tile((block_m or dm, block_n or dn, block_k or dk, depth),
                                   "dense_matmul_pipelined", x.dtype)
     if tile[3] < 2:
         raise _build.TileError(f"dense_matmul_pipelined: depth {tile[3]} is the tiled kernel")
     if dev.type == "cpu":
-        return dense_matmul_plain(x, w, bias, *sides, activation=activation, epilogue=epilogue)
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+        return dense_matmul_plain(x, w, bias, *sides, activation=activation, epilogue=epilogue,
+                                  _layout=_layout)
+    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
     ws = counters = None
@@ -80,7 +83,7 @@ def dense_matmul_pipelined(
         prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
         _build.FLOAT_CODES[x.dtype], None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(), kchunk, *tile,
-        _build.stream_handle(),
+        _build.LAYOUT_CODES[_layout], p, _build.stream_handle(),
     )
     _build.check(err, "dense_matmul_pipelined")
     launches += 1

@@ -52,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import time
@@ -556,11 +557,46 @@ def reset_conv_fastpaths() -> None:
 # --------------------------------------------------------------------------- #
 
 
+def _gemm_operands(name, x, w, sides, layout):
+    """The GEMM operands as the kernels take them: ``(x2, sides2, m, n, k,
+    out_shape)``.  Row-major: ``x`` flattened to ``[M, K]`` and each side
+    (shaped like the output or its ``[M, N]`` view) to ``[M, N]``.  NCHW:
+    ``x [nb, K, *spatial]`` and the sides ``[nb, N, *spatial]`` as they
+    are (no copy when contiguous), ``w [N, K]``."""
+    if layout == "nchw":
+        if x.dim() < 3:
+            raise ValueError(f"{name}: NCHW x needs spatial dims, got {tuple(x.shape)}")
+        nb, k = x.shape[:2]
+        n = w.shape[0]
+        shape = (nb, n, *x.shape[2:])
+        for s in sides:
+            if tuple(s.shape) != shape:
+                raise ValueError(f"{name}: side {tuple(s.shape)} vs output {shape}")
+        return (x.contiguous(), [s.contiguous() for s in sides], nb * math.prod(x.shape[2:]),
+                n, k, shape)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    m, k = x2.shape
+    n = w.shape[1]
+    sides2 = []
+    for s in sides:
+        if tuple(s.shape) not in ((*lead, n), (m, n)):
+            raise ValueError(f"{name}: side {tuple(s.shape)} vs output {(*lead, n)}")
+        sides2.append(s.reshape(m, n).contiguous())
+    return x2, sides2, m, n, k, (*lead, n)
+
+
+def _layout_of(x2) -> str:
+    """The layout :func:`_gemm_operands` gave ``x2``: rows are 2-D, NCHW
+    activations ``[nb, K, *spatial]`` more."""
+    return "nchw" if x2.dim() > 2 else "row"
+
+
 def _dense_call(x2, w, bias, sides2, activation, epilogue, tile):
     """One dense GEMM launch: the tiled kernel (depth 1), the ring kernel
     (depth >= 2), or -- ``tile`` None -- the kernel's own choice (the bf16
     skinny route)."""
-    kw = dict(activation=activation, epilogue=epilogue)
+    kw = dict(activation=activation, epilogue=epilogue, _layout=_layout_of(x2))
     if tile is None:
         return _dense_matmul(x2, w, bias, *sides2, **kw)
     bm, bn, bk, depth = tile
@@ -583,10 +619,14 @@ def matmul(
     block_k: Optional[int] = None,
     pipeline: Optional[int] = None,
     _format: str = "dense",
+    _layout: str = "row",
 ) -> torch.Tensor:
     """``epilogue(act(x @ w + bias))`` for arbitrary leading batch dims
     through the dense-matmul kernel.  ``epilogue_sides`` are shaped like the
-    output (or its flattened ``[M, N]`` view).
+    output (or its flattened ``[M, N]`` view).  ``_layout="nchw"`` (the 1x1
+    conv path) takes ``x [nb, K, OH, OW]``, ``w [N, K]`` and sides shaped
+    like the ``[nb, N, OH, OW]`` output, handed to the kernel as they lie
+    (M = nb * OH * OW in the key).
 
     Block sizes left as ``None`` are resolved through the tuning cache under
     ``matmul|MxNxK|{dtype}|{_format}[+e{steps}s{sides}]|{mode}`` (cached
@@ -595,15 +635,7 @@ def matmul(
     kernel, >= 2 = the K-slab ring (:mod:`.dense_matmul_pipelined`);
     ``pipeline`` pins it.  bf16 calls with M <= 8 and nothing pinned take
     the skinny route, outside the cache."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    m, k = x2.shape
-    n = w.shape[1]
-    sides2 = []
-    for s in epilogue_sides:
-        if tuple(s.shape) not in ((*lead, n), (m, n)):
-            raise ValueError(f"matmul: side {tuple(s.shape)} vs output {(*lead, n)}")
-        sides2.append(s.reshape(m, n).contiguous())
+    x2, sides2, m, n, k, shape = _gemm_operands("matmul", x, w, epilogue_sides, _layout)
     w = w.contiguous()
     epilogue = tuple(tuple(s) for s in epilogue)
     pins = (block_m, block_n, block_k, pipeline)
@@ -618,7 +650,7 @@ def matmul(
         fmt = _epilogue_fmt(_format, epilogue, len(sides2))
         tile = _gemm_tile("matmul", m, n, k, x2.dtype, fmt, device_mode(x2.device), pins, runner)
     out = _dense_call(x2, w, bias, sides2, activation, epilogue, tile)
-    return out.reshape(*lead, n)
+    return out.reshape(shape)
 
 
 def col_matmul(
@@ -705,7 +737,8 @@ def _quant_call(x2, w_q, ws, bias, sides2, activation, epilogue, tile):
     """One quant GEMM launch: the tiled kernel (depth 1) or the ring kernel
     (depth >= 2)."""
     bm, bn, bk, depth = tile
-    kw = dict(activation=activation, epilogue=epilogue, block_m=bm, block_n=bn, block_k=bk)
+    kw = dict(activation=activation, epilogue=epilogue, block_m=bm, block_n=bn, block_k=bk,
+              _layout=_layout_of(x2))
     if depth >= 2:
         return _quant_pipe_mod.quant_matmul_pipelined(x2, w_q, ws, bias, *sides2, depth=depth,
                                                       **kw)
@@ -727,9 +760,11 @@ def qmatmul(
     block_k: Optional[int] = None,
     pipeline: Optional[int] = None,
     _format: str = "dense",
+    _layout: str = "row",
 ) -> torch.Tensor:
     """Quantized ``epilogue(act((x @ w_q) * scales + bias))`` for arbitrary
-    leading batch dims through the INT8 matmul kernel.
+    leading batch dims through the INT8 matmul kernel (``_layout`` as in
+    :func:`matmul`, ``w_q [N, K]`` for ``"nchw"``).
 
     ``w_q [K, N]`` int8 with per-output-channel ``w_scale [N]`` f32.  With
     ``x_scale`` (the calibrated static activation scale, a Python float) the
@@ -742,15 +777,7 @@ def qmatmul(
     storage format and the scheme (``dense+w8a8``, ``colcompact+w8``, ...)
     plus the ``+e{steps}s{sides}`` epilogue suffix; block pins and
     ``pipeline`` as in :func:`matmul`."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    m, k = x2.shape
-    n = w_q.shape[1]
-    sides2 = []
-    for s in epilogue_sides:
-        if tuple(s.shape) not in ((*lead, n), (m, n)):
-            raise ValueError(f"qmatmul: side {tuple(s.shape)} vs output {(*lead, n)}")
-        sides2.append(s.reshape(m, n).contiguous())
+    x2, sides2, m, n, k, shape = _gemm_operands("qmatmul", x, w_q, epilogue_sides, _layout)
     ws = w_scale.float()
     if x_scale is not None:
         s = scale_tensor(x_scale, x2)
@@ -769,7 +796,7 @@ def qmatmul(
     tile = _gemm_tile("qmatmul", m, n, k, x2.dtype, fmt, device_mode(x2.device),
                       (block_m, block_n, block_k, pipeline), runner)
     out = _quant_call(x2, w_q, ws, bias, sides2, activation, epilogue, tile)
-    return out.reshape(*lead, n)
+    return out.reshape(shape)
 
 
 # --------------------------------------------------------------------------- #
@@ -841,13 +868,16 @@ def _conv2d_1x1_gemm(x, w, bias, *, stride, kept, w_scale, x_scale, activation, 
                      sides, fmt, block_m=None, block_n=None, block_k=None, pipeline=None):
     """The 1x1 direct-GEMM fast path: a unit-tap conv with no border padding
     is ``y[n, :, i, j] = W @ x[n, :, i*s, j*s]`` -- a plain GEMM over the
-    ``N*OH*OW`` pixel axis.  NCHW is permuted to pixel-major ``[P, C]`` (the
-    stride subsamples the grid first), the OIHW filter collapses to
-    ``[C, O]``, and bias / activation / epilogue with its side operands ride
-    the dense-matmul kernel (f32) or the quant-matmul kernel (int8 weights,
-    with the conv's ``w_scale`` / ``x_scale``).  The permutes around it are
-    plain torch.  Keyed under the ``conv1x1.{fmt}`` matmul-family format,
-    never aliasing a plain GEMM's winner; the pins go to the GEMM."""
+    ``N*OH*OW`` pixel axis.  The f32 / INT8 kernels take it in their NCHW
+    layout: ``x [N, C, OH, OW]``, the OIHW filter's ``[O, C]`` view, the
+    side operands and the ``[N, O, OH, OW]`` output as they lie, with no
+    permute; only a stride (``x[:, :, ::s, ::s]``) or a channel gather
+    (``kept``) makes a copy of x.  Bias,
+    activation and the epilogue with its sides ride the dense-matmul kernel
+    (f32) or the quant-matmul kernel (int8 weights, with the conv's
+    ``w_scale`` / ``x_scale``).  Keyed under the ``conv1x1.{fmt}``
+    matmul-family format, never aliasing a plain GEMM's winner; the pins go
+    to the GEMM."""
     if kept is not None:
         x = x.index_select(1, kept)
     if stride > 1:
@@ -859,16 +889,12 @@ def _conv2d_1x1_gemm(x, w, bias, *, stride, kept, w_scale, x_scale, activation, 
     for s in sides:
         if tuple(s.shape) != (nb, o, oh, ow):
             raise ValueError(f"conv2d: side {tuple(s.shape)} != {(nb, o, oh, ow)}")
-    xm = x.permute(0, 2, 3, 1).reshape(nb * oh * ow, c)
-    wm = w.reshape(o, c).t()
-    sm = [s.permute(0, 2, 3, 1).reshape(nb * oh * ow, o) for s in sides]
-    kw = dict(activation=activation, epilogue=epilogue, epilogue_sides=sm, block_m=block_m,
-              block_n=block_n, block_k=block_k, pipeline=pipeline, _format=f"conv1x1.{fmt}")
+    kw = dict(activation=activation, epilogue=epilogue, block_m=block_m, block_n=block_n,
+              block_k=block_k, pipeline=pipeline, _format=f"conv1x1.{fmt}")
     if w.dtype == torch.int8:
-        y = qmatmul(xm, wm, w_scale, bias, x_scale=x_scale, **kw)
-    else:
-        y = matmul(xm, wm, bias, **kw)
-    return y.reshape(nb, oh, ow, o).permute(0, 3, 1, 2).contiguous()
+        return qmatmul(x, w.reshape(o, c), w_scale, bias, x_scale=x_scale, epilogue_sides=sides,
+                       _layout="nchw", **kw)
+    return matmul(x, w.reshape(o, c), bias, epilogue_sides=sides, _layout="nchw", **kw)
 
 
 def conv2d(

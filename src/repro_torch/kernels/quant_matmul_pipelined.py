@@ -10,12 +10,10 @@ plus the tile ``(block_m, block_n, block_k, depth)``, one of
 ``_build.GEMM_TILES`` with depth >= 2.  The tuning cache selects it: a
 ``qmatmul`` winner (or a pin) whose fourth field is 2 or more.
 
-The kernel (``csrc/quant_matmul_pipelined.cu`` over
-``csrc/pipelined_gemm.cuh``) streams the int8 (and, for W8, f32) slabs
-with ``cp.async`` -- int8 rows whose length is not a multiple of 4 are
-staged with element loads by the same kernel -- and sums each output in
-the tiled kernel's order, so its result is bit-equal to the tiled
-kernel's.  Device memory bounds it on the main path, as it bounds the
+The kernel (``csrc/quant_matmul_pipelined.cu``) runs the tiled kernel's
+bodies at ring depth ``depth`` (W8: ``csrc/simt_gemm.cuh``, W8A8:
+``csrc/int8_gemm.cuh``), in either layout (``_layout``), so its result is
+bit-equal to the tiled kernel's.  Device memory bounds it on the main path, as it bounds the
 tiled kernel.  Routing: a CPU tensor takes the plain version (tile and
 depth checked, then ignored), a CUDA tensor launches the kernel or
 raises.  ``launches`` counts kernel launches.
@@ -48,14 +46,15 @@ def quant_matmul_pipelined(
     block_n: Optional[int] = None,
     block_k: Optional[int] = None,
     depth: int = 2,
+    _layout: str = "row",
 ) -> torch.Tensor:
     """``epilogue(act((x @ w_q) * ws + bias))`` through the ring kernel;
     block sizes left as ``None`` come from the shape-based default tile.  A
     tile (with ``depth``) the kernel is not built for raises
     ``_build.TileError``."""
     global launches
-    m, n, k, epilogue, dev = check_operands("quant_matmul_pipelined", x, w_q, ws, bias, sides,
-                                            activation, epilogue)
+    m, n, k, p, out_shape, epilogue, dev = check_operands(
+        "quant_matmul_pipelined", x, w_q, ws, bias, sides, activation, epilogue, _layout)
     dm, dn, dk, _ = _build.gemm_default_tile(n)
     tile = _build.check_gemm_tile((block_m or dm, block_n or dn, block_k or dk, depth),
                                   "quant_matmul_pipelined")
@@ -63,8 +62,8 @@ def quant_matmul_pipelined(
         raise _build.TileError(f"quant_matmul_pipelined: depth {tile[3]} is the tiled kernel")
     if dev.type == "cpu":
         return quant_matmul_plain(x, w_q, ws, bias, *sides, activation=activation,
-                                  epilogue=epilogue)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+                                  epilogue=epilogue, _layout=_layout)
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
     err = _build.lib().repro_quant_matmul_pipelined(
@@ -72,7 +71,7 @@ def quant_matmul_pipelined(
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
         int(x.dtype == torch.int8), _build.activation_code(activation), prog["n"],
         _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs), *tile,
-        _build.stream_handle(),
+        _build.LAYOUT_CODES[_layout], p, _build.stream_handle(),
     )
     _build.check(err, "quant_matmul_pipelined")
     launches += 1
