@@ -59,7 +59,32 @@ Phases (each prints its own lines):
               against the quant reference plan; prints the error against the
               f32 plan, the weight bytes before and after, ms/frame beside
               the f32 plan's, and a profile line;
-6. tune    -- the port's ``launch/tune`` for the three apps with
+6. serve async -- the frame side of ``AsyncPlanServer`` and the guarded
+              backend, on phases 4-5's plans at full width, 24 frames an
+              app to each of its plans: (1) zero faults, the f32 and INT8
+              plans of every app in one server with tenants
+              ``gold:3:200,free:1:50``: every submit gets a verdict
+              (completed + throttled + shed = submits), every output
+              ``torch.equal`` to the plan run again on the batch the
+              scheduler formed, per-tenant p50/p95/p99, ms/frame, a profile
+              line (no tenants); (2) guarded plans: at 0% faults no demotion,
+              every chunk ``torch.equal`` to the kernel plans, ms/frame
+              beside theirs (kernel, guarded, guarded, kernel); at 100%
+              ``raise`` every chunk ``torch.equal`` to the reference plans
+              with demotions = demotable steps x calls; breakers trip and
+              close after the cooldown on an injected clock; at a seeded 5%
+              every request within its tolerance of the reference plan and
+              demotions = injections; (3) ``cache_corrupt``: every kernel
+              plan raises ``TileError``, every guarded plan demotes each
+              kernel step and is ``torch.equal`` to the reference plan, the
+              cache is cleared; (4) ``swap_plan`` f32 -> INT8 under load
+              with zero loss and the old versions retired, a NaN version
+              rolled back, and a 1 s latency fault under a 0.5 s watchdog
+              failing its batch only; then guarded decode at the smoke
+              config through ``submit_llm``: the kernel plans' tokens at
+              0% faults, the reference plans' at 100%, no failed sequence or
+              leaked page, ms per decode step of each;
+7. tune    -- the port's ``launch/tune`` for the three apps with
               ``--quantize`` at the served shapes (every key ``|sm90``,
               every ``matmul`` / ``qmatmul`` / ``conv2d`` key swept), then
               each app's f32 and INT8 plans served on the loaded winners
@@ -70,7 +95,7 @@ Phases (each prints its own lines):
               no tiled launch for those nodes, outputs equal again; the
               cache is cleared and tuning turned off after it (every earlier
               phase runs with tuning off and an empty cache);
-7. llm smoke -- the decoder's ``serve --llm`` path at qwen2.5-3b's smoke
+8. llm smoke -- the decoder's ``serve --llm`` path at qwen2.5-3b's smoke
               config in f32 (prefill / decode plans, ``submit_llm`` over a
               paged KV-cache; exact launches per plan call, zero failed
               sequences and leaked pages, exact greedy parity with the
@@ -79,11 +104,13 @@ Phases (each prints its own lines):
               balanced=False)`` (bands, unperm glue and a standalone rope
               on the card; exact parity against ``forward`` on the masked
               params);
-8. llm      -- qwen2.5-3b at full width in bf16, as phase 7 (greedy parity
+9. llm      -- qwen2.5-3b at full width in bf16, as phase 7 (greedy parity
               up to the first bf16 near-tie, teacher-forced within 8 bf16
               ulps); each llm phase prints flash_attention's device ms a
-              prefill and a decode plan call of its profiled run;
-9. llm block-pruned -- phase 8's params pruned with the paper's attention
+              prefill and a decode plan call of its profiled run; phase 9
+              also serves its graphs compiled ``guarded`` and ``reference``,
+              as phase 6 does the smoke decoder's;
+10. llm block-pruned -- phase 8's params pruned with the paper's attention
               recipe ``Block(0.5, 64, 64)`` on q / o and served again,
               the dense model released first: 72 ``bsr_matmul`` and 108
               bf16 ``dense_matmul`` launches per plan call, the packed q /
@@ -107,6 +134,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -199,7 +227,8 @@ KERNELS = {
 #: 4..16 tokens, 12 new tokens each, 4 sequences decoding together, a
 #: 64 x 16-token KV pool) on the kernel backend
 LLM_ARGS = dict(arch="qwen2.5-3b", batch=4, prompt_len=16, new_tokens=12, frames=3,
-                kv_pages=64, kv_page_size=16, max_queue=1024, seed=SEED, device="cuda")
+                kv_pages=64, kv_page_size=16, max_queue=1024, seed=SEED, device="cuda",
+                guarded=False)
 #: qwen2.5-3b's layers: each launches 5 bf16 dense_matmul (q, k, v, o, down)
 #: and one ffn_gateup per plan call
 LLM_LAYERS = 36
@@ -939,6 +968,21 @@ def phase_llm_kernels(torch, results):
     ffn_case("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16,
              role=("prefill", "ffn"))
     ffn_case("M=5 K=70 F=50 f32 gelu (ragged)", 5, 70, 50, torch.float32, "gelu")
+    # the f32 instance the smoke decoder launches (d_model 128, d_ff 256; one
+    # launch a layer, 2 layers): decode rows = prompts, prefill rows =
+    # prompts x the longest prompt
+    import argparse
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+
+    smoke = smoke_config("qwen2.5-3b")
+    prompts = serve.llm_prompts(argparse.Namespace(**LLM_ARGS), smoke)
+    m_pre = len(prompts) * max(len(p) for p in prompts)
+    for label, m in (("decode", len(prompts)), ("prefill", m_pre)):
+        ffn_case(f"smoke {label} M={m} K={smoke.d_model} F={smoke.d_ff} f32 silu "
+                 f"({smoke.n_layers} launches a plan call)", m, smoke.d_model, smoke.d_ff,
+                 torch.float32)
     ffn_case("M=20 K=130 F=77 bf16 silu (ragged)", 20, 130, 77, bf16)
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
@@ -1472,6 +1516,333 @@ def phase_tune(torch, apps):
     return launches
 
 
+#: the async serving phase: frames an app, submitted to each of its plans
+#: (f32 and INT8), the tenants (name, weight, quota in requests/s), the
+#: partial-batch release deadline and the watchdog of its watchdog check
+ASYNC_FRAMES = 24
+ASYNC_TENANTS = (("gold", 3.0, 200.0), ("free", 1.0, 50.0))
+ASYNC_FLUSH = 0.005
+ASYNC_WATCHDOG = 0.5
+
+
+def phase_serve_async(torch, np, apps):
+    """The frame side of ``AsyncPlanServer`` and the guarded backend at full
+    width, on the plans the apps and int8 phases built (see the module
+    doc, phase 6).  Returns the launches of the zero-fault serving run."""
+    from repro_torch.core.graph import compile_plan
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models.cnn import APP_INPUT_CHANNELS
+    from repro_torch.robustness import FaultPlan, FaultRule, GuardConfig
+    from repro_torch.serving import (
+        AsyncPlanServer,
+        QuotaExceededError,
+        SwapError,
+        WatchdogTimeout,
+    )
+
+    rng = np.random.default_rng(SEED + 2)
+    frames = {app: torch.from_numpy(rng.standard_normal(
+        (ASYNC_FRAMES, APP_INPUT_CHANNELS[app], SIZE, SIZE)).astype(np.float32)).to("cuda")
+        for app in apps}
+    #: plan name -> its app, plan, params, graph, reference plan and the
+    #: tolerance of the plan against it (phase 5's: W8A8 to 5e-2)
+    plans = {}
+    for app, a in apps.items():
+        plans[app] = dict(app=app, plan=a["plan"], params=a["go"].params, graph=a["go"],
+                          ref=a["ref_plan"], rtol=1e-3)
+        plans[app + "_int8"] = dict(
+            app=app, plan=a["int8_plan"], params=a["gq"].params, graph=a["gq"],
+            ref=compile_plan(a["gq"], backend="reference", device="cuda"),
+            rtol=5e-2 if app == "coloring" else 1e-3)
+    chunks = {name: [frames[e["app"]][i:i + BATCH] for i in range(0, ASYNC_FRAMES, BATCH)]
+              for name, e in plans.items()}
+
+    def recorded(run, name, record):
+        def run_chunk(params, *xs):
+            out = run(params, *xs)
+            record.append((name, xs[0], out))
+            return out
+        return run_chunk
+
+    def serve(which, tenants=(), record=None, **kw):
+        """A fresh ``AsyncPlanServer`` over ``which`` (name -> plan), its
+        scheduler thread started; every frame of each app submitted to each
+        of its plans from this thread, the tenants in turn, a throttled
+        submit tried again after 5 ms.  ``record`` collects every chunk the
+        scheduler runs as (plan name, inputs, output)."""
+        server = AsyncPlanServer(flush_after=ASYNC_FLUSH, **kw)
+        for name, weight, rate in tenants:
+            server.add_tenant(name, weight=weight, rate=rate)
+        for name, plan in which.items():
+            e = plans[name]
+            server.add_plan(name, plan, e["params"], BATCH,
+                            input_spec=[(tuple(frames[e["app"]].shape[1:]), torch.float32)])
+            if record is not None:  # the scheduler's chunks, as it ran them
+                bp = server._plans[name].batched
+                bp.run_chunk = recorded(bp.run_chunk, name, record)
+        handles, attempts, throttled = [], 0, 0
+        with server:
+            server.start()
+            t0 = time.perf_counter()
+            for i in range(ASYNC_FRAMES):
+                for name in which:
+                    tenant = tenants[len(handles) % len(tenants)][0] if tenants else None
+                    while True:
+                        attempts += 1
+                        try:
+                            h = server.submit(name, frames[plans[name]["app"]][i],
+                                              tenant=tenant)
+                            break
+                        except QuotaExceededError:
+                            throttled += 1
+                            time.sleep(0.005)
+                    handles.append((name, i, h))
+            for _, _, h in handles:
+                h.result(120)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            stats, health = server.stats, server.health()
+        if record is not None:  # the recorder and its chunk plan form a cycle
+            for name in which:
+                del server._plans[name].batched.run_chunk
+        return dict(handles=handles, attempts=attempts, throttled=throttled, sec=sec,
+                    stats=stats, health=health)
+
+    def fallbacks(gplans):
+        return sum(p.guard_stats()["counters"]["fallbacks"] for p in gplans.values())
+
+    kernel_plans = {name: e["plan"] for name, e in plans.items()}
+    n_req = len(plans) * ASYNC_FRAMES
+
+    # 1. zero faults: the f32 and INT8 plans of every app, two tenants
+    print(f"  1. {len(plans)} plans (f32 + INT8 of each app), batch {BATCH}, flush_after "
+          f"{ASYNC_FLUSH}s, tenants " + ",".join(f"{n}:{w:g}:{r:g}" for n, w, r in ASYNC_TENANTS)
+          + f"; {ASYNC_FRAMES} frames an app to each of its plans ({n_req} requests)")
+    serve(kernel_plans, ASYNC_TENANTS)  # warm-up: allocator, first launches
+    record = []
+    ops.reset_kernel_launches()
+    run = serve(kernel_plans, ASYNC_TENANTS, record=record)
+    launches = main_path_launches(ops)
+    st = run["stats"]
+    shed = st["shed"] + sum(t["ladder_shed"] for t in st["per_tenant"].values())
+    throttled = sum(t["throttled"] for t in st["per_tenant"].values())
+    check(throttled == run["throttled"], f"async: {throttled} throttles counted, "
+                                         f"{run['throttled']} seen")
+    check(st["completed"] + throttled + shed == run["attempts"] and st["completed"] == n_req
+          and st["submitted"] == n_req,
+          f"async: {run['attempts']} submits, completed {st['completed']} + throttled "
+          f"{throttled} + shed {shed}")
+    check(all(h.exception() is None for _, _, h in run["handles"]), "async: a request failed")
+    # every served output is the plan's own output on the batch the
+    # scheduler formed: each recorded chunk run again directly, bit for bit
+    where = {}
+    for c, (name, x, out) in enumerate(record):
+        again = plans[name]["plan"].batched(BATCH).run_chunk(plans[name]["params"], x)
+        check(torch.equal(again, out), f"async: {name} chunk {c} differs when run again")
+        for row, key in enumerate(x.flatten(1)[:, :4].tolist()):
+            where[(name, tuple(key))] = (again, row)
+    for name, i, h in run["handles"]:
+        again, row = where[(name, tuple(frames[plans[name]["app"]][i].flatten()[:4].tolist()))]
+        check(torch.equal(h.result(), again[row]), f"async: {name} frame {i} is not its batch's")
+    check(sum(launches.values()) > 0, "async: no kernel launched")
+    batches = st["batches"]
+    print(f"     {n_req} requests in {run['sec']:.3f}s ({run['sec'] / n_req * 1e3:.3f} ms/frame, "
+          f"quota-paced); {run['attempts']} submits = {st['completed']} completed + {throttled} "
+          f"throttled + {shed} shed; {batches} batches ({st['padded_frames']} padded frames, "
+          f"{st['deadline_flushes']} flush_after releases); every output torch.equal to its "
+          f"plan run again on the batch the scheduler formed ({len(record)} chunks)")
+    for name, _, _ in ASYNC_TENANTS:
+        lats = np.asarray([h.latency for _, _, h in run["handles"] if h.tenant == name])
+        t = st["per_tenant"][name]
+        print(f"     tenant {name}: {lats.size} requests p50={np.percentile(lats, 50) * 1e3:.3f}ms "
+              f"p95={np.percentile(lats, 95) * 1e3:.3f}ms p99={np.percentile(lats, 99) * 1e3:.3f}ms "
+              f"throttled={t['throttled']} completed={t['completed']}")
+    profile_serving(torch, "serve async (no tenants)", lambda: serve(kernel_plans))
+
+    # 2. guarded plans: 0% (ms/frame beside the kernel plans'), 100%, 5%
+    guarded = {name: compile_plan(e["graph"], backend="guarded", device="cuda",
+                                  guard=GuardConfig(breaker_threshold=100))
+               for name, e in plans.items()}
+    timing = {"kernel": [], "guarded": []}
+    for which in ("kernel", "guarded", "guarded", "kernel"):
+        r = serve(kernel_plans if which == "kernel" else guarded)
+        check(all(h.exception() is None for _, _, h in r["handles"]), f"{which}: failed")
+        timing[which].append(r["sec"] / n_req * 1e3)
+    check(fallbacks(guarded) == 0, f"guarded at 0% faults: {fallbacks(guarded)} demotions")
+    demotable = {}
+    for name, g in guarded.items():
+        e = plans[name]
+        ok0 = g.guard_stats()["counters"]["primary_ok"]
+        for x in chunks[name]:
+            check(torch.equal(g(e["params"], x), e["plan"](e["params"], x)),
+                  f"guarded {name} at 0% faults differs from its kernel plan")
+        demotable[name] = (g.guard_stats()["counters"]["primary_ok"] - ok0) // len(chunks[name])
+    print(f"     2. guarded at 0% faults: 0 demotions, every chunk torch.equal to the kernel "
+          f"plans; ms/frame through AsyncPlanServer (no tenants; kernel, guarded, guarded, "
+          f"kernel): kernel {' '.join(f'{v:.3f}' for v in timing['kernel'])} guarded "
+          f"{' '.join(f'{v:.3f}' for v in timing['guarded'])}; demotable steps "
+          + " ".join(f"{n}={k}" for n, k in demotable.items()))
+    with FaultPlan([FaultRule("*", "raise", rate=1.0)], seed=7):
+        for name, g in guarded.items():
+            e = plans[name]
+            before = g.guard_stats()["counters"]["fallbacks"]
+            for x in chunks[name]:
+                check(torch.equal(g(e["params"], x), e["ref"](e["params"], x)),
+                      f"guarded {name} at 100% faults differs from the reference plan")
+            got = g.guard_stats()["counters"]["fallbacks"] - before
+            check(got == demotable[name] * len(chunks[name]),
+                  f"guarded {name} at 100%: {got} demotions over {len(chunks[name])} calls, "
+                  f"want {demotable[name]} a call")
+    # breakers trip under sustained failure and recover on an injected clock
+    clk = [0.0]
+    tripping = {name: compile_plan(e["graph"], backend="guarded", device="cuda",
+                                   guard=GuardConfig(breaker_threshold=3, breaker_cooldown=5.0,
+                                                     clock=lambda: clk[0]))
+                for name, e in plans.items()}
+    with FaultPlan([FaultRule("*", "raise", rate=1.0)], seed=7):
+        for name, g in tripping.items():
+            g(plans[name]["params"], chunks[name][0])
+    trips = {name: sum(b["trips"] for b in g.guard_stats()["breakers"].values())
+             for name, g in tripping.items()}
+    check(all(trips.values()), f"breakers: trips {trips}")
+    clk[0] += 5.0
+    for name, g in tripping.items():
+        e = plans[name]
+        check(torch.equal(g(e["params"], chunks[name][0]), e["plan"](e["params"],
+                                                                      chunks[name][0])),
+              f"{name}: recovered plan differs from the kernel plan")
+        states = {b["state"] for b in g.guard_stats()["breakers"].values()}
+        check(states == {"closed"}, f"{name}: breakers {states} after the cooldown")
+    # fresh plans: the 100% runs' failures still sit in the breakers' window
+    # (30 s of wall clock), so more would open them and add demotions that
+    # no injection caused
+    sparse = {name: compile_plan(e["graph"], backend="guarded", device="cuda",
+                                 guard=GuardConfig(breaker_threshold=100))
+              for name, e in plans.items()}
+    with FaultPlan([FaultRule("*", "raise", rate=0.05)], seed=7) as fp:
+        r = serve(sparse)
+    worst = 0.0
+    for name, i, h in r["handles"]:
+        e = plans[name]
+        check(h.exception() is None, f"guarded 5%: {name} frame {i} failed")
+        want = e["ref"](e["params"], frames[e["app"]][i:i + 1])[0]
+        err = (h.result() - want).abs().max().item()
+        tol = e["rtol"] * max(1.0, want.abs().max().item())
+        check(err <= tol, f"guarded 5%: {name} frame {i} {err} > {tol}")
+        worst = max(worst, err / tol)
+    demoted = fallbacks(sparse)
+    check(fp.injection_count() > 0 and demoted == fp.injection_count(),
+          f"guarded 5%: {demoted} demotions, {fp.injection_count()} injections")
+    print(f"     guarded at 100% faults: every chunk torch.equal to the reference plans, "
+          f"demotions = demotable steps x calls; breakers tripped ({trips}) and closed after "
+          f"the cooldown on an injected clock; at a seeded 5%: {n_req} requests completed, "
+          f"{demoted} demotions = {fp.injection_count()} injections, worst error "
+          f"{worst:.3f} of the tolerance")
+
+    # 3. a corrupted tuning cache: the kernel plan raises, the guarded plan
+    # demotes (every key the plans resolve was recorded by the runs above)
+    cache = ops.tuning_cache()
+    n_keys = len(cache.entries)
+    with FaultPlan([FaultRule("*", "cache_corrupt", rate=1.0)], seed=0) as fp:
+        check(len(fp.corrupted_keys) == n_keys > 0, "cache_corrupt: no keys")
+        for name, e in plans.items():
+            x = chunks[name][0]
+            try:
+                e["plan"](e["params"], x)
+                torch.cuda.synchronize()
+                check(False, f"cache_corrupt: the {name} kernel plan did not raise")
+            except _build.TileError:
+                pass
+            before = guarded[name].guard_stats()["counters"]["fallbacks"]
+            check(torch.equal(guarded[name](e["params"], x), e["ref"](e["params"], x)),
+                  f"cache_corrupt: guarded {name} differs from the reference plan")
+            check(guarded[name].guard_stats()["counters"]["fallbacks"] - before
+                  == demotable[name], f"cache_corrupt: {name} did not demote every step")
+    cache.clear()
+    print(f"     3. cache_corrupt: {n_keys} keys zeroed; each kernel plan raised TileError, "
+          f"each guarded plan demoted every kernel step and was torch.equal to the "
+          f"reference plan; cache cleared")
+
+    # 4. hot swap f32 -> INT8 under load, a rollback, the watchdog
+    f32 = {app: plans[app] for app in apps}
+    server = AsyncPlanServer(flush_after=ASYNC_FLUSH)
+    for app, e in f32.items():
+        server.add_plan(app, e["plan"], e["params"], BATCH,
+                        input_spec=[(tuple(frames[app].shape[1:]), torch.float32)])
+    half = ASYNC_FRAMES // 2
+    with server:
+        server.start()
+        hs = [(app, i, server.submit(app, frames[app][i])) for i in range(half) for app in f32]
+        for app in f32:  # swap while that traffic is queued or running
+            q = plans[app + "_int8"]
+            check(server.swap_plan(app, q["plan"], q["params"],
+                                   probe_frames=[frames[app][0]]) == 1, f"swap {app}")
+        hs += [(app, i, server.submit(app, frames[app][i]))
+               for i in range(half, ASYNC_FRAMES) for app in f32]
+        versions = [h._runner.version for _, _, h in hs]
+        nan_params = {n: {k: v * float("nan") if v.is_floating_point() else v
+                          for k, v in p.items()} for n, p in f32["coloring"]["params"].items()}
+        try:
+            server.swap_plan("coloring", f32["coloring"]["plan"], nan_params,
+                             probe_frames=[frames["coloring"][0]])
+            check(False, "swap: a NaN version installed")
+        except SwapError as err:
+            check("non-finite" in str(err), f"swap: {err}")
+        for _, _, h in hs:
+            h.result(120)
+        server.close()
+        swap_stats, health = server.stats, server.health()
+    for (app, i, h), v in zip(hs, versions):
+        e = plans[app if v == 0 else app + "_int8"]
+        want = e["ref"](e["params"], frames[app][i:i + 1])[0]
+        tol = e["rtol"] * max(1.0, want.abs().max().item())
+        check(h.exception() is None and (h.result() - want).abs().max().item() <= tol,
+              f"swap: {app} frame {i} on v{v}")
+    check(swap_stats["completed"] == swap_stats["submitted"] == len(hs)
+          and swap_stats["swaps"] == 3 and swap_stats["versions_retired"] == 3
+          and swap_stats["swap_rollbacks"] == 1
+          and all(p["version"] == 1 and "draining" not in p for p in health["plans"].values()),
+          f"swap: stats {swap_stats}")
+    check({0, 1} <= set(versions), f"swap: versions served {set(versions)}")
+    e = plans["style_transfer"]
+    server = AsyncPlanServer(watchdog=ASYNC_WATCHDOG)
+    server.add_plan("st", e["plan"], e["params"], BATCH)
+    warm = [server.submit("st", x) for x in chunks["style_transfer"][0]]
+    server.step(force=True)
+    release = threading.Event()
+    fp = FaultPlan([FaultRule("conv2d", "latency", rate=1.0, delay=2 * ASYNC_WATCHDOG)],
+                   seed=0, sleep=release.wait).install()
+    try:
+        slow = [server.submit("st", x) for x in chunks["style_transfer"][1]]
+        server.step(force=True)
+    finally:
+        release.set()
+        fp.uninstall()
+    time.sleep(0.2)  # the abandoned batch finishes late: its verdict stands
+    nxt = [server.submit("st", x) for x in chunks["style_transfer"][2]]
+    server.step(force=True)
+    server.close()
+    check(all(h.exception() is None for h in warm + nxt)
+          and all(isinstance(h.exception(), WatchdogTimeout) for h in slow)
+          and server.stats["watchdog_timeouts"] == 1,
+          f"watchdog: {[type(h.exception()).__name__ for h in warm + slow + nxt]}")
+    print(f"     4. hot swap f32 -> INT8 under load: {len(hs)} requests, "
+          f"{versions.count(0)} on v0 and {versions.count(1)} on v1, zero lost, 3 swaps, 3 "
+          f"versions retired, a NaN version rolled back; watchdog {ASYNC_WATCHDOG}s: the "
+          f"batch under a {2 * ASYNC_WATCHDOG}s latency fault failed (WatchdogTimeout), the "
+          f"next completed")
+    # 5. guarded decode at the smoke config (the llm smoke phase serves the
+    # kernel plans again)
+    import argparse
+
+    from repro_torch.launch import serve as serve_cli
+
+    args = argparse.Namespace(smoke=True, **LLM_ARGS)
+    llm = serve_cli.build_llm(args, torch.device("cuda"))
+    guarded_decode(torch, llm, args, f"   5. {llm['cfg'].name}")
+    return launches
+
+
 #: kernel-name fragments of the port's own kernels
 _OWN = {"conv2d_igemm": "conv2d", "simt_gemm_kernel<float": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
@@ -1557,6 +1928,8 @@ def phase_llm(torch, smoke: bool, block=None):
     dense = "dense_matmul" if smoke else "dense_matmul_bf16"
     launches, dense_peak = serve_llm_checked(torch, llm, args, smoke, cfg.name,
                                              {dense: 5 * cfg.n_layers})
+    if not smoke:  # the smoke decoder runs guarded in the serve async phase
+        guarded_decode(torch, llm, args, cfg.name)
     if block is not None:
         if not smoke:
             print(f"== llm block-pruned ({cfg.name}, full width, bf16)")
@@ -1613,6 +1986,63 @@ def phase_llm(torch, smoke: bool, block=None):
         del llm
     torch.cuda.empty_cache()
     return launches
+
+
+def guarded_decode(torch, llm, args, label):
+    """The decoder's graphs compiled for the ``guarded`` backend (the same
+    weights), served through ``submit_llm`` beside ``llm``'s kernel plans,
+    each once to warm up and once timed: no demotion at 0% faults, no
+    failed sequence, no leaked page, ms per decode step and per prefill of
+    each (the guarded plan checks every step's output for NaN / Inf, a host
+    sync a step).  In f32 (the smoke config) the guarded plans' tokens must
+    equal the kernel plans' at 0% faults and, at 100% ``raise``, the
+    ``reference`` plans'; in bf16, where a batch formed another way may
+    break a near-tie the other way, each sequence must pass the kernel
+    plans' parity rule against the plain ``forward``
+    (``serve.greedy_parity``)."""
+    from repro_torch.core.graph import compile_plan
+    from repro_torch.launch import serve
+    from repro_torch.robustness import FaultPlan, FaultRule
+
+    exact = llm["cfg"].dtype != "bfloat16"
+    prompts = serve.llm_prompts(args, llm["cfg"])
+    plans = {"kernel": llm["plans"]}
+    for b in ("guarded", "reference") if exact else ("guarded",):
+        plans[b] = {ph: compile_plan(g, backend=b, device=llm["device"])
+                    for ph, g in llm["graphs"].items()}
+    runs = {}
+    for name, which in plans.items():
+        serve.serve_llm_traffic(dict(llm, plans=which), prompts, args)  # warm-up
+        runs[name] = serve.serve_llm_traffic(dict(llm, plans=which), prompts, args)
+
+    def demotions():
+        return sum(p.guard_stats()["counters"]["fallbacks"] for p in plans["guarded"].values())
+
+    check(demotions() == 0, f"{label} guarded at 0%: {demotions()} demotions")
+    tokens = {k: [[int(t) for t in h.result()] for h in r["handles"]] for k, r in runs.items()}
+    if exact:
+        with FaultPlan([FaultRule("*", "raise", rate=1.0)], seed=7):
+            runs["guarded@100%"] = serve.serve_llm_traffic(dict(llm, plans=plans["guarded"]),
+                                                           prompts, args)
+        at100 = [[int(t) for t in h.result()] for h in runs["guarded@100%"]["handles"]]
+        check(tokens["guarded"] == tokens["kernel"], f"{label} guarded at 0%: tokens {tokens}")
+        check(demotions() > 0 and at100 == tokens["reference"],
+              f"{label} guarded at 100%: {demotions()} demotions, tokens {at100}")
+        how = (f"the kernel plans' greedy tokens at 0% faults (0 demotions), the reference "
+               f"plans' at 100% ({demotions()} demotions)")
+    else:
+        for p, got in zip(prompts, tokens["guarded"]):
+            serve.greedy_parity(llm, p, got)
+        how = "0 demotions, greedy parity ok against the plain forward"
+    for k, r in runs.items():
+        check(r["stats"]["failed"] == 0 and r["occupancy"]["used_pages"] == 0,
+              f"{label} {k}: stats {r['stats']} pages {r['occupancy']}")
+    ms = " ".join(
+        f"{k} {r['stats']['decode_seconds'] / r['stats']['decode_batches'] * 1e3:.2f}"
+        f"/{r['stats']['prefill_seconds'] / r['stats']['prefill_batches'] * 1e3:.2f}"
+        for k, r in runs.items())
+    print(f"  {label} guarded ({len(plans['guarded']['decode'].steps)} steps a plan call): "
+          f"{how}; failed=0 leaked=0; ms per decode step / prefill: {ms}")
 
 
 def plan_param_bytes(*plans) -> int:
@@ -1857,6 +2287,9 @@ def main() -> int:
     print(f"== int8 apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
     int8_launches = phase_int8(torch, np, apps)
     for name, n in int8_launches.items():
+        launches[name] += n
+    print(f"== serve async (base={BASE}, {SIZE}x{SIZE}, batch {BATCH}, f32 + INT8 plans)")
+    for name, n in phase_serve_async(torch, np, apps).items():
         launches[name] += n
     print(f"== tune (base {BASE}, {SIZE}x{SIZE}, batch {BATCH})")
     for name, n in phase_tune(torch, apps).items():

@@ -1,12 +1,15 @@
 from .ir import Graph, GraphBuilder, Node
 from .executor import (
     BACKENDS,
+    EXEC_BACKENDS,
     BatchedPlan,
     ExecutionPlan,
     compile_plan,
+    guard_fallback_counts,
     handlers_for,
     register_op,
     registered_ops,
+    reset_guard_fallbacks,
 )
 from .lowering import lower
 from .pass_manager import (

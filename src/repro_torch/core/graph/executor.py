@@ -9,7 +9,10 @@ Compilation (:func:`compile_plan`) happens once per graph:
    the hand-written CUDA kernels), ``reference`` (plain torch, the parity
    oracle) and ``quant`` (the kernel set overlaid with the INT8
    ``qlinear`` / ``qconv2d`` handlers: the backend of plans the
-   ``quantize`` pass rewrote).
+   ``quantize`` pass rewrote).  ``guarded`` is a policy over them: each
+   step tries the ``quant`` overlay and demotes a failure to its
+   ``reference`` handler, on the same device, under circuit breakers
+   (:meth:`ExecutionPlan._exec_guarded`).
 2. **topological scheduling** -- Kahn's algorithm with graph order as the
    tiebreak.
 3. **buffer liveness** -- each step records which intermediates die after it
@@ -44,14 +47,20 @@ import torch.nn.functional as F
 from ...convert import DeviceLike, resolve_device
 from ...kernels import ops as kops
 from ...kernels import ref as kref
+from ...obs import metrics as _metrics
 from ...obs import trace as _otrace
+from ...robustness import faults as _faults
+from ...robustness.breaker import GuardConfig, NumericGuardError
 from .ir import Graph, Node
 
 __all__ = [
     "BACKENDS",
+    "EXEC_BACKENDS",
     "register_op",
     "registered_ops",
     "handlers_for",
+    "guard_fallback_counts",
+    "reset_guard_fallbacks",
     "Runtime",
     "Step",
     "ExecutionPlan",
@@ -65,8 +74,14 @@ _ACT = kref._ACT
 #: torch (the parity oracle).  ``quant``: the kernel set *overlaid* with the
 #: INT8 handlers -- the only backend that executes ``qlinear`` / ``qconv2d``
 #: nodes with the INT8 kernels; other ops fall through to their kernel
-#: handlers.  The JAX package's ``guarded`` backend comes with a later slice.
+#: handlers.
 BACKENDS = ("kernel", "reference", "quant")
+
+#: executable backends: the registration backends plus ``guarded`` -- a
+#: policy backend (no handler table of its own) that tries a primary table
+#: (``quant`` overlay by default) per step and demotes failures to the
+#: ``reference`` handler under circuit breakers.  See ``_exec_guarded``.
+EXEC_BACKENDS = BACKENDS + ("guarded",)
 
 #: backend -> op -> handler(params, inputs, attrs, runtime) -> tensor
 _HANDLERS: Dict[str, Dict[str, Callable]] = {b: {} for b in BACKENDS}
@@ -74,21 +89,57 @@ _HANDLERS: Dict[str, Dict[str, Callable]] = {b: {} for b in BACKENDS}
 
 def handlers_for(backend: str) -> Dict[str, Callable]:
     """The effective handler table for ``backend`` (``quant`` inherits every
-    kernel handler and overrides/extends it with the quantized set)."""
-    if backend == "quant":
+    kernel handler and overrides/extends it with the quantized set;
+    ``guarded`` resolves to its default primary table -- the same
+    overlay)."""
+    if backend in ("quant", "guarded"):
         return {**_HANDLERS["kernel"], **_HANDLERS["quant"]}
     return dict(_HANDLERS[backend])
 
 
+# --------------------------------------------------------------------------- #
+# guarded-execution accounting (process-wide)                                  #
+# --------------------------------------------------------------------------- #
+#
+# Process-wide demotion counts live in the port's metrics registry as the
+# ``guard_demotions_total{op, scheme, reason}`` counter family (reason in
+# {exception, numeric, breaker_open}); the per-plan breakdown lives in
+# ``ExecutionPlan.guard_stats()``.  The accessors below are views over the
+# registry.
+
+_GUARD_METRIC = "guard_demotions_total"
+
+
+def guard_fallback_counts() -> Dict[str, int]:
+    """Process-wide guarded-executor demotion counts, keyed
+    ``"op/scheme/reason"`` (a view over the ``guard_demotions_total``
+    registry family)."""
+    counts = _metrics.registry().label_counts(_GUARD_METRIC, "op", "scheme", "reason")
+    return {k: int(v) for k, v in counts.items()}
+
+
+def reset_guard_fallbacks() -> None:
+    _metrics.registry().reset(_GUARD_METRIC)
+
+
 def _node_scheme(n: Node) -> str:
     """The arithmetic scheme a node executes under (``f32``, ``w8``,
-    ``w8a8``): the ``scheme`` arg of its step span."""
+    ``w8a8``): the ``scheme`` arg of its step span and the breaker-key
+    dimension that separates an INT8 kernel family from its f32 sibling."""
     if n.op in ("qlinear", "qconv2d"):
         s = n.attrs.get("scheme")
         if s:
             return s
         return "w8a8" if n.attrs.get("x_scale") is not None else "w8"
     return "f32"
+
+
+def _check_finite(y: torch.Tensor) -> None:
+    """Post-step numeric guard: raise :class:`NumericGuardError` when a
+    floating step output holds NaN/Inf.  On the card this is a host sync
+    per step (``.item()`` waits for the step's kernels)."""
+    if y.is_floating_point() and not bool(torch.isfinite(y).all().item()):
+        raise NumericGuardError("non-finite values in step output")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -705,10 +756,33 @@ class ExecutionPlan:
     steps: Tuple[Step, ...]
     backend: str
     device: torch.device
+    #: guarded-backend knobs; only meaningful (and auto-defaulted) when
+    #: ``backend == "guarded"``
+    guard: Optional[GuardConfig] = None
 
     def __post_init__(self):
         self._rt = Runtime(backend=self.backend)
-        self._handlers = handlers_for(self.backend)
+        if self.backend == "guarded":
+            if self.guard is None:
+                self.guard = GuardConfig()
+            self._handlers = handlers_for(self.guard.primary)
+            self._ref_handlers = handlers_for("reference")
+            self._guard_lock = threading.Lock()
+            #: (op, scheme) -> CircuitBreaker, created lazily per step family
+            self._breakers: Dict[Tuple[str, str], Any] = {}
+            self.guard_counters: Dict[str, Any] = {
+                "primary_ok": 0,
+                "fallbacks": 0,
+                "breaker_short_circuits": 0,
+                "numeric_guard_trips": 0,
+                "by_key": {},
+            }
+        else:
+            if self.guard is not None:
+                raise ValueError(
+                    f"guard config requires backend='guarded', got {self.backend!r}"
+                )
+            self._handlers = handlers_for(self.backend)
 
     # -- execution ----------------------------------------------------------- #
     def __call__(self, params: Dict[str, Dict[str, Any]], *args):
@@ -736,12 +810,17 @@ class ExecutionPlan:
         if observer is not None:
             for name, v in env.items():
                 observer(name, v)
+        guarded = self.backend == "guarded"
         if _otrace.enabled():  # one branch per run when tracing is off
-            return self._run_steps_traced(env, params, observer)
+            return self._run_steps_traced(env, params, observer, guarded)
         for step in self.steps:
             n = step.node
             xs = [env[i] for i in n.inputs]
-            env[n.name] = self._handlers[n.op](params.get(n.name, {}), xs, n.attrs, self._rt)
+            p = params.get(n.name, {})
+            if guarded:
+                env[n.name] = self._exec_guarded(n, p, xs)
+            else:
+                env[n.name] = self._handlers[n.op](p, xs, n.attrs, self._rt)
             del xs
             if observer is not None:
                 observer(n.name, env[n.name])
@@ -750,10 +829,11 @@ class ExecutionPlan:
         outs = tuple(env[o] for o in self.graph.outputs)
         return outs[0] if len(outs) == 1 else outs
 
-    def _run_steps_traced(self, env, params, observer):
+    def _run_steps_traced(self, env, params, observer, guarded):
         """The traced twin of the ``run_steps`` loop: one ``cat="plan"``
         span around the run, one ``cat="step"`` span per step carrying op /
-        scheme / backend / output shape."""
+        scheme / backend / output shape, demotions annotated in-span (the
+        ``demoted`` arg + a nested ``cat="guard"`` instant)."""
         with _otrace.span(
             "plan", cat="plan", backend=self.backend, steps=len(self.steps),
             outputs=list(self.graph.outputs),
@@ -761,9 +841,13 @@ class ExecutionPlan:
             for step in self.steps:
                 n = step.node
                 xs = [env[i] for i in n.inputs]
+                p = params.get(n.name, {})
                 with _otrace.span(n.name, cat="step", op=n.op, scheme=_node_scheme(n),
                                   backend=self.backend) as sp:
-                    y = self._handlers[n.op](params.get(n.name, {}), xs, n.attrs, self._rt)
+                    if guarded:
+                        y = self._exec_guarded(n, p, xs, sp)
+                    else:
+                        y = self._handlers[n.op](p, xs, n.attrs, self._rt)
                     sp.set("out_shape", list(y.shape))
                 del xs
                 env[n.name] = y
@@ -773,6 +857,81 @@ class ExecutionPlan:
                     del env[f]
         outs = tuple(env[o] for o in self.graph.outputs)
         return outs[0] if len(outs) == 1 else outs
+
+    # -- guarded execution ---------------------------------------------------- #
+    def _exec_guarded(self, n: Node, p, xs, sp=_otrace.NULL_SPAN):
+        """One step under the guarded contract: try the primary (kernel)
+        handler behind the step family's circuit breaker and fault-injection
+        hook; on any exception or a numeric-guard trip, record the failure
+        and demote to the ``reference`` handler for this step only -- the
+        plain-torch version on the same tensors, so on the same device.  The
+        reference handler's own exception propagates (nothing hides a
+        broken device).  Shared ops (same function object on both backends)
+        run unguarded -- there is nothing to demote to."""
+        cfg = self.guard
+        ref = self._ref_handlers.get(n.op)
+        primary = self._handlers.get(n.op, ref)
+        if ref is None or primary is ref:
+            return primary(p, xs, n.attrs, self._rt)
+        key = (n.op, _node_scheme(n))
+        with self._guard_lock:
+            br = self._breakers.get(key)
+            if br is None:
+                br = self._breakers[key] = cfg.make_breaker()
+            allowed = br.allow()
+        if not allowed:
+            self._count_guard(key, "breaker_open", sp)
+            return ref(p, xs, n.attrs, self._rt)
+        fn = _faults.wrap_handler(n.op, primary)
+        try:
+            y = fn(p, xs, n.attrs, self._rt)
+            if cfg.numeric_guards:
+                _check_finite(y)
+        except Exception as e:  # demote: any failure mode of the primary
+            with self._guard_lock:
+                br.record_failure()
+            self._count_guard(
+                key, "numeric" if isinstance(e, NumericGuardError) else "exception", sp
+            )
+            return ref(p, xs, n.attrs, self._rt)
+        with self._guard_lock:
+            br.record_success()
+            self.guard_counters["primary_ok"] += 1
+        return y
+
+    def _count_guard(self, key: Tuple[str, str], reason: str, sp=_otrace.NULL_SPAN) -> None:
+        gkey = f"{key[0]}/{key[1]}/{reason}"
+        with self._guard_lock:
+            c = self.guard_counters
+            c["fallbacks"] += 1
+            if reason == "breaker_open":
+                c["breaker_short_circuits"] += 1
+            elif reason == "numeric":
+                c["numeric_guard_trips"] += 1
+            c["by_key"][gkey] = c["by_key"].get(gkey, 0) + 1
+        _metrics.registry().counter(_GUARD_METRIC, op=key[0], scheme=key[1], reason=reason).inc()
+        if _otrace.enabled():
+            sp.set("demoted", reason)  # annotate the enclosing step span
+            _otrace.instant(f"demote:{key[0]}", cat="guard", scheme=key[1], reason=reason)
+
+    def guard_stats(self) -> Dict[str, Any]:
+        """Snapshot of this plan's guarded-execution state: demotion
+        counters plus every breaker's state machine -- the payload
+        ``AsyncPlanServer.health()`` surfaces per plan."""
+        if self.backend != "guarded":
+            return {}
+        with self._guard_lock:
+            c = self.guard_counters
+            return {
+                "counters": {
+                    **{k: v for k, v in c.items() if k != "by_key"},
+                    "by_key": dict(c["by_key"]),
+                },
+                "breakers": {
+                    f"{op}/{scheme}": br.snapshot()
+                    for (op, scheme), br in self._breakers.items()
+                },
+            }
 
     # -- introspection ------------------------------------------------------- #
     def memory_estimate(self, *inputs) -> Dict[str, Any]:
@@ -921,12 +1080,16 @@ def compile_plan(
     *,
     backend: str = "kernel",
     device: DeviceLike = None,
+    guard: Optional[GuardConfig] = None,
 ) -> ExecutionPlan:
     """Compile ``g`` into an :class:`ExecutionPlan` (validates the graph,
     resolves handlers, schedules topologically, computes buffer liveness)
-    for ``device`` (``None`` means ``cuda``; raises without a GPU)."""
-    if backend not in _HANDLERS:
-        raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+    for ``device`` (``None`` means ``cuda``; raises without a GPU).
+    ``backend="guarded"`` compiles a degradation-tolerant plan: each step
+    tries ``guard.primary``'s handler and demotes failures to
+    ``reference`` (see :meth:`ExecutionPlan._exec_guarded`)."""
+    if backend not in _HANDLERS and backend != "guarded":
+        raise ValueError(f"unknown backend {backend!r}; have {EXEC_BACKENDS}")
     dev = resolve_device(device)
     # schedule before validating: Graph.validate requires def-before-use node
     # order, which the Kahn schedule establishes for out-of-order builders
@@ -934,6 +1097,8 @@ def compile_plan(
     g = dataclasses.replace(g, nodes=order)
     g.validate()
     handlers = handlers_for(backend)
+    if backend == "guarded":  # an op with only a reference handler still runs
+        handlers = {**handlers, **handlers_for("reference")}
     missing = sorted({n.op for n in order if n.op not in handlers})
     if missing:
         raise NotImplementedError(
@@ -951,4 +1116,4 @@ def compile_plan(
     for i, n in enumerate(order):
         frees = tuple(x for x, j in last_use.items() if j == i and x not in keep)
         steps.append(Step(node=n, frees=frees))
-    return ExecutionPlan(graph=g, steps=tuple(steps), backend=backend, device=dev)
+    return ExecutionPlan(graph=g, steps=tuple(steps), backend=backend, device=dev, guard=guard)

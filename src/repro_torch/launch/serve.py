@@ -5,6 +5,8 @@ plan compiler.
         --size 256 --base 32 --frames 10 --batch-size 4
     python -m repro_torch.launch.serve --llm                  # qwen2.5-3b, bf16
     python -m repro_torch.launch.serve --llm --smoke --device cpu
+    python -m repro_torch.launch.serve --async --tenants --guarded \\
+        --watchdog 0.5 --graph-app coloring --size 256 --base 32 --frames 24
 
 Builds the app (weights from ``--seed``), prunes it with the paper's recipe
 (``app_masks``), compiles it with ``PassManager`` + ``compile_plan``
@@ -44,6 +46,23 @@ teacher-forced: ``forward`` over the prompt and the served tokens, where
 every served token must be the row's best logit (f32) or within that
 tolerance of it (bf16), at every step.
 
+``--async`` serves every demo app (or just ``--graph-app``) from one
+``AsyncPlanServer``: each app's plan registered with its input spec, the
+scheduler thread forming batches of ``--batch-size`` (default 4) under
+``--flush-after`` / ``--deadline`` / ``--overload`` / ``--max-queue``, and
+``--frames`` random frames submitted round-robin over the apps (and over
+the ``--tenants``, each ``name[:weight[:rate[:burst]]]``; bare
+``--tenants`` is ``gold:3:200,free:1:50``) through ``submit_with_retry``.
+It prints requests/s and ms/frame, p50/p95/p99 latency per app and per
+tenant, throttle / shed / deadline counts, a parity probe per app (the
+served output against the plan run directly on that frame) and the
+``health()`` lines (queue depths, watchdog timeouts, and with
+``--guarded`` each plan's demotions and breakers).  ``--guarded`` compiles
+the ``guarded`` backend instead of ``kernel`` (each step tries its kernel
+and demotes a failure to the plain version on the same device), for
+``--async`` and for ``--llm``; ``--watchdog`` fails a batch that runs
+longer than that many seconds (``WatchdogTimeout``) and keeps serving.
+
 ``--device`` defaults to ``cuda`` (raises without a GPU); ``--device cpu``
 runs the kernels' plain PyTorch versions.  Unlike the JAX package's CLI,
 ``--frames`` counts frames (``--llm``: prompts), not batches.
@@ -66,8 +85,8 @@ from ..models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP, APPS,
 from ..quant import calibrate_plan
 from ..serving.engine import PlanServer
 
-__all__ = ["main", "serve_graph_app", "serve_llm", "build_llm", "serve_llm_traffic",
-           "greedy_parity", "llm_prompts"]
+__all__ = ["main", "serve_graph_app", "serve_async", "serve_llm", "build_llm",
+           "serve_llm_traffic", "greedy_parity", "llm_prompts"]
 
 #: the bf16 near-tie threshold of the greedy-parity probe, in bf16 ulps of
 #: the largest logit (see the module doc)
@@ -152,6 +171,155 @@ def serve_graph_app(args) -> dict:
     return report
 
 
+def _parse_tenants(spec: str):
+    """Parse ``--tenants`` specs: comma-separated
+    ``name[:weight[:rate[:burst]]]`` (weight = fair share of batch slots,
+    rate/burst = token-bucket quota in requests/s)."""
+    out = []
+    for part in spec.split(","):
+        bits = [b.strip() for b in part.strip().split(":")]
+        if not bits or not bits[0]:
+            raise SystemExit(f"--tenants: empty tenant name in {spec!r}")
+        out.append((
+            bits[0],
+            float(bits[1]) if len(bits) > 1 else 1.0,
+            float(bits[2]) if len(bits) > 2 else None,
+            float(bits[3]) if len(bits) > 3 else None,
+        ))
+    return out
+
+
+def _pcts(lats) -> str:
+    return (f"p50={np.percentile(lats, 50) * 1e3:.2f}ms "
+            f"p95={np.percentile(lats, 95) * 1e3:.2f}ms "
+            f"p99={np.percentile(lats, 99) * 1e3:.2f}ms")
+
+
+def serve_async(args) -> dict:
+    """One ``AsyncPlanServer`` hosting every demo app (or just
+    ``--graph-app``): compile each app's plan, start the scheduler thread,
+    drive mixed traffic with per-request deadlines, and report throughput,
+    latency percentiles, deadline-miss and padding stats and a per-app
+    parity probe against direct plan execution; with ``--tenants`` the
+    traffic is spread round-robin over the tenants and the report breaks
+    latency, throttling and ladder state out per tenant.  Returns the
+    numbers it prints."""
+    from ..serving import AsyncPlanServer, submit_with_retry
+
+    if args.quantize:
+        raise SystemExit("--async serves f32 plans only (for INT8 serving use --graph-app "
+                         "<app> --quantize); refusing to silently ignore --quantize")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":  # the plan tolerances assume true f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    apps = [args.graph_app] if args.graph_app else list(APPS)
+    backend = "guarded" if args.guarded else "kernel"
+    batch_size = args.batch_size or 4
+    rng = np.random.default_rng(args.seed)
+    server = AsyncPlanServer(flush_after=args.flush_after, max_queue=args.max_queue,
+                             overload=args.overload, watchdog=args.watchdog)
+    tenant_specs = _parse_tenants(args.tenants) if args.tenants else []
+    tnames = [t[0] for t in tenant_specs]
+    for name, weight, rate, burst in tenant_specs:
+        server.add_tenant(name, weight=weight, rate=rate, burst=burst)
+        quota = f"{rate}/s" if rate is not None else "unlimited"
+        print(f"async: tenant {name}: weight={weight} quota={quota}")
+    plans, shapes = {}, {}
+    for app in apps:
+        g = APPS[app](torch.Generator().manual_seed(args.seed), base=args.base, device=dev)
+        masks, structures = app_masks(g, app, sparsity=args.sparsity)
+        go = PassManager().run(g, PassContext(masks=masks, structures=structures))
+        plan = compile_plan(go, backend=backend, device=dev)
+        plans[app] = (plan, go.params)
+        shapes[app] = (APP_INPUT_CHANNELS[app], args.size, args.size)
+        # explicit input spec: a malformed frame fails at submit(), never
+        # inside the macro-batch it would have joined
+        server.add_plan(app, plan, go.params, batch_size,
+                        input_spec=[(shapes[app], torch.float32)])
+        print(f"async: {app}: backend={backend} device={dev} steps={len(plan.steps)} "
+              f"batch_size={batch_size}")
+
+    with server:
+        server.start()
+        # warm each app (allocator, first launches) before timing; the
+        # counters are read after it so the report covers the traffic only
+        for app in apps:
+            server.submit(app, torch.zeros(shapes[app], device=dev)).result()
+        warm = server.stats
+        frames = [torch.from_numpy(rng.standard_normal(shapes[apps[i % len(apps)]])
+                                   .astype(np.float32)).to(dev) for i in range(args.frames)]
+        handles, probes = [], {}
+        t0 = time.perf_counter()
+        for i, x in enumerate(frames):
+            app = apps[i % len(apps)]
+            tenant = tnames[i % len(tnames)] if tnames else None
+            # with quotas in play, ride out QuotaExceededError via the
+            # shared jittered backoff instead of failing the demo
+            h = submit_with_retry(server, app, x, priority=i % 2, deadline=args.deadline,
+                                  tenant=tenant)
+            handles.append(h)
+            probes.setdefault(app, (x, h))  # first frame per app: parity probe
+        for h in handles:
+            h.result()
+        dt = time.perf_counter() - t0
+        for app, (x, h) in probes.items():
+            plan, params = plans[app]
+            with torch.no_grad():
+                want = plan(params, x[None])[0]
+            err = float((h.result() - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            if err > tol:  # the async path == direct execution
+                raise AssertionError(f"async {app}: served output differs from the plan's "
+                                     f"by {err} > {tol}")
+        s = server.stats
+        n = len(handles)
+        report = dict(requests=n, seconds=dt, ms_per_frame=dt / n * 1e3, backend=backend,
+                      device=str(dev), stats=s)
+        print(f"async: {n} requests over {len(apps)} plans in {dt:.3f}s "
+              f"({n / dt:.1f} req/s, {dt / n * 1e3:.3f} ms/frame), "
+              f"{s['batches'] - warm['batches']} batches "
+              f"({s['padded_frames'] - warm['padded_frames']} padded frames, "
+              f"{s['deadline_flushes'] - warm['deadline_flushes']} deadline flushes, "
+              f"{s['deadline_misses'] - warm['deadline_misses']} deadline misses, parity ok)")
+        for app in apps:
+            # over the traffic handles only, not the warm-up request
+            lats = np.asarray([h.latency for h in handles if h.plan == app])
+            if not lats.size:  # fewer requests than apps: no traffic here
+                print(f"async: {app}: no traffic")
+                continue
+            print(f"async: {app}: {_pcts(lats)} over {lats.size} requests")
+        for name in tnames:
+            lats = np.asarray([h.latency for h in handles if h.tenant == name])
+            st = s["per_tenant"][name]
+            pct = f"{_pcts(lats)} over {lats.size} requests, " if lats.size else "no traffic, "
+            print(f"async: tenant {name}: {pct}throttled={st['throttled']} "
+                  f"ladder_shed={st['ladder_shed']} deadline_misses={st['deadline_misses']}")
+        # liveness/degradation snapshot: what an external monitor scrapes
+        health = server.health()
+        print(f"health: running={health['running']} inflight={health['inflight']} "
+              f"pending={health['pending']} tick_errors={health['tick_errors']} "
+              f"watchdog={health['watchdog']}")
+        for app, p in health["plans"].items():
+            st = p["stats"]
+            line = (f"health: {app}: queue_depth={p['queue_depth']} "
+                    f"queue_peak={p['queue_peak']} bad_frames={st['bad_frames']} "
+                    f"watchdog_timeouts={st['watchdog_timeouts']} "
+                    f"rejected={st['rejected']} shed={st['shed']}")
+            if "guard" in p:
+                gc = p["guard"]["counters"]
+                brs = ", ".join(f"{k}={b['state']}" for k, b in p["guard"]["breakers"].items())
+                line += (f" | guard: primary_ok={gc['primary_ok']} "
+                         f"fallbacks={gc['fallbacks']} breakers=[{brs or 'none yet'}]")
+            print(line)
+        for name in tnames:
+            th = health["tenants"][name]
+            print(f"health: tenant {name}: level={th['level_name']} "
+                  f"weight={th['weight']} tokens={th['tokens']}")
+        report["health"] = health
+    return report
+
+
 def quantize_app(args, go, dev, shape, rng):
     """Calibrate ``go`` on its f32 reference plan, run the ``quantize`` pass
     with the app's skip sets and print the ``quantize:`` line; returns the
@@ -182,7 +350,8 @@ def quantize_app(args, go, dev, shape, rng):
 
 def build_llm(args, dev: torch.device) -> dict:
     """``init_lm`` on ``dev`` from a generator seeded with ``args.seed``,
-    the optimized prefill / decode graphs and their plans."""
+    the optimized prefill / decode graphs and their plans (the ``guarded``
+    backend with ``args.guarded``, else ``kernel``)."""
     from ..core.graph import compile_plan
     from ..core.graph.passes import optimize
     from ..models.transformer import init_lm
@@ -192,7 +361,8 @@ def build_llm(args, dev: torch.device) -> dict:
     params = init_lm(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     graphs = {ph: optimize(build_decoder_graph(params, cfg, phase=ph))
               for ph in ("prefill", "decode")}
-    plans = {ph: compile_plan(g, backend="kernel", device=dev) for ph, g in graphs.items()}
+    backend = "guarded" if args.guarded else "kernel"
+    plans = {ph: compile_plan(g, backend=backend, device=dev) for ph, g in graphs.items()}
     return dict(cfg=cfg, params=params, graphs=graphs, plans=plans, device=dev)
 
 
@@ -298,7 +468,8 @@ def serve_llm(args) -> dict:
     llm = build_llm(args, dev)
     cfg, plans = llm["cfg"], llm["plans"]
     print(f"llm: {args.arch}{' (smoke)' if args.smoke else ''} {cfg.dtype}: "
-          f"backend=kernel device={dev} prefill_steps={len(plans['prefill'].steps)} "
+          f"backend={plans['decode'].backend} device={dev} "
+          f"prefill_steps={len(plans['prefill'].steps)} "
           f"decode_steps={len(plans['decode'].steps)}")
     prompts = llm_prompts(args, cfg)
     serve_llm_traffic(llm, prompts, args)  # warm-up: allocator, first launches
@@ -342,13 +513,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="llm: total pages in the paged KV-cache pool")
     ap.add_argument("--kv-page-size", type=int, default=16, help="llm: tokens per KV page")
     ap.add_argument("--max-queue", type=int, default=1024,
-                    help="llm: bounded admission queue (waiting + active sequences)")
+                    help="llm / async: bounded admission queue (per plan; llm: waiting + "
+                         "active sequences)")
+    ap.add_argument("--guarded", action="store_true",
+                    help="llm / async: serve guarded plans (per-step kernel -> plain-version "
+                         "demotion with circuit breakers and NaN/Inf guards)")
+    ap.add_argument("--async", dest="async_serve", action="store_true",
+                    help="one AsyncPlanServer hosts every demo app (or just --graph-app): a "
+                         "scheduler thread forms batches from the admission queues; "
+                         "per-request latency, deadline and tenant stats")
+    ap.add_argument("--flush-after", type=float, default=0.02,
+                    help="async: seconds the oldest queued request may wait for batch fill")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="async: per-request latency budget in seconds (late completions "
+                         "count as deadline misses)")
+    ap.add_argument("--overload", choices=["reject", "shed"], default="reject",
+                    help="async: backpressure policy when a queue is full")
+    ap.add_argument("--tenants", nargs="?", default=None, const="gold:3:200,free:1:50",
+                    help="async: serve traffic as tenants, comma-separated "
+                         "name[:weight[:rate[:burst]]] (weight = fair share of batch slots, "
+                         "rate/burst = token-bucket quota in req/s); bare --tenants is "
+                         "gold:3:200,free:1:50")
+    ap.add_argument("--watchdog", type=float, default=None,
+                    help="async: per-batch execution deadline in seconds; a batch that "
+                         "blows it fails only its own handles (WatchdogTimeout)")
 
     ap.add_argument("--size", type=int, default=64, help="frame height and width")
     ap.add_argument("--base", type=int, default=16, help="channel width of the app")
     ap.add_argument("--frames", type=int, default=3, help="frames to serve")
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="throughput mode: serve through PlanServer in batches of this size")
+                    help="throughput mode: serve through PlanServer in batches of this size "
+                         "(async: the plans' batch size, default 4)")
     ap.add_argument("--sparsity", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -363,8 +558,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.async_serve:
+        if args.llm:
+            ap.error("--async serves the demo apps; --llm has its own server")
+        return serve_async(args)
     if args.llm == (args.graph_app is not None):
-        ap.error("give exactly one of --graph-app and --llm")
+        ap.error("give exactly one of --graph-app and --llm (or --async)")
     return serve_llm(args) if args.llm else serve_graph_app(args)
 
 

@@ -214,11 +214,25 @@ def test_a_failing_plan_fails_its_sequences_and_frees_their_pages(lm):
 
 
 def test_frame_plans_wait_for_the_serving_slice(lm):
+    """Frame plans and LLMs share one server: a frame plan serves beside
+    the LLM, the two share one namespace, and add_llm still checks the
+    plans' inputs."""
+    from repro_torch.core.graph import GraphBuilder
+
+    b = GraphBuilder(["x"])
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 4)).astype(np.float32))
+    g = b.build(b.add("linear", "x", params={"w": w}))
+    plan = compile_plan(g, backend="kernel", device="cpu")
     server = AsyncPlanServer()
-    with pytest.raises(NotImplementedError):
-        server.add_plan("app", None, None, 4)
-    with pytest.raises(NotImplementedError):
-        server.submit("app", None)
+    server.add_plan("app", plan, g.params, 4)
+    x = torch.ones(4)
+    h = server.submit("app", x)
+    assert server.step(force=True) == 1
+    assert torch.equal(h.result(0), plan(g.params, x[None])[0])
+    with pytest.raises(ValueError, match="already registered"):
+        server.add_llm("app", prefill=lm["plans"]["prefill"], decode=lm["plans"]["decode"],
+                       cache=PagedKVCache(num_pages=1, page_size=1, n_layers=1,
+                                          n_kv_heads=1, head_dim=1))
     with pytest.raises(ValueError, match="expected prefill"):
         server.add_llm("lm", prefill=lm["plans"]["decode"], decode=lm["plans"]["decode"],
                        cache=PagedKVCache(num_pages=1, page_size=1, n_layers=1,
