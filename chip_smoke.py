@@ -26,7 +26,10 @@ Phases (each prints its own lines):
               permuted, one device kernel a call for f32 / W8, every tile
               and depth equal, ``F.conv2d`` (TF32 off) as the library;
               every GEMM shape the decoder plans launch, at decode and
-              prefill, with a sum of their device ms per plan call:
+              prefill, with a sum of their device ms per plan call (for
+              qwen2.5-3b, granite-3-2b and phi4-mini-3.8b: q, k/v, o, down,
+              gate/up and flash -- split-KV at decode for d64 H32/G8 and
+              d128 H24/G8, tensor cores at prefill S = 48):
               max error; device ms per call (profiler kernel time, or CUDA
               events where no profiler session saw device time) of the
               kernel, the plain version and the library call; the kernel's
@@ -59,6 +62,17 @@ Phases (each prints its own lines):
               against the quant reference plan; prints the error against the
               f32 plan, the weight bytes before and after, ms/frame beside
               the f32 plan's, and a profile line;
+5b. profile -- ``profile_plan`` on each app's f32 and INT8 plan (one
+              batch of 4): rows equal to the plan's steps, host ms and
+              device ms per plan call and the top 5 steps by each, and the
+              summed step device ms of one more profiled call within 0.8-1.2
+              of the card's time torch.profiler sees in it (its kernels and
+              the idle between consecutive kernels; the ratio to the
+              kernels alone is printed), no gap between two kernels of a
+              timed window above 50 us; a guarded plan reports no device
+              ms; ``launch/profile`` on super resolution; then ``serve
+              --async --metrics-dump`` through the CLI's ``main`` (snapshot
+              file and Chrome trace);
 6. serve async -- the frame side of ``AsyncPlanServer`` and the guarded
               backend, on phases 4-5's plans at full width, 24 frames an
               app to each of its plans: (1) zero faults, the f32 and INT8
@@ -109,14 +123,25 @@ Phases (each prints its own lines):
               ulps); each llm phase prints flash_attention's device ms a
               prefill and a decode plan call of its profiled run; phase 9
               also serves its graphs compiled ``guarded`` and ``reference``,
-              as phase 6 does the smoke decoder's;
+              as phase 6 does the smoke decoder's, and profiles one prefill
+              and one decode plan call as phase 5b does the apps';
 10. llm block-pruned -- phase 8's params pruned with the paper's attention
               recipe ``Block(0.5, 64, 64)`` on q / o and served again,
               the dense model released first: 72 ``bsr_matmul`` and 108
               bf16 ``dense_matmul`` launches per plan call, the packed q /
               o bytes at most half the dense ones, the plans' params and
               peak allocated below the dense ones, teacher-forced parity
-              against ``forward`` on the masked params.
+              against ``forward`` on the masked params;
+11. llm granite-3-2b, llm phi4-mini-3.8b -- phase 9 at full width in bf16
+              for the two other decoders (head dim 64 with 4 query heads a
+              KV group and tied embeddings; head dim 128 with 3 a group and
+              a 200064-word vocab), each model released before the next;
+              no guarded or pruned repeat (qwen2.5-3b covers those);
+12. serve forward -- the serve CLI's default path (``get_model`` +
+              ``Engine`` + ``--scheduler``) at its defaults on
+              phi4-mini-3.8b at full width: greedy parity of the generated
+              row and of every request the scheduler returns against the
+              plain ``forward``.
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -232,6 +257,8 @@ LLM_ARGS = dict(arch="qwen2.5-3b", batch=4, prompt_len=16, new_tokens=12, frames
 #: qwen2.5-3b's layers: each launches 5 bf16 dense_matmul (q, k, v, o, down)
 #: and one ffn_gateup per plan call
 LLM_LAYERS = 36
+#: the decoders served after qwen2.5-3b at full width (phases 11-12)
+NEW_DECODERS = ("granite-3-2b", "phi4-mini-3.8b")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -940,8 +967,9 @@ def phase_llm_kernels(torch, results):
     check(not unused, f"flash_attention: routes {unused} not launched by the kernel cases")
 
     #: device ms of the decoder's GEMM launches by phase and role, for the
-    #: per-plan-call sums below
+    #: per-plan-call sums below (qwen2.5-3b; per_arch: every decoder)
     per_call = {"prefill": {}, "decode": {}}
+    per_arch = {}
 
     # -- ffn_gateup ---------------------------------------------------------- #
     def ffn_case(label, m, k, f, dtype, act="silu", role=None):
@@ -1050,6 +1078,30 @@ def phase_llm_kernels(torch, results):
     dense_bf16_case("M=5 K=70 N=50 +add (ragged)", 5, 70, 50, add=True)
     # odd K and N: bf16 rows not 4-byte aligned, staged by element loads
     dense_bf16_case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, add=True, pipelined=True)
+    # granite-3-2b (head dim 64, 32 / 8 heads) and phi4-mini-3.8b (head dim
+    # 128, 24 / 8 heads: 3 query heads a KV group) at the rows they are
+    # served with: decode M = 3, prefill M = 48 (3 prompts padded to 16)
+    from repro_torch.configs import get_config
+
+    for arch in NEW_DECODERS:
+        c = get_config(arch)
+        d, dh, h, g, f = c.d_model, c.resolved_head_dim, c.n_heads, c.n_kv_heads, c.d_ff
+        tag = arch.split("-")[0]
+        t = per_arch[arch] = {"prefill": {}, "decode": {}}
+        flash_case(f"{tag} decode q bf16 kv f32 B3 H{h}/G{g} d{dh} span1024 +len", 3, h, g, 1,
+                   1024, dh, [1000, 517, 64], False, bf16, f32)
+        t["decode"]["flash"] = results["flash_attention"][-1]["ms"]
+        flash_case(f"{tag} prefill bf16 B3 H{h}/G{g} d{dh} S48 causal +len", 3, h, g, 48, 48, dh,
+                   [48, 33, 17], True, bf16, bf16)
+        t["prefill"]["flash"] = results["flash_attention"][-1]["ms"]
+        for phase, m in (("decode", 3), ("prefill", 48)):
+            for role, k, n, add in (("q", d, h * dh, False), ("kv", d, g * dh, False),
+                                    ("o", h * dh, d, True), ("down", f, d, True)):
+                dense_bf16_case(f"{tag} {role} {phase} M={m} {k}->{n}" + (" +add" if add else ""),
+                                m, k, n, bias=c.qkv_bias and not add, add=add)
+                t[phase][role] = results["dense_matmul_bf16"][-1]["ms"]
+            ffn_case(f"{tag} {phase} M={m} K={d} F={f} bf16 silu", m, d, f, bf16)
+            t[phase]["ffn"] = results["ffn_gateup"][-1]["ms"]
     # device ms of one plan call's GEMM launches: per layer q, k, v, o, down
     # (5 dense_matmul) and one ffn_gateup, over qwen2.5-3b's 36 layers
     # flash attention a plan call: the served prefill (S16 + lengths) and
@@ -1057,14 +1109,17 @@ def phase_llm_kernels(torch, results):
     t_flash = {r["label"]: r["ms"] for r in results["flash_attention"]}
     per_call["prefill"]["flash"] = t_flash["prefill bf16 B3 H16/G2 S16 causal +len"]
     per_call["decode"]["flash"] = t_flash["decode q bf16 kv f32 B3 H16/G2 span1024 +len"]
-    for phase, t in per_call.items():
-        dense = LLM_LAYERS * (t["q"] + 2 * t["kv"] + t["o"] + t["down"])
-        ffn = LLM_LAYERS * t["ffn"]
-        flash = LLM_LAYERS * t["flash"]
-        print(f"  per {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
-              f"dense_matmul_bf16 {5 * LLM_LAYERS} launches {dense:.3f} ms, ffn_gateup "
-              f"{LLM_LAYERS} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms; "
-              f"flash_attention {LLM_LAYERS} launches {flash:.3f} ms")
+    per_arch["qwen2.5-3b"] = per_call
+    for arch, calls in per_arch.items():
+        layers = get_config(arch).n_layers
+        for phase, t in calls.items():
+            dense = layers * (t["q"] + 2 * t["kv"] + t["o"] + t["down"])
+            ffn = layers * t["ffn"]
+            flash = layers * t["flash"]
+            print(f"  {arch} per {phase} plan call ({layers} layers, device ms x launches): "
+                  f"dense_matmul_bf16 {5 * layers} launches {dense:.3f} ms, ffn_gateup "
+                  f"{layers} launches {ffn:.3f} ms, together {dense + ffn:.3f} ms; "
+                  f"flash_attention {layers} launches {flash:.3f} ms")
     phase_bsr_kernels(torch, record, results)
     torch.cuda.synchronize()
     return results
@@ -1903,19 +1958,21 @@ def profile_serving(torch, app, serve, top_n=6):
     return dict(busy_us=busy, wall_us=wall_us, by=by)
 
 
-def phase_llm(torch, smoke: bool, block=None):
+def phase_llm(torch, smoke: bool, block=None, arch=LLM_ARGS["arch"]):
     """The port's ``serve --llm`` path on the card (``repro_torch.launch.
-    serve``'s functions, as the CLI runs them): qwen2.5-3b at full width in
+    serve``'s functions, as the CLI runs them): ``arch`` at full width in
     bf16, or its smoke config in f32; weights from a CUDA generator seeded
     with SEED.  With ``block`` (a ``Block`` structure) the same params then
     serve again block-pruned on every q / o projection (see
     :func:`block_pruned_llm`); the full-width pruned run prints its own
-    phase header.  Returns the launches of both runs, summed."""
+    phase header.  Full-width qwen2.5-3b also serves its plans guarded and
+    profiles one prefill and one decode plan call (:func:`profile_llm`).
+    Returns the launches of both runs, summed."""
     import argparse
 
     from repro_torch.launch import serve
 
-    args = argparse.Namespace(smoke=smoke, **LLM_ARGS)
+    args = argparse.Namespace(smoke=smoke, **{**LLM_ARGS, "arch": arch})
     dev = torch.device(args.device)
     t0 = time.perf_counter()
     llm = serve.build_llm(args, dev)
@@ -1928,8 +1985,11 @@ def phase_llm(torch, smoke: bool, block=None):
     dense = "dense_matmul" if smoke else "dense_matmul_bf16"
     launches, dense_peak = serve_llm_checked(torch, llm, args, smoke, cfg.name,
                                              {dense: 5 * cfg.n_layers})
-    if not smoke:  # the smoke decoder runs guarded in the serve async phase
+    if not smoke and arch == LLM_ARGS["arch"]:
+        # the smoke decoder runs guarded in the serve async phase; the other
+        # full-width decoders leave the guarded repeat to qwen2.5-3b
         guarded_decode(torch, llm, args, cfg.name)
+        profile_llm(torch, llm, args)
     if block is not None:
         if not smoke:
             print(f"== llm block-pruned ({cfg.name}, full width, bf16)")
@@ -2156,7 +2216,11 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
           f"(memory_estimate, prefill of {len(prompts)}x{s_max}: params "
           f"{est['param_bytes'] / 1e9:.3f}GB + activations "
           f"{est['peak_activation_bytes'] / 1e9:.3f}GB = {est['peak_total_bytes'] / 1e9:.3f}GB)")
-    check(peak >= est["param_bytes"], f"{label}: peak {peak} B below the params' bytes")
+    # the params the card holds, a tensor counted once: memory_estimate
+    # counts every leaf, so a tied embedding (granite: the embed table and
+    # the unembed's transposed view of it) twice
+    resident = plan_param_bytes(plans["prefill"])
+    check(peak >= resident, f"{label}: peak {peak} B below the params' {resident} B")
     flash_per_call(torch, llm, prompts, args, label, n_layers)
     if llm.pop("params_on_host", False):  # the parity tree back on the card
         llm["params"] = _to_device(llm["params"], dev)
@@ -2239,6 +2303,192 @@ def flash_per_call(torch, llm, prompts, args, label, n_layers):
           f"{gemm / calls:.3f} ms a plan call of either phase")
 
 
+#: the device / profiler ratio every non-guarded profile must keep: summed
+#: step device ms (CUDA events between steps) over the time torch.profiler
+#: sees the card spend on the same plan call -- its kernels and the idle
+#: between consecutive kernels inside each sleep-bounded window
+PROFILE_RATIO = (0.8, 1.2)
+#: the longest the card may sit idle between two consecutive kernels of a
+#: timed window.  ``profile_plan``'s window check already rules out a wait
+#: on the host; this catches one it would miss, which would show as a gap
+#: of a step's host time (tens to hundreds of us)
+PROFILE_MAX_GAP_US = 50.0
+
+
+def _top(steps, key, n=5) -> str:
+    rows = sorted(steps, key=lambda st: -getattr(st, key))[:n]
+    return ", ".join(f"{st.name}({st.op})={getattr(st, key):.4f}" for st in rows)
+
+
+def profile_checked(torch, label, plan, params, *inputs):
+    """``profile_plan`` on ``plan`` (3 traced runs after a warm-up): rows
+    equal to the plan's steps, host and device ms per plan call, the top 5
+    steps by each; then one more profiled call under torch.profiler.  Its
+    kernels after the call's first sleep (``spin_kernel``), window by
+    window, give the card's kernel time (busy), the idle between
+    consecutive kernels and the longest such gap: the summed step device ms
+    is held to busy + idle (``PROFILE_RATIO``), the longest gap to
+    ``PROFILE_MAX_GAP_US`` (no wait on the host inside a window), and the
+    ratio to busy alone is printed with the kernel count.  A guarded plan
+    must report no device ms (its per-step host sync).  Returns the profile
+    and the ratio (None for a guarded plan)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import profile_plan
+
+    pp = profile_plan(plan, params, *inputs, runs=3, warmup=1)
+    check([st.name for st in pp.steps] == [st.node.name for st in plan.steps],
+          f"profile {label}: {len(pp.steps)} rows for {len(plan.steps)} steps")
+    if plan.backend == "guarded":
+        check(pp.total_device_ms is None and all(st.device_ms is None for st in pp.steps)
+              and pp.device_note, f"profile {label}: a guarded plan reported device ms")
+        print(f"    profile {label}: {len(pp.steps)} rows = steps; host {pp.total_ms:.3f} ms a "
+              f"plan call; device n/a ({pp.device_note}); top host: {_top(pp.steps, 'ms')}")
+        return pp, None
+    check(pp.total_device_ms is not None and pp.total_device_ms > 0,
+          f"profile {label}: no device time")
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = idle = max_gap = 0.0
+    n_kernels = 0
+    for _ in range(PROFILE_ATTEMPTS):  # a session may see no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one = profile_plan(plan, params, *inputs, runs=1, warmup=1)
+        kernels = sorted((e.time_range.start, e.time_range.end, "spin_kernel" in e.name)
+                         for e in prof.events() if e.device_type == cuda)
+        spins = [i for i, k in enumerate(kernels) if k[2]]
+        if len(spins) < one.device_windows:
+            continue
+        # the timed call's windows: the kernels between one sleep and the next
+        bounds = spins[len(spins) - one.device_windows:] + [len(kernels)]
+        busy = idle = max_gap = 0.0
+        n_kernels = 0
+        for lo, hi in zip(bounds, bounds[1:]):
+            window = kernels[lo + 1:hi]
+            n_kernels += len(window)
+            busy += sum(end - start for start, end, _ in window)
+            gaps = [max(0.0, b[0] - a[1]) for a, b in zip(window, window[1:])]
+            idle += sum(gaps)
+            max_gap = max([max_gap] + gaps)
+        if busy > 0:
+            break
+    check(busy > 0, f"profile {label}: the profiler saw no device time")
+    seen_ms = (busy + idle) / 1e3
+    ratio = one.total_device_ms / seen_ms
+    print(f"    profile {label}: {len(pp.steps)} rows = steps; per plan call host "
+          f"{pp.total_ms:.3f} ms, device {pp.total_device_ms:.3f} ms (median of 3 runs, "
+          f"{pp.device_windows} window(s)); profiled call: step device ms "
+          f"{one.total_device_ms:.3f} / profiler {seen_ms:.3f} ms (busy {busy / 1e3:.3f} + idle "
+          f"between kernels {idle / 1e3:.3f}, {n_kernels} kernels, longest gap "
+          f"{max_gap:.1f} us) = {ratio:.3f}; / busy alone = "
+          f"{one.total_device_ms / (busy / 1e3):.3f}")
+    print(f"      top host: {_top(pp.steps, 'ms')}")
+    print(f"      top device: {_top(pp.steps, 'device_ms')}")
+    check(PROFILE_RATIO[0] <= ratio <= PROFILE_RATIO[1],
+          f"profile {label}: step device ms / profiler device time = {ratio} outside "
+          f"{PROFILE_RATIO}")
+    check(max_gap <= PROFILE_MAX_GAP_US,
+          f"profile {label}: the card sat idle {max_gap} us between two kernels of a timed "
+          f"window (waiting on the host?)")
+    return pp, ratio
+
+
+def phase_profile(torch, apps):
+    """``profile_plan`` on each app's f32 and INT8 plan (batch 4, 256x256)
+    and on one guarded plan; ``launch/profile`` on super resolution; then
+    ``serve --async --metrics-dump`` through the CLI's ``main``: the
+    snapshot file and its Chrome trace.  Returns the launches."""
+    from repro_torch.core.graph import compile_plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile as profile_cli
+    from repro_torch.launch import serve
+
+    ops.reset_kernel_launches()
+    for app, a in apps.items():
+        x = a["frames"][:BATCH]
+        profile_checked(torch, f"{app} f32", a["plan"], a["go"].params, x)
+        profile_checked(torch, f"{app} int8", a["int8_plan"], a["gq"].params, x)
+    guarded = compile_plan(apps["coloring"]["go"], backend="guarded", device="cuda")
+    profile_checked(torch, "coloring f32 guarded", guarded, apps["coloring"]["go"].params,
+                    apps["coloring"]["frames"][:BATCH])
+    # the profile CLI on the card: the device columns filled
+    out = ROOT / "build" / "chip_metrics" / "profile.json"
+    prof = profile_cli.main(["--graph-app", "super_resolution", "--size", str(SIZE), "--base",
+                             str(BASE), "--batch", str(BATCH), "--top", "5", "--json-out",
+                             str(out)])
+    doc = json.loads(out.read_text())
+    check(doc["total_device_ms"] and all(st["device_ms"] is not None for st in doc["steps"])
+          and len(doc["steps"]) == len(prof.steps) == EXPECTED["super_resolution"][0],
+          f"profile CLI: {len(doc['steps'])} rows, device {doc['total_device_ms']}")
+    launches = main_path_launches(ops)
+
+    path = ROOT / "build" / "chip_metrics" / "metrics.json"
+    for f in (path, Path(str(path) + ".trace.json")):
+        f.unlink(missing_ok=True)
+    serve.main(["--async", "--graph-app", "coloring", "--size", str(SIZE), "--base", str(BASE),
+                "--frames", "16", "--metrics-dump", str(path), "--metrics-interval", "0.05"])
+    snap = json.loads(path.read_text())
+    doc = json.loads(Path(str(path) + ".trace.json").read_text())
+    last = snap["snapshots"][-1]["metrics"]
+    done = sum(x["value"] for x in last["serving_events_total"]["samples"]
+               if x["labels"].get("event") == "completed")
+    batches = [e for e in doc["traceEvents"] if e.get("name") == "batch" and e["ph"] == "B"]
+    requests = [e for e in doc["traceEvents"] if e.get("name") == "request" and e["ph"] == "e"]
+    check(len(snap["snapshots"]) >= 1 and done >= 16 and batches and len(requests) >= 16,
+          f"metrics dump: {len(snap['snapshots'])} snapshots, {done} completed, "
+          f"{len(batches)} batch spans, {len(requests)} ended requests")
+    print(f"    metrics dump: {len(snap['snapshots'])} snapshots ({done:.0f} completed requests "
+          f"in the last), trace {len(doc['traceEvents'])} events ({len(batches)} batch spans, "
+          f"{len(requests)} requests ended) -> {path.relative_to(ROOT)}(.trace.json)")
+    return launches
+
+
+def profile_llm(torch, llm, args):
+    """``profile_checked`` on one prefill plan call (the served prompts,
+    padded) and one decode plan call (a 2-page span) of the decoder."""
+    from repro_torch.launch import serve
+
+    cfg, plans, dev = llm["cfg"], llm["plans"], llm["device"]
+    prompts = serve.llm_prompts(args, cfg)
+    b, s = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros(b, s, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.from_numpy(p)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    positions = torch.arange(s, dtype=torch.int32).expand(b, s).contiguous()
+    print(f"  profile ({cfg.name}, prefill {b}x{s}, decode {b} rows over a "
+          f"{2 * args.kv_page_size}-slot span)")
+    with torch.no_grad():
+        profile_checked(torch, f"{cfg.name} prefill", plans["prefill"],
+                        plans["prefill"].graph.params, tokens, positions, lengths)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        span = 2 * args.kv_page_size
+        shape = (b, cfg.n_layers, span, cfg.n_kv_heads, cfg.resolved_head_dim)
+        k_ctx = torch.randn(shape, generator=gen, device=dev) * 0.5
+        v_ctx = torch.randn(shape, generator=gen, device=dev) * 0.5
+        profile_checked(torch, f"{cfg.name} decode", plans["decode"],
+                        plans["decode"].graph.params, tokens[:, :1], lengths[:, None],
+                        k_ctx, v_ctx, lengths)
+        del k_ctx, v_ctx
+
+
+def phase_serve_forward(torch):
+    """The CLI's default path (``get_model`` + ``Engine`` + ``--scheduler``)
+    at its defaults on phi4-mini-3.8b at full width: every returned row
+    passes the greedy-parity probe inside ``serve_forward``."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    report = serve.main(["--arch", "phi4-mini-3.8b", "--scheduler", "--device", "cuda"])
+    toks = report["tokens"]
+    check(toks.shape == (4, 12) and all(r.done for r in report["scheduler"]),
+          f"serve forward: tokens {toks.shape}, scheduler {report['scheduler']}")
+    print(f"  serve forward: {report['tok_per_s']:.1f} tok/s in Engine.generate, "
+          f"{len(report['scheduler'])} scheduler requests returned done, "
+          f"{time.perf_counter() - t0:.1f}s in all (init included); "
+          f"peak_alloc={torch.cuda.max_memory_allocated() / 1e9:.3f}GB")
+    torch.cuda.empty_cache()
+
+
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
     tensor on ``dev``."""
@@ -2275,35 +2525,50 @@ def main() -> int:
     cache.path = None
     cache.ops_filter = None
 
-    print("== device")
+    t0 = time.perf_counter()
+
+    def header(text):
+        print(f"{text}  [{time.perf_counter() - t0:.0f} s]", flush=True)
+
+    header("== device")
     phase_device(torch)
-    print("== build")
+    header("== build")
     phase_build()
-    print("== kernels")
+    header("== kernels")
     results = phase_kernels(torch)
     phase_llm_kernels(torch, results)
-    print(f"== apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
+    header(f"== apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
     launches, apps = phase_apps(torch, np)
-    print(f"== int8 apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
+    header(f"== int8 apps (base={BASE}, {FRAMES} frames of {SIZE}x{SIZE}, batch {BATCH})")
     int8_launches = phase_int8(torch, np, apps)
     for name, n in int8_launches.items():
         launches[name] += n
-    print(f"== serve async (base={BASE}, {SIZE}x{SIZE}, batch {BATCH}, f32 + INT8 plans)")
+    header(f"== profile (base={BASE}, {SIZE}x{SIZE}, batch {BATCH}, f32 + INT8 plans)")
+    for name, n in phase_profile(torch, apps).items():
+        launches[name] += n
+    header(f"== serve async (base={BASE}, {SIZE}x{SIZE}, batch {BATCH}, f32 + INT8 plans)")
     for name, n in phase_serve_async(torch, np, apps).items():
         launches[name] += n
-    print(f"== tune (base {BASE}, {SIZE}x{SIZE}, batch {BATCH})")
+    header(f"== tune (base {BASE}, {SIZE}x{SIZE}, batch {BATCH})")
     for name, n in phase_tune(torch, apps).items():
         launches[name] += n
     del apps
     from repro_torch.core.pruning import Block
 
-    print("== llm smoke (f32)")
+    header("== llm smoke (f32)")
     for name, n in phase_llm(torch, True, Block(0.5, bm=32, bn=32, balanced=False)).items():
         launches[name] += n
-    print("== llm (qwen2.5-3b, full width, bf16)")
+    header("== llm (qwen2.5-3b, full width, bf16)")
     # the paper's attention recipe (the JAX package's launch/train.py:47-48)
     for name, n in phase_llm(torch, False, Block(0.5, bm=64, bn=64)).items():
         launches[name] += n
+    for arch in NEW_DECODERS:
+        header(f"== llm ({arch}, full width, bf16)")
+        for name, n in phase_llm(torch, False, arch=arch).items():
+            launches[name] += n
+    header("== serve forward (phi4-mini-3.8b, full width, bf16)")
+    torch.cuda.reset_peak_memory_stats()
+    phase_serve_forward(torch)
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     line = {"kernels": []}

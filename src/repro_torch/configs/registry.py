@@ -2,10 +2,12 @@
 (the ``get_config`` / ``smoke_config`` / ``ARCH_IDS`` part of
 ``repro.configs.registry``).
 
-The port lists the architectures whose model path it runs: qwen2.5-3b, the
-dense GQA decoder of the plan-compiled decode path.  The JAX package's other
-architectures (MoE, MLA, SSM, hybrid, VLM, enc-dec) come with a later slice;
-``get_config`` names them in its error.
+The port lists the architectures whose model path it runs: the dense GQA
+decoders qwen2.5-3b, granite-3-2b (head dim 64, tied embeddings) and
+phi4-mini-3.8b (head dim 128, 3 query heads a KV group, a 200064-word
+vocab).  The JAX package's other architectures (qk_norm, MoE, MLA, SSM,
+hybrid, VLM, enc-dec) come with a later slice; ``get_config`` names them in
+its error.
 """
 
 from __future__ import annotations
@@ -16,15 +18,17 @@ from typing import Dict, List
 
 from .base import ArchConfig
 
-ARCH_IDS: List[str] = ["qwen2.5-3b"]
+ARCH_IDS: List[str] = ["qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b"]
 
-_MODULES = {"qwen2.5-3b": "qwen2_5_3b"}
+_MODULES = {
+    "qwen2.5-3b": "qwen2_5_3b",
+    "granite-3-2b": "granite_3_2b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+}
 
 #: architectures of the JAX package whose model families are not ported yet
 NOT_PORTED = (
     "qwen3-14b",
-    "granite-3-2b",
-    "phi4-mini-3.8b",
     "deepseek-v2-lite-16b",
     "deepseek-v2-236b",
     "paligemma-3b",

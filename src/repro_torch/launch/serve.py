@@ -1,5 +1,5 @@
 """Serve one of the paper's demo apps, or a decoder LM, through the port's
-plan compiler.
+plan compiler -- or a decoder LM through the forward-based ``Engine``.
 
     python -m repro_torch.launch.serve --graph-app super_resolution \\
         --size 256 --base 32 --frames 10 --batch-size 4
@@ -7,6 +7,9 @@ plan compiler.
     python -m repro_torch.launch.serve --llm --smoke --device cpu
     python -m repro_torch.launch.serve --async --tenants --guarded \\
         --watchdog 0.5 --graph-app coloring --size 256 --base 32 --frames 24
+    python -m repro_torch.launch.serve --arch phi4-mini-3.8b --scheduler
+    python -m repro_torch.launch.serve --arch granite-3-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --async --frames 8 --metrics-dump build/m.json
 
 Builds the app (weights from ``--seed``), prunes it with the paper's recipe
 (``app_masks``), compiles it with ``PassManager`` + ``compile_plan``
@@ -63,6 +66,26 @@ and demotes a failure to the plain version on the same device), for
 ``--async`` and for ``--llm``; ``--watchdog`` fails a batch that runs
 longer than that many seconds (``WatchdogTimeout``) and keeps serving.
 
+With neither ``--llm``, ``--graph-app`` nor ``--async`` (the JAX CLI's
+default path), ``--arch`` (``--smoke``: its reduced f32 config) is built
+through ``get_model`` from a generator seeded with ``--seed`` on the device
+and served by ``Engine``: ``--batch`` random prompts of ``--prompt-len``
+tokens (numpy seed ``--seed``, drawn as the JAX CLI draws them),
+``--new-tokens`` greedy tokens each, caches of ``--max-len`` slots; it
+prints the tokens per second and the first row, and probes greedy parity
+of that row against the plain ``forward`` (the ``--llm`` rule).  With
+``--scheduler`` a ``RequestScheduler`` then serves ``2 x --batch``
+requests of random length over the ``--batch`` slots (continuous
+batching) and every request it returns passes the same probe.  This path
+runs plain torch, as the JAX package's does (``layers.linear`` without
+Pallas); the kernels serve through ``--llm``.
+
+``--metrics-dump PATH`` (with ``--async``, ``--llm`` or ``--graph-app``)
+arms tracing for the run, snapshots the metrics registry every
+``--metrics-interval`` seconds on a daemon thread, and at the end writes
+the snapshots (and a final one) to ``PATH`` and the run's Chrome trace to
+``PATH.trace.json``.
+
 ``--device`` defaults to ``cuda`` (raises without a GPU); ``--device cpu``
 runs the kernels' plain PyTorch versions.  Unlike the JAX package's CLI,
 ``--frames`` counts frames (``--llm``: prompts), not batches.
@@ -71,7 +94,9 @@ runs the kernels' plain PyTorch versions.  Unlike the JAX package's CLI,
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
+import threading
 import time
 
 import numpy as np
@@ -84,9 +109,10 @@ from ..kernels.ref import bf16_ulp
 from ..models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP, APPS, app_masks
 from ..quant import calibrate_plan
 from ..serving.engine import PlanServer
+from ..utils.fileio import atomic_write_json
 
-__all__ = ["main", "serve_graph_app", "serve_async", "serve_llm", "build_llm",
-           "serve_llm_traffic", "greedy_parity", "llm_prompts"]
+__all__ = ["main", "serve_graph_app", "serve_async", "serve_llm", "serve_forward",
+           "build_llm", "serve_llm_traffic", "greedy_parity", "llm_prompts"]
 
 #: the bf16 near-tie threshold of the greedy-parity probe, in bf16 ulps of
 #: the largest logit (see the module doc)
@@ -96,6 +122,51 @@ PARITY_BF16_ULPS = 8
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _MetricsDump:
+    """``--metrics-dump`` session: arms tracing for the duration, snapshots
+    the metrics registry every ``interval`` seconds on a daemon thread, and
+    on exit writes the snapshot series (plus a final one) to ``path`` and
+    the session's Chrome trace next to it (``<path>.trace.json``)."""
+
+    def __init__(self, path: str, interval: float):
+        self.path = path
+        self.interval = interval
+        self._snaps: list = []
+        self._stop = threading.Event()
+        self._thread = None
+
+    def _loop(self) -> None:
+        from ..obs import metrics
+
+        while not self._stop.wait(self.interval):
+            self._snaps.append({"t": time.time(), "metrics": metrics.registry().snapshot()})
+
+    def __enter__(self) -> "_MetricsDump":
+        from ..obs import trace
+
+        trace.start_tracing()
+        self._thread = threading.Thread(target=self._loop, name="metrics-dump", daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        from ..obs import metrics, trace
+
+        self._stop.set()
+        self._thread.join()
+        self._snaps.append({"t": time.time(), "metrics": metrics.registry().snapshot()})
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
+        # crash-safe (utils.fileio): a killed server never leaves a truncated
+        # snapshot JSON
+        atomic_write_json(self.path, {"interval_s": self.interval, "snapshots": self._snaps},
+                          indent=1, prefix=".metrics-")
+        buf = trace.stop_tracing()
+        trace_path = buf.save(self.path + ".trace.json")
+        print(f"metrics: {len(self._snaps)} snapshots -> {os.path.abspath(self.path)}")
+        print(f"trace: {len(buf.events)} events -> {trace_path} "
+              f"(load in Perfetto / chrome://tracing)")
 
 
 def serve_graph_app(args) -> dict:
@@ -458,6 +529,16 @@ def greedy_parity(llm: dict, prompt, got) -> dict:
                 max_forced_gap=max(gaps) if gaps else 0.0)
 
 
+def parity_text(par: dict) -> str:
+    """The line a passed :func:`greedy_parity` prints."""
+    how = "every token" if par["near_tie"] is None else (
+        f"up to a near-tie at step {par['compared']} (margin {par['near_tie'][0]:.4f} < "
+        f"{par['near_tie'][1]:.4f})")
+    return (f"greedy parity ok ({par['compared']}/{par['total']} tokens match the plain "
+            f"forward loop, {how}; exact={par['exact']}; teacher-forced: every served token "
+            f"within {par['max_forced_gap']:.4f} of forward's best logit)")
+
+
 def serve_llm(args) -> dict:
     """The ``--llm`` path: build, serve once to warm up, serve the timed run,
     probe greedy parity; returns the numbers it prints."""
@@ -485,15 +566,56 @@ def serve_llm(args) -> dict:
           f"peak_used={occ['peak_used']} leaked={occ['used_pages']}")
     got = [int(t) for t in run["handles"][0].result()]
     par = greedy_parity(llm, prompts[0], got)
-    how = "every token" if par["near_tie"] is None else (
-        f"up to a near-tie at step {par['compared']} (margin {par['near_tie'][0]:.4f} < "
-        f"{par['near_tie'][1]:.4f})")
-    print(f"llm: greedy parity ok ({par['compared']}/{par['total']} tokens match the plain "
-          f"forward loop, {how}; exact={par['exact']}; teacher-forced: every served token "
-          f"within {par['max_forced_gap']:.4f} of forward's best logit)")
+    print(f"llm: {parity_text(par)}")
     return dict(tokens=toks, seconds=dt, tok_per_s=toks / dt, ms_per_decode_step=ms_decode,
                 stats=st, occupancy=occ, parity=par, steps={ph: len(p.steps) for ph, p in
                                                              plans.items()})
+
+
+def serve_forward(args) -> dict:
+    """The default path: ``get_model`` + ``Engine`` (+ ``RequestScheduler``
+    with ``--scheduler``), as the JAX CLI's; returns the numbers it
+    prints."""
+    from ..models import get_model
+    from ..serving.engine import Engine, Request, RequestScheduler
+
+    dev = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = get_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    engine = Engine(model, params, batch_size=args.batch, max_len=args.max_len)
+    llm = dict(cfg=cfg, params=params, device=dev)  # what greedy_parity reads
+    print(f"forward: {args.arch}{' (smoke)' if args.smoke else ''} {cfg.dtype} device={dev} "
+          f"batch={args.batch} max_len={args.max_len}")
+
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    t0 = time.perf_counter()
+    result = engine.generate(torch.from_numpy(prompts), args.new_tokens)
+    dt = time.perf_counter() - t0  # generate returns host arrays: the card is done
+    n_tok = args.batch * args.new_tokens
+    print(f"generated {result.tokens.shape} in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
+    print("first row:", result.tokens[0].tolist())
+    par = greedy_parity(llm, prompts[0], [int(t) for t in result.tokens[0]])
+    print(f"forward: {parity_text(par)}")
+    report = dict(tokens=result.tokens, seconds=dt, tok_per_s=n_tok / dt, parity=par)
+
+    if args.scheduler:
+        sched = RequestScheduler(engine)
+        for rid in range(args.batch * 2):  # 2x oversubscribed queue
+            plen = int(rng.integers(4, args.prompt_len))
+            sched.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
+                                 max_new=int(rng.integers(3, args.new_tokens))))
+        t0 = time.perf_counter()
+        done = sched.run()
+        dt = time.perf_counter() - t0
+        for req in done:
+            greedy_parity(llm, req.prompt, req.generated)
+        print(f"scheduler: completed {sum(r.done for r in done)} requests "
+              f"(continuous batching over {args.batch} slots) in {dt:.2f}s; greedy parity ok "
+              f"for the {len(done)} requests still in their slots")
+        report["scheduler"] = done
+    return report
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -509,6 +631,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="llm: sequences decoding together (AsyncPlanServer max_batch)")
     ap.add_argument("--prompt-len", type=int, default=16, help="llm: longest random prompt")
     ap.add_argument("--new-tokens", type=int, default=12, help="llm: tokens per sequence")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="default path: KV-cache slots a row of the Engine")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="default path: continuous batching demo (RequestScheduler over "
+                         "2 x --batch requests)")
     ap.add_argument("--kv-pages", type=int, default=64,
                     help="llm: total pages in the paged KV-cache pool")
     ap.add_argument("--kv-page-size", type=int, default=16, help="llm: tokens per KV page")
@@ -552,19 +679,36 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve the INT8 plan (calibrate, quantize, quant backend)")
     ap.add_argument("--calib-batches", type=int, default=2,
                     help="random batches to calibrate activation ranges on (--quantize)")
+    ap.add_argument("--metrics-dump", default=None,
+                    help="write periodic metrics-registry snapshots to this JSON path and the "
+                         "run's Chrome trace to <path>.trace.json (tracing is armed for the "
+                         "run; --async, --llm and --graph-app)")
+    ap.add_argument("--metrics-interval", type=float, default=0.5,
+                    help="seconds between --metrics-dump registry snapshots")
     return ap
+
+
+def _serve(args) -> dict:
+    if args.async_serve:
+        return serve_async(args)
+    if args.llm:
+        return serve_llm(args)
+    if args.graph_app:
+        return serve_graph_app(args)
+    return serve_forward(args)
 
 
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.async_serve:
-        if args.llm:
-            ap.error("--async serves the demo apps; --llm has its own server")
-        return serve_async(args)
-    if args.llm == (args.graph_app is not None):
-        ap.error("give exactly one of --graph-app and --llm (or --async)")
-    return serve_llm(args) if args.llm else serve_graph_app(args)
+    if args.async_serve and args.llm:
+        ap.error("--async serves the demo apps; --llm has its own server")
+    if args.llm and args.graph_app is not None:
+        ap.error("give at most one of --graph-app and --llm (or --async)")
+    if args.metrics_dump and (args.async_serve or args.graph_app or args.llm):
+        with _MetricsDump(args.metrics_dump, args.metrics_interval):
+            return _serve(args)
+    return _serve(args)
 
 
 if __name__ == "__main__":

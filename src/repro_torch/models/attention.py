@@ -35,6 +35,7 @@ __all__ = [
     "gqa_project_qkv",
     "gqa_attention",
     "gqa_prefill",
+    "init_kv_cache",
     "gqa_decode_step",
 ]
 
@@ -155,6 +156,25 @@ def gqa_prefill(
     cache = {"k": kc, "v": vc,
              "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
     return y, cache
+
+
+def init_kv_cache(
+    cfg: ArchConfig, batch: int, max_len: int, *, window: Optional[int] = None,
+    dtype=torch.bfloat16, device=None,
+) -> Params:
+    """An empty KV cache of ``max_len`` slots a row, every row at position
+    0.  ``pos`` is PER ROW, as in the JAX package: each slot of a
+    continuous-batching batch advances on its own."""
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window (ring-buffer) KV caches come with the hybrid archs (ROADMAP A7)")
+    dh = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.n_kv_heads, dh)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
 
 
 def gqa_decode_step(

@@ -42,6 +42,8 @@ def mlp(
     mode: str = "dense",
     fused: bool = False,
 ) -> torch.Tensor:
+    # ``fused`` defaults to False as in the JAX package's ``ffn.mlp``: the
+    # forward-based path runs plain torch there and here (parity)
     if fused and mode in ("dense", "masked") and "w" in p["w_gate"]:
         wg, wu = p["w_gate"]["w"], p["w_up"]["w"]
         if mode == "masked":

@@ -77,6 +77,10 @@ def linear(
         w = p["w"]
         if mode == "masked":
             w = w * p["mask"].to(w.dtype)
+        # plain torch by design, not a fallback: the JAX package's
+        # ``layers.linear`` defaults ``use_pallas`` to False, so its
+        # forward-based path (``get_model`` / ``Engine``) is plain ``x @ w``
+        # too; the plan compiler's linear nodes are what run the kernel
         y = x @ w
     elif mode == "bsr":
         return kops.bsr_matmul(

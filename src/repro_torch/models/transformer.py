@@ -1,6 +1,7 @@
 """Decoder-only LM of the dense family (a port of ``repro.models.transformer``
 for attention blocks): ``block_kinds``, ``init_layer``, ``init_lm``,
-``forward`` and ``_unembed``.
+``forward``, ``_unembed`` and the serving trio ``prefill`` / ``init_cache``
+/ ``decode_step`` (one KV cache a layer, ``pos`` per row).
 
 Every layer is a pre-norm GQA attention block and a pre-norm gated MLP.
 ``forward`` runs whole sequences with plain torch ops (no remat, no scan,
@@ -27,7 +28,8 @@ from . import attention as attn_mod
 from . import ffn as ffn_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
 
-__all__ = ["block_kinds", "init_layer", "init_lm", "forward"]
+__all__ = ["block_kinds", "init_layer", "init_lm", "forward", "prefill", "init_cache",
+           "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -113,3 +115,61 @@ def _unembed(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         logits = torch.where(pad, logits, torch.full((), -1e30, dtype=logits.dtype,
                                                      device=x.device))
     return logits
+
+
+# --------------------------------------------------------------------------- #
+# serving: prefill (forward + populated caches), empty caches, one decode step #
+# --------------------------------------------------------------------------- #
+
+
+def prefill(
+    params: Params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int
+) -> Tuple[torch.Tensor, List[Params]]:
+    """Returns ``(logits [B, S, V_pad], caches)``: one KV cache of
+    ``max_len`` slots a layer, every row positioned at ``S``."""
+    _check_ported(cfg)
+    x = embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    caches: List[Params] = []
+    for p in params["layers"]:
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        mixed, cache = attn_mod.gqa_prefill(p["attn"], cfg, h, positions, max_len)
+        x = x + mixed
+        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation)
+        caches.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x), caches
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> List[Params]:
+    """Empty per-layer KV caches (``attention.init_kv_cache``)."""
+    _check_ported(cfg)
+    return [attn_mod.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+            for _ in block_kinds(cfg)]
+
+
+def decode_step(
+    params: Params,
+    cfg: ArchConfig,
+    tokens_t: torch.Tensor,  # [B, 1] int
+    caches: List[Params],
+    *,
+    mode: str = "dense",
+) -> Tuple[torch.Tensor, List[Params]]:
+    """One token for the whole stack.  Returns ``(logits [B, 1, V_pad],
+    caches)``: new cache tensors, the inputs are not modified."""
+    _check_ported(cfg)
+    x = embed(params["embed"], tokens_t)
+    new_caches: List[Params] = []
+    for p, cache in zip(params["layers"], caches):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        mixed, cache = attn_mod.gqa_decode_step(p["attn"], cfg, h, cache, mode=mode)
+        x = x + mixed
+        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        x = x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation, mode=mode)
+        new_caches.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x), new_caches

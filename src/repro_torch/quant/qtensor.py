@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 __all__ = ["QTensor", "quantize_array", "fake_quant", "scale_tensor", "QMAX"]
@@ -56,7 +57,11 @@ def scale_tensor(
     """``scale`` as a float32 tensor on ``x``'s device, shaped to broadcast
     against ``x`` (along ``axis`` for a per-channel vector, ``(1,)`` for a
     scalar): a Python float rounds to f32 as ``jnp.float32`` does, and
-    dividing by the result is a true division on every device."""
+    dividing by the result is a true division on every device.  A Python
+    scalar is filled on the device (``torch.full``): copying a host tensor
+    there would be a blocking copy, a host sync at every W8A8 step."""
+    if isinstance(scale, (float, int, np.floating, np.integer)):
+        return torch.full((1,), float(scale), dtype=torch.float32, device=x.device)
     s = torch.as_tensor(scale, dtype=torch.float32).to(x.device)
     if axis is not None and s.dim() == 1:
         shape = [1] * x.dim()

@@ -1,10 +1,10 @@
-"""Serving for the port: the plan server (``PlanServer``), the paged
-KV-cache, ``AsyncPlanServer`` (frame plans with tenants, hot swap and the
-watchdog; prefill / decode plan pairs through ``submit_llm``), tenancy and
-rollout -- what ``repro.serving`` exports, the LM ``Engine`` /
-``RequestScheduler`` aside."""
+"""Serving for the port -- what ``repro.serving`` exports: the LM ``Engine``
+and its slot-based ``RequestScheduler``, the plan server (``PlanServer``),
+the paged KV-cache, ``AsyncPlanServer`` (frame plans with tenants, hot swap
+and the watchdog; prefill / decode plan pairs through ``submit_llm``),
+tenancy and rollout."""
 
-from .engine import PlanServer
+from .engine import Engine, GenerationResult, PlanServer, Request, RequestScheduler
 from .kvcache import CacheFullError, PagedKVCache
 from .rollout import PlanVersion, SwapError
 from .scheduler import (
@@ -31,7 +31,9 @@ __all__ = [
     "AsyncPlanServer",
     "CacheFullError",
     "DeficitRoundRobin",
+    "Engine",
     "FrameSpecError",
+    "GenerationResult",
     "LADDER_LEVELS",
     "LadderConfig",
     "LadderShedError",
@@ -40,7 +42,9 @@ __all__ = [
     "PlanVersion",
     "QueueFullError",
     "QuotaExceededError",
+    "Request",
     "RequestHandle",
+    "RequestScheduler",
     "SequenceHandle",
     "SwapError",
     "Tenant",

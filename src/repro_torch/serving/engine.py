@@ -1,21 +1,103 @@
-"""Plan serving: :class:`PlanServer` (a port of ``repro.serving.engine``'s
-``PlanServer``; the LM engine of that module comes with a later slice, and
-autoregressive serving lives in ``scheduler.py``).
+"""Batched serving engine (a port of ``repro.serving.engine``): the LM
+``Engine`` (prefill + decode over the uniform model API, greedy /
+temperature sampling), the slot-based continuous-batching
+``RequestScheduler``, and ``PlanServer`` for the vision apps' plans.
 
-Frames queue up and execute in fixed-size batches via
-:meth:`ExecutionPlan.batched`, padding only the tail batch.
+* :class:`Engine` -- ``generate(prompts, n)``: one prefill filling every
+  layer cache, then single-token decode steps.  It runs the model's plain
+  ``forward``-side functions (``transformer.prefill`` / ``decode_step``),
+  as the JAX engine runs its jitted twins -- plain ``x @ w``, no kernel, in
+  both packages; the plan-compiled decoder with the kernels is
+  ``AsyncPlanServer.submit_llm`` (``scheduler.py``).  Temperature sampling
+  draws from a ``torch.Generator`` seeded with ``seed`` (``jax.random``
+  draws cannot be reproduced).
+* :class:`RequestScheduler` -- fixed-slot continuous batching: finished
+  sequences release their slot, queued requests are prefilled one row at a
+  time and spliced into the batched cache.
+* :class:`PlanServer` -- frames queue up and execute in fixed-size batches
+  via :meth:`ExecutionPlan.batched`, padding only the tail batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..models import transformer as _lm
 from ..obs import metrics as _metrics
 
-__all__ = ["PlanServer"]
+__all__ = ["GenerationResult", "Engine", "Request", "RequestScheduler", "PlanServer"]
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray  # [B, n_steps]
+    logprobs: Optional[np.ndarray] = None
+
+
+class Engine:
+    """``model`` (a :class:`repro_torch.models.Model`) over ``params``:
+    prompts of ``batch_size`` rows, caches of ``max_len`` slots.  Tensors go
+    to the device of the params' embedding table."""
+
+    def __init__(
+        self,
+        model,
+        params: Any,
+        *,
+        batch_size: int,
+        max_len: int,
+        temperature: float = 0.0,
+        seed: int = 0,
+    ):
+        if model.cfg.is_encdec:
+            raise NotImplementedError("the encoder-decoder engine is not ported yet")
+        self.model = model
+        self.cfg = model.cfg
+        self.params = params
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.temperature = temperature
+        self.device = params["embed"]["table"].device
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    @torch.no_grad()
+    def _prefill(self, params, tokens):
+        tokens = torch.as_tensor(tokens, device=self.device)
+        logits, caches = _lm.prefill(params, self.cfg, tokens, self.max_len)
+        return logits[:, -1], caches
+
+    @torch.no_grad()
+    def _decode(self, params, tok_t, caches):
+        tok_t = torch.as_tensor(tok_t, device=self.device)
+        logits, caches = _lm.decode_step(params, self.cfg, tok_t, caches)
+        return logits[:, -1], caches
+
+    # ------------------------------------------------------------------ #
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(torch.int32)
+
+    def generate(self, prompts, n_steps: int) -> GenerationResult:
+        """``prompts [B, S]`` (int, ``B == batch_size``) -> ``n_steps`` new
+        tokens a row (the first from the prefill's last logits)."""
+        if prompts.shape[0] != self.batch_size:
+            raise ValueError(f"generate: {prompts.shape[0]} prompts, batch_size "
+                             f"{self.batch_size}")
+        logits, caches = self._prefill(self.params, prompts)
+        tok = self._sample(logits)
+        out = [tok]
+        for _ in range(n_steps - 1):
+            logits, caches = self._decode(self.params, tok[:, None], caches)
+            tok = self._sample(logits)
+            out.append(tok)
+        return GenerationResult(tokens=np.stack([t.cpu().numpy() for t in out], axis=1))
 
 
 class PlanServer:
@@ -156,3 +238,103 @@ class PlanServer:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.close()
+
+
+# --------------------------------------------------------------------------- #
+# continuous batching                                                          #
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # [S]
+    max_new: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class RequestScheduler:
+    """Fixed-slot continuous batching over the decode step.
+
+    Each slot owns one row of the batched cache.  When a request finishes
+    (``max_new`` or ``eos_id``), the next queued request is prefilled alone
+    and spliced into that row while the other slots keep decoding.  Every
+    slot decodes at every step (a finished or empty row's output is
+    ignored), greedily.  :meth:`run` returns the requests still holding a
+    slot, as the JAX package's does: a finished request whose slot was
+    refilled is not in the list.
+    """
+
+    def __init__(self, engine: Engine, eos_id: Optional[int] = None):
+        self.engine = engine
+        self.eos_id = eos_id
+        self.queue: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * engine.batch_size
+        self._caches = None
+        self._last_tok = np.zeros((engine.batch_size,), np.int32)
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if (slot is None or slot.done) and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                # single-row prefill: run the row through prefill and splice
+                logits, caches = self.engine._prefill(
+                    self.engine.params, torch.as_tensor(req.prompt[None, :]))
+                tok = int(logits.argmax(dim=-1)[0])
+                req.generated.append(tok)
+                self._last_tok[i] = tok
+                if self._caches is None:
+                    # first admission: broadcast the row's cache to the batch
+                    b = self.engine.batch_size
+                    self._caches = [
+                        {k: torch.cat([c] * b) if c.dim() > 0 and c.shape[0] == 1 else c
+                         for k, c in cache.items()}
+                        for cache in caches
+                    ]
+                else:
+                    self._caches = _splice_row(self._caches, caches, i)
+
+    def step(self) -> bool:
+        """One decode tick over all active slots.  Returns False when idle."""
+        self._admit()
+        active = [s for s in self.slots if s is not None and not s.done]
+        if not active:
+            return False
+        logits, self._caches = self.engine._decode(
+            self.engine.params, torch.as_tensor(self._last_tok[:, None]), self._caches)
+        toks = logits.argmax(dim=-1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            t = int(toks[i])
+            req.generated.append(t)
+            self._last_tok[i] = t
+            if len(req.generated) >= req.max_new or (
+                self.eos_id is not None and t == self.eos_id
+            ):
+                req.done = True
+        return True
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        for _ in range(max_ticks):
+            if not self.step() and not self.queue:
+                break
+        return [s for s in self.slots if s is not None]
+
+
+@torch.no_grad()
+def _splice_row(caches, row_caches, i: int):
+    """Write row 0 of ``row_caches`` into row ``i`` of the batched
+    ``caches`` (the per-layer dicts' batch-leading tensors).  In place: the
+    scheduler owns its batched caches (each decode step returns new ones),
+    so no copy of the whole cache is made per admission."""
+    for full, row in zip(caches, row_caches):
+        for k, t in full.items():
+            if t.dim() > 0:
+                t[i] = row[k][0]
+    return caches

@@ -145,7 +145,7 @@ def test_isolation_walk_reaches_the_decode_slice():
 
 
 def test_configs_copy_the_jax_package_values():
-    assert ARCH_IDS == ["qwen2.5-3b"]
+    assert ARCH_IDS == ["qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b"]
     from repro.configs.registry import get_config as jget_config
 
     assert dataclasses.asdict(get_config("qwen2.5-3b")) == dataclasses.asdict(
