@@ -142,6 +142,34 @@ Phases (each prints its own lines):
               phi4-mini-3.8b at full width: greedy parity of the generated
               row and of every request the scheduler returns against the
               plain ``forward``.
+13. train smoke -- ``launch.train``'s ADMM -> hard prune -> masked
+              pipeline on the smoke qwen2.5-3b in f32 (10 steps of 8 x 32
+              tokens: 6 ADMM with 3 Z/U updates, 4 masked), on the card and
+              on the CPU from the same params: losses within 1e-3 relative
+              step by step, the same update steps, hard-prune masks
+              ``torch.equal``; then ``CheckpointManager`` save -> restore ->
+              resume on the card (restored state ``torch.equal`` to the
+              saved one, resumed losses within 1e-5 of uninterrupted ones);
+14. train  -- the same pipeline on qwen2.5-3b at full width in bf16, batch
+              8 x seq 128 (the JAX launcher's defaults): finite losses and
+              grad norms, Z/U updates where the JAX condition holds, rho on
+              its ramp, the hard prune's sparsity within 0.05 of 0.5, Block
+              masks constant on 64 x 64 tiles and Column masks along rows,
+              masks unchanged by the fine-tune; ms per ADMM / masked step
+              and per Z/U update, tokens/s, model-FLOPs utilization and peak
+              allocated per phase; then the hand-off: ``apply_masks(params,
+              masks)`` with the hard prune's q / o masks through
+              ``optimize`` (no re-projection) into the kernel plans, served
+              as phase 10 (72 ``bsr_matmul`` + 108 bf16 ``dense_matmul``
+              launches per plan call, greedy parity against ``forward`` on
+              the masked params).  Training runs plain autograd (no kernel
+              of the port), as the JAX package trains with plain XLA;
+15. train profile -- a second short full-width run (fresh params) with
+              torch.profiler around one ADMM step with a Z/U update, one
+              without and one masked step: device ms and idle share of
+              each, device ms by kernel family and by part of the step
+              (forward, penalty, backward, AdamW, Z/U update, convergence
+              metrics, gradient masks).
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -2117,26 +2145,31 @@ def plan_param_bytes(*plans) -> int:
     return sum(leaves.values())
 
 
-def block_pruned_llm(torch, llm, block):
+def block_pruned_llm(torch, llm, block, masks=None):
     """The compiler's block-pruning path on built params: ``project`` every
-    ``q_i`` / ``o_i`` weight onto ``block``, ``optimize`` the decoder graphs
-    with those masks (``substitute_sparse`` packs them as PBCSR nodes) and
-    compile both phases for the kernel backend.  The returned llm's
-    ``params`` are the masked-dense tree, which the plain ``forward`` of
-    the parity check runs; its masked q / o weights wait in host memory
-    (``params_on_host``) until the parity check, so that the serving run's
-    peak is the pruned plans' own."""
+    ``q_i`` / ``o_i`` weight onto ``block`` -- or, with ``masks`` (``{q_i /
+    o_i: mask}``, e.g. a trained model's ``hard_prune`` masks on params
+    that ``apply_masks`` already masked), take those masks as they are --
+    ``optimize`` the decoder graphs with the masks (``substitute_sparse``
+    packs them as PBCSR nodes) and compile both phases for the kernel
+    backend.  The returned llm's ``params`` are the masked-dense tree, which
+    the plain ``forward`` of the parity check runs; its masked q / o weights
+    wait in host memory (``params_on_host``) until the parity check, so
+    that the serving run's peak is the pruned plans' own."""
     from repro_torch.core.graph import compile_plan
     from repro_torch.core.graph.passes import optimize
     from repro_torch.core.pruning import project
     from repro_torch.models.transformer_graph import build_decoder_graph
 
     cfg, params, dev = llm["cfg"], llm["params"], llm["device"]
-    masks, structures, layers = {}, {}, []
+    given, masks, structures, layers = masks, {}, {}, []
     for i, lp in enumerate(params["layers"]):
         attn = dict(lp["attn"])
         for key, node in (("w_q", f"q_{i}"), ("w_o", f"o_{i}")):
-            w, masks[node] = project(attn[key]["w"], block)
+            if given is None:
+                w, masks[node] = project(attn[key]["w"], block)
+            else:
+                w, masks[node] = attn[key]["w"], given[node]
             structures[node] = block
             attn[key] = {**attn[key], "w": w.cpu()}
         layers.append({**lp, "attn": attn})
@@ -2489,6 +2522,395 @@ def phase_serve_forward(torch):
     torch.cuda.empty_cache()
 
 
+#: the training phases: the JAX launcher's defaults (batch 8 x seq 128, lr
+#: 1e-3, --prune --sparsity 0.5) over 10 steps with a Z/U update every 2;
+#: the hard prune follows step int(10 * 0.5) = 5, so 6 ADMM steps (3
+#: updates) and 4 masked fine-tune steps
+TRAIN_ARGS = ["--arch", "qwen2.5-3b", "--steps", "10", "--batch", "8", "--seq", "128",
+              "--prune", "--sparsity", "0.5", "--admm-every", "2", "--hard-prune-at", "0.5",
+              "--seed", str(SEED)]
+#: the smoke run's losses, card against CPU: the same f32 ops summed in
+#: another order, and at step 1 Adam's ``g / (|g| + eps)`` turns a gradient
+#: element at rounding level into a full-size step of either sign, which
+#: feeds every later step (the CPU tests hold the port to JAX the same way)
+TRAIN_LOSS_RTOL = 1e-3
+
+
+def _quiet(_):
+    pass
+
+
+def _masks_have_the_recipe(torch, masks, label):
+    """Every Block(64, 64) mask constant on its tiles, every Column mask
+    constant along each row; returns the number of masks."""
+    from repro_torch.utils.tree import leaves_with_path
+
+    n = 0
+    for path, m in leaves_with_path(masks):
+        n += 1
+        if "['attn']" in path:
+            k, c = m.shape
+            tiles = m.reshape(k // 64, 64, c // 64, 64)
+            check(bool((tiles == tiles[:, :1, :, :1]).all()), f"{label}: {path} not 64x64 tiles")
+        else:
+            check(bool((m == m[:, :1]).all()), f"{label}: {path} not whole rows")
+    return n
+
+
+def phase_train_smoke(torch):
+    """The launcher's ADMM -> hard prune -> masked pipeline on the smoke
+    qwen2.5-3b in f32, on the card and on the CPU from the same params (a
+    CPU generator seeded with SEED): losses step by step within
+    TRAIN_LOSS_RTOL, the same Z/U update steps, hard-prune masks
+    ``torch.equal``.  Then checkpoint -> restore -> resume on the card
+    through ``CheckpointManager``: the restored state ``torch.equal`` to the
+    saved one, and three more steps from each."""
+    import shutil
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning import AdmmConfig
+    from repro_torch.data.pipeline import PipelineState, SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import init_train_state, make_train_step
+    from repro_torch.utils.tree import leaves_with_path, tree_map
+
+    dev = torch.device("cuda")
+    cfg = smoke_config("qwen2.5-3b")
+    args = train.build_parser().parse_args(TRAIN_ARGS + ["--smoke", "--seq", "32"])
+    model = get_model(cfg, device="cpu")
+    params_cpu = model.init(torch.Generator().manual_seed(SEED))
+    runs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        # a copy each: the launcher updates its params in place
+        runs[name] = train.train(args, cfg, _to_device(tree_map(torch.clone, params_cpu), d), d,
+                                 log=_quiet)
+    hc, hp = runs["cuda"]["history"], runs["cpu"]["history"]
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hc, hp)]
+    check(len(hc) == len(hp) == args.steps and max(rel) <= TRAIN_LOSS_RTOL,
+          f"train smoke: losses card vs CPU, relative differences {rel}")
+    check([h["update"] for h in hc] == [h["update"] for h in hp]
+          and runs["cuda"]["n_updates"] == runs["cpu"]["n_updates"] == 3,
+          f"train smoke: Z/U updates {runs['cuda']['n_updates']} / {runs['cpu']['n_updates']}")
+    mc = dict(leaves_with_path(runs["cuda"]["masks"]))
+    mp = dict(leaves_with_path(runs["cpu"]["masks"]))
+    check(mc.keys() == mp.keys() and all(torch.equal(mc[k].cpu(), mp[k]) for k in mp),
+          "train smoke: hard-prune masks differ between the card and the CPU")
+    n_masks = _masks_have_the_recipe(torch, runs["cuda"]["masks"], "train smoke")
+    print(f"  train smoke: {args.steps} steps (6 ADMM, 3 Z/U updates, 4 masked), losses "
+          f"{hc[0]['loss']:.4f} -> {hc[-1]['loss']:.4f} on the card; card vs CPU losses within "
+          f"{max(rel):.2e} relative (tolerance {TRAIN_LOSS_RTOL}); {n_masks} hard-prune masks "
+          f"torch.equal, pruned_global {runs['cuda']['sparsity']['pruned_global']:.4f}")
+    del runs
+
+    # checkpoint -> restore -> resume, on the card
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    opt = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=5)
+    acfg = AdmmConfig(rho=1e-2, rho_ramp=1.2, rho_max=1.0, update_every=2)
+
+    def fresh():
+        p = _to_device(model.init(torch.Generator().manual_seed(SEED)), dev)
+        return init_train_state(p, opt, admm_cfg=acfg, prune_plan=train.default_prune_plan(0.5))
+
+    def batch(pipe):
+        return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next().items()}
+
+    step = make_train_step(model.loss, opt, admm_cfg=acfg)
+    pipe = SyntheticPipeline(cfg, batch=args.batch, seq=args.seq + 1, seed=args.seed)
+    state = fresh()
+    mgr = CheckpointManager(str(ckpt_dir), save_every=4, keep=2)
+    for i in range(4):
+        state, _ = step(state, batch(pipe))
+        mgr.maybe_save(i + 1, (state, pipe.state.to_dict()))
+    (restored, data), at = mgr.restore_latest((fresh(), {"data_step": 0}))
+    saved, got = list(leaves_with_path(state)), list(leaves_with_path(restored))
+    same = [p == q and (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+            and (not isinstance(b, torch.Tensor) or b.device == a.device)
+            for (p, a), (q, b) in zip(saved, got)]
+    check(at == 4 and data == {"data_step": 4} and len(saved) == len(got) and all(same),
+          f"train smoke: restored state differs from the saved one at step {at}")
+    pipe_b = SyntheticPipeline(cfg, batch=args.batch, seq=args.seq + 1, seed=args.seed)
+    pipe_b.state = PipelineState.from_dict(data)
+    diffs = []
+    for _ in range(3):
+        state, ma = step(state, batch(pipe))
+        restored, mb = step(restored, batch(pipe_b))
+        diffs.append(abs(ma["loss"].item() - mb["loss"].item()) / abs(ma["loss"].item()))
+    exact = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(state.params), leaves_with_path(restored.params)))
+    check(max(diffs) <= 1e-5, f"train smoke: resumed losses differ by {diffs}")
+    print(f"  checkpoint: {len(saved)} leaves saved at step 4 under build/train_ckpt, restored "
+          f"torch.equal; 3 resumed steps against 3 uninterrupted ones: losses within "
+          f"{max(diffs):.1e} relative (tolerance 1e-5), params torch.equal: {exact}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_train_full(torch, smi):
+    """``launch.train``'s building blocks (``main``'s argument parsing and
+    init, then ``train``) on qwen2.5-3b at full width in bf16 with
+    TRAIN_ARGS: finite losses and grad norms, the Z/U updates where the JAX
+    condition holds, rho on its f32 ramp, the primal residual positive (at
+    most 1 until the second update, see ``PERF.md``), the hard prune's
+    sparsity within 0.05 of 0.5, the recipe's mask structure, and after the
+    fine-tune ``apply_masks`` zero exactly where the (unchanged) masks are.
+    Prints ms per ADMM / masked step and per Z/U update, tokens/s,
+    model-FLOPs utilization and peak allocated per phase.  Then the
+    hand-off: the optimizer and ADMM state go, ``apply_masks(params,
+    masks)`` with the ``w_q`` / ``w_o`` masks keyed ``q_i`` / ``o_i`` goes
+    through :func:`block_pruned_llm` as given and serves the JAX CLI's
+    traffic through :func:`serve_llm_checked`.  Returns its launches."""
+    import argparse
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import Block, apply_masks, count_params, tree_sparsity_report
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils.tree import leaves_with_path, tree_map
+
+    dev = torch.device("cuda")
+    args = train.build_parser().parse_args(TRAIN_ARGS + ["--device", "cuda"])
+    cfg = get_config(args.arch)
+    t0 = time.perf_counter()
+    at_prune = {}
+
+    def keep_masks(_, masks):  # a copy of the masks as the hard prune made them
+        at_prune.update((p, m.bool()) for p, m in leaves_with_path(masks))
+
+    # no reference to the initial params here: the hard prune frees the raw
+    # pruned weights, as in ``main``
+    rep = train.train(
+        args, cfg, get_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(
+            args.seed)), dev, log=print, on_hard_prune=keep_masks)
+    wall = time.perf_counter() - t0
+    hist, peaks = rep["history"], rep["peak_bytes"]
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          "train: non-finite loss or grad norm")
+    want = [(h["step"] + 1) % args.admm_every == 0 and h["phase"] == "admm" for h in hist]
+    check([h["update"] for h in hist] == want and rep["n_updates"] == sum(want) == 3,
+          f"train: Z/U updates {[h['update'] for h in hist]}, n_updates {rep['n_updates']}")
+    rho, ok = np.float32(1e-2), True
+    for h in hist:
+        if h["phase"] != "admm":
+            continue
+        if h["update"]:
+            rho = min(rho * np.float32(1.2), np.float32(1.0))
+        ok = ok and h["rho"] == float(rho)
+        res = h["primal_residual"]
+        # ||W - Z|| / ||W|| <= 1 while Z = Pi(W): until the second update
+        # (Z = Pi(W + U) after it can keep pruned units, doubled)
+        ok = ok and np.isfinite(res) and res > 0 and (
+            res <= 1 or h["step"] >= 2 * args.admm_every - 1)
+    check(ok, f"train: rho / residual {[(h.get('rho'), h.get('primal_residual')) for h in hist]}")
+    sp = rep["sparsity"]["pruned_global"]
+    check(abs(sp - 0.5) <= 0.05, f"train: pruned_global {sp}")
+    state, masks = rep.pop("state"), rep.pop("masks")
+    params = state.params
+    del state  # the optimizer moments go; the ADMM state went at the hard prune
+    n_params = count_params(params)
+    n_masks = _masks_have_the_recipe(torch, masks, "train")
+    mflat = dict(leaves_with_path(masks))
+    check(n_masks == 4 * cfg.n_layers and mflat.keys() == at_prune.keys() and all(
+        torch.equal(mflat[p].bool(), at_prune[p]) for p in mflat),
+          "train: masks changed during the fine-tune")
+    del at_prune
+    check(tree_sparsity_report(params, masks)["pruned_global"] == sp,
+          "train: the report moved during the fine-tune")
+    masked = apply_masks(params, masks)
+    for path, w in leaves_with_path(masked):
+        m = mflat.get(path)
+        if m is not None:
+            check(bool((w[m == 0] == 0).all()), f"train: {path} nonzero where masked")
+    drift = max(float(w[mflat[p] == 0].abs().max()) for p, w in leaves_with_path(params)
+                if p in mflat)
+
+    admm = [h["ms"] for h in hist if h["phase"] == "admm"]
+    upd = [h["ms"] for h in hist if h["phase"] == "admm" and h["update"]]
+    plain = [h["ms"] for h in hist[1:] if h["phase"] == "admm" and not h["update"]]
+    fine = [h["ms"] for h in hist if h["phase"] == "masked"]
+    ms_admm, ms_fine = statistics.median(admm[1:]), statistics.median(fine)
+    ms_update = statistics.mean(upd) - statistics.mean(plain)
+    tokens = args.batch * args.seq
+    mfu = {k: 6 * n_params * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+           for k, ms in (("admm", ms_admm), ("masked", ms_fine))}
+    print(f"  train ({smi}): {cfg.name} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
+          f"{sum(m.numel() for m in mflat.values()) / 1e9:.3f} B under ADMM in "
+          f"{n_masks} leaves; batch {args.batch} x seq {args.seq}; {len(admm)} ADMM steps "
+          f"({rep['n_updates']} Z/U updates) + {len(fine)} masked steps in {wall:.1f}s "
+          f"(init included)")
+    print(f"  train ms: step 0 {admm[0]:.2f}; ADMM step (median of steps 1-{len(admm) - 1}) "
+          f"{ms_admm:.2f}, of which a Z/U update {ms_update:.2f} (update steps "
+          f"{statistics.mean(upd):.2f} - others {statistics.mean(plain):.2f}); masked step "
+          f"{ms_fine:.2f}; tokens/s {tokens / ms_admm * 1e3:.0f} ADMM, "
+          f"{tokens / ms_fine * 1e3:.0f} masked; model-FLOPs utilization (6 N T / step / "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s) {mfu['admm']:.1%} ADMM, "
+          f"{mfu['masked']:.1%} masked")
+    print("  train peak allocated GB: " + ", ".join(
+        f"{k} {v / 1e9:.3f}" for k, v in peaks.items())
+        + f"; per-step ms {[round(h['ms'], 2) for h in hist]}")
+    print(f"  train losses {[round(h['loss'], 4) for h in hist]}; residuals "
+          f"{[round(h['primal_residual'], 4) for h in hist if 'primal_residual' in h]}; "
+          f"pruned_global {sp:.4f}; max |raw weight| at pruned positions after the fine-tune "
+          f"{drift:.3e} (apply_masks zeroes it)")
+
+    # the hand-off: the trained, hard-pruned model through the kernel plans
+    del params, hist
+    qo = {}
+    for i in range(cfg.n_layers):
+        for key, node in (("w_q", f"q_{i}"), ("w_o", f"o_{i}")):
+            qo[node] = mflat[f"['layers'][{i}]['attn']['{key}']['w']"]
+    del masks, mflat
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    block = Block(0.5, bm=64, bn=64)
+    pruned = block_pruned_llm(torch, dict(cfg=cfg, params=masked, device=dev), block, masks=qo)
+    del masked, qo
+    torch.cuda.synchronize()
+    graph = pruned["plans"]["decode"].graph
+    pbcsr = [n for n in graph.nodes if n.op == "sparse_linear" and n.attrs["format"] == "pbcsr"]
+    n_bands = sum(len(n.attrs["bands"]) for n in pbcsr)
+    glue = [n.name for n in graph.nodes if n.name.endswith("_unperm")]
+    check(len(pbcsr) == 2 * cfg.n_layers and n_bands == 2 * cfg.n_layers and not glue,
+          f"train hand-off: {len(pbcsr)} pbcsr nodes, {n_bands} bands, glue {glue[:4]}")
+    print(f"  hand-off: hard_prune's q/o masks -> optimize -> {len(pbcsr)} pbcsr nodes "
+          f"({n_bands} bands, no glue); compiled in {time.perf_counter() - t0:.1f}s")
+    llm_args = argparse.Namespace(smoke=False, **LLM_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    launches, _ = serve_llm_checked(
+        torch, pruned, llm_args, False, f"{cfg.name} trained+pruned",
+        {"dense_matmul_bf16": 3 * cfg.n_layers, "bsr_matmul": n_bands})
+    del pruned
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: kernel families of a training step, by the kernel's name
+_TRAIN_FAMILIES = (("gemm", ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "cublas")),
+                   ("reduce", ("reduce",)),
+                   ("softmax / logsumexp", ("softmax", "logsumexp")),
+                   ("index / sort / topk", ("index", "scatter", "gather", "sort", "topk",
+                                            "radix", "embedding")),
+                   ("memcpy / memset", ("memcpy", "memset")),
+                   ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def _train_family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in _TRAIN_FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def phase_train_profile(torch):
+    """Where a full-width training step's device time goes: a second,
+    short run (fresh params; steps 0 and 3 unprofiled warm-ups) profiles one
+    ADMM step with a Z/U update, one without, and one masked step with
+    torch.profiler.  Per step: device busy ms and idle share of the step's
+    wall (host clock, synchronized; inflated by the profiler), device ms by
+    kernel family, and by part of the step -- forward, the penalty, the
+    backward (the rest of ``_value_and_grad``), AdamW (clip and norm
+    included), the Z/U update, ``convergence_metrics``, the masks -- from
+    ``record_function`` ranges put around the train loop's functions for
+    this run only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import AdmmConfig, hard_prune
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    dev = torch.device("cuda")
+    args = train.build_parser().parse_args(TRAIN_ARGS + ["--device", "cuda"])
+    cfg = get_config(args.arch)
+    model = get_model(cfg, device=dev)
+    parts = {"forward": model.loss}
+    for name in ("admm_penalty", "_value_and_grad", "adamw_update", "admm_update",
+                 "convergence_metrics", "mask_gradients"):
+        parts[name] = getattr(train_loop, name)
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(f"train:{name}"):
+                return fn(*a, **k)
+        return call
+
+    for name, fn in parts.items():
+        if name != "forward":
+            setattr(train_loop, name, ranged(name, fn))
+    try:
+        opt = AdamWConfig(lr=args.lr, total_steps=args.steps, warmup_steps=5)
+        acfg = AdmmConfig(rho=1e-2, rho_ramp=1.2, rho_max=1.0, update_every=args.admm_every)
+        state = train_loop.init_train_state(
+            model.init(torch.Generator(device=dev).manual_seed(args.seed)), opt, admm_cfg=acfg,
+            prune_plan=train.default_prune_plan(args.sparsity))
+        loss = ranged("forward", parts["forward"])
+        step = train_loop.make_train_step(loss, opt, admm_cfg=acfg)
+        pipe = SyntheticPipeline(cfg, batch=args.batch, seq=args.seq + 1, seed=args.seed)
+
+        def batch():
+            return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next().items()}
+
+        rows = []
+        for i in range(5):
+            if i == 3:  # hard prune before the masked steps
+                pruned, masks = hard_prune(state.params, state.admm)
+                state = train_loop.TrainState(params=pruned, opt=state.opt, masks=masks)
+                del pruned
+                step = train_loop.make_train_step(loss, opt)
+            b = batch()
+            torch.cuda.synchronize()
+            if i in (0, 3):
+                state, _ = step(state, b)
+                continue
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, b)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            fam, ranges = {}, {}
+            for e in prof.key_averages():
+                if e.key.startswith("train:"):
+                    continue  # the ranges' device-side annotation spans
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                    f = _train_family(e.key)
+                    fam[f] = fam.get(f, 0.0) + e.self_device_time_total / 1e3
+            for e in prof.events():  # a range's kernels: its host-side event's
+                if e.name.startswith("train:") and e.device_type == torch.autograd.DeviceType.CPU:
+                    ranges[e.name[6:]] = ranges.get(e.name[6:], 0.0) + e.device_time_total / 1e3
+            busy = sum(fam.values())
+            check(busy > 0, "train profile: the profiler saw no device time")
+            label = {1: "ADMM step with a Z/U update", 2: "ADMM step", 4: "masked step"}[i]
+            # the backward's kernels are launched by autograd's device thread,
+            # outside every range: they are the rest of the step's busy time
+            split = dict(forward=ranges.get("forward", 0.0),
+                         penalty=ranges.get("admm_penalty", 0.0))
+            for k in ("adamw_update", "admm_update", "convergence_metrics", "mask_gradients"):
+                if ranges.get(k):
+                    split[k] = ranges[k]
+            split["backward"] = busy - sum(split.values())
+            print(f"  train profile, {label}: device {busy:.2f} ms of wall {wall:.2f} ms "
+                  f"(idle {1 - busy / wall:.0%}); by family "
+                  + " ".join(f"{k} {v:.2f} ({v / busy:.0%})"
+                             for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+                  + "; by part " + " ".join(f"{k} {v:.2f}" for k, v in split.items()))
+            rows.append(dict(label=label, busy=busy, wall=wall, fam=fam, split=split))
+        del state
+    finally:
+        for name, fn in parts.items():
+            if name != "forward":
+                setattr(train_loop, name, fn)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
     tensor on ``dev``."""
@@ -2531,7 +2953,7 @@ def main() -> int:
         print(f"{text}  [{time.perf_counter() - t0:.0f} s]", flush=True)
 
     header("== device")
-    phase_device(torch)
+    smi = phase_device(torch)
     header("== build")
     phase_build()
     header("== kernels")
@@ -2569,6 +2991,13 @@ def main() -> int:
     header("== serve forward (phi4-mini-3.8b, full width, bf16)")
     torch.cuda.reset_peak_memory_stats()
     phase_serve_forward(torch)
+    header("== train smoke (f32)")
+    phase_train_smoke(torch)
+    header("== train (qwen2.5-3b, full width, bf16)")
+    for name, n in phase_train_full(torch, smi).items():
+        launches[name] += n
+    header("== train profile (qwen2.5-3b, full width, bf16)")
+    phase_train_profile(torch)
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     line = {"kernels": []}

@@ -1,6 +1,5 @@
 """Euclidean projections onto the structured-sparsity sets (a port of
-``repro.core.pruning.projections`` for the sets the compiler consumes:
-Column, Channel, Block and PatternKernel).
+``repro.core.pruning.projections``: all eight sets of structures.py).
 
 The ADMM Z-step is ``Z = Pi_S(W + U)`` -- the closest point (Frobenius norm)
 in the structure set.  For every magnitude-type structure this is "keep the
@@ -22,7 +21,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .structures import Block, Channel, Column, PatternKernel, Structure
+from .structures import (
+    NM,
+    BankBalanced,
+    Block,
+    Channel,
+    Column,
+    PatternKernel,
+    Row,
+    Structure,
+    Unstructured,
+)
 
 __all__ = ["project", "mask_for", "topk_mask"]
 
@@ -43,6 +52,17 @@ def topk_mask(scores: torch.Tensor, k: int, axis: int = -1) -> torch.Tensor:
     )
     keep = keep & (order < k)
     return keep.to(scores.dtype).movedim(-1, axis)
+
+
+def _project_unstructured(w: torch.Tensor, s: Unstructured) -> Tuple[torch.Tensor, torch.Tensor]:
+    mask = topk_mask(w.abs().reshape(-1), s.n_kept(w.numel())).reshape(w.shape)
+    return w * mask, mask
+
+
+def _project_row(w: torch.Tensor, s: Row) -> Tuple[torch.Tensor, torch.Tensor]:
+    norms = torch.linalg.norm(w, dim=1)  # [K]
+    mask = topk_mask(norms, s.n_kept(w.shape[0]))[:, None]
+    return w * mask, mask.expand(w.shape)
 
 
 def _project_column(w: torch.Tensor, s: Column) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,6 +91,20 @@ def _project_block(w: torch.Tensor, s: Block) -> Tuple[torch.Tensor, torch.Tenso
     else:
         bmask = topk_mask(norms.reshape(-1), s.n_kept(kb * nb)).reshape(kb, nb)
     mask = bmask[:, None, :, None].expand(blocks.shape).reshape(w.shape).to(w.dtype)
+    return w * mask, mask
+
+
+def _project_nm(w: torch.Tensor, s: NM) -> Tuple[torch.Tensor, torch.Tensor]:
+    k, n = w.shape
+    groups = w.reshape(k // s.m, s.m, n)
+    mask = topk_mask(groups.abs(), s.n_keep, axis=1).reshape(w.shape)
+    return w * mask, mask
+
+
+def _project_bank(w: torch.Tensor, s: BankBalanced) -> Tuple[torch.Tensor, torch.Tensor]:
+    k, n = w.shape
+    banks = w.reshape(k, n // s.bank, s.bank)
+    mask = topk_mask(banks.abs(), s.n_kept(s.bank), axis=2).reshape(w.shape)
     return w * mask, mask
 
 
@@ -105,9 +139,13 @@ def _project_pattern(w: torch.Tensor, s: PatternKernel) -> Tuple[torch.Tensor, t
 
 
 _DISPATCH = {
+    Unstructured: _project_unstructured,
+    Row: _project_row,
     Column: _project_column,
     Channel: _project_channel,
     Block: _project_block,
+    NM: _project_nm,
+    BankBalanced: _project_bank,
     PatternKernel: _project_pattern,
 }
 
@@ -118,9 +156,7 @@ def project(w: torch.Tensor, structure: Structure) -> Tuple[torch.Tensor, torch.
     try:
         fn = _DISPATCH[type(structure)]
     except KeyError:
-        raise NotImplementedError(
-            f"no projection for {type(structure).__name__} in the port yet"
-        ) from None
+        raise NotImplementedError(f"no projection for {type(structure).__name__}") from None
     return fn(w, structure)
 
 

@@ -1,9 +1,7 @@
 """Structured-sparsity set definitions (the ``S_i`` of the paper's Eq. 1).
 
 A copy of ``repro.core.pruning.structures`` (plain dataclasses, no array
-code).  The port projects onto Column, Channel, Block and PatternKernel
-(``projections.py``); the other sets are declared for the compiler layer and
-their projections raise ``NotImplementedError``.
+code); ``projections.py`` projects onto every set.
 
 Each structure describes *what unit is pruned as a whole* for a 2-D weight
 matrix ``W[K, N]`` (input-features x output-features; convolutions are viewed
@@ -48,6 +46,7 @@ __all__ = [
     "PatternKernel",
     "BankBalanced",
     "CANONICAL_PATTERNS",
+    "structure_from_spec",
 ]
 
 
@@ -268,3 +267,27 @@ class BankBalanced(Structure):
     @property
     def storage_format(self) -> str:
         return "bankpacked"
+
+
+def structure_from_spec(spec: dict) -> Structure:
+    """Build a Structure from a plain-dict config (configs/*.py use this)."""
+    kinds = {
+        "unstructured": Unstructured,
+        "row": Row,
+        "filter": Row,
+        "column": Column,
+        "channel": Channel,
+        "block": Block,
+        "nm": NM,
+        "pattern": PatternKernel,
+        "bank": BankBalanced,
+    }
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    try:
+        cls = kinds[kind]
+    except KeyError:
+        raise ValueError(f"unknown structure kind {kind!r}; one of {sorted(kinds)}") from None
+    if "patterns" in spec:
+        spec["patterns"] = tuple(tuple(p) for p in spec["patterns"])
+    return cls(**spec)

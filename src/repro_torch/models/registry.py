@@ -8,10 +8,12 @@ decoder family).
 * ``forward(params, batch)``             -> logits                 [prefill_*]
 * ``init_cache(batch, max_len)``         -> caches
 * ``decode_step(params, batch, caches)`` -> (logits, caches)      [decode_*]
-* ``loss`` / ``input_specs``             -> raise: training comes with ROADMAP
-                                            A8, the dry-run specs with A9
+* ``loss(params, batch)``                -> (scalar, metrics)      [train_*]
+* ``input_specs``                        -> raises: the dry-run specs wait for
+                                            ROADMAP A9
 
 ``batch`` is a dict of tensors: ``{"tokens": [B, S]}`` for ``forward``,
+``{"tokens", "labels"}`` (and optional ``"weights"``) for ``loss``,
 ``{"tokens_t": [B, 1]}`` for ``decode_step``.  The encoder-decoder,
 MoE, SSM, hybrid and VLM families raise (``transformer._check_ported``).
 """
@@ -55,7 +57,7 @@ def get_model(cfg: ArchConfig, *, device=None) -> Model:
         return lm_mod.init_lm(gen, cfg)
 
     def loss(params, batch):
-        raise NotImplementedError("training (loss_fn) is not ported yet (ROADMAP A8)")
+        return lm_mod.loss_fn(params, cfg, batch)
 
     def forward(params, batch):
         return lm_mod.forward(params, cfg, batch["tokens"])[0]

@@ -12,6 +12,11 @@ which ``forward`` runs in plain torch (``bsr_xla`` / ``colpack_xla``), as
 the JAX package does.  The MoE, SSM and hybrid families come with a later
 slice.
 
+``loss_fn`` is the training loss (next-token cross entropy through an f32
+``logsumexp``), differentiated by plain autograd as the JAX package
+differentiates its forward with plain XLA: no kernel of the port runs in
+training.
+
 ``init_lm`` draws every weight from one ``torch.Generator`` on that
 generator's device, in order (embedding, layers, lm_head): pass a CUDA
 generator to draw a full-width model on the card.
@@ -28,8 +33,8 @@ from . import attention as attn_mod
 from . import ffn as ffn_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
 
-__all__ = ["block_kinds", "init_layer", "init_lm", "forward", "prefill", "init_cache",
-           "decode_step"]
+__all__ = ["block_kinds", "init_layer", "init_lm", "forward", "loss_fn", "prefill",
+           "init_cache", "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -115,6 +120,46 @@ def _unembed(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         logits = torch.where(pad, logits, torch.full((), -1e30, dtype=logits.dtype,
                                                      device=x.device))
     return logits
+
+
+def loss_fn(
+    params: Params,
+    cfg: ArchConfig,
+    batch: Dict[str, torch.Tensor],
+    *,
+    attn_impl: str = "auto",
+    mode: str = "dense",
+    remat: bool = False,
+    layout_scan: bool = False,
+    remat_policy: str = "full",
+    residual_spec=None,
+    attn_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy over ``batch["tokens"]`` / ``batch["labels"]``
+    (``[B, S]`` ints), weighted by ``batch["weights"]`` when given; returns
+    ``(total, {"ce", "aux"})`` with aux 0 (no MoE family is ported).
+
+    ``remat``, ``layout_scan``, ``residual_spec`` and ``attn_chunk`` are the
+    TPU package's memory and sharding knobs: only their defaults are taken
+    (the rest wait for ROADMAP A9).  ``attn_impl`` "auto" is full attention
+    at every length the port runs, as in JAX below 8192 keys."""
+    if (remat, layout_scan, remat_policy, residual_spec, attn_chunk) != (
+            False, False, "full", None, 1024) or attn_impl not in ("auto", "full"):
+        raise NotImplementedError(
+            "remat / layout_scan / residual_spec / attn_chunk / chunked attention are TPU "
+            "memory and sharding knobs; only their defaults are ported (ROADMAP A9)")
+    logits, aux = forward(params, cfg, batch["tokens"], mode=mode)
+    labels = batch["labels"].long()
+    # CE via logsumexp: one f32 reduction instead of a full log_softmax copy
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    picked = torch.gather(logits32, -1, labels[..., None])[..., 0]
+    nll = lse - picked
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones_like(nll)
+    ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    return ce, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #

@@ -125,8 +125,13 @@ def test_get_model_namespace_and_the_parts_not_ported():
     assert "lm_head" not in params  # tied embeddings
     want = _tree_map(lambda a: tuple(a.shape), c["pnp"])
     assert _tree_map(lambda t: tuple(t.shape), params) == want
-    with pytest.raises(NotImplementedError, match="A8"):
-        model.loss(params, {})
+    # training is ported: ``loss`` is ``transformer.loss_fn`` on the config
+    tok = _tokens(c["cfg"], 2, 9)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]), "labels": torch.from_numpy(tok[:, 1:])}
+    loss, metrics = model.loss(params, batch)
+    want, _ = tlm.loss_fn(params, c["cfg"], batch)
+    assert loss.ndim == 0 and bool(torch.isfinite(loss)) and loss.item() == want.item()
+    assert metrics["ce"].item() == want.item() and metrics["aux"].item() == 0.0
     with pytest.raises(NotImplementedError, match="A9"):
         model.input_specs(None)
     with pytest.raises(NotImplementedError, match="A7"):

@@ -20,6 +20,7 @@ from repro_torch.kernels import dense_matmul as tdense
 from repro_torch.kernels import fused_elementwise as tfused
 from repro_torch.kernels import quant_matmul as tquant
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.launch import tune as ttune
 from repro_torch.models import cnn as tcnn
 
@@ -100,6 +101,8 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(no_gpu):
         tserve.main(["--graph-app", "coloring", "--size", "8", "--base", "4", "--frames", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttune.main(["--smoke", "--graph-app", "coloring"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--smoke", "--prune", "--steps", "2"])
     # asking for the CPU explicitly is the only way onto it
     assert compile_plan(_tiny_graph(), device="cpu").device.type == "cpu"
 
