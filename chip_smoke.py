@@ -142,6 +142,29 @@ Phases (each prints its own lines):
               phi4-mini-3.8b at full width: greedy parity of the generated
               row and of every request the scheduler returns against the
               plain ``forward``.
+12b. zoo smoke -- all ten archs' smoke configs (f32) through ``get_model``
+              on the card against the same params on the CPU: prefill
+              logits, 4 decode steps and ``loss`` within 1e-3 x max(1,
+              max|cpu|), ``Engine`` greedy tokens equal (whisper: ``encode``,
+              ``decode_train``, ``precompute_cross_kv`` and 4
+              ``decode_step``s);
+12c. zoo  -- qwen3-14b, deepseek-v2-lite-16b, recurrentgemma-9b,
+              paligemma-3b (256 patch embeddings a row), mamba2-1.3b and
+              whisper-small at full width in bf16, each model released
+              before the next: seeded init on the card, ``Engine`` over the
+              JAX CLI's traffic (3 prompts of 16 tokens padded to batch 4,
+              12 new tokens), finite logits, greedy parity of the 3 rows
+              against the teacher-forced ``forward`` up to the first bf16
+              near-tie (mamba2's on f32 weights; none for MoE deepseek,
+              whose forward drops other token-slots), a 2x oversubscribed
+              ``RequestScheduler`` with no failed request; mamba2's chunked
+              prefill against the step recurrence (f32); whisper's
+              ``decode_step`` tokens against ``decode_train``; params GB,
+              peak allocated, ms / prefill, ms / decode step and tok/s
+              (CUDA-synchronised), device busy / idle and the top kernel
+              families (torch.profiler).  No kernel of the port launches in
+              12b-12c (checked): the JAX package runs these families in
+              plain jnp;
 13. train smoke -- ``launch.train``'s ADMM -> hard prune -> masked
               pipeline on the smoke qwen2.5-3b in f32 (10 steps of 8 x 32
               tokens: 6 ADMM with 3 Z/U updates, 4 masked), on the card and
@@ -182,6 +205,8 @@ result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -2286,7 +2311,8 @@ def serve_llm_checked(torch, llm, args, smoke, label, per_call, n_glue=0):
     tie_txt = "; ".join(f"margin {m:.4f} < {t:.4f}" for m, t in ties) or "none"
     print(f"  prefill logits vs reference plan {err_ref:.3e}, vs plain forward {err_fwd:.3e} "
           f"(max|logit| {top:.3f}); greedy parity ok: {compared}/{toks} tokens compared and "
-          f"equal to the plain forward loop (exact={all(par['exact'] for par in parity)}; "
+          f"equal to the teacher-forced plain forward's argmax "
+          f"(exact={all(par['exact'] for par in parity)}; "
           f"near-ties: {tie_txt}; smallest top-2 margin "
           f"{min(par['min_margin'] for par in parity):.4f}); teacher-forced: every served "
           f"token within {max(par['max_forced_gap'] for par in parity):.4f} of forward's best "
@@ -2520,6 +2546,375 @@ def phase_serve_forward(torch):
           f"{time.perf_counter() - t0:.1f}s in all (init included); "
           f"peak_alloc={torch.cuda.max_memory_allocated() / 1e9:.3f}GB")
     torch.cuda.empty_cache()
+
+
+#: the zoo: every smoke config card against CPU (f32), then the families the
+#: earlier phases do not serve, at full width in bf16 (deepseek-v2-236b's
+#: 471.6 GB of bf16 weights fit no card: it runs at smoke only)
+ZOO_FULL = ("qwen3-14b", "deepseek-v2-lite-16b", "recurrentgemma-9b", "paligemma-3b",
+            "mamba2-1.3b", "whisper-small")
+#: card against CPU on the smoke configs: within this x max(1, max|cpu|)
+ZOO_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def zoo_launch_check(ops):
+    """The zoo runs plain torch, as the JAX package's zoo runs plain jnp (no
+    ``pl.pallas_call`` on its paths): no kernel of the port may launch in
+    it."""
+    before = dict(ops.kernel_launch_counts())
+    yield
+    after = dict(ops.kernel_launch_counts())
+    check(after == before, f"zoo: kernels launched {after} (before {before})")
+    print("  zoo: no kernel of the port launched (plain torch, as in the JAX package)")
+
+
+def _zoo_err(torch, got, want) -> float:
+    """max |card - cpu| over max(1, max |cpu|), pad classes (-1e30) out."""
+    want = want.float()
+    got = got.detach().float().cpu()
+    keep = want > -1e29
+    return float((got - want).abs()[keep].max()) / max(1.0, float(want.abs()[keep].max()))
+
+
+def phase_zoo_smoke(torch):
+    """All ten smoke configs (f32) on the card against the same params on the
+    CPU: prefill logits, 4 decode steps' logits and ``loss`` within
+    ZOO_RTOL x max(1, max|cpu|), and ``Engine`` greedy tokens equal (a VLM
+    with its patch embeddings); whisper: ``decode_train`` logits, 4
+    ``decode_step``s from ``precompute_cross_kv`` and ``loss``."""
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.models import encdec, get_model
+    from repro_torch.models import transformer as lm
+    from repro_torch.serving import Engine
+
+    dev = torch.device("cuda")
+    for arch in ARCH_IDS:
+        cfg = smoke_config(arch)
+        rng = np.random.default_rng(SEED)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32))
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)) if cfg.is_encdec else None
+        pe = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)) if cfg.vision_tokens else None
+        params = get_model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+        out = {}
+        for d in ("cpu", "cuda"):
+            model = get_model(cfg, device=d)
+            p = params if d == "cpu" else _to_device(params, dev)
+            t = tok.to(d)
+            r = {}
+            with torch.no_grad():
+                if cfg.is_encdec:
+                    enc = encdec.encode(p, cfg, frames.to(d))
+                    r["prefill"] = encdec.decode_train(p, cfg, t[:, :8], enc)
+                    state = (model.init_cache(2, 32), encdec.precompute_cross_kv(p, cfg, enc))
+                    batch = {"frames": frames.to(d), "tokens": t[:, :-1], "labels": t[:, 1:]}
+                    steps = t[:, :4]
+                else:
+                    logits, state = lm.prefill(p, cfg, t[:, :8], 32,
+                                               patch_embeds=None if pe is None else pe.to(d))
+                    r["prefill"] = logits
+                    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+                    if pe is not None:
+                        batch["patch_embeds"] = pe.to(d)
+                    steps = t[:, 8:12]
+                    r["engine"] = Engine(model, p, batch_size=2, max_len=48).generate(
+                        t[:, :8], 6, patch_embeds=batch.get("patch_embeds")).tokens
+                for i in range(4):
+                    logits, state = model.decode_step(p, {"tokens_t": steps[:, i:i + 1]}, state)
+                    r[f"step{i}"] = logits
+                r["loss"] = model.loss(p, batch)[0]
+            out[d] = r
+        errs = {k: _zoo_err(torch, out["cuda"][k], out["cpu"][k]) for k in out["cpu"]
+                if k != "engine"}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= ZOO_RTOL, f"zoo smoke {arch}: {worst} off by {errs[worst]:.3g} "
+                                       f"x max(1, max|cpu|)")
+        if "engine" in out["cpu"]:
+            check(np.array_equal(out["cuda"]["engine"], out["cpu"]["engine"]),
+                  f"zoo smoke {arch}: Engine tokens {out['cuda']['engine'].tolist()} on the "
+                  f"card, {out['cpu']['engine'].tolist()} on the CPU")
+        print(f"  {arch} (smoke, f32): prefill {errs['prefill']:.2e}, decode steps "
+              f"{max(errs[f'step{i}'] for i in range(4)):.2e}, loss {errs['loss']:.2e} "
+              f"x max(1, max|cpu|)"
+              + ("; Engine tokens equal" if "engine" in out["cpu"] else "; decode_step logits"))
+        del params, out
+    torch.cuda.empty_cache()
+
+
+def _zoo_families(torch, prof):
+    """Device us by kernel family of one profiled run (torch.profiler), and
+    the number of kernels it ran."""
+    by, n = {}, 0
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        n += e.count
+        key = e.key.lower()
+        fam = next((f for frags, f in (
+            (("gemm", "xmma", "cutlass", "cublas", "nvjet"), "gemm"), (("softmax",), "softmax"),
+            (("reduce",), "reduce"), (("sort", "radix"), "sort"), (("scan",), "scan"),
+            (("index", "gather", "scatter"), "index"), (("catarray",), "cat"),
+            (("memcpy", "copy"), "copy"), (("elementwise", "vectorized"), "elementwise"))
+            if any(x in key for x in frags)), "other")
+        if fam == "other":
+            fam = "other:" + e.key.split("(")[0].split("<")[0][-40:]
+        by[fam] = by.get(fam, 0.0) + us
+    return by, n
+
+
+def _zoo_profile(torch, label, fn):
+    """One run of ``fn`` under torch.profiler: device busy ms, wall ms, idle
+    share and the top kernel families."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by, n_kernels = _zoo_families(torch, prof)
+        busy = sum(by.values()) / 1e3
+        if busy > 0:
+            break
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+    print(f"    profile {label}: device {busy:.2f} ms of wall {wall:.2f} ms (idle "
+          f"{1 - busy / wall:.0%}), {n_kernels} kernels; "
+          + " ".join(f"{k} {v / 1e3:.2f} ({v / 1e3 / busy:.0%})" for k, v in top))
+    return dict(busy=busy, wall=wall, idle=1 - busy / wall, top=top, kernels=n_kernels)
+
+
+def _synced(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def phase_zoo_full(torch, arch, smi):
+    """``arch`` at full width in bf16 through ``get_model`` and the ``Engine``
+    (whisper: ``encode`` + ``precompute_cross_kv`` + ``decode_step``), from
+    a CUDA generator seeded with SEED: the JAX CLI's traffic (3 prompts of
+    16 tokens padded to batch 4, 12 new tokens; a VLM with 256 patch
+    embeddings a row) timed with CUDA-synchronised walls, finite logits,
+    ``generate`` equal to the timed loop, greedy parity of the 3 rows
+    against the teacher-forced ``forward`` (mamba2's on f32 weights; none for
+    a MoE model), and a 2x oversubscribed ``RequestScheduler`` with no failed
+    request; mamba2 also holds its chunked prefill to the step recurrence
+    (in f32); then a profiled run.  Returns the numbers it prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, Request, RequestScheduler
+    from repro_torch.utils.tree import leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=dev)
+    params, init_ms = _synced(torch, lambda: model.init(torch.Generator(device=dev).manual_seed(
+        SEED)))
+    gb = nbytes(*leaves(params)) / 1e9
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  {arch}: {gb:.3f} GB of bf16 params drawn on the card in {init_ms:.0f} ms "
+          f"(peak {init_peak:.3f} GB: one f32 draw of the largest weight on top; {smi})")
+    if cfg.is_encdec:
+        rep = _zoo_encdec(torch, cfg, model, params)
+    else:
+        rep = _zoo_decoder(torch, cfg, model, params, serve, Engine, Request, RequestScheduler)
+    rep.update(arch=arch, params_gb=gb, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               init_peak_gb=init_peak)
+    print(f"  {arch}: {rep['tok_s']:.1f} tok/s, {rep['ms_prefill']:.2f} ms/prefill, "
+          f"{rep['ms_decode']:.2f} ms/decode step (median of {rep['n_steps']}), "
+          f"peak_alloc={rep['serve_peak_gb']:.3f}GB serving, {rep['peak_gb']:.3f}GB with the "
+          f"checks")
+    del params, model
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _zoo_decoder(torch, cfg, model, params, serve, Engine, Request, RequestScheduler):
+    from repro_torch.models import get_model
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    n_real, n_new, plen = 3, 12, 16
+    prompts = np.zeros((4, plen), np.int32)  # the 4th row pads the batch
+    prompts[:n_real] = rng.integers(0, cfg.vocab, (n_real, plen))
+    prompts = torch.from_numpy(prompts).to(dev)
+    pe = None
+    if cfg.vision_tokens:
+        pe = torch.from_numpy(rng.standard_normal((4, cfg.vision_tokens, cfg.d_model)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+    max_len = 128 + cfg.vision_tokens
+    engine = Engine(model, params, batch_size=4, max_len=max_len)
+    engine.generate(prompts, 2, patch_embeds=pe)  # warm-up: allocator, first launches
+
+    (logits, caches), ms_prefill = _synced(torch, lambda: engine._prefill(params, prompts, pe))
+    check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()), f"{cfg.name}: prefill logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, dec = [tok], []
+    for _ in range(n_new - 1):
+        (logits, caches), ms = _synced(torch, lambda: engine._decode(params, tok[:, None], caches))
+        check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()), f"{cfg.name}: decode logits")
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        dec.append(ms)
+    got = torch.stack(toks, 1).cpu().numpy()
+    res = engine.generate(prompts, n_new, patch_embeds=pe)
+    check(np.array_equal(res.tokens, got), f"{cfg.name}: generate {res.tokens.tolist()} vs the "
+                                           f"timed loop {got.tolist()}")
+    del caches
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9  # before the checks' own copies
+
+    # a MoE model has no parity probe: forward over prompt + continuation
+    # drops other token-slots than the prefill and the one-token steps (its
+    # served tokens are held to the CPU in ``== zoo smoke`` and to the JAX
+    # package by the CPU tests, in f32 and bf16).  Mamba-2's runs in f32
+    # (the bf16 weights widened): its decode is the step recurrence and its
+    # forward the chunked form, which round each layer's output to bf16 at
+    # other values (a served logit fell 0.297 below forward's best at step 4
+    # on an H100; the JAX package's two forms part as far in bf16, PERF.md),
+    # while in f32 they agree to ~1e-6 (``_mamba_recurrence_check``)
+    pars = []
+    if cfg.moe is None:
+        pcfg, pparams, how = cfg, params, ""
+        if cfg.ssm is not None:
+            pcfg, how = dataclasses.replace(cfg, dtype="float32"), " (f32 weights)"
+            pparams = _to_device(params, torch.float32)
+        ptoks = got if pcfg is cfg else Engine(
+            get_model(pcfg, device=dev), pparams, batch_size=4, max_len=max_len).generate(
+            prompts, n_new, patch_embeds=pe).tokens
+        llm = dict(cfg=pcfg, params=pparams, device=dev)
+        pars = [serve.greedy_parity(llm, prompts[i].cpu().numpy(), ptoks[i],
+                                    patch_embeds=None if pe is None else pe[i:i + 1])
+                for i in range(n_real)]
+        del pparams
+        print(f"    parity{how}: "
+              + "; ".join(f"row {i}: {p['compared']}/{p['total']}"
+                          + ("" if p["near_tie"] is None else " (near-tie)")
+                          + f", forced gap {p['max_forced_gap']:.3f}"
+                          for i, p in enumerate(pars)))
+    else:
+        print("    parity: none for MoE (forward over a longer sequence drops other "
+              "token-slots); served tokens held card = CPU in == zoo smoke")
+
+    if cfg.ssm is not None:
+        _mamba_recurrence_check(torch, cfg, params, prompts[0, :plen])
+
+    reqs = []
+    for rid in range(8):  # 2x oversubscribed over 4 slots
+        plen_r = int(rng.integers(4, plen))
+        reqs.append(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, plen_r).astype(np.int32),
+                            max_new=int(rng.integers(3, n_new))))
+    sched = RequestScheduler(engine)
+    for r in reqs:
+        sched.submit(r)
+    _, ms_sched = _synced(torch, sched.run)
+    failed = [r.rid for r in reqs if not r.done or len(r.generated) != r.max_new
+              or not all(0 <= t < cfg.vocab for t in r.generated)]
+    check(not failed, f"{cfg.name}: scheduler requests {failed} failed")
+    print(f"    scheduler: {len(reqs)} requests over 4 slots in {ms_sched:.0f} ms, none failed")
+
+    prof = _zoo_profile(torch, f"{cfg.name} generate", lambda: engine.generate(
+        prompts, n_new, patch_embeds=pe))
+    total = ms_prefill + sum(dec)
+    return dict(tok_s=n_real * n_new / total * 1e3, ms_prefill=ms_prefill,
+                ms_decode=statistics.median(dec), n_steps=len(dec), profile=prof,
+                parity=pars, ms_scheduler=ms_sched, serve_peak_gb=serve_peak)
+
+
+def _mamba_recurrence_check(torch, cfg, params, prompt):
+    """The chunked SSD prefill against the step recurrence over the same
+    prompt, in f32 (the bf16 weights widened): every position's logits and
+    every layer's final state within ZOO_RTOL x max(1, max|prefill|)."""
+    from repro_torch.models import transformer as lm
+
+    p32 = _to_device(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    tok = prompt[None].to(torch.int32)
+    with torch.no_grad():
+        logits, caches = lm.prefill(p32, c32, tok, 64)
+        state = lm.init_cache(c32, 1, 64, torch.float32, device=tok.device)
+        steps = []
+        for t in range(tok.shape[1]):
+            lg, state = lm.decode_step(p32, c32, tok[:, t:t + 1], state)
+            steps.append(lg)
+    err = _zoo_err(torch, torch.cat(steps, 1), logits.cpu())
+    serr = max(_zoo_err(torch, a["state"], b["state"].cpu()) for a, b in zip(state, caches))
+    check(err <= ZOO_RTOL and serr <= ZOO_RTOL,
+          f"{cfg.name}: step recurrence vs chunked prefill logits {err:.3g}, states {serr:.3g}")
+    print(f"    chunked prefill vs step recurrence (f32, {tok.shape[1]} tokens, "
+          f"{cfg.n_layers} layers): logits {err:.2e}, states {serr:.2e} x max(1, max|prefill|)")
+    del p32
+
+
+def _zoo_encdec(torch, cfg, model, params):
+    """Whisper: ``encode`` 4 rows of 1500 stub frames, ``precompute_cross_kv``,
+    then 12 greedy ``decode_step``s from token 0; the step tokens against
+    ``decode_train`` over the same tokens by ``serve.parity_rule`` (bf16)."""
+    from repro_torch.launch.serve import parity_rule
+    from repro_torch.models import encdec
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal((4, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    n_new = 12
+
+    def run():
+        with torch.no_grad():
+            enc = encdec.encode(params, cfg, frames)
+            cross = encdec.precompute_cross_kv(params, cfg, enc)
+            state = (model.init_cache(4, 128), cross)
+            tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+            seq, logits_all = [tok], []
+            for _ in range(n_new):
+                logits, state = model.decode_step(params, {"tokens_t": tok}, state)
+                logits_all.append(logits[:, 0])
+                tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+                seq.append(tok)
+            return enc, torch.cat(seq, 1), torch.stack(logits_all, 1)
+
+    run()  # warm-up
+    (enc, _), ms_encode = _synced(torch, lambda: (encdec.encode(params, cfg, frames), None))
+    cross, ms_cross = _synced(torch, lambda: encdec.precompute_cross_kv(params, cfg, enc))
+    state = (model.init_cache(4, 128), cross)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    dec = []
+    for _ in range(n_new):
+        (logits, state), ms = _synced(torch, lambda: model.decode_step(
+            params, {"tokens_t": tok}, state))
+        check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()), f"{cfg.name}: decode logits")
+        tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+        dec.append(ms)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    _, seq, step_logits = run()
+    with torch.no_grad():
+        forced = encdec.decode_train(params, cfg, seq[:, :-1], enc).float()
+    v = cfg.vocab
+    pars = [parity_rule(forced[row, :, :v], seq[row, 1:].tolist(), bf16=True)
+            for row in range(4)]
+    steps_ok = [p["compared"] for p in pars]
+    gap_max = max(p["max_forced_gap"] for p in pars)
+    diff = float((step_logits[..., :v].float() - forced[..., :v]).abs().max())
+    print(f"    decode_step vs decode_train: tokens equal up to the first near-tie "
+          f"({steps_ok} of {n_new} a row), every token within {gap_max:.4f} of decode_train's "
+          f"best logit, max |logit diff| {diff:.4f}")
+    prof = _zoo_profile(torch, f"{cfg.name} encode + 12 steps", run)
+    total = ms_encode + ms_cross + sum(dec)
+    return dict(tok_s=4 * n_new / total * 1e3, ms_prefill=ms_encode + ms_cross,
+                ms_encode=ms_encode, ms_cross=ms_cross, ms_decode=statistics.median(dec),
+                n_steps=len(dec), profile=prof, serve_peak_gb=serve_peak)
 
 
 #: the training phases: the JAX launcher's defaults (batch 8 x seq 128, lr
@@ -2913,7 +3308,8 @@ def phase_train_profile(torch):
 
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
-    tensor on ``dev``."""
+    tensor moved by ``.to(dev)`` (a device, or a dtype: the zoo widens the
+    mamba2 weights, all floating, to f32)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -2991,6 +3387,18 @@ def main() -> int:
     header("== serve forward (phi4-mini-3.8b, full width, bf16)")
     torch.cuda.reset_peak_memory_stats()
     phase_serve_forward(torch)
+    zoo = []
+    with zoo_launch_check(ops):
+        header("== zoo smoke (f32)")
+        phase_zoo_smoke(torch)
+        for arch in ZOO_FULL:
+            header(f"== zoo ({arch}, full width, bf16)")
+            zoo.append(phase_zoo_full(torch, arch, smi))
+    print("  zoo summary: " + "; ".join(
+        f"{r['arch']} {r['tok_s']:.1f} tok/s, {r['ms_prefill']:.2f} / {r['ms_decode']:.2f} ms "
+        f"prefill / decode step, peak {r['serve_peak_gb']:.3f} GB, idle "
+        f"{r['profile']['idle']:.0%}"
+        for r in zoo))
     header("== train smoke (f32)")
     phase_train_smoke(torch)
     header("== train (qwen2.5-3b, full width, bf16)")

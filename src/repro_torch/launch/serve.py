@@ -9,6 +9,7 @@ plan compiler -- or a decoder LM through the forward-based ``Engine``.
         --watchdog 0.5 --graph-app coloring --size 256 --base 32 --frames 24
     python -m repro_torch.launch.serve --arch phi4-mini-3.8b --scheduler
     python -m repro_torch.launch.serve --arch granite-3-2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --smoke --scheduler --device cpu
     python -m repro_torch.launch.serve --async --frames 8 --metrics-dump build/m.json
 
 Builds the app (weights from ``--seed``), prunes it with the paper's recipe
@@ -39,15 +40,16 @@ random prompts of 4..``--prompt-len`` tokens, ``--new-tokens`` each, with
 ``--batch`` sequences decoding together over a ``PagedKVCache`` of
 ``--kv-pages`` x ``--kv-page-size`` tokens.  It prints the plan steps, the
 tokens per second, ms per decode step, the cache's peak and leaked pages
-and a greedy-parity probe: the served tokens of the first prompt against a
-greedy loop over the port's plain ``forward``.  In f32 every token must
-match.  In bf16 the plan and ``forward`` round at other places, so tokens
-are compared up to the first step whose top-2 logit margin in ``forward``
-is below ``PARITY_BF16_ULPS`` bf16 ulps of its largest logit (a near-tie
-either path may break either way); a mismatch before it fails.  Beside it,
-teacher-forced: ``forward`` over the prompt and the served tokens, where
-every served token must be the row's best logit (f32) or within that
-tolerance of it (bf16), at every step.
+and a greedy-parity probe: the served tokens of the first prompt against
+the argmax of one teacher-forced pass of the port's plain ``forward`` over
+the prompt and the served tokens (a greedy loop over ``forward`` sees the
+same sequence up to its first mismatch, so this is its verdict).  In f32
+every token must match.  In bf16 the plan and ``forward`` round at other
+places, so tokens are compared up to the first step whose top-2 logit
+margin in ``forward`` is below ``PARITY_BF16_ULPS`` bf16 ulps of its
+largest logit (a near-tie either path may break either way); a mismatch
+before it fails.  Beside it, at every step, every served token must be
+the row's best logit (f32) or within that tolerance of it (bf16).
 
 ``--async`` serves every demo app (or just ``--graph-app``) from one
 ``AsyncPlanServer``: each app's plan registered with its input spec, the
@@ -70,15 +72,26 @@ With neither ``--llm``, ``--graph-app`` nor ``--async`` (the JAX CLI's
 default path), ``--arch`` (``--smoke``: its reduced f32 config) is built
 through ``get_model`` from a generator seeded with ``--seed`` on the device
 and served by ``Engine``: ``--batch`` random prompts of ``--prompt-len``
-tokens (numpy seed ``--seed``, drawn as the JAX CLI draws them),
-``--new-tokens`` greedy tokens each, caches of ``--max-len`` slots; it
-prints the tokens per second and the first row, and probes greedy parity
-of that row against the plain ``forward`` (the ``--llm`` rule).  With
-``--scheduler`` a ``RequestScheduler`` then serves ``2 x --batch``
-requests of random length over the ``--batch`` slots (continuous
-batching) and every request it returns passes the same probe.  This path
-runs plain torch, as the JAX package's does (``layers.linear`` without
-Pallas); the kernels serve through ``--llm``.
+tokens (numpy seed ``--seed``, drawn as the JAX CLI draws them; a VLM also
+gets ``vision_tokens`` random patch embeddings a row, drawn after them),
+``--new-tokens`` greedy tokens each, caches of ``max(--max-len,
+vision_tokens + --prompt-len + --new-tokens)`` slots (a VLM's prefix does
+not fit 128); it prints the tokens per second and the first row, and
+probes greedy parity of that row against the plain ``forward`` (the
+``--llm`` rule).  With ``--scheduler`` a ``RequestScheduler`` then serves
+``2 x --batch`` text-only requests of random length over the ``--batch``
+slots (continuous batching) and every request it returns passes the same
+probe.  Every decoder-only arch serves here; whisper-small (an
+encoder-decoder) exits, as in the JAX CLI.  A MoE model is served without
+the probe: it drops token-slots past an expert's capacity, and that
+capacity grows with the sequence, so ``forward`` over a prompt and its
+continuation drops other tokens than the prefill and the one-token decode
+steps did, and is no reference for them (the JAX package's is not either;
+its served tokens are held to the JAX package's on the CPU by
+``tests/test_torch_zoo_models.py``).  This path runs plain torch, as the
+JAX package's does (``layers.linear`` without Pallas); the kernels serve
+through ``--llm``, which takes the dense GQA decoders only (the others
+raise the JAX lowering's ``NotImplementedError``).
 
 ``--metrics-dump PATH`` (with ``--async``, ``--llm`` or ``--graph-app``)
 arms tracing for the run, snapshots the metrics registry every
@@ -107,12 +120,13 @@ from ..convert import resolve_device
 from ..core.graph import PassContext, PassManager, compile_plan
 from ..kernels.ref import bf16_ulp
 from ..models.cnn import APP_ACT_SKIP, APP_INPUT_CHANNELS, APP_QUANT_SKIP, APPS, app_masks
+from ..models.transformer import model_dtype as lm_dtype
 from ..quant import calibrate_plan
 from ..serving.engine import PlanServer
 from ..utils.fileio import atomic_write_json
 
 __all__ = ["main", "serve_graph_app", "serve_async", "serve_llm", "serve_forward",
-           "build_llm", "serve_llm_traffic", "greedy_parity", "llm_prompts"]
+           "build_llm", "serve_llm_traffic", "greedy_parity", "parity_rule", "llm_prompts"]
 
 #: the bf16 near-tie threshold of the greedy-parity probe, in bf16 ulps of
 #: the largest logit (see the module doc)
@@ -426,9 +440,10 @@ def build_llm(args, dev: torch.device) -> dict:
     from ..core.graph import compile_plan
     from ..core.graph.passes import optimize
     from ..models.transformer import init_lm
-    from ..models.transformer_graph import build_decoder_graph
+    from ..models.transformer_graph import build_decoder_graph, check_config
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_config(cfg)  # before drawing a model the lowering refuses
     params = init_lm(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     graphs = {ph: optimize(build_decoder_graph(params, cfg, phase=ph))
               for ph in ("prefill", "decode")}
@@ -477,43 +492,47 @@ def _bf16_tol(top: float) -> float:
     return PARITY_BF16_ULPS * bf16_ulp(top)
 
 
-def greedy_parity(llm: dict, prompt, got) -> dict:
-    """The served tokens ``got`` of ``prompt`` against the port's plain
-    ``forward``, two ways (pad classes excluded):
-
-    * free-running: a greedy loop over ``forward`` from the prompt; in f32
-      every token must match; in bf16 tokens are compared up to the first
-      step whose top-2 margin is below the bf16 tolerance (module doc);
-    * teacher-forced: one ``forward`` over ``prompt + got``; at every step
-      the served token's logit must be the row's maximum (f32), or within
-      the bf16 tolerance of it (bf16).
-
-    Returns what it compared; raises on a mismatch."""
+def greedy_parity(llm: dict, prompt, got, patch_embeds=None) -> dict:
+    """The served tokens ``got`` of ``prompt`` against one teacher-forced
+    ``forward`` over ``prompt + got[:-1]`` (pad classes excluded), by
+    :func:`parity_rule`.  ``patch_embeds [1, P, D]`` is a VLM prompt's
+    prefix.  Returns what it compared; raises on a mismatch."""
     from ..models.transformer import forward
 
     cfg, params, dev = llm["cfg"], llm["params"], llm["device"]
-    v, n0 = cfg.vocab, len(prompt)
-    bf16 = cfg.dtype == "bfloat16"
-    seq = [int(t) for t in prompt]
-    want, margins = [], []
+    forced = [int(t) for t in prompt] + [int(t) for t in got[:-1]]
     with torch.no_grad():
-        for _ in range(len(got)):
-            logits, _ = forward(params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev))
-            row = logits[0, -1, :v].float()
-            top2 = torch.topk(row, 2).values
-            want.append(int(row.argmax()))
-            margins.append((float(top2[0] - top2[1]), float(row.abs().max())))
-            seq.append(want[-1])
-        forced = [int(t) for t in prompt] + list(got[:-1])
-        rows = forward(params, cfg, torch.tensor([forced], dtype=torch.int32, device=dev))[0]
-        rows = rows[0, n0 - 1:, :v].float()
-        idx = torch.arange(len(got), device=rows.device)
-        gaps = (rows.max(dim=-1).values - rows[idx, torch.tensor(got, device=rows.device)])
-        gaps = gaps.cpu().tolist()
-        tops = rows.abs().max(dim=-1).values.cpu().tolist()
+        rows = forward(params, cfg, torch.tensor([forced], dtype=torch.int32, device=dev),
+                       patch_embeds=patch_embeds)[0]
+    return parity_rule(rows[0, len(prompt) - 1:, :cfg.vocab], got,
+                       bf16=cfg.dtype == "bfloat16")
+
+
+def parity_rule(rows: torch.Tensor, got, bf16: bool) -> dict:
+    """Served tokens ``got`` against teacher-forced logits ``rows [n, V]``
+    (row i scores what follows the prompt and ``got[:i]``):
+
+    * the tokens equal the rows' argmax -- every one in f32; in bf16 up to
+      the first row whose top-2 margin is below the bf16 tolerance (module
+      doc).  Up to its first mismatch a free-running greedy loop sees the
+      same sequence, so this is that loop's verdict;
+    * every served token's logit is its row's maximum (f32), or within the
+      bf16 tolerance of it (bf16).
+
+    Returns what it compared; raises on a mismatch."""
+    got = [int(t) for t in got]
+    rows = rows.float()
+    top2 = torch.topk(rows, 2, dim=-1).values
+    best = top2[:, 0]
+    picked = rows[torch.arange(len(got), device=rows.device),
+                  torch.tensor(got, device=rows.device)]
+    want = rows.argmax(-1).cpu().tolist()
+    margins = (best - top2[:, 1]).cpu().tolist()
+    gaps = (best - picked).cpu().tolist()
+    tops = rows.abs().max(dim=-1).values.cpu().tolist()
     compared, tie = len(got), None
     if bf16:
-        for i, (margin, top) in enumerate(margins):
+        for i, (margin, top) in enumerate(zip(margins, tops)):
             if margin < _bf16_tol(top):
                 compared, tie = i, (margin, _bf16_tol(top))
                 break
@@ -525,7 +544,7 @@ def greedy_parity(llm: dict, prompt, got) -> dict:
             raise AssertionError(f"greedy parity: served token {got[i]} at step {i} is "
                                  f"{gap} below forward's best logit")
     return dict(compared=compared, total=len(got), exact=got == want, near_tie=tie,
-                min_margin=min(m for m, _ in margins) if margins else None,
+                min_margin=min(margins) if margins else None,
                 max_forced_gap=max(gaps) if gaps else 0.0)
 
 
@@ -534,9 +553,9 @@ def parity_text(par: dict) -> str:
     how = "every token" if par["near_tie"] is None else (
         f"up to a near-tie at step {par['compared']} (margin {par['near_tie'][0]:.4f} < "
         f"{par['near_tie'][1]:.4f})")
-    return (f"greedy parity ok ({par['compared']}/{par['total']} tokens match the plain "
-            f"forward loop, {how}; exact={par['exact']}; teacher-forced: every served token "
-            f"within {par['max_forced_gap']:.4f} of forward's best logit)")
+    return (f"greedy parity ok ({par['compared']}/{par['total']} tokens match the argmax "
+            f"of the teacher-forced plain forward, {how}; exact={par['exact']}; every served "
+            f"token within {par['max_forced_gap']:.4f} of forward's best logit)")
 
 
 def serve_llm(args) -> dict:
@@ -581,39 +600,61 @@ def serve_forward(args) -> dict:
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit(f"serve: {args.arch} is an encoder-decoder; the Engine serves "
+                         "decoder-only models (run it through repro_torch.models.encdec)")
     model = get_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
-    engine = Engine(model, params, batch_size=args.batch, max_len=args.max_len)
+    # a VLM's patches come first: the caches hold them, the prompt and the reply
+    max_len = max(args.max_len, cfg.vision_tokens + args.prompt_len + args.new_tokens)
+    engine = Engine(model, params, batch_size=args.batch, max_len=max_len)
     llm = dict(cfg=cfg, params=params, device=dev)  # what greedy_parity reads
+    probe = cfg.moe is None  # see the module doc
     print(f"forward: {args.arch}{' (smoke)' if args.smoke else ''} {cfg.dtype} device={dev} "
-          f"batch={args.batch} max_len={args.max_len}")
+          f"batch={args.batch} max_len={max_len}")
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    patches = None
+    if cfg.vision_tokens:
+        patches = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32)).to(
+            dev, lm_dtype(cfg))
     t0 = time.perf_counter()
-    result = engine.generate(torch.from_numpy(prompts), args.new_tokens)
+    result = engine.generate(torch.from_numpy(prompts), args.new_tokens, patch_embeds=patches)
     dt = time.perf_counter() - t0  # generate returns host arrays: the card is done
     n_tok = args.batch * args.new_tokens
     print(f"generated {result.tokens.shape} in {dt:.2f}s ({n_tok / dt:.1f} tok/s)")
     print("first row:", result.tokens[0].tolist())
-    par = greedy_parity(llm, prompts[0], [int(t) for t in result.tokens[0]])
-    print(f"forward: {parity_text(par)}")
+    par = None
+    if probe:
+        par = greedy_parity(llm, prompts[0], result.tokens[0],
+                            patch_embeds=None if patches is None else patches[:1])
+        print(f"forward: {parity_text(par)}")
+    else:
+        print("forward: no greedy-parity probe for a MoE model (forward over a longer "
+              "sequence drops other token-slots)")
     report = dict(tokens=result.tokens, seconds=dt, tok_per_s=n_tok / dt, parity=par)
 
     if args.scheduler:
-        sched = RequestScheduler(engine)
+        reqs = []
         for rid in range(args.batch * 2):  # 2x oversubscribed queue
             plen = int(rng.integers(4, args.prompt_len))
-            sched.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, plen).astype(np.int32),
-                                 max_new=int(rng.integers(3, args.new_tokens))))
+            reqs.append((rid, rng.integers(0, cfg.vocab, plen).astype(np.int32),
+                         int(rng.integers(3, args.new_tokens))))
+
+        sched = RequestScheduler(engine)
+        for rid, prompt, max_new in reqs:
+            sched.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
         t0 = time.perf_counter()
         done = sched.run()
         dt = time.perf_counter() - t0
-        for req in done:
+        for req in done if probe else ():
             greedy_parity(llm, req.prompt, req.generated)
         print(f"scheduler: completed {sum(r.done for r in done)} requests "
-              f"(continuous batching over {args.batch} slots) in {dt:.2f}s; greedy parity ok "
-              f"for the {len(done)} requests still in their slots")
+              f"(continuous batching over {args.batch} slots) in {dt:.2f}s"
+              + (f"; greedy parity ok for the {len(done)} requests still in their slots"
+                 if probe else ""))
         report["scheduler"] = done
     return report
 
@@ -632,7 +673,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16, help="llm: longest random prompt")
     ap.add_argument("--new-tokens", type=int, default=12, help="llm: tokens per sequence")
     ap.add_argument("--max-len", type=int, default=128,
-                    help="default path: KV-cache slots a row of the Engine")
+                    help="default path: KV-cache slots a row of the Engine (raised to "
+                         "vision_tokens + --prompt-len + --new-tokens where that is more)")
     ap.add_argument("--scheduler", action="store_true",
                     help="default path: continuous batching demo (RequestScheduler over "
                          "2 x --batch requests)")

@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..configs import ARCH_IDS, get_config, smoke_config
+from ..configs import get_config, smoke_config
 from ..convert import resolve_device
 from ..core.pruning import AdmmConfig, Block, Column, PrunePlan, hard_prune, tree_sparsity_report
 from ..data.pipeline import PipelineState, SyntheticPipeline
@@ -38,7 +38,12 @@ from ..training.fault_tolerance import PreemptionHandler, StragglerMonitor
 from ..training.optimizer import AdamWConfig
 from ..training.train_loop import TrainState, init_train_state, make_train_step
 
-__all__ = ["default_prune_plan", "build_parser", "train", "main"]
+__all__ = ["TRAIN_ARCHS", "default_prune_plan", "build_parser", "train", "main"]
+
+#: the archs the launcher trains: the dense GQA decoders (training the other
+#: families -- the MoE aux loss through ADMM, 3-D expert stacks -- is
+#: ROADMAP A7b)
+TRAIN_ARCHS = ("qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b")
 
 
 def default_prune_plan(sparsity: float = 0.5) -> PrunePlan:
@@ -58,7 +63,7 @@ def default_prune_plan(sparsity: float = 0.5) -> PrunePlan:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
+    ap.add_argument("--arch", choices=TRAIN_ARCHS, default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

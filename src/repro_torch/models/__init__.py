@@ -1,7 +1,8 @@
-"""Model graphs of the port: the paper's three demo CNN apps (``cnn``) and
-the dense GQA decoder (``layers``, ``attention``, ``ffn``, ``transformer``,
-its plan lowering ``transformer_graph``, and the uniform model API
-``registry.get_model``)."""
+"""Model graphs of the port: the paper's three demo CNN apps (``cnn``), the
+decoder-only LMs of every family (``layers``, ``attention``, ``ffn``,
+``ssm``, ``rglru``, ``transformer``), the encoder-decoder (``encdec``), the
+dense decoder's plan lowering (``transformer_graph``) and the uniform model
+API (``registry.get_model``)."""
 
 from . import cnn
 from .registry import Model, get_model

@@ -1,15 +1,18 @@
-"""GQA attention (a port of the dense-GQA part of ``repro.models.attention``):
-projections with RoPE, full (materialized-score) softmax attention, prefill
-with a populated KV cache, and the single-token decode step over it.
+"""Attention (a port of ``repro.models.attention``): GQA / MQA (+qk_norm,
++bias) with sliding windows and prefix-LM masks, full (materialized-score)
+and chunked (online-softmax) ``sdpa``, KV caches (full, ring-buffer and
+MLA's compressed one) with single-token decode steps, DeepSeek's MLA and
+Whisper's cross-attention.
 
 Layouts follow the JAX package: activations ``[B, S, D]``, per-head
 tensors ``[B, S, H, dh]``, KV caches ``{"k", "v": [B, S_max, G, dh], "pos":
-[B]}``.  Attention is causal over the full sequence (the JAX package's
-``impl="full"``); MLA, cross-attention, sliding windows, prefix-LM masks and
-the chunked (online-softmax) ``sdpa`` come with a later slice.  Under
-``cfg.prune`` with a ``bsr`` execution mode the q and o projections are
-block-pruned (packed params), and every projection dispatches on its params
-(``layers.linear_auto``).
+[B]}`` (``pos`` per row), MLA caches ``{"c_kv": [B, S_max, r], "k_rope":
+[B, S_max, dr], "pos": [B]}``.  Under ``cfg.prune`` with a ``bsr``
+execution mode the GQA q and o projections are block-pruned (packed
+params), and every GQA projection dispatches on its params
+(``layers.linear_auto``).  Everything here is plain torch, as the JAX
+package's forward-based path is plain jnp: the decoder plans
+(``transformer_graph``) are what run the kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .layers import (
     init_linear,
     init_pruned_linear,
     init_rmsnorm,
+    linear,
     linear_auto,
     rmsnorm,
 )
@@ -37,6 +41,14 @@ __all__ = [
     "gqa_prefill",
     "init_kv_cache",
     "gqa_decode_step",
+    "init_mla",
+    "mla_attention",
+    "mla_prefill",
+    "init_mla_cache",
+    "mla_decode_step",
+    "init_cross_attention",
+    "cross_attention_kv",
+    "cross_attention",
 ]
 
 Params = Dict[str, Any]
@@ -44,16 +56,44 @@ Params = Dict[str, Any]
 NEG_INF = -1e30
 
 
-def _causal_bias(q_pos: torch.Tensor, kv_pos: torch.Tensor) -> torch.Tensor:
-    """Additive causal mask bias [Sq, Skv]: 0 where a query may attend (key
-    position <= query position), -1e30 else."""
-    ok = kv_pos[None, :] <= q_pos[:, None]
+# --------------------------------------------------------------------------- #
+# masks                                                                        #
+# --------------------------------------------------------------------------- #
+
+
+def _mask_bias(
+    q_pos: torch.Tensor,  # [Sq] absolute positions of the queries
+    kv_pos: torch.Tensor,  # [Skv]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    """Additive mask bias [Sq, Skv] (f32): 0 where a query may attend, -1e30
+    else.  Causal: key position <= query position, bidirectional inside a
+    prefix of ``prefix_len`` positions (prefix-LM); ``window`` keeps keys
+    less than ``window`` positions back."""
+    qi = q_pos[:, None]
+    kj = kv_pos[None, :]
+    ok = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = kj <= qi
+        if prefix_len > 0:
+            ok = ok | ((qi < prefix_len) & (kj < prefix_len))
+    if window is not None:
+        ok = ok & (qi - kj < window)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
 
+# --------------------------------------------------------------------------- #
+# core attention                                                               #
+# --------------------------------------------------------------------------- #
+
+
 def _sdpa_full(q, k, v, bias, scale):
-    """q [B,Sq,H,dh], k [B,Skv,G,dh], v [B,Skv,G,dv]; H = G*rep.  bias [Sq,Skv]."""
+    """q [B,Sq,H,dh], k [B,Skv,G,dh], v [B,Skv,G,dv]; H = G*rep (dv may differ
+    from dh, e.g. MLA's rope-extended queries).  bias [Sq,Skv]."""
     b, sq, h, dh = q.shape
     g = k.shape[2]
     dv = v.shape[-1]
@@ -65,6 +105,36 @@ def _sdpa_full(q, k, v, bias, scale):
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
+def _sdpa_chunked(q, k, v, q_pos, kv_pos, scale, *, causal: bool, window: Optional[int],
+                  prefix_len: int, chunk: int = 1024):
+    """Online softmax over KV chunks of ``chunk`` keys (the flash-attention
+    recurrence in plain torch, f32 running max / sum / accumulator)."""
+    b, sq, h, dh = q.shape
+    g = k.shape[2]
+    dv = v.shape[-1]
+    rep = h // g
+    skv = k.shape[1]
+    qg = q.reshape(b, sq, g, rep, dh).float()
+    m = torch.full((b, g, rep, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, g, rep, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, g, rep, dv), dtype=torch.float32, device=q.device)
+    for lo in range(0, skv, chunk):
+        hi = min(lo + chunk, skv)
+        bias = _mask_bias(q_pos, kv_pos[lo:hi], causal=causal, window=window,
+                          prefix_len=prefix_len)
+        logits = torch.einsum("bsgrd,btgd->bgrst", qg, k[:, lo:hi].float()) * scale
+        logits = logits + bias[None, None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(logits - m_new[..., None])
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha.movedim(3, 1)[..., None] + torch.einsum(
+            "bgrst,btgd->bsgrd", pr, v[:, lo:hi].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).movedim(3, 1)[..., None]
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
 def sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -72,11 +142,31 @@ def sdpa(
     q_pos: torch.Tensor,
     kv_pos: torch.Tensor,
     *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    impl: str = "auto",
+    chunk: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Full causal softmax attention (the JAX package's ``impl="full"``)."""
+    """Softmax attention, ``impl`` "full" (materialized scores) or "chunked"
+    (online softmax); "auto" is chunked when there are more than 8192 keys
+    and more than one query, as in the JAX package."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _sdpa_full(q, k, v, _causal_bias(q_pos, kv_pos), scale)
+    if impl == "auto":
+        impl = "chunked" if k.shape[1] > 8192 and q.shape[1] > 1 else "full"
+    if impl == "full":
+        bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window, prefix_len=prefix_len)
+        return _sdpa_full(q, k, v, bias, scale)
+    if impl != "chunked":
+        raise ValueError(f"unknown sdpa impl {impl!r}")
+    return _sdpa_chunked(q, k, v, q_pos, kv_pos, scale, causal=causal, window=window,
+                         prefix_len=prefix_len, chunk=chunk)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention block                                                          #
+# --------------------------------------------------------------------------- #
 
 
 def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
@@ -124,52 +214,37 @@ def gqa_attention(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    causal: bool = True,
+    impl: str = "auto",
     mode: str = "dense",
+    chunk: int = 1024,
 ) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill); the mask uses
     row 0 of ``positions`` (every row shares the position grid)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions, mode=mode)
     pos1d = positions[0]
-    out = sdpa(q, k, v, pos1d, pos1d)
+    out = sdpa(q, k, v, pos1d, pos1d, causal=causal, window=window, prefix_len=prefix_len,
+               impl=impl, chunk=chunk)
     b, s = x.shape[:2]
     return linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
 
 
-def gqa_prefill(
-    p: Params,
-    cfg: ArchConfig,
-    x: torch.Tensor,
-    positions: torch.Tensor,
-    max_len: int,
-    *,
-    mode: str = "dense",
-) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence attention + the KV cache it populates (serving prefill)."""
-    b, s, _ = x.shape
-    q, k, v = gqa_project_qkv(p, cfg, x, positions, mode=mode)
-    pos1d = positions[0]
-    out = sdpa(q, k, v, pos1d, pos1d)
-    y = linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
-    pad = max(max_len - s, 0)
-    kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, :max_len]
-    vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, :max_len]
-    cache = {"k": kc, "v": vc,
-             "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
-    return y, cache
+# ----------------------------- KV cache ------------------------------------ #
 
 
 def init_kv_cache(
     cfg: ArchConfig, batch: int, max_len: int, *, window: Optional[int] = None,
     dtype=torch.bfloat16, device=None,
 ) -> Params:
-    """An empty KV cache of ``max_len`` slots a row, every row at position
-    0.  ``pos`` is PER ROW, as in the JAX package: each slot of a
+    """An empty KV cache, every row at position 0: ``max_len`` slots a row,
+    or ``min(window, max_len)`` slots used as a ring buffer with a window.
+    ``pos`` is PER ROW, as in the JAX package: each slot of a
     continuous-batching batch advances on its own."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window (ring-buffer) KV caches come with the hybrid archs (ROADMAP A7)")
     dh = cfg.resolved_head_dim
-    shape = (batch, max_len, cfg.n_kv_heads, dh)
+    size = min(window, max_len) if window else max_len
+    shape = (batch, size, cfg.n_kv_heads, dh)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -183,24 +258,34 @@ def gqa_decode_step(
     x_t: torch.Tensor,  # [B, 1, D]
     cache: Params,
     *,
+    window: Optional[int] = None,
     mode: str = "dense",
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: write the new k/v at slot ``pos`` (clamped to the
-    last slot), attend over slots ``<= pos``, advance ``pos``.  Returns new
-    cache tensors (the inputs are not modified)."""
+    last slot; ``pos % size`` in a ring buffer when ``window`` is set),
+    attend over the valid slots, advance ``pos``.  Returns new cache tensors
+    (the inputs are not modified)."""
     b = x_t.shape[0]
     dh = cfg.resolved_head_dim
     pos = cache["pos"]
     q, k_new, v_new = gqa_project_qkv(p, cfg, x_t, pos[:, None], mode=mode)
     size = cache["k"].shape[1]
-    slot = torch.clamp(pos, max=size - 1).long()
+    slot = pos % size if window is not None else torch.clamp(pos, max=size - 1)
     rows = torch.arange(b, device=x_t.device)
     k = cache["k"].clone()
     v = cache["v"].clone()
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    k[rows, slot.long()] = k_new[:, 0].to(k.dtype)
+    v[rows, slot.long()] = v_new[:, 0].to(v.dtype)
     idx = torch.arange(size, dtype=torch.int32, device=x_t.device)
-    valid = idx[None, :] <= pos[:, None]
+    if window is None:
+        valid = idx[None, :] <= pos[:, None]
+    else:
+        # absolute positions of the ring's slots, per row
+        wraps = torch.div(pos, size, rounding_mode="floor")[:, None]
+        kv_pos = torch.where(idx[None, :] <= slot[:, None], wraps * size + idx[None, :],
+                             (wraps - 1) * size + idx[None, :])
+        valid = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (
+            pos[:, None] - kv_pos < (window or size))
     g = cfg.n_kv_heads
     qg = q.reshape(b, 1, g, cfg.n_heads // g, dh).float()
     logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) / math.sqrt(dh)
@@ -211,3 +296,195 @@ def gqa_decode_step(
     out = out.reshape(b, 1, cfg.n_heads * dh).to(x_t.dtype)
     y = linear_auto(p["w_o"], out, mode)
     return y, {"k": k, "v": v, "pos": pos + 1}
+
+
+def gqa_prefill(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    max_len: int,
+    *,
+    window: Optional[int] = None,
+    prefix_len: int = 0,
+    impl: str = "auto",
+    mode: str = "dense",
+) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence attention + the KV cache it populates (serving prefill);
+    with a window shorter than the sequence the cache is in ring layout (slot
+    i holds the largest position p < S with p % size == i)."""
+    b, s, _ = x.shape
+    q, k, v = gqa_project_qkv(p, cfg, x, positions, mode=mode)
+    pos1d = positions[0]
+    out = sdpa(q, k, v, pos1d, pos1d, causal=True, window=window, prefix_len=prefix_len,
+               impl=impl)
+    y = linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
+    size = min(window, max_len) if window else max_len
+    if window is None or s <= size:
+        pad = max(size - s, 0)
+        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, :size]
+        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, :size]
+    else:
+        idx = torch.arange(size, device=x.device)
+        slot_pos = idx + size * torch.div(s - 1 - idx, size, rounding_mode="floor")
+        kc, vc = k[:, slot_pos], v[:, slot_pos]
+    cache = {"k": kc, "v": vc,
+             "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    return y, cache
+
+
+# --------------------------------------------------------------------------- #
+# MLA (DeepSeek-V2 multi-head latent attention)                                #
+# --------------------------------------------------------------------------- #
+
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    dh, r, dr, h = cfg.resolved_head_dim, cfg.kv_lora_rank, cfg.rope_head_dim, cfg.n_heads
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["w_dq"] = init_linear(gen, cfg.d_model, cfg.q_lora_rank, dtype=dtype)
+        p["q_norm"] = init_rmsnorm(cfg.q_lora_rank, dtype, gen.device)
+        p["w_uq"] = init_linear(gen, cfg.q_lora_rank, h * (dh + dr), dtype=dtype)
+    else:
+        p["w_q"] = init_linear(gen, cfg.d_model, h * (dh + dr), dtype=dtype)
+    p["w_dkv"] = init_linear(gen, cfg.d_model, r, dtype=dtype)
+    p["kv_norm"] = init_rmsnorm(r, dtype, gen.device)
+    p["w_kr"] = init_linear(gen, cfg.d_model, dr, dtype=dtype)  # the shared rope key
+    p["w_uk"] = init_linear(gen, r, h * dh, dtype=dtype)
+    p["w_uv"] = init_linear(gen, r, h * dh, dtype=dtype)
+    p["w_o"] = init_linear(gen, h * dh, cfg.d_model, dtype=dtype)
+    return p
+
+
+def _mla_q(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    dh, dr = cfg.resolved_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = linear(p["w_uq"], rmsnorm(p["q_norm"], linear(p["w_dq"], x), cfg.norm_eps))
+    else:
+        q = linear(p["w_q"], x)
+    q = q.reshape(b, s, cfg.n_heads, dh + dr)
+    return q[..., :dh], apply_rope(q[..., dh:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The compressed KV ``c_kv [B, S, r]`` and the shared rope key
+    ``k_rope [B, S, 1, dr]``."""
+    b, s, _ = x.shape
+    c_kv = rmsnorm(p["kv_norm"], linear(p["w_dkv"], x), cfg.norm_eps)
+    k_rope = apply_rope(linear(p["w_kr"], x).reshape(b, s, 1, cfg.rope_head_dim), positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                  *, impl: str = "auto") -> torch.Tensor:
+    """Full-sequence MLA (train / prefill): K / V decompressed per head."""
+    b, s, _ = x.shape
+    dh, dr, h = cfg.resolved_head_dim, cfg.rope_head_dim, cfg.n_heads
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = linear(p["w_uk"], c_kv).reshape(b, s, h, dh)
+    v = linear(p["w_uv"], c_kv).reshape(b, s, h, dh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    pos1d = positions[0]
+    out = sdpa(q, k, v, pos1d, pos1d, causal=True, impl=impl, scale=1.0 / math.sqrt(dh + dr))
+    return linear(p["w_o"], out.reshape(b, s, h * dh))
+
+
+def mla_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                max_len: int, *, impl: str = "auto") -> Tuple[torch.Tensor, Params]:
+    """Full-sequence MLA + the compressed cache it populates."""
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"mla_prefill: {s} positions do not fit a cache of {max_len}")
+    y = mla_attention(p, cfg, x, positions, impl=impl)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    pad = max_len - s
+    cache = {
+        "c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+        "k_rope": torch.nn.functional.pad(k_rope.reshape(b, s, -1), (0, 0, 0, pad)),
+        "pos": torch.full((b,), s, dtype=torch.int32, device=x.device),
+    }
+    return y, cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None) -> Params:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode_step(p: Params, cfg: ArchConfig, x_t: torch.Tensor, cache: Params
+                    ) -> Tuple[torch.Tensor, Params]:
+    """Absorbed decode: the queries move into the latent space, the cache
+    stays r-wide.
+
+    score_h(t) = q_nope_h^T W_uk_h c_t + q_rope_h^T k_rope_t
+    out_h      = (sum_t p_t c_t) W_uv_h
+
+    A row at ``pos >= max_len`` writes nothing (JAX drops an out-of-range
+    scatter) and attends over the whole cache."""
+    b = x_t.shape[0]
+    dh, dr, r, h = cfg.resolved_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank, cfg.n_heads
+    pos = cache["pos"]
+    q_nope, q_rope = _mla_q(p, cfg, x_t, pos[:, None])  # [B,1,H,dh], [B,1,H,dr]
+    c_new, kr_new = _mla_latent(p, cfg, x_t, pos[:, None])
+    size = cache["c_kv"].shape[1]
+    c_kv, k_rope = cache["c_kv"].clone(), cache["k_rope"].clone()
+    # the drop without a host sync: a row past the end rewrites its last
+    # slot with what is already there
+    fits = (pos < size)[:, None]
+    rows = torch.arange(b, device=x_t.device)
+    at = pos.clamp(max=size - 1).long()
+    c_kv[rows, at] = torch.where(fits, c_new[:, 0].to(c_kv.dtype), c_kv[rows, at])
+    k_rope[rows, at] = torch.where(fits, kr_new.reshape(b, dr).to(k_rope.dtype), k_rope[rows, at])
+    w_uk = p["w_uk"]["w"].reshape(r, h, dh).float()
+    q_r = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
+    s_nope = torch.einsum("bhr,btr->bht", q_r, c_kv.float())
+    s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), k_rope.float())
+    valid = torch.arange(size, device=x_t.device)[None, :] <= pos[:, None]
+    logits = (s_nope + s_rope) / math.sqrt(dh + dr)
+    logits = torch.where(valid[:, None, :], logits, torch.full((), NEG_INF, device=x_t.device))
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", probs, c_kv.float())
+    out = torch.einsum("bhr,rhd->bhd", ctx, p["w_uv"]["w"].reshape(r, h, dh).float())
+    y = linear(p["w_o"], out.reshape(b, 1, h * dh).to(x_t.dtype))
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "pos": pos + 1}
+
+
+# --------------------------------------------------------------------------- #
+# cross attention (the Whisper decoder)                                        #
+# --------------------------------------------------------------------------- #
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
+    dh = cfg.resolved_head_dim
+    return {
+        "w_q": init_linear(gen, cfg.d_model, cfg.n_heads * dh, dtype=dtype),
+        "w_k": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype=dtype),
+        "w_v": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype=dtype),
+        "w_o": init_linear(gen, cfg.n_heads * dh, cfg.d_model, dtype=dtype),
+    }
+
+
+def cross_attention_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
+    b, s, _ = enc_out.shape
+    dh = cfg.resolved_head_dim
+    k = linear(p["w_k"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    v = linear(p["w_v"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    return k, v
+
+
+def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    q = linear(p["w_q"], x).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    out = sdpa(q, k, v, q_pos, kv_pos, causal=False, impl="full")
+    return linear(p["w_o"], out.reshape(b, s, -1))

@@ -1,0 +1,158 @@
+"""Whisper-style encoder-decoder backbone (arXiv:2212.04356; a port of
+``repro.models.encdec``).
+
+The conv frontend is a stub, as in the JAX package: the caller feeds
+precomputed frame embeddings ``[B, T_enc, D]`` (what Whisper's two strided
+convs produce).  The transformer backbone is real:
+
+* encoder: bidirectional self-attention + GeLU MLP, pre-LN, learned
+  positions ``enc_pos``;
+* decoder: causal self-attention + cross-attention + GeLU MLP, pre-LN.
+
+Decode keeps each decoder layer's self-attention KV cache beside the cross
+K/V, which depend only on the encoder output and are computed once
+(``precompute_cross_kv``).  ``loss_fn`` is the mean next-token NLL through
+an f32 ``log_softmax``, as in the JAX package (no label weights, no aux).
+Layer norms take ``cfg.norm_eps``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import attention as attn_mod
+from .ffn import init_mlp, mlp
+from .layers import _normal, embed, init_embedding, init_layernorm, init_linear, layernorm, linear
+from .transformer import model_dtype
+
+__all__ = ["init_encdec", "encode", "decode_train", "loss_fn", "init_cache",
+           "precompute_cross_kv", "decode_step"]
+
+Params = Dict[str, Any]
+
+
+def init_encoder_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    dev = gen.device
+    return {
+        "norm1": init_layernorm(cfg.d_model, dtype, dev),
+        "attn": attn_mod.init_gqa(gen, cfg, dtype),
+        "norm2": init_layernorm(cfg.d_model, dtype, dev),
+        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def init_decoder_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
+    dev = gen.device
+    return {
+        "norm1": init_layernorm(cfg.d_model, dtype, dev),
+        "attn": attn_mod.init_gqa(gen, cfg, dtype),
+        "norm_x": init_layernorm(cfg.d_model, dtype, dev),
+        "cross": attn_mod.init_cross_attention(gen, cfg, dtype),
+        "norm2": init_layernorm(cfg.d_model, dtype, dev),
+        "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """Every weight drawn from ``gen`` on its device, in order."""
+    dtype = model_dtype(cfg)
+    dev = gen.device
+    return {
+        "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype),
+        "enc_pos": _normal(gen, (cfg.encoder_seq, cfg.d_model), 0.02, dtype),
+        "encoder": [init_encoder_layer(gen, cfg, dtype) for _ in range(cfg.encoder_layers)],
+        "enc_norm": init_layernorm(cfg.d_model, dtype, dev),
+        "decoder": [init_decoder_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)],
+        "dec_norm": init_layernorm(cfg.d_model, dtype, dev),
+        "lm_head": init_linear(gen, cfg.d_model, cfg.vocab_padded, dtype=dtype),
+    }
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *, attn_impl="auto"
+           ) -> torch.Tensor:
+    """``frames [B, T_enc, D]`` (the stub frontend's output) -> the encoder
+    output ``[B, T_enc, D]``."""
+    x = frames + params["enc_pos"][None, : frames.shape[1]]
+    positions = _positions(x)
+    for p in params["encoder"]:
+        h = layernorm(p["norm1"], x, cfg.norm_eps)
+        x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, causal=False,
+                                       impl=attn_impl)
+        h = layernorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp(p["ffn"], h, activation="gelu")
+    return layernorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def decode_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 *, attn_impl="auto") -> torch.Tensor:
+    """Teacher-forced decoder pass: logits ``[B, S, V_pad]``."""
+    x = embed(params["embed"], tokens)
+    positions = _positions(x)
+    for p in params["decoder"]:
+        h = layernorm(p["norm1"], x, cfg.norm_eps)
+        x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, impl=attn_impl)
+        h = layernorm(p["norm_x"], x, cfg.norm_eps)
+        ck, cv = attn_mod.cross_attention_kv(p["cross"], cfg, enc_out)
+        x = x + attn_mod.cross_attention(p["cross"], cfg, h, ck, cv)
+        h = layernorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp(p["ffn"], h, activation="gelu")
+    x = layernorm(params["dec_norm"], x, cfg.norm_eps)
+    return _mask_pad_logits(cfg, linear(params["lm_head"], x))
+
+
+def _mask_pad_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+        logits = torch.where(pad, logits, torch.full((), -1e30, dtype=logits.dtype,
+                                                     device=logits.device))
+    return logits
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    enc_out = encode(params, cfg, batch["frames"])
+    logits = decode_train(params, cfg, batch["tokens"], enc_out)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    ce = nll.mean()
+    return ce, {"ce": ce}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> List[Params]:
+    """One self-attention KV cache a decoder layer (the cross K/V come from
+    :func:`precompute_cross_kv`)."""
+    return [attn_mod.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+            for _ in range(cfg.n_layers)]
+
+
+def precompute_cross_kv(params: Params, cfg: ArchConfig, enc_out: torch.Tensor
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    return [attn_mod.cross_attention_kv(p["cross"], cfg, enc_out) for p in params["decoder"]]
+
+
+def decode_step(params: Params, cfg: ArchConfig, tokens_t: torch.Tensor, caches: List[Params],
+                cross_kv: List[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> Tuple[torch.Tensor, List[Params]]:
+    """One token through the decoder: ``(logits [B, 1, V_pad], caches)``."""
+    x = embed(params["embed"], tokens_t)
+    new_caches = []
+    for p, cache, (ck, cv) in zip(params["decoder"], caches, cross_kv):
+        h = layernorm(p["norm1"], x, cfg.norm_eps)
+        mixed, cache = attn_mod.gqa_decode_step(p["attn"], cfg, h, cache)
+        x = x + mixed
+        h = layernorm(p["norm_x"], x, cfg.norm_eps)
+        x = x + attn_mod.cross_attention(p["cross"], cfg, h, ck, cv)
+        h = layernorm(p["norm2"], x, cfg.norm_eps)
+        x = x + mlp(p["ffn"], h, activation="gelu")
+        new_caches.append(cache)
+    x = layernorm(params["dec_norm"], x, cfg.norm_eps)
+    return _mask_pad_logits(cfg, linear(params["lm_head"], x)), new_caches

@@ -1,5 +1,6 @@
-"""Shared decoder layers (a port of ``repro.models.layers``' linear,
-norm, embedding and RoPE parts; params are nested dicts of tensors).
+"""Shared decoder layers (a port of ``repro.models.layers``: linear, RMS
+and layer norms, embedding, RoPE, and the causal depthwise conv1d of the
+Mamba-2 and RG-LRU stems; params are nested dicts of tensors).
 
 ``linear`` is the integration point of the paper's technique: one layer
 whose *execution mode* is chosen by the compiler layer --
@@ -25,7 +26,7 @@ on the host.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -39,10 +40,15 @@ __all__ = [
     "linear_auto",
     "init_rmsnorm",
     "rmsnorm",
+    "init_layernorm",
+    "layernorm",
     "init_embedding",
     "embed",
     "rope_freqs",
     "apply_rope",
+    "init_conv1d",
+    "causal_conv1d",
+    "conv1d_step",
 ]
 
 Params = Dict[str, Any]
@@ -50,7 +56,7 @@ Params = Dict[str, Any]
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one f32 transient, not two
 
 
 def init_linear(
@@ -77,6 +83,9 @@ def linear(
         w = p["w"]
         if mode == "masked":
             w = w * p["mask"].to(w.dtype)
+        if x.dtype != w.dtype:  # jnp's promotion (e.g. f32 patch embeds, bf16 weights)
+            t = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(t), w.to(t)
         # plain torch by design, not a fallback: the JAX package's
         # ``layers.linear`` defaults ``use_pallas`` to False, so its
         # forward-based path (``get_model`` / ``Engine``) is plain ``x @ w``
@@ -153,6 +162,20 @@ def init_pruned_linear(
     return p
 
 
+def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """``num`` f32 points from ``start`` to ``stop`` by ``jnp.linspace``'s
+    formula (``start * (1 - t) + stop * t``, ``t = i / (num - 1)`` in f32,
+    the last point ``stop`` itself), for the init leaves drawn from a
+    linspace: ``log(linspace(1, 16, 64))`` lands within one ulp of the JAX
+    package's, ``torch.linspace``'s within three (it rounds 40 of the 64
+    points the other way)."""
+    if num < 2:
+        return torch.full((num,), start, dtype=torch.float32, device=device)
+    t = torch.arange(num - 1, dtype=torch.float32, device=device) / (num - 1)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32, device=device)])
+
+
 def init_rmsnorm(d: int, dtype=torch.bfloat16, device=None) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
@@ -162,6 +185,21 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def init_layernorm(d: int, dtype=torch.bfloat16, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics (biased variance), cast back to x's type before the
+    scale and bias."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"] + p["bias"]
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16) -> Params:
@@ -191,3 +229,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = xf[..., : dh // 2], xf[..., dh // 2 :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# causal depthwise conv1d (the Mamba-2 / Griffin stem)                         #
+# --------------------------------------------------------------------------- #
+
+
+def init_conv1d(gen: torch.Generator, channels: int, width: int, dtype=torch.bfloat16) -> Params:
+    return {"w": _normal(gen, (width, channels), 1.0 / math.sqrt(width), dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
+def causal_conv1d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence: ``x [B, S, C] -> [B, S, C]``,
+    the taps summed in f32 in order, cast back to x's type."""
+    width = p["w"].shape[0]
+    s = x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    w = p["w"].float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + pad[:, i:i + s, :].float() * w[i]
+    return (out + p["b"].float()).to(x.dtype)
+
+
+def conv1d_step(p: Params, window: torch.Tensor, x_t: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step: ``window [B, width-1, C]`` past inputs, ``x_t [B, C]``;
+    returns ``(y_t [B, C], new window)``."""
+    t = torch.promote_types(window.dtype, x_t.dtype)
+    full = torch.cat([window.to(t), x_t[:, None, :].to(t)], dim=1)  # [B, width, C]
+    y = torch.einsum("bwc,wc->bc", full.float(), p["w"].float())
+    y = (y + p["b"].float()).to(x_t.dtype)
+    return y, full[:, 1:, :]

@@ -1,5 +1,4 @@
-"""Uniform model API (a port of ``repro.models.registry`` for the dense
-decoder family).
+"""Uniform model API over every family (a port of ``repro.models.registry``).
 
 ``get_model(cfg)`` returns a :class:`Model` namespace with:
 
@@ -12,10 +11,15 @@ decoder family).
 * ``input_specs``                        -> raises: the dry-run specs wait for
                                             ROADMAP A9
 
-``batch`` is a dict of tensors: ``{"tokens": [B, S]}`` for ``forward``,
-``{"tokens", "labels"}`` (and optional ``"weights"``) for ``loss``,
-``{"tokens_t": [B, 1]}`` for ``decode_step``.  The encoder-decoder,
-MoE, SSM, hybrid and VLM families raise (``transformer._check_ported``).
+``batch`` is a dict of tensors.  Decoder-only models (dense, MoE, VLM, SSM,
+hybrid): ``{"tokens": [B, S]}`` (and ``"patch_embeds": [B, P, D]`` for a
+VLM) for ``forward``, plus ``"labels"`` (and optional ``"weights"``) for
+``loss``, ``{"tokens_t": [B, 1]}`` for ``decode_step``.  The
+encoder-decoder (whisper): ``{"frames": [B, T_enc, D], "tokens"}`` for
+``forward`` (``"labels"`` too for ``loss``); its ``init_cache`` gives the
+decoder's self-attention caches, and ``decode_step`` takes and returns
+``(self_caches, cross_kv)``, the cross K/V from
+``encdec.precompute_cross_kv``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
+from . import encdec as encdec_mod
 from . import transformer as lm_mod
 
 __all__ = ["Model", "get_model"]
@@ -44,23 +49,30 @@ class Model:
     input_specs: Callable[[ShapeConfig], Tuple[str, Dict[str, Any], Any]]
 
 
-def get_model(cfg: ArchConfig, *, device=None) -> Model:
-    """The dense decoder ``cfg`` as a :class:`Model`; ``init_cache`` makes
-    its caches on ``device`` (``None``: torch's default device)."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet (ROADMAP A7)")
-    lm_mod._check_ported(cfg)
-    dtype = lm_mod.model_dtype(cfg)
+def _input_specs(shape: ShapeConfig):
+    raise NotImplementedError(
+        "ShapeDtypeStruct input specs belong to the TPU dry-run (ROADMAP A9)")
 
+
+def get_model(cfg: ArchConfig, *, attn_impl: str = "auto", device=None) -> Model:
+    """``cfg`` as a :class:`Model`; ``init_cache`` makes its caches on
+    ``device`` (``None``: torch's default device)."""
+    dtype = lm_mod.model_dtype(cfg)
+    if cfg.is_encdec:
+        return _encdec_model(cfg, dtype, device)
+    return _lm_model(cfg, dtype, attn_impl, device)
+
+
+def _lm_model(cfg: ArchConfig, dtype, attn_impl: str, device) -> Model:
     def init(gen: torch.Generator) -> Params:
         return lm_mod.init_lm(gen, cfg)
 
     def loss(params, batch):
-        return lm_mod.loss_fn(params, cfg, batch)
+        return lm_mod.loss_fn(params, cfg, batch, attn_impl=attn_impl)
 
     def forward(params, batch):
-        return lm_mod.forward(params, cfg, batch["tokens"])[0]
+        return lm_mod.forward(params, cfg, batch["tokens"], patch_embeds=batch.get("patch_embeds"),
+                              attn_impl=attn_impl)[0]
 
     def init_cache(batch: int, max_len: int):
         return lm_mod.init_cache(cfg, batch, max_len, dtype, device=device)
@@ -68,8 +80,28 @@ def get_model(cfg: ArchConfig, *, device=None) -> Model:
     def decode_step(params, batch, caches):
         return lm_mod.decode_step(params, cfg, batch["tokens_t"], caches)
 
-    def input_specs(shape: ShapeConfig):
-        raise NotImplementedError(
-            "ShapeDtypeStruct input specs belong to the TPU dry-run (ROADMAP A9)")
+    return Model(cfg, init, loss, forward, init_cache, decode_step, _input_specs)
 
-    return Model(cfg, init, loss, forward, init_cache, decode_step, input_specs)
+
+def _encdec_model(cfg: ArchConfig, dtype, device) -> Model:
+    def init(gen: torch.Generator) -> Params:
+        return encdec_mod.init_encdec(gen, cfg)
+
+    def loss(params, batch):
+        return encdec_mod.loss_fn(params, cfg, batch)
+
+    def forward(params, batch):
+        enc = encdec_mod.encode(params, cfg, batch["frames"])
+        return encdec_mod.decode_train(params, cfg, batch["tokens"], enc)
+
+    def init_cache(batch: int, max_len: int):
+        return encdec_mod.init_cache(cfg, batch, max_len, dtype=dtype, device=device)
+
+    def decode_step(params, batch, caches):
+        # the cross K/V ride along in ``caches`` as (self_caches, cross_kv)
+        self_caches, cross_kv = caches
+        logits, self_caches = encdec_mod.decode_step(params, cfg, batch["tokens_t"],
+                                                     self_caches, cross_kv)
+        return logits, (self_caches, cross_kv)
+
+    return Model(cfg, init, loss, forward, init_cache, decode_step, _input_specs)

@@ -1,36 +1,54 @@
-"""Decoder-only LM of the dense family (a port of ``repro.models.transformer``
-for attention blocks): ``block_kinds``, ``init_layer``, ``init_lm``,
-``forward``, ``_unembed`` and the serving trio ``prefill`` / ``init_cache``
-/ ``decode_step`` (one KV cache a layer, ``pos`` per row).
+"""Generic decoder-only LM over the dense / MoE / SSM / hybrid / VLM families
+(a port of ``repro.models.transformer``).
 
-Every layer is a pre-norm GQA attention block and a pre-norm gated MLP.
-``forward`` runs whole sequences with plain torch ops (no remat, no scan,
-no patch embeds); it is the reference the plan-compiled decoder is held to.
-Under ``cfg.prune.enabled`` the layers carry the paper's recipe as packed
-params (block-pruned q/o for a ``bsr`` execution mode, column-pruned FFN),
-which ``forward`` runs in plain torch (``bsr_xla`` / ``colpack_xla``), as
-the JAX package does.  The MoE, SSM and hybrid families come with a later
-slice.
+Every layer has a *block kind* (``block_kinds``):
+
+* ``attn``       pre-norm GQA (or MLA) + pre-norm FFN (MLP or MoE)
+* ``localattn``  the same with sliding-window attention
+* ``mamba``      a single pre-norm Mamba-2 mixer (no FFN, as in Mamba)
+* ``rec``        pre-norm RG-LRU recurrent block + pre-norm MLP (Griffin)
+
+As in the JAX package, a hybrid's pattern names ``attn``, never
+``localattn``, so RecurrentGemma's attention layers attend globally over a
+``max_len`` cache (``ROADMAP.md`` C); the window code is there and held to
+the JAX package at function level.  MLA replaces GQA when
+``cfg.kv_lora_rank`` is set; layers from ``cfg.moe.first_dense`` on carry a
+MoE FFN, whose router aux loss ``forward`` sums over layers.  A VLM's
+``patch_embeds [B, P, D]`` go through ``vision_proj`` and are prepended to
+the text (a bidirectional prefix-LM prefix); their positions are dropped
+from the logits.
+
+``forward`` runs whole sequences with plain torch ops (no remat, no scan);
+it is the reference the plan-compiled decoder is held to.  Under
+``cfg.prune.enabled`` the attention layers carry the paper's recipe as
+packed params (block-pruned q/o for a ``bsr`` execution mode, column-pruned
+FFN), which ``forward`` runs in plain torch (``bsr_xla`` / ``colpack_xla``),
+as the JAX package does.  The serving trio ``prefill`` / ``init_cache`` /
+``decode_step`` keeps one cache a layer: ``{"k", "v", "pos"}`` (GQA),
+``{"c_kv", "k_rope", "pos"}`` (MLA), ``{"state", "conv"}`` (Mamba-2) or
+``{"h", "conv"}`` (RG-LRU), every tensor batch-leading.
 
 ``loss_fn`` is the training loss (next-token cross entropy through an f32
-``logsumexp``), differentiated by plain autograd as the JAX package
-differentiates its forward with plain XLA: no kernel of the port runs in
-training.
+``logsumexp``, plus ``router_aux_weight x aux`` for MoE), differentiated by
+plain autograd as the JAX package differentiates its forward with plain
+XLA: no kernel of the port runs in training.
 
 ``init_lm`` draws every weight from one ``torch.Generator`` on that
-generator's device, in order (embedding, layers, lm_head): pass a CUDA
-generator to draw a full-width model on the card.
+generator's device, in order (embedding, layers, lm_head, vision_proj):
+pass a CUDA generator to draw a full-width model on the card.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
 
 __all__ = ["block_kinds", "init_layer", "init_lm", "forward", "loss_fn", "prefill",
@@ -54,28 +72,42 @@ def block_kinds(cfg: ArchConfig) -> List[str]:
     return ["attn"] * cfg.n_layers
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if set(block_kinds(cfg)) != {"attn"} or cfg.moe is not None or cfg.kv_lora_rank \
-            or cfg.vision_tokens or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported (family {cfg.family!r})"
-        )
+def _attn_kind(cfg: ArchConfig) -> str:
+    return "mla" if cfg.kv_lora_rank else "gqa"
+
+
+def _is_moe_layer(cfg: ArchConfig, i: int) -> bool:
+    return cfg.moe is not None and i >= cfg.moe.first_dense
+
+
+def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
+    return cfg.recurrent.window if (kind == "localattn" and cfg.recurrent) else None
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, i: int, dtype=torch.bfloat16) -> Params:
-    _check_ported(cfg)
-    # paper recipe: column-prune the FFN
-    prune = ("colpack_xla", cfg.prune.sparsity) if cfg.prune.enabled else None
-    return {
-        "norm1": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "attn": attn_mod.init_gqa(gen, cfg, dtype),
-        "norm2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "ffn": ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, prune=prune),
-    }
+    kind = block_kinds(cfg)[i]
+    dev = gen.device
+    p: Params = {"norm1": init_rmsnorm(cfg.d_model, dtype, dev)}
+    if kind == "mamba":
+        p["mixer"] = ssm_mod.init_mamba2(gen, cfg, dtype)
+        return p
+    if kind == "rec":
+        p["mixer"] = rglru_mod.init_rglru_block(gen, cfg, dtype)
+    elif _attn_kind(cfg) == "mla":
+        p["attn"] = attn_mod.init_mla(gen, cfg, dtype)
+    else:
+        p["attn"] = attn_mod.init_gqa(gen, cfg, dtype)
+    p["norm2"] = init_rmsnorm(cfg.d_model, dtype, dev)
+    if kind in ("attn", "localattn") and _is_moe_layer(cfg, i):
+        p["moe"] = ffn_mod.init_moe(gen, cfg, dtype)
+    else:
+        # paper recipe: column-prune the FFN
+        prune = ("colpack_xla", cfg.prune.sparsity) if cfg.prune.enabled else None
+        p["ffn"] = ffn_mod.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, prune=prune)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    _check_ported(cfg)
     dtype = model_dtype(cfg)
     p: Params = {
         "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype),
@@ -84,30 +116,71 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_padded, dtype=dtype)
+    if cfg.vision_tokens:
+        p["vision_proj"] = init_linear(gen, cfg.d_model, cfg.d_model, dtype=dtype)
     return p
 
 
-def _apply_block(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-                 mode: str) -> torch.Tensor:
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, mode=mode)
+def _embed_inputs(params: Params, tokens: torch.Tensor, patch_embeds):
+    """Token embeddings, with the projected patch embeddings prepended (a
+    VLM); returns ``(x, positions [B, S], prefix_len)``."""
+    x = embed(params["embed"], tokens)
+    prefix_len = 0
+    if patch_embeds is not None:
+        vis = linear(params["vision_proj"], patch_embeds)
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+        prefix_len = patch_embeds.shape[1]
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    return x, positions, prefix_len
+
+
+def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str):
+    """The block's second half (norm2 + MLP or MoE): ``(x + y, aux)``."""
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation, mode=mode)
+    if "moe" in p:
+        y, aux = ffn_mod.moe(p["moe"], cfg, h2, activation=cfg.ffn_activation)
+        return x + y, aux
+    return x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation, mode=mode), None
+
+
+def _apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
+                 positions: torch.Tensor, *, prefix_len: int = 0, attn_impl: str = "auto",
+                 mode: str = "dense") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(x_out, aux_loss or None)``."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        return x + ssm_mod.mamba2_forward(p["mixer"], cfg, h), None
+    if kind == "rec":
+        mixed = rglru_mod.rglru_block(p["mixer"], cfg, h)
+    elif _attn_kind(cfg) == "mla":
+        mixed = attn_mod.mla_attention(p["attn"], cfg, h, positions, impl=attn_impl)
+    else:
+        mixed = attn_mod.gqa_attention(p["attn"], cfg, h, positions, window=_window(cfg, kind),
+                                       prefix_len=prefix_len, impl=attn_impl, mode=mode)
+    return _ffn(p, cfg, x + mixed, mode)
 
 
 def forward(
-    params: Params, cfg: ArchConfig, tokens: torch.Tensor, *, mode: str = "dense"
+    params: Params,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,
+    *,
+    patch_embeds: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
+    mode: str = "dense",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits [B, S, V_pad], aux_loss)``; pad classes are
-    ``-1e30`` (aux is 0: no MoE layer)."""
-    _check_ported(cfg)
-    x = embed(params["embed"], tokens)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    for p in params["layers"]:
-        x = _apply_block(p, cfg, x, positions, mode)
+    """Returns ``(logits [B, S_text, V_pad], aux_loss)``; pad classes are
+    ``-1e30``, aux is the MoE layers' summed router loss (0 without MoE)."""
+    x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, kind in zip(params["layers"], block_kinds(cfg)):
+        x, aux = _apply_block(p, cfg, kind, x, positions, prefix_len=prefix_len,
+                              attn_impl=attn_impl, mode=mode)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, cfg, x[:, prefix_len:]), aux_total
 
 
 def _unembed(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -136,19 +209,21 @@ def loss_fn(
     attn_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over ``batch["tokens"]`` / ``batch["labels"]``
-    (``[B, S]`` ints), weighted by ``batch["weights"]`` when given; returns
-    ``(total, {"ce", "aux"})`` with aux 0 (no MoE family is ported).
+    (``[B, S]`` ints; ``batch["patch_embeds"]`` for a VLM), weighted by
+    ``batch["weights"]`` when given, plus ``router_aux_weight x aux`` for
+    MoE; returns ``(total, {"ce", "aux"})``.
 
     ``remat``, ``layout_scan``, ``residual_spec`` and ``attn_chunk`` are the
     TPU package's memory and sharding knobs: only their defaults are taken
-    (the rest wait for ROADMAP A9).  ``attn_impl`` "auto" is full attention
-    at every length the port runs, as in JAX below 8192 keys."""
+    (the rest wait for ROADMAP A9).  ``attn_impl`` is ``sdpa``'s: "auto" is
+    full attention up to 8192 keys and chunked beyond, as in JAX."""
     if (remat, layout_scan, remat_policy, residual_spec, attn_chunk) != (
-            False, False, "full", None, 1024) or attn_impl not in ("auto", "full"):
+            False, False, "full", None, 1024):
         raise NotImplementedError(
-            "remat / layout_scan / residual_spec / attn_chunk / chunked attention are TPU "
-            "memory and sharding knobs; only their defaults are ported (ROADMAP A9)")
-    logits, aux = forward(params, cfg, batch["tokens"], mode=mode)
+            "remat / layout_scan / residual_spec / attn_chunk are TPU memory and sharding "
+            "knobs; only their defaults are ported (ROADMAP A9)")
+    logits, aux = forward(params, cfg, batch["tokens"], patch_embeds=batch.get("patch_embeds"),
+                          attn_impl=attn_impl, mode=mode)
     labels = batch["labels"].long()
     # CE via logsumexp: one f32 reduction instead of a full log_softmax copy
     logits32 = logits.float()
@@ -159,7 +234,8 @@ def loss_fn(
     if weights is None:
         weights = torch.ones_like(nll)
     ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
-    return ce, {"ce": ce, "aux": aux}
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -168,32 +244,49 @@ def loss_fn(
 
 
 def prefill(
-    params: Params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int
+    params: Params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int, *,
+    patch_embeds: Optional[torch.Tensor] = None, attn_impl: str = "auto",
 ) -> Tuple[torch.Tensor, List[Params]]:
-    """Returns ``(logits [B, S, V_pad], caches)``: one KV cache of
-    ``max_len`` slots a layer, every row positioned at ``S``."""
-    _check_ported(cfg)
-    x = embed(params["embed"], tokens)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    """Returns ``(logits [B, S_text, V_pad], caches)``: one cache a layer,
+    every row positioned after the prefix and the text."""
+    x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
     caches: List[Params] = []
-    for p in params["layers"]:
+    for p, kind in zip(params["layers"], block_kinds(cfg)):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        mixed, cache = attn_mod.gqa_prefill(p["attn"], cfg, h, positions, max_len)
-        x = x + mixed
-        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation)
+        if kind == "mamba":
+            mixed, cache = ssm_mod.mamba2_forward(p["mixer"], cfg, h, return_state=True)
+            x = x + mixed
+        else:
+            if kind == "rec":
+                mixed, cache = rglru_mod.rglru_block(p["mixer"], cfg, h, return_state=True)
+            elif _attn_kind(cfg) == "mla":
+                mixed, cache = attn_mod.mla_prefill(p["attn"], cfg, h, positions, max_len,
+                                                    impl=attn_impl)
+            else:
+                mixed, cache = attn_mod.gqa_prefill(
+                    p["attn"], cfg, h, positions, max_len, window=_window(cfg, kind),
+                    prefix_len=prefix_len, impl=attn_impl)
+            x, _ = _ffn(p, cfg, x + mixed, "dense")
         caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x), caches
+    return _unembed(params, cfg, x[:, prefix_len:]), caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> List[Params]:
-    """Empty per-layer KV caches (``attention.init_kv_cache``)."""
-    _check_ported(cfg)
-    return [attn_mod.init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
-            for _ in block_kinds(cfg)]
+    """Empty per-layer caches, each of its block's kind."""
+    caches: List[Params] = []
+    for kind in block_kinds(cfg):
+        if kind == "mamba":
+            caches.append(ssm_mod.init_mamba2_cache(cfg, batch, dtype, device=device))
+        elif kind == "rec":
+            caches.append(rglru_mod.init_rglru_cache(cfg, batch, dtype, device=device))
+        elif _attn_kind(cfg) == "mla":
+            caches.append(attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device=device))
+        else:
+            caches.append(attn_mod.init_kv_cache(cfg, batch, max_len, window=_window(cfg, kind),
+                                                 dtype=dtype, device=device))
+    return caches
 
 
 def decode_step(
@@ -206,15 +299,22 @@ def decode_step(
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One token for the whole stack.  Returns ``(logits [B, 1, V_pad],
     caches)``: new cache tensors, the inputs are not modified."""
-    _check_ported(cfg)
     x = embed(params["embed"], tokens_t)
     new_caches: List[Params] = []
-    for p, cache in zip(params["layers"], caches):
+    for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        mixed, cache = attn_mod.gqa_decode_step(p["attn"], cfg, h, cache, mode=mode)
-        x = x + mixed
-        h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + ffn_mod.mlp(p["ffn"], h2, activation=cfg.ffn_activation, mode=mode)
+        if kind == "mamba":
+            mixed, cache = ssm_mod.mamba2_step(p["mixer"], cfg, h, cache)
+            x = x + mixed
+        else:
+            if kind == "rec":
+                mixed, cache = rglru_mod.rglru_step(p["mixer"], cfg, h, cache)
+            elif _attn_kind(cfg) == "mla":
+                mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
+            else:
+                mixed, cache = attn_mod.gqa_decode_step(p["attn"], cfg, h, cache,
+                                                        window=_window(cfg, kind), mode=mode)
+            x, _ = _ffn(p, cfg, x + mixed, mode)
         new_caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x), new_caches

@@ -51,7 +51,10 @@ def decoder_cache_spec(cfg: ArchConfig) -> Dict[str, int]:
     }
 
 
-def _check_supported(params: Params, cfg: ArchConfig) -> None:
+def check_config(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` (the JAX package's messages) for a
+    config the decoder lowering does not take: anything but dense GQA blocks
+    without qk_norm, MoE, a vision prefix or an encoder."""
     kinds = set(block_kinds(cfg))
     if kinds != {"attn"}:
         raise NotImplementedError(
@@ -63,6 +66,10 @@ def _check_supported(params: Params, cfg: ArchConfig) -> None:
         raise NotImplementedError("qk_norm is not lowered yet")
     if cfg.moe is not None or cfg.vision_tokens or cfg.is_encdec:
         raise NotImplementedError("MoE/VLM/enc-dec configs are not lowered")
+
+
+def _check_supported(params: Params, cfg: ArchConfig) -> None:
+    check_config(cfg)
     layer0 = params["layers"][0]
     if "w" not in layer0["attn"]["w_q"] or "w" not in layer0["ffn"]["w_gate"]:
         raise NotImplementedError(

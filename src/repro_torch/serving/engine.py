@@ -3,9 +3,14 @@
 temperature sampling), the slot-based continuous-batching
 ``RequestScheduler``, and ``PlanServer`` for the vision apps' plans.
 
-* :class:`Engine` -- ``generate(prompts, n)``: one prefill filling every
-  layer cache, then single-token decode steps.  It runs the model's plain
-  ``forward``-side functions (``transformer.prefill`` / ``decode_step``),
+* :class:`Engine` -- ``generate(prompts, n, patch_embeds=None)``: one
+  prefill filling every layer cache (a VLM's patch embeddings become the
+  prefix), then single-token decode steps; every decoder-only family (its
+  caches: GQA / MLA KV, Mamba-2 and RG-LRU states).  An encoder-decoder is
+  refused, as the JAX engine refuses it: it runs through
+  ``encdec.encode`` / ``precompute_cross_kv`` / ``decode_step``.  The
+  engine runs the model's plain ``forward``-side functions
+  (``transformer.prefill`` / ``decode_step``),
   as the JAX engine runs its jitted twins -- plain ``x @ w``, no kernel, in
   both packages; the plan-compiled decoder with the kernels is
   ``AsyncPlanServer.submit_llm`` (``scheduler.py``).  Temperature sampling
@@ -13,7 +18,8 @@ temperature sampling), the slot-based continuous-batching
   draws cannot be reproduced).
 * :class:`RequestScheduler` -- fixed-slot continuous batching: finished
   sequences release their slot, queued requests are prefilled one row at a
-  time and spliced into the batched cache.
+  time and spliced into the batched cache (every cache kind: each tensor of
+  a layer's cache is batch-leading).
 * :class:`PlanServer` -- frames queue up and execute in fixed-size batches
   via :meth:`ExecutionPlan.batched`, padding only the tail batch.
 """
@@ -55,7 +61,9 @@ class Engine:
         seed: int = 0,
     ):
         if model.cfg.is_encdec:
-            raise NotImplementedError("the encoder-decoder engine is not ported yet")
+            raise NotImplementedError(
+                "Engine serves decoder-only models; run an encoder-decoder through "
+                "encdec.encode / precompute_cross_kv / decode_step")
         self.model = model
         self.cfg = model.cfg
         self.params = params
@@ -66,9 +74,12 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.no_grad()
-    def _prefill(self, params, tokens):
+    def _prefill(self, params, tokens, patch_embeds=None):
         tokens = torch.as_tensor(tokens, device=self.device)
-        logits, caches = _lm.prefill(params, self.cfg, tokens, self.max_len)
+        if patch_embeds is not None:
+            patch_embeds = torch.as_tensor(patch_embeds, device=self.device)
+        logits, caches = _lm.prefill(params, self.cfg, tokens, self.max_len,
+                                     patch_embeds=patch_embeds)
         return logits[:, -1], caches
 
     @torch.no_grad()
@@ -84,13 +95,14 @@ class Engine:
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(torch.int32)
 
-    def generate(self, prompts, n_steps: int) -> GenerationResult:
+    def generate(self, prompts, n_steps: int, patch_embeds=None) -> GenerationResult:
         """``prompts [B, S]`` (int, ``B == batch_size``) -> ``n_steps`` new
-        tokens a row (the first from the prefill's last logits)."""
+        tokens a row (the first from the prefill's last logits); a VLM takes
+        ``patch_embeds [B, P, D]`` as the prompt's prefix."""
         if prompts.shape[0] != self.batch_size:
             raise ValueError(f"generate: {prompts.shape[0]} prompts, batch_size "
                              f"{self.batch_size}")
-        logits, caches = self._prefill(self.params, prompts)
+        logits, caches = self._prefill(self.params, prompts, patch_embeds)
         tok = self._sample(logits)
         out = [tok]
         for _ in range(n_steps - 1):

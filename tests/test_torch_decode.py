@@ -145,15 +145,16 @@ def test_isolation_walk_reaches_the_decode_slice():
 
 
 def test_configs_copy_the_jax_package_values():
-    assert ARCH_IDS == ["qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b"]
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
     from repro.configs.registry import get_config as jget_config
 
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
     assert dataclasses.asdict(get_config("qwen2.5-3b")) == dataclasses.asdict(
         jget_config("qwen2.5-3b"))
     assert dataclasses.asdict(smoke_config("qwen2.5-3b")) == dataclasses.asdict(
         jsmoke_config("qwen2.5-3b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mamba2-1.3b")
+    assert dataclasses.asdict(get_config("mamba2-1.3b")) == dataclasses.asdict(
+        jget_config("mamba2-1.3b"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -416,7 +417,8 @@ def test_mlp_matches_jax(lm, fused):
 def test_packed_modes_wait_for_the_pbcsr_slice(lm):
     """The PBCSR slice has landed: the packed modes run (held against the
     JAX package in ``tests/test_torch_decode_pruned.py``); an unknown mode
-    and the unported model families still raise."""
+    still raises, and a MoE config's ``init_lm`` builds the JAX package's
+    tree (the zoo is ported)."""
     from repro_torch.models.layers import linear
 
     p = {"values": torch.ones(1, 1, 8, 8), "block_rows": torch.zeros(1, 1, dtype=torch.int32)}
@@ -424,9 +426,17 @@ def test_packed_modes_wait_for_the_pbcsr_slice(lm):
         assert torch.equal(linear(p, torch.ones(1, 8), mode=mode), torch.full((1, 8), 8.0))
     with pytest.raises(ValueError, match="unknown linear mode"):
         linear(p, torch.ones(1, 8), mode="sparse")
-    with pytest.raises(NotImplementedError):
-        init_lm(torch.Generator(), dataclasses.replace(lm["cfg"], family="moe",
-                                                       moe=jsmoke_config("deepseek-v2-lite-16b").moe))
+    import jax
+
+    from repro.models.transformer import init_lm as jinit_lm
+
+    mcfg = dataclasses.replace(lm["cfg"], family="moe",
+                               moe=jsmoke_config("deepseek-v2-lite-16b").moe)
+    got = init_lm(torch.Generator(), mcfg)
+    want = jax.eval_shape(lambda: jinit_lm(jax.random.PRNGKey(0), mcfg))
+    assert _tree_map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[-1]), got) == \
+        _tree_map(lambda a: (tuple(a.shape), str(a.dtype)), want)
+    assert "moe" in got["layers"][1] and "ffn" in got["layers"][0]
 
 
 # --------------------------------------------------------------------------- #

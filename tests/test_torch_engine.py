@@ -39,7 +39,6 @@ from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import RequestScheduler as JRequestScheduler
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
-from repro_torch.configs.registry import NOT_PORTED
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.graph import compile_plan
 from repro_torch.core.graph.passes import optimize
@@ -102,7 +101,7 @@ def _close(got, want):
 def test_configs_equal_the_jax_package(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jget_config(arch))
     assert dataclasses.asdict(smoke_config(arch)) == dataclasses.asdict(jsmoke_config(arch))
-    assert arch in ARCH_IDS and arch not in NOT_PORTED
+    assert arch in ARCH_IDS
 
 
 def test_full_width_shapes_of_the_new_decoders():
@@ -134,10 +133,21 @@ def test_get_model_namespace_and_the_parts_not_ported():
     assert metrics["ce"].item() == want.item() and metrics["aux"].item() == 0.0
     with pytest.raises(NotImplementedError, match="A9"):
         model.input_specs(None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        attention.init_kv_cache(c["cfg"], 1, 8, window=4)
-    with pytest.raises(NotImplementedError, match="only dense GQA"):
-        get_model(dataclasses.replace(c["cfg"], moe=object()))
+    # the zoo is ported: a windowed (ring-buffer) cache is the JAX package's,
+    # and get_model serves a MoE config
+    from repro.models import attention as jattention
+
+    ring = attention.init_kv_cache(c["cfg"], 1, 8, window=4)
+    jring = jattention.init_kv_cache(c["jcfg"], 1, 8, window=4)
+    assert {k: (tuple(t.shape), str(t.dtype)) for k, t in ring.items()} == {
+        k: (tuple(a.shape), "torch." + str(a.dtype)) for k, a in jring.items()}
+    mcfg = dataclasses.replace(c["cfg"], family="moe",
+                               moe=jsmoke_config("deepseek-v2-lite-16b").moe)
+    mmodel = get_model(mcfg, device="cpu")
+    mparams = mmodel.init(torch.Generator().manual_seed(0))
+    out = Engine(mmodel, mparams, batch_size=2, max_len=16).generate(
+        torch.from_numpy(_tokens(mcfg, 2, 5)), 3)
+    assert out.tokens.shape == (2, 3) and int(out.tokens.max()) < mcfg.vocab
 
 
 @pytest.mark.parametrize("case", CASES)

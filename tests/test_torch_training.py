@@ -176,11 +176,14 @@ def test_loss_fn_and_gradients_match_jax(lm, weighted):
 def test_loss_fn_takes_only_the_default_tpu_knobs(lm):
     b = _t(_batches(lm["cfg"], 1)[0])
     for kw in (dict(remat=True), dict(layout_scan=True), dict(attn_chunk=512),
-               dict(residual_spec=object()), dict(attn_impl="chunked")):
+               dict(residual_spec=object())):
         with pytest.raises(NotImplementedError, match="A9"):
             tlm.loss_fn(_params(lm), lm["cfg"], b, **kw)
     full, _ = tlm.loss_fn(_params(lm), lm["cfg"], b, attn_impl="full")
     assert full.item() == tlm.loss_fn(_params(lm), lm["cfg"], b)[0].item()
+    # the chunked (online-softmax) sdpa is ported: the same loss to rounding
+    chunked, _ = tlm.loss_fn(_params(lm), lm["cfg"], b, attn_impl="chunked")
+    np.testing.assert_allclose(chunked.item(), full.item(), rtol=1e-6)
 
 
 # --------------------------------------------------------------------------- #
