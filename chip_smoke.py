@@ -192,7 +192,28 @@ Phases (each prints its own lines):
               without and one masked step: device ms and idle share of
               each, device ms by kernel family and by part of the step
               (forward, penalty, backward, AdamW, Z/U update, convergence
-              metrics, gradient masks).
+              metrics, gradient masks);
+16. train zoo -- ``launch.train.train`` on the other families at the JAX
+              configs' widths in bf16 (6 steps of 8 x 128 tokens, ``--prune
+              --sparsity 0.5 --admm-every 2 --hard-prune-at 0.5``: 4 ADMM
+              steps, 2 masked), each model released before the next:
+              paligemma-3b (256 patch embeddings a row), mamba2-1.3b and
+              whisper-small (1500 frames) at full depth, deepseek-v2-lite-16b
+              at 6 of 27 layers, recurrentgemma-9b at 9 of 38 and qwen3-14b
+              at 6 of 40 (the cuts where the training state does not fit
+              one card; the header line names each): finite losses and grad
+              norms, JAX's Z/U condition, ``pruned_global`` within 0.05 of
+              0.5 (mamba2: 0, the recipe matches none of its leaves), no
+              expert stack pruned, masks unchanged by the fine-tune and
+              ``apply_masks`` zero where they are, for MoE a finite aux in
+              the loss as ``router_aux_weight x aux``; ms per ADMM / masked
+              step, tokens/s, model-FLOPs utilization from the active
+              parameters (``utils.flops``) and peak allocated per phase;
+17. train remat -- whisper-small at full width, batch 8: one loss + backward
+              with ``remat=False`` and one with ``remat=True``: gradients
+              within 1e-3 x max(1, max|g|) of each other, the remat peak
+              below the other (both printed).  No kernel of the port
+              launches in 16-17 (checked).
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -3062,10 +3083,12 @@ def phase_train_full(torch, smi):
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.pruning import Block, apply_masks, count_params, tree_sparsity_report
     from repro_torch.launch import train
     from repro_torch.models import get_model
-    from repro_torch.utils.tree import leaves_with_path, tree_map
+    from repro_torch.utils.flops import model_flops
+    from repro_torch.utils.tree import leaves_with_path
 
     dev = torch.device("cuda")
     args = train.build_parser().parse_args(TRAIN_ARGS + ["--device", "cuda"])
@@ -3130,7 +3153,10 @@ def phase_train_full(torch, smi):
     ms_admm, ms_fine = statistics.median(admm[1:]), statistics.median(fine)
     ms_update = statistics.mean(upd) - statistics.mean(plain)
     tokens = args.batch * args.seq
-    mfu = {k: 6 * n_params * tokens / (ms / 1e3) / PEAK_BF16_FLOPS
+    # N from utils.flops (active parameters; all of them in a dense model)
+    flops = model_flops(cfg, ShapeConfig("train", args.seq, args.batch, "train"),
+                        rep["param_counts"])
+    mfu = {k: flops / (ms / 1e3) / PEAK_BF16_FLOPS
            for k, ms in (("admm", ms_admm), ("masked", ms_fine))}
     print(f"  train ({smi}): {cfg.name} {cfg.dtype}, {n_params / 1e9:.3f} B params, "
           f"{sum(m.numel() for m in mflat.values()) / 1e9:.3f} B under ADMM in "
@@ -3141,7 +3167,7 @@ def phase_train_full(torch, smi):
           f"{ms_admm:.2f}, of which a Z/U update {ms_update:.2f} (update steps "
           f"{statistics.mean(upd):.2f} - others {statistics.mean(plain):.2f}); masked step "
           f"{ms_fine:.2f}; tokens/s {tokens / ms_admm * 1e3:.0f} ADMM, "
-          f"{tokens / ms_fine * 1e3:.0f} masked; model-FLOPs utilization (6 N T / step / "
+          f"{tokens / ms_fine * 1e3:.0f} masked; model-FLOPs utilization (6 N_active T / step / "
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s) {mfu['admm']:.1%} ADMM, "
           f"{mfu['masked']:.1%} masked")
     print("  train peak allocated GB: " + ", ".join(
@@ -3306,6 +3332,193 @@ def phase_train_profile(torch):
     return rows
 
 
+#: the zoo's training phases (``launch.train`` on the JAX config's width,
+#: bf16, seeded): arch -> layers kept, cut only where the training state
+#: (bf16 params and grads, f32 Adam m and v, f32 Z and U on the pruned
+#: leaves) does not fit one card; ``None`` keeps every layer.
+#: deepseek-v2-lite-16b: 1 dense + 5 MoE layers of 27 (191 GB at full
+#: depth); recurrentgemma-9b: 3 pattern units of 38 layers (147 GB);
+#: qwen3-14b: 6 of 40 (251 GB).  deepseek-v2-236b fits no card: smoke only.
+TRAIN_ZOO = {"paligemma-3b": None, "mamba2-1.3b": None, "whisper-small": None,
+             "deepseek-v2-lite-16b": 6, "recurrentgemma-9b": 9, "qwen3-14b": 6}
+#: 6 steps of 8 x 128 tokens: the hard prune follows step int(6 * 0.5) = 3,
+#: so 4 ADMM steps (Z/U updates after steps 1 and 3) and 2 masked steps
+TRAIN_ZOO_ARGS = ["--steps", "6", "--batch", "8", "--seq", "128", "--prune", "--sparsity",
+                  "0.5", "--admm-every", "2", "--hard-prune-at", "0.5", "--seed", str(SEED)]
+
+
+def train_zoo_cfg(arch):
+    """``arch``'s full config at TRAIN_ZOO's depth."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    depth = TRAIN_ZOO[arch]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def phase_train_zoo(torch, arch, smi):
+    """``launch.train.train`` on ``arch`` at full width in bf16
+    (TRAIN_ZOO_ARGS, depth from TRAIN_ZOO): finite losses and grad norms,
+    the Z/U updates where the JAX condition holds, ``pruned_global`` within
+    0.05 of 0.5 (mamba2: exactly 0, the recipe matches none of its leaves),
+    masks unchanged by the fine-tune and ``apply_masks`` zero exactly where
+    they are, for MoE a finite positive ``aux`` entering the masked steps'
+    loss as ``router_aux_weight x aux``.  Prints ms per ADMM / masked step
+    (CUDA events), tokens/s, model-FLOPs utilization from the active
+    parameters (``utils.flops``) and peak allocated per phase.  Returns the
+    numbers it prints."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.pruning import apply_masks
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.utils.flops import model_flops
+    from repro_torch.utils.tree import leaves_with_path
+
+    dev = torch.device("cuda")
+    cfg = train_zoo_cfg(arch)
+    args = train.build_parser().parse_args(["--arch", arch, "--device", "cuda"] + TRAIN_ZOO_ARGS)
+    torch.cuda.empty_cache()
+    at_prune = {}
+
+    def keep_masks(_, masks):
+        at_prune.update((p, m.bool()) for p, m in leaves_with_path(masks))
+
+    t0 = time.perf_counter()
+    rep = train.train(args, cfg, get_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed)), dev, log=_quiet,
+        on_hard_prune=keep_masks)
+    wall = time.perf_counter() - t0
+    hist, peaks, counts = rep["history"], rep["peak_bytes"], rep["param_counts"]
+    label = f"train zoo {arch}"
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"{label}: non-finite loss or grad norm {[(h['loss'], h['grad_norm']) for h in hist]}")
+    want = [(h["step"] + 1) % args.admm_every == 0 and h["phase"] == "admm" for h in hist]
+    check([h["update"] for h in hist] == want and rep["n_updates"] == sum(want) > 0,
+          f"{label}: Z/U updates {[h['update'] for h in hist]}, n_updates {rep['n_updates']}")
+    sp = rep["sparsity"]["pruned_global"]
+    if cfg.ssm is not None:  # the recipe's globs match no Mamba-2 leaf, as in JAX
+        check(sp == 0.0 and not at_prune, f"{label}: pruned_global {sp}, masks {len(at_prune)}")
+    else:
+        check(abs(sp - 0.5) <= 0.05, f"{label}: pruned_global {sp}")
+    state, masks = rep.pop("state"), rep.pop("masks")
+    mflat = dict(leaves_with_path(masks))
+    check(mflat.keys() == at_prune.keys() and all(
+        torch.equal(mflat[p].bool(), at_prune[p]) for p in mflat),
+          f"{label}: masks changed during the fine-tune")
+    experts = [p for p in mflat if "['experts']" in p]
+    check(not experts, f"{label}: an expert stack was pruned: {experts[:2]}")
+    n_zero = 0
+    for path, w in leaves_with_path(apply_masks(state.params, masks)):
+        m = mflat.get(path)
+        if m is not None:
+            check(bool((w[m == 0] == 0).all()), f"{label}: {path} nonzero where masked")
+            n_zero += int((m == 0).sum())
+    del state, masks, at_prune
+    aux = [h.get("aux") for h in hist]
+    if cfg.moe is not None:
+        w = cfg.moe.router_aux_weight
+        check(all(np.isfinite(a) and a > 0 for a in aux), f"{label}: aux {aux}")
+        # the masked steps' loss is ce + w * aux (no ADMM penalty), in f32
+        bad = [(h["loss"], h["ce"], h["aux"]) for h in hist if h["phase"] == "masked"
+               and abs(h["loss"] - (h["ce"] + w * h["aux"])) > 2e-6 * abs(h["loss"])]
+        check(not bad, f"{label}: loss != ce + {w} x aux in {bad}")
+    admm = [h["ms"] for h in hist if h["phase"] == "admm"]
+    fine = [h["ms"] for h in hist if h["phase"] == "masked"]
+    ms_admm, ms_fine = statistics.median(admm[1:]), statistics.median(fine)
+    tokens = args.batch * args.seq
+    flops = model_flops(cfg, ShapeConfig("train", args.seq, args.batch, "train"), counts)
+    mfu = {k: flops / (ms / 1e3) / PEAK_BF16_FLOPS for k, ms in (("admm", ms_admm),
+                                                                 ("masked", ms_fine))}
+    gb = {k: v / 1e9 for k, v in peaks.items()}
+    full = get_config(arch)
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers" + (
+        f" + {cfg.encoder_layers} of {full.encoder_layers} encoder layers" if cfg.is_encdec
+        else ""))
+    print(f"  {arch} ({smi}): {depth}, {counts['total'] / 1e9:.3f} B params "
+          f"({counts['active'] / 1e9:.3f} B active), {sum(m.numel() for m in mflat.values()) / 1e9:.3f}"
+          f" B under ADMM in {len(mflat)} leaves; {len(admm)} ADMM steps ({rep['n_updates']} Z/U "
+          f"updates) + {len(fine)} masked in {wall:.1f}s (init included)")
+    print(f"  {arch} ms: step 0 {admm[0]:.2f}; ADMM step (median of steps 1-{len(admm) - 1}) "
+          f"{ms_admm:.2f}, masked step {ms_fine:.2f}; tokens/s {tokens / ms_admm * 1e3:.0f} ADMM, "
+          f"{tokens / ms_fine * 1e3:.0f} masked; model-FLOPs utilization (6 N_active T / step / "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s) {mfu['admm']:.1%} ADMM, {mfu['masked']:.1%} "
+          f"masked; peak allocated GB " + ", ".join(f"{k} {v:.3f}" for k, v in gb.items()))
+    print(f"  {arch} losses {[round(h['loss'], 4) for h in hist]}; pruned_global {sp:.4f}, "
+          f"{n_zero} masked weights zero after the fine-tune"
+          + (f"; aux {[round(a, 4) for a in aux]} (x {cfg.moe.router_aux_weight} in the loss)"
+             if cfg.moe is not None else ""))
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.n_layers, total=counts["total"], active=counts["active"],
+                ms_admm=ms_admm, ms_fine=ms_fine, tok_admm=tokens / ms_admm * 1e3,
+                tok_fine=tokens / ms_fine * 1e3, mfu=mfu, peak_gb=gb, sparsity=sp,
+                losses=[h["loss"] for h in hist])
+
+
+#: remat check: card grads with and without remat within this x max(1, max|g|)
+REMAT_RTOL = 1e-3
+
+
+def phase_train_remat(torch):
+    """whisper-small at full width, batch 8 x 128 tokens over 1500
+    frames: one ``loss_fn`` + backward (``train_loop._value_and_grad``, the
+    gradient half of ``make_train_step``) with ``remat=False`` and one with
+    ``remat=True``, from the same params: every gradient leaf within
+    REMAT_RTOL x max(1, max|g|) of the other, the ``remat=True`` peak
+    allocated below the ``remat=False`` one; then one ``make_train_step``
+    step each on the loss lambda (the same loss and grad norm)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import encdec, get_model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.utils.tree import leaves_with_path, tree_map
+
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-small")
+    params = get_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    b = SyntheticPipeline(cfg, batch=8, seq=129, seed=SEED).next()
+    b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    opt = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=5)
+    out = {}
+    for remat in (False, True):
+        def loss(p, bb, remat=remat):
+            return encdec.loss_fn(p, cfg, bb, remat=remat)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state = train_loop.TrainState(params=params, opt=None)
+        value, _, grads = train_loop._value_and_grad(loss, state, b)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        step_state = train_loop.init_train_state(tree_map(torch.clone, params), opt)
+        _, m = train_loop.make_train_step(loss, opt)(step_state, b)
+        out[remat] = dict(loss=value.item(), grads=grads, peak=peak,
+                          step=(m["loss"].item(), m["grad_norm"].item()))
+        del step_state, state
+    worst = 0.0
+    for (path, a), (_, g) in zip(leaves_with_path(out[False]["grads"]),
+                                 leaves_with_path(out[True]["grads"])):
+        a, g = a.float(), g.float()
+        err = float((a - g).abs().max()) / max(1.0, float(a.abs().max()))
+        worst = max(worst, err)
+        check(err <= REMAT_RTOL, f"train remat: {path} off by {err:.3g} x max(1, max|g|)")
+    lo, hi = out[True]["peak"], out[False]["peak"]
+    check(lo < hi, f"train remat: peak {lo:.3f} GB with remat, {hi:.3f} without")
+    (l0, n0), (l1, n1) = out[False]["step"], out[True]["step"]
+    check(abs(l0 - l1) <= 1e-3 * abs(l0) and abs(n0 - n1) <= 1e-3 * abs(n0),
+          f"train remat: make_train_step loss / grad norm {l0} / {n0} vs {l1} / {n1}")
+    print(f"  remat ({cfg.name}, batch 8 x 128 tokens, {cfg.encoder_seq} frames): one "
+          f"loss_fn + backward, peak allocated above the params {hi:.3f} GB without remat, "
+          f"{lo:.3f} GB with ({lo / hi:.0%}); grads within {worst:.2e} x max(1, max|g|) (tolerance {REMAT_RTOL}); loss "
+          f"{out[False]['loss']:.6f} / {out[True]['loss']:.6f}; make_train_step loss / grad norm "
+          f"{l0:.6f} / {n0:.4f} without, {l1:.6f} / {n1:.4f} with")
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(peak_gb=hi, remat_peak_gb=lo, worst=worst)
+
+
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
     tensor moved by ``.to(dev)`` (a device, or a dtype: the zoo widens the
@@ -3335,6 +3548,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     # every phase before the tune phase runs untuned, whatever REPRO_TUNE /
     # REPRO_TUNE_CACHE say: tuning off, an empty cache
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
     cache = ops.tuning_cache()
@@ -3406,6 +3620,19 @@ def main() -> int:
         launches[name] += n
     header("== train profile (qwen2.5-3b, full width, bf16)")
     phase_train_profile(torch)
+    tz = []
+    with zoo_launch_check(ops):
+        for arch, depth in TRAIN_ZOO.items():
+            cut = "every layer" if depth is None else f"{depth} of {get_config(arch).n_layers} layers"
+            header(f"== train zoo ({arch}, full width, bf16; {cut})")
+            tz.append(phase_train_zoo(torch, arch, smi))
+        header("== train remat (whisper-small, full width)")
+        phase_train_remat(torch)
+    print("  train zoo summary: " + "; ".join(
+        f"{r['arch']} {r['ms_admm']:.2f} / {r['ms_fine']:.2f} ms ADMM / masked step, "
+        f"{r['tok_admm']:.0f} / {r['tok_fine']:.0f} tok/s, MFU {r['mfu']['admm']:.1%} / "
+        f"{r['mfu']['masked']:.1%}, peak {max(v for v in r['peak_gb'].values()):.3f} GB"
+        for r in tz))
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     line = {"kernels": []}

@@ -1,7 +1,7 @@
 """Architecture configs of the port (copies of ``repro.configs``' data)."""
 
 from .base import ArchConfig, MoEConfig, PruneConfig, RecurrentConfig, SHAPES, SSMConfig, ShapeConfig
-from .registry import ARCH_IDS, get_config, smoke_config
+from .registry import ARCH_IDS, get_config, shape_cells, smoke_config
 
 __all__ = [
     "ARCH_IDS",
@@ -13,5 +13,6 @@ __all__ = [
     "SSMConfig",
     "ShapeConfig",
     "get_config",
+    "shape_cells",
     "smoke_config",
 ]

@@ -1,11 +1,11 @@
 """Config registry: ``--arch <id>`` -> ArchConfig, plus reduced smoke configs
-(the ``get_config`` / ``smoke_config`` / ``ARCH_IDS`` part of
-``repro.configs.registry``).
+(a port of ``repro.configs.registry``).
 
 ``get_config(arch_id)`` returns the full-size config, ``smoke_config`` a
 same-family reduced config (2-3 layers, d_model 128, a 256-word vocab, few
 experts, f32) that runs a forward, a decode step and a train step on the CPU
-in seconds.  The ten ids are the JAX package's, in its order: the dense GQA
+in seconds, and ``shape_cells`` the arch's row of the (shape, status)
+matrix.  The ten ids are the JAX package's, in its order: the dense GQA
 decoders (qwen2.5-3b, qwen3-14b with qk_norm, granite-3-2b, phi4-mini-3.8b),
 the MLA + MoE decoders (deepseek-v2-lite-16b, deepseek-v2-236b), the
 prefix-LM VLM (paligemma-3b), Mamba-2 (mamba2-1.3b), the encoder-decoder
@@ -18,7 +18,7 @@ import dataclasses
 import importlib
 from typing import Dict, List
 
-from .base import ArchConfig, RecurrentConfig, SSMConfig
+from .base import SHAPES, ArchConfig, RecurrentConfig, SSMConfig
 
 ARCH_IDS: List[str] = [
     "qwen2.5-3b",
@@ -88,3 +88,16 @@ def smoke_config(arch_id: str) -> ArchConfig:
     if cfg.vision_tokens:
         kw["vision_tokens"] = 16
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
+
+
+def shape_cells(arch_id: str) -> Dict[str, str]:
+    """The (shape, status) matrix row for one arch: "run" or "SKIP(reason)".
+    ``long_500k`` needs a sub-quadratic decode state: SSM or hybrid only."""
+    cfg = get_config(arch_id)
+    cells = {}
+    for name in SHAPES:
+        if name == "long_500k" and not cfg.supports_long_context:
+            cells[name] = "SKIP(full-attention arch: 512k dense KV is not sub-quadratic)"
+        else:
+            cells[name] = "run"
+    return cells

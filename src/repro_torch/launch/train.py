@@ -5,9 +5,10 @@ penalty every step, a Z/U update every ``--admm-every`` steps) -> hard
 prune after step ``int(steps * hard_prune_at)`` -> masked fine-tune; plus
 checkpoint / resume (atomic, keep-N), a preemption-safe exit, a straggler
 log, gradient accumulation and deterministic data with a checkpointed
-cursor.  The flags are the JAX launcher's, plus ``--device`` (default
-``cuda``; it raises without a GPU, ``--device cpu`` runs here).  Params are
-drawn from a ``torch.Generator`` on the chosen device.
+cursor.  ``--arch`` takes every arch of the zoo, as in JAX.  The flags are
+the JAX launcher's, plus ``--device`` (default ``cuda``; it raises without a
+GPU, ``--device cpu`` runs here).  Params are drawn from a
+``torch.Generator`` on the chosen device.
 
 The steps run plain PyTorch autograd, as the JAX package trains with plain
 XLA: no kernel of the port runs in training.  The kernels take over when
@@ -16,7 +17,7 @@ the hard-pruned model is compiled for serving
 masks, structures)`` -> ``compile_plan``).
 
 Example (CPU):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --smoke \\
       --steps 20 --batch 8 --seq 32 --prune --device cpu
 """
 
@@ -28,7 +29,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..configs import get_config, smoke_config
+from ..configs import ARCH_IDS, get_config, smoke_config
 from ..convert import resolve_device
 from ..core.pruning import AdmmConfig, Block, Column, PrunePlan, hard_prune, tree_sparsity_report
 from ..data.pipeline import PipelineState, SyntheticPipeline
@@ -37,19 +38,17 @@ from ..training.checkpoint import CheckpointManager
 from ..training.fault_tolerance import PreemptionHandler, StragglerMonitor
 from ..training.optimizer import AdamWConfig
 from ..training.train_loop import TrainState, init_train_state, make_train_step
+from ..utils.flops import param_counts
 
-__all__ = ["TRAIN_ARCHS", "default_prune_plan", "build_parser", "train", "main"]
-
-#: the archs the launcher trains: the dense GQA decoders (training the other
-#: families -- the MoE aux loss through ADMM, 3-D expert stacks -- is
-#: ROADMAP A7b)
-TRAIN_ARCHS = ("qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b")
+__all__ = ["default_prune_plan", "build_parser", "train", "main"]
 
 
 def default_prune_plan(sparsity: float = 0.5) -> PrunePlan:
     """The paper's recipe mapped to transformer weights: column pruning for
     the FFN in-projections (the style-transfer recipe), 64 x 64 block
-    pruning for the attention q / o projections."""
+    pruning for the attention q / o projections.  As in JAX, the globs
+    match no MoE expert stack (``['moe']['experts']`` stays dense), nothing
+    in Mamba-2, and no ``w_q`` under q-LoRA."""
     return PrunePlan.from_rules(
         [
             ("*ffn*w_gate*['w']", Column(sparsity)),
@@ -63,7 +62,7 @@ def default_prune_plan(sparsity: float = 0.5) -> PrunePlan:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=TRAIN_ARCHS, default="qwen2.5-3b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -129,9 +128,10 @@ def train(args: argparse.Namespace, cfg, params, dev: torch.device, log=print,
     report: ``history`` (per step: phase, whether the Z/U update ran, device
     ms, and the scalar metrics), ``peak_bytes`` per phase (``None`` on the
     CPU), ``n_updates``, the hard prune's ``sparsity`` report, the final
-    ``state`` and ``masks``, ``cfg`` and ``device``.  ``on_hard_prune(params,
-    masks)``, when given, sees the hard prune's output before the
-    fine-tune."""
+    ``state`` and ``masks``, ``cfg``, ``device``, and ``param_counts``
+    (``utils.flops``: total and active parameters, the N of a model-FLOPs
+    utilization).  ``on_hard_prune(params, masks)``, when given, sees the
+    hard prune's output before the fine-tune."""
     model = get_model(cfg, device=dev)
     pipe = SyntheticPipeline(cfg, batch=args.batch, seq=args.seq + 1, seed=args.seed)
 
@@ -141,6 +141,7 @@ def train(args: argparse.Namespace, cfg, params, dev: torch.device, log=print,
                 if args.prune else None)
     plan = default_prune_plan(args.sparsity) if args.prune else None
 
+    counts = param_counts(cfg, params)
     peaks: Dict[str, Optional[int]] = {}
     _reset_peak(dev)
     state = init_train_state(params, opt_cfg, admm_cfg=admm_cfg, prune_plan=plan)
@@ -214,7 +215,8 @@ def train(args: argparse.Namespace, cfg, params, dev: torch.device, log=print,
             f"{k} {v / 1e9:.3f}" for k, v in peaks.items()))
     log(f"done; median step {mon.median:.2f}s, stragglers: {len(mon.straggler_steps)}")
     return dict(cfg=cfg, device=dev, history=history, peak_bytes=peaks, n_updates=n_updates,
-                sparsity=sparsity_rep, state=state, masks=masks, hard_at=hard_at)
+                sparsity=sparsity_rep, state=state, masks=masks, hard_at=hard_at,
+                param_counts=counts)
 
 
 def main(argv=None) -> Dict[str, Any]:

@@ -13,7 +13,10 @@ Decode keeps each decoder layer's self-attention KV cache beside the cross
 K/V, which depend only on the encoder output and are computed once
 (``precompute_cross_kv``).  ``loss_fn`` is the mean next-token NLL through
 an f32 ``log_softmax``, as in the JAX package (no label weights, no aux).
-Layer norms take ``cfg.norm_eps``.
+Layer norms take ``cfg.norm_eps``.  ``encode``, ``decode_train`` and
+``loss_fn`` take the JAX package's ``remat`` (each layer checkpointed) and
+``layout_scan`` (the unrolled loop's computation in eager PyTorch; see
+``transformer._layer_order``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..configs.base import ArchConfig
 from . import attention as attn_mod
 from .ffn import init_mlp, mlp
 from .layers import _normal, embed, init_embedding, init_layernorm, init_linear, layernorm, linear
-from .transformer import model_dtype
+from .transformer import checkpointed, model_dtype
 
 __all__ = ["init_encdec", "encode", "decode_train", "loss_fn", "init_cache",
            "precompute_cross_kv", "decode_step"]
@@ -76,34 +79,53 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
-def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *, attn_impl="auto"
-           ) -> torch.Tensor:
+def _run_stack(layers: List[Params], apply_one, x: torch.Tensor, *, remat: bool,
+               layout_scan: bool) -> torch.Tensor:
+    """``apply_one(p, x)`` over homogeneous layers in order, each
+    checkpointed under ``remat``.  ``layout_scan`` is JAX's ``lax.scan``
+    over stacked params; in eager PyTorch that is this same loop, so it
+    changes nothing here."""
+    del layout_scan
+    for p in layers:
+        x = checkpointed(apply_one)(p, x) if remat else apply_one(p, x)
+    return x
+
+
+def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *, attn_impl="auto",
+           remat: bool = False, layout_scan: bool = False) -> torch.Tensor:
     """``frames [B, T_enc, D]`` (the stub frontend's output) -> the encoder
     output ``[B, T_enc, D]``."""
     x = frames + params["enc_pos"][None, : frames.shape[1]]
     positions = _positions(x)
-    for p in params["encoder"]:
+
+    def one(p, x):
         h = layernorm(p["norm1"], x, cfg.norm_eps)
         x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, causal=False,
                                        impl=attn_impl)
         h = layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp(p["ffn"], h, activation="gelu")
+        return x + mlp(p["ffn"], h, activation="gelu")
+
+    x = _run_stack(params["encoder"], one, x, remat=remat, layout_scan=layout_scan)
     return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def decode_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 *, attn_impl="auto") -> torch.Tensor:
+                 *, attn_impl="auto", remat: bool = False, layout_scan: bool = False
+                 ) -> torch.Tensor:
     """Teacher-forced decoder pass: logits ``[B, S, V_pad]``."""
     x = embed(params["embed"], tokens)
     positions = _positions(x)
-    for p in params["decoder"]:
+
+    def one(p, x):
         h = layernorm(p["norm1"], x, cfg.norm_eps)
         x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, impl=attn_impl)
         h = layernorm(p["norm_x"], x, cfg.norm_eps)
         ck, cv = attn_mod.cross_attention_kv(p["cross"], cfg, enc_out)
         x = x + attn_mod.cross_attention(p["cross"], cfg, h, ck, cv)
         h = layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + mlp(p["ffn"], h, activation="gelu")
+        return x + mlp(p["ffn"], h, activation="gelu")
+
+    x = _run_stack(params["decoder"], one, x, remat=remat, layout_scan=layout_scan)
     x = layernorm(params["dec_norm"], x, cfg.norm_eps)
     return _mask_pad_logits(cfg, linear(params["lm_head"], x))
 
@@ -116,10 +138,12 @@ def _mask_pad_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            remat: bool = False, layout_scan: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    enc_out = encode(params, cfg, batch["frames"])
-    logits = decode_train(params, cfg, batch["tokens"], enc_out)
+    enc_out = encode(params, cfg, batch["frames"], remat=remat, layout_scan=layout_scan)
+    logits = decode_train(params, cfg, batch["tokens"], enc_out, remat=remat,
+                          layout_scan=layout_scan)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     ce = nll.mean()

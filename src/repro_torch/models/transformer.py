@@ -18,8 +18,13 @@ MoE FFN, whose router aux loss ``forward`` sums over layers.  A VLM's
 the text (a bidirectional prefix-LM prefix); their positions are dropped
 from the logits.
 
-``forward`` runs whole sequences with plain torch ops (no remat, no scan);
-it is the reference the plan-compiled decoder is held to.  Under
+``forward`` runs whole sequences with plain torch ops; it is the reference
+the plan-compiled decoder is held to.  Its memory knobs are the JAX
+package's: ``remat`` checkpoints each block (``remat_policy`` "full"
+recomputes the whole block in the backward, "dots" keeps the outputs of the
+2-D matmuls -- JAX's ``dots_with_no_batch_dims_saveable``), ``attn_chunk``
+is the KV chunk of the chunked attention, and ``layout_scan`` runs the
+layers in ``scan_plan``'s groups.  Under
 ``cfg.prune.enabled`` the attention layers carry the paper's recipe as
 packed params (block-pruned q/o for a ``bsr`` execution mode, column-pruned
 FFN), which ``forward`` runs in plain torch (``bsr_xla`` / ``colpack_xla``),
@@ -40,9 +45,11 @@ pass a CUDA generator to draw a full-width model on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from . import attention as attn_mod
@@ -51,8 +58,8 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
 
-__all__ = ["block_kinds", "init_layer", "init_lm", "forward", "loss_fn", "prefill",
-           "init_cache", "decode_step"]
+__all__ = ["block_kinds", "scan_plan", "checkpointed", "init_layer", "init_lm", "forward",
+           "loss_fn", "prefill", "init_cache", "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -70,6 +77,64 @@ def block_kinds(cfg: ArchConfig) -> List[str]:
         pat = cfg.recurrent.pattern
         return [pat[i % len(pat)] for i in range(cfg.n_layers)]
     return ["attn"] * cfg.n_layers
+
+
+def scan_plan(cfg: ArchConfig) -> Tuple[List[int], int, int, List[int]]:
+    """Layer grouping of ``layout_scan``: ``(prefix_layers, unit_len,
+    n_units, suffix_layers)``.  ``prefix`` and ``suffix`` are structurally
+    distinct layers (DeepSeek's dense-FFN layers, a hybrid pattern's
+    remainder); the middle ``n_units`` repeat the ``unit_len``-layer
+    pattern, which the JAX package runs as one ``lax.scan`` over stacked
+    params."""
+    prefix: List[int] = []
+    start = 0
+    if cfg.moe is not None and cfg.moe.first_dense > 0:
+        prefix = list(range(cfg.moe.first_dense))
+        start = cfg.moe.first_dense
+    unit = len(cfg.recurrent.pattern) if cfg.recurrent is not None else 1
+    n_units = (cfg.n_layers - start) // unit
+    suffix = list(range(start + n_units * unit, cfg.n_layers))
+    return prefix, unit, n_units, suffix
+
+
+def _layer_order(cfg: ArchConfig, layout_scan: bool) -> List[int]:
+    """The layers in the order ``forward`` runs them: ``scan_plan``'s
+    prefix, units and suffix under ``layout_scan``.  Eager PyTorch has no
+    compile time to save, so the scan is the unrolled loop in the same
+    order over the same (unstacked) params: the same computation."""
+    if not layout_scan:
+        return list(range(cfg.n_layers))
+    prefix, unit, n_units, suffix = scan_plan(cfg)
+    start = len(prefix)
+    body = [start + u * unit + pos for u in range(n_units) for pos in range(unit)]
+    return prefix + body + suffix
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of 2-D matmuls (every
+    ``linear``), recompute the rest -- batched products (attention scores,
+    expert stacks) included, as ``dots_with_no_batch_dims_saveable``."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpointed(fn, policy: str = "full"):
+    """``fn`` under activation checkpointing (non-reentrant, so
+    ``torch.autograd.grad`` works through it): its activations are
+    recomputed in the backward; ``policy="dots"`` keeps the 2-D matmul
+    outputs (:func:`_save_dots`)."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def _attn_kind(cfg: ArchConfig) -> str:
@@ -146,7 +211,8 @@ def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor, mode: str):
 
 def _apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                  positions: torch.Tensor, *, prefix_len: int = 0, attn_impl: str = "auto",
-                 mode: str = "dense") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 mode: str = "dense", attn_chunk: int = 1024
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(x_out, aux_loss or None)``."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind == "mamba":
@@ -157,7 +223,8 @@ def _apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
         mixed = attn_mod.mla_attention(p["attn"], cfg, h, positions, impl=attn_impl)
     else:
         mixed = attn_mod.gqa_attention(p["attn"], cfg, h, positions, window=_window(cfg, kind),
-                                       prefix_len=prefix_len, impl=attn_impl, mode=mode)
+                                       prefix_len=prefix_len, impl=attn_impl, mode=mode,
+                                       chunk=attn_chunk)
     return _ffn(p, cfg, x + mixed, mode)
 
 
@@ -169,14 +236,31 @@ def forward(
     patch_embeds: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
     mode: str = "dense",
+    remat: bool = False,
+    layout_scan: bool = False,
+    remat_policy: str = "full",
+    residual_spec=None,
+    attn_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits [B, S_text, V_pad], aux_loss)``; pad classes are
-    ``-1e30``, aux is the MoE layers' summed router loss (0 without MoE)."""
+    ``-1e30``, aux is the MoE layers' summed router loss (0 without MoE).
+
+    ``remat=True`` checkpoints each block (:func:`checkpointed` with
+    ``remat_policy``), the memory / compute trade of full-width training;
+    ``layout_scan=True`` runs ``scan_plan``'s groups in order, the unrolled
+    loop's computation (:func:`_layer_order`); ``residual_spec`` is a
+    TPU sharding constraint: only ``None`` is taken."""
+    if residual_spec is not None:
+        raise NotImplementedError(
+            "residual_spec is a sharding constraint of the TPU mesh (ROADMAP A9)")
     x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in zip(params["layers"], block_kinds(cfg)):
-        x, aux = _apply_block(p, cfg, kind, x, positions, prefix_len=prefix_len,
-                              attn_impl=attn_impl, mode=mode)
+    kinds = block_kinds(cfg)
+    for i in _layer_order(cfg, layout_scan):
+        blk = functools.partial(_apply_block, params["layers"][i], cfg, kinds[i],
+                                positions=positions, prefix_len=prefix_len,
+                                attn_impl=attn_impl, mode=mode, attn_chunk=attn_chunk)
+        x, aux = (checkpointed(blk, remat_policy) if remat else blk)(x)
         if aux is not None:
             aux_total = aux_total + aux
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -213,17 +297,14 @@ def loss_fn(
     ``batch["weights"]`` when given, plus ``router_aux_weight x aux`` for
     MoE; returns ``(total, {"ce", "aux"})``.
 
-    ``remat``, ``layout_scan``, ``residual_spec`` and ``attn_chunk`` are the
-    TPU package's memory and sharding knobs: only their defaults are taken
-    (the rest wait for ROADMAP A9).  ``attn_impl`` is ``sdpa``'s: "auto" is
-    full attention up to 8192 keys and chunked beyond, as in JAX."""
-    if (remat, layout_scan, remat_policy, residual_spec, attn_chunk) != (
-            False, False, "full", None, 1024):
-        raise NotImplementedError(
-            "remat / layout_scan / residual_spec / attn_chunk are TPU memory and sharding "
-            "knobs; only their defaults are ported (ROADMAP A9)")
+    The memory knobs (``remat``, ``remat_policy``, ``layout_scan``,
+    ``attn_chunk``) and ``residual_spec`` go to :func:`forward`, as in JAX.
+    ``attn_impl`` is ``sdpa``'s: "auto" is full attention up to 8192 keys
+    and chunked beyond, as in JAX."""
     logits, aux = forward(params, cfg, batch["tokens"], patch_embeds=batch.get("patch_embeds"),
-                          attn_impl=attn_impl, mode=mode)
+                          attn_impl=attn_impl, mode=mode, remat=remat,
+                          layout_scan=layout_scan, remat_policy=remat_policy,
+                          residual_spec=residual_spec, attn_chunk=attn_chunk)
     labels = batch["labels"].long()
     # CE via logsumexp: one f32 reduction instead of a full log_softmax copy
     logits32 = logits.float()

@@ -174,11 +174,17 @@ def test_loss_fn_and_gradients_match_jax(lm, weighted):
 
 
 def test_loss_fn_takes_only_the_default_tpu_knobs(lm):
+    """Only the sharding knob is refused: a non-``None`` ``residual_spec``
+    raises naming A9; the memory knobs run (``remat`` and ``layout_scan``
+    give the default loss bit for bit; ``tests/test_torch_model_knobs.py``
+    holds them to JAX)."""
     b = _t(_batches(lm["cfg"], 1)[0])
-    for kw in (dict(remat=True), dict(layout_scan=True), dict(attn_chunk=512),
-               dict(residual_spec=object())):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tlm.loss_fn(_params(lm), lm["cfg"], b, **kw)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tlm.loss_fn(_params(lm), lm["cfg"], b, residual_spec=object())
+    default = tlm.loss_fn(_params(lm), lm["cfg"], b)[0].item()
+    for kw in (dict(remat=True), dict(remat=True, remat_policy="dots"), dict(layout_scan=True),
+               dict(attn_chunk=512), dict(residual_spec=None)):
+        assert tlm.loss_fn(_params(lm), lm["cfg"], b, **kw)[0].item() == default, kw
     full, _ = tlm.loss_fn(_params(lm), lm["cfg"], b, attn_impl="full")
     assert full.item() == tlm.loss_fn(_params(lm), lm["cfg"], b)[0].item()
     # the chunked (online-softmax) sdpa is ported: the same loss to rounding
