@@ -214,6 +214,26 @@ Phases (each prints its own lines):
               within 1e-3 x max(1, max|g|) of each other, the remat peak
               below the other (both printed).  No kernel of the port
               launches in 16-17 (checked).
+18. mesh   -- the mesh modules on ``torch.cuda.device_count()`` ranks with
+              NCCL, one card a rank (NCCL takes no two ranks on one card:
+              on one card the world is 1 and the collectives are trivial),
+              a ``(data, model)`` mesh of (1, 1) / (1, 2) / (2, 2) / (2, 4)
+              for 1 / 2 / 4 / 8 cards: three steps of qwen2.5-3b's bf16
+              train step at full width (8 x 128 tokens, ``DEFAULT_RULES``,
+              ZeRO-1 moments) sharded, their losses ``torch.equal`` to the
+              unsharded step's on one card (else within 1e-3), ms a step,
+              peak GB a rank and the collectives of one forward + backward
+              (``CommDebugMode``); ``compressed_mean_grads`` (int8, topk)
+              on that model's gradient tree, the error against the f32
+              mean (int8 within half a quantization step of each leaf) and
+              the wire bytes against an f32 all-reduce; ``ag`` / ``rs`` at
+              M = 1024, K = 2048, N = 11008 in bf16 against ``torch.matmul``
+              on the gathered operands (within one bf16 rounding of their
+              f32 product); ``pipeline_forward`` over 36 layers of
+              ``tanh(h @ W)`` at D = 2048 ``torch.equal`` to the
+              sequential loop; then ``launch.dryrun``'s qwen2.5-3b
+              ``train_4k`` cell on the fake 16 x 16 mesh and its roofline
+              row (``launch.roofline``).  No kernel of the port launches.
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -3519,6 +3539,346 @@ def phase_train_remat(torch):
     return dict(peak_gb=hi, remat_peak_gb=lo, worst=worst)
 
 
+#: == mesh: the (data, model) mesh by card count, the model and its batch,
+#: the ring matmul's shape and the pipeline's depth / width / microbatches
+MESH_SHAPES = {1: (1, 1), 2: (1, 2), 4: (2, 2), 8: (2, 4)}
+MESH_ARGS = dict(arch="qwen2.5-3b", batch=8, seq=128, steps=3, ring=(1024, 2048, 11008),
+                 pipe_layers=36, pipe_d=2048, pipe_micro=4, pipe_rows=256)
+#: the sharded losses against the unsharded step's, with more than one card
+MESH_LOSS_RTOL = 1e-3
+#: seconds: the ranks' process-group timeout, and the dry-run cell's limit
+MESH_TIMEOUT_S = 300
+DRYRUN_TIMEOUT_S = 420
+
+
+def _mesh_train(torch, cfg, dev, mesh, margs, sharded):
+    """``margs["steps"]`` train steps from the seeded init: ``(losses, ms,
+    peak GB, params, batch, loss_fn)``; ``sharded`` places params, ZeRO-1
+    moments and the batch on ``mesh``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding
+    from repro_torch.training import optimizer, train_loop
+
+    model = get_model(cfg, device=dev)
+    ocfg = optimizer.AdamWConfig(lr=1e-4, total_steps=10, warmup_steps=2)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    if sharded:
+        specs = sharding.param_pspecs(params)
+        params = sharding.distribute_params(mesh, params, specs=specs)
+        mv = optimizer.zero1_pspecs(specs, params, data_size=mesh.size(0))
+        state = train_loop.TrainState(params, optimizer.adamw_init(params, ocfg, mesh=mesh,
+                                                                   moment_specs=mv))
+    else:
+        state = train_loop.init_train_state(params, ocfg)
+    step = train_loop.make_train_step(model.loss, ocfg)
+    pipe = SyntheticPipeline(cfg, batch=margs["batch"], seq=margs["seq"] + 1, seed=SEED)
+    losses, ms = [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(margs["steps"]):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next().items()}
+        if sharded:
+            b = {k: distribute_tensor(v, mesh, [Shard(0), Replicate()]) for k, v in b.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = m["loss"].full_tensor() if sharding.is_dtensor(m["loss"]) else m["loss"]
+        losses.append(loss.detach().float().cpu())  # a host sync ends the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    return losses, ms, peak, state.params, b, model.loss
+
+
+def mesh_rank(rank, world, rdzv, out_path, device, smoke):
+    """One rank of ``== mesh`` (``torch.multiprocessing`` target); rank 0
+    writes the results to ``out_path`` as JSON."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, rank) if device == "cuda" else torch.device("cpu")
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{rdzv}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        out = _mesh_rank_body(torch, dist, dev, world, smoke)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_rank_body(torch, dist, dev, world, smoke):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.training import compression, train_loop
+    from repro_torch.training.collective_matmul import make_overlapped_tp_matmuls
+    from repro_torch.training.pipeline_parallel import pipeline_forward
+    from repro_torch.utils.tree import leaves
+
+    margs = dict(MESH_ARGS)
+    if smoke:  # the CPU rehearsal's sizes
+        margs.update(batch=8, seq=32, ring=(16, 32, 24), pipe_layers=8, pipe_d=16,
+                     pipe_rows=4)
+    cfg = smoke_config(margs["arch"]) if smoke else get_config(margs["arch"])
+    shape = MESH_SHAPES[world]
+    out = {"world": world, "mesh": list(shape), "backend": str(dist.get_backend())}
+
+    # the train step, unsharded then sharded, from the same seed
+    plain, plain_ms, plain_peak, _, _, _ = _mesh_train(torch, cfg, dev, None, margs, False)
+    mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+    losses, ms, peak, params, batch, loss_fn = _mesh_train(torch, cfg, dev, mesh, margs, True)
+    out["losses"] = [float(x) for x in losses]
+    out["plain_losses"] = [float(x) for x in plain]
+    out["equal"] = all(bool(torch.equal(a, b)) for a, b in zip(losses, plain))
+    out["ms"], out["plain_ms"] = ms, plain_ms
+    peaks = torch.tensor([peak], device=dev)
+    dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+    out["peak_gb"], out["plain_peak_gb"] = float(peaks), plain_peak
+    w = params["layers"][0]["ffn"]["w_gate"]["w"]
+    out["w_gate_local"] = [list(w.shape), list(w.to_local().shape)]
+    with CommDebugMode() as comm:
+        train_loop._value_and_grad(loss_fn, train_loop.TrainState(params, None), batch)
+    out["collectives"] = {str(k).split(".")[-1]: int(v)
+                          for k, v in comm.get_comm_counts().items()}
+    del params, batch, w
+
+    # compression: each data rank's gradient of its batch shard, on a 1-D mesh
+    dmesh = make_mesh((world,), ("data",), device=dev.type)
+    params = get_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    full = SyntheticPipeline(cfg, batch=margs["batch"], seq=margs["seq"] + 1, seed=SEED).next()
+    rows = margs["batch"] // world
+    r = dist.get_rank()
+    b = {k: torch.from_numpy(v[r * rows:(r + 1) * rows]).to(dev) for k, v in full.items()}
+    _, _, grads = train_loop._value_and_grad(get_model(cfg).loss,
+                                             train_loop.TrainState(params, None), b)
+    del params
+    gl = leaves(grads)
+    out["compression"] = {}
+    for policy in ("int8", "topk"):
+        ccfg = compression.CompressionConfig(policy, topk_frac=0.01)
+        apply = compression.make_compressed_allreduce(dmesh, grads, cfg=ccfg)
+        err0 = compression.init_error_feedback(grads)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        means, _ = apply(grads, err0)
+        _sync(torch, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        del err0
+        worst, within = 0.0, True
+        for g, m in zip(gl, leaves(means)):
+            ref = g.float().clone()
+            dist.all_reduce(ref, group=dmesh.get_group(0))
+            ref /= world
+            gmax = g.float().abs().max().reshape(1)
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=dmesh.get_group(0))
+            e = float((m - ref).abs().max())
+            worst = max(worst, e / max(float(ref.abs().max()), 1e-30))
+            # int8: each rank's rounding moves a value by half a step at most
+            within = within and (policy != "int8" or e <= float(gmax) / 254 * 1.0001 + 1e-12)
+        del means
+        sent, ring = compression.wire_bytes(grads, world, ccfg)
+        sent8, ring8 = compression.wire_bytes(grads, 8, ccfg)
+        payload = sum(g.numel() + 4 for g in gl) if policy == "int8" else sum(
+            4 * g.numel() for g in gl)
+        out["compression"][policy] = dict(
+            max_rel_err=worst, within_half_step=within, ms=wall, wire_bytes=sent,
+            f32_allreduce_bytes=ring, wire_bytes_8=sent8, f32_allreduce_bytes_8=ring8,
+            payload_bytes=payload,
+            f32_payload_bytes=sum(4 * g.numel() for g in gl))
+    del grads, gl
+
+    # the ring matmuls on a 1-D model mesh, bf16
+    mm, kk, nn = margs["ring"]
+    mmesh = make_mesh((world,), ("model",), device=dev.type)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    x = torch.randn(mm, kk, generator=gen, device=dev).to(dt)
+    wt = (torch.randn(kk, nn, generator=gen, device=dev) * kk ** -0.5).to(dt)
+    ref = (x.float() @ wt.float()).to(dt)
+    ag, rs = make_overlapped_tp_matmuls(mmesh)
+    xd = distribute_tensor(x, mmesh, [Replicate()])
+    wd = distribute_tensor(wt, mmesh, [Replicate()])
+    out["ring"] = {}
+    for name, fn in (("ag", ag), ("rs", rs)):
+        y = fn(xd, wd).full_tensor()
+        err = float((y.float() - ref.float()).abs().max())
+        times = []
+        for _ in range(5):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            fn(xd, wd)
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["ring"][name] = dict(max_abs_err=err, ref_max=float(ref.float().abs().max()),
+                                 ms=statistics.median(times))
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        x @ wt
+    _sync(torch, dev)
+    out["ring"]["matmul_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    del x, wt, xd, wd, ref
+
+    # GPipe on a 1-D pipe mesh, f32: the layers a stage a multiple of the world
+    layers = margs["pipe_layers"] - margs["pipe_layers"] % world
+    d, m_, rows_ = margs["pipe_d"], margs["pipe_micro"], margs["pipe_rows"]
+    pmesh = make_mesh((world,), ("pipe",), device=dev.type)
+    wp = torch.randn(layers, d, d, generator=gen, device=dev) * d ** -0.5
+    xm = torch.randn(m_, rows_, d, generator=gen, device=dev)
+
+    def layer(lp, h):
+        return torch.tanh(h @ lp["w"])
+
+    with torch.no_grad():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = pipeline_forward(layer, {"w": wp}, xm, mesh=pmesh)
+        _sync(torch, dev)
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        seq = []
+        for i in range(m_):  # the sequential loop, microbatch by microbatch
+            h = xm[i]
+            for j in range(layers):
+                h = layer({"w": wp[j]}, h)
+            seq.append(h)
+        seq = torch.stack(seq)
+    out["pipe"] = dict(layers=layers, equal=bool(torch.equal(got, seq)),
+                       max_abs_err=float((got - seq).abs().max()), ms=pipe_ms)
+    return out
+
+
+def phase_mesh(torch, smi, *, device="cuda", smoke=False):
+    """Phase 18 (see the module docstring).  Spawns the ranks, checks and
+    prints their results, then runs the dry-run cell and its roofline row.
+    Returns the results."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count() if device == "cuda" else 4
+    check(world in MESH_SHAPES, f"mesh: no (data, model) mesh for {world} cards")
+    out_dir = ROOT / "build" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rdzv, res = out_dir / "rdzv", out_dir / "result.json"
+    for f in (rdzv, res):
+        if f.exists():
+            f.unlink()
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(world, str(rdzv), str(res), device, smoke),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S + 120
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline, "mesh: the ranks did not finish in time")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    with open(res) as f:
+        r = json.load(f)
+    lines = "world 1 (one card)" if world == 1 else f"world {world} ({world} cards)"
+    lo, pl = r["losses"], r["plain_losses"]
+    rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lo, pl))
+    check(all(np.isfinite(lo)), f"mesh: non-finite losses {lo}")
+    if world == 1:
+        check(r["equal"], f"mesh: sharded losses {lo} differ from the unsharded {pl} on one card")
+    else:
+        check(rel <= MESH_LOSS_RTOL, f"mesh: sharded losses {lo} vs unsharded {pl} ({rel:.2e})")
+    ms = statistics.median(r["ms"][1:]) if len(r["ms"]) > 1 else r["ms"][0]
+    pms = statistics.median(r["plain_ms"][1:]) if len(r["plain_ms"]) > 1 else r["plain_ms"][0]
+    print(f"  mesh ({smi}): {lines}, (data, model) = {tuple(r['mesh'])}, "
+          f"{r['backend']}; ranks done in {wall:.1f}s")
+    print(f"  mesh train ({MESH_ARGS['arch']}, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
+          f"tokens, DEFAULT_RULES, ZeRO-1): losses {[round(x, 6) for x in lo]}, unsharded "
+          f"{[round(x, 6) for x in pl]} ({'torch.equal' if r['equal'] else f'max rel {rel:.2e}'}); "
+          f"ms a step {ms:.2f} sharded vs {pms:.2f} unsharded (medians of steps 1-"
+          f"{len(r['ms']) - 1}; step 0 {r['ms'][0]:.2f} / {r['plain_ms'][0]:.2f}); peak GB a rank "
+          f"{r['peak_gb']:.3f} sharded, {r['plain_peak_gb']:.3f} unsharded; w_gate global "
+          f"{r['w_gate_local'][0]} local {r['w_gate_local'][1]}; collectives of one forward + "
+          f"backward {r['collectives'] or 'none'}")
+    for policy, c in r["compression"].items():
+        check(np.isfinite(c["max_rel_err"]) and c["within_half_step"],
+              f"mesh: {policy} compression error {c}")
+        print(f"  mesh compression {policy}: max error vs the f32 mean {c['max_rel_err']:.3e} x "
+              f"max|mean| (a leaf's worst); {c['ms']:.1f} ms for the tree; wire bytes a rank "
+              f"{c['wire_bytes']:.4g} vs f32 all-reduce {c['f32_allreduce_bytes']:.4g} (reckoned "
+              f"for 8 ranks: {c['wire_bytes_8']:.4g} vs {c['f32_allreduce_bytes_8']:.4g}); payload "
+              f"{c['payload_bytes'] / 1e9:.3f} GB vs f32 {c['f32_payload_bytes'] / 1e9:.3f} GB")
+    for name in ("ag", "rs"):
+        c = r["ring"][name]
+        # one bf16 rounding of the f32 product, plus the f32 sum's order
+        tol = c["ref_max"] * 2.0 ** -7
+        check(c["max_abs_err"] <= tol, f"mesh: {name}_matmul off by {c['max_abs_err']} > {tol}")
+        print(f"  mesh {name}_matmul M,K,N = {MESH_ARGS['ring']} bf16: max abs err "
+              f"{c['max_abs_err']:.3e} (tolerance {tol:.3e}), {c['ms']:.3f} ms (host clock, "
+              f"median of 5) vs torch.matmul {r['ring']['matmul_ms']:.3f} ms")
+    p = r["pipe"]
+    check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
+    print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "
+          f"{MESH_ARGS['pipe_d']}, {MESH_ARGS['pipe_micro']} microbatches of "
+          f"{MESH_ARGS['pipe_rows']} rows, f32): torch.equal to the sequential loop, "
+          f"{p['ms']:.2f} ms")
+    if not smoke:
+        r["dryrun"] = phase_dryrun_cell(smi)
+    return r
+
+
+def phase_dryrun_cell(smi):
+    """``launch.dryrun`` on qwen2.5-3b ``train_4k`` (the fake 16 x 16
+    mesh) in a subprocess, then its ``launch.roofline`` row."""
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "qwen2.5-3b", "--shape", "train_4k", "--mesh", "single", "--force",
+                          "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"dryrun: rc {run.returncode}\n{run.stdout[-2000:]}"
+          f"\n{run.stderr[-2000:]}")
+    with open(out_dir / "qwen2.5-3b__train_4k__single.json") as f:
+        rec = json.load(f)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import roofline
+
+    a = roofline.analyze_record(rec)
+    check(a is not None and a["dominant"] in ("compute", "memory", "collective"),
+          f"dryrun: no roofline row for {rec.get('error')}")
+    m = rec["memory"]
+    print(f"  dryrun qwen2.5-3b train_4k single ({rec['chips']} fake ranks, {wall:.1f}s, "
+          f"{rec['ops']} local ops a device): per device {rec['cost']['flops']:.4e} FLOPs, "
+          f"{rec['cost']['bytes_accessed']:.4e} bytes, collectives {rec['collectives']}; "
+          f"arguments {m['argument_bytes'] / 1e9:.3f} GB, peak live {m['live_bytes'] / 1e9:.3f} "
+          f"GB, fits 80 GB: {m['fits_hbm']}")
+    print("  roofline (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink; "
+          f"{smi}):")
+    print("  " + roofline.build_table([a]).splitlines()[-1])
+    return dict(rec=rec, row=a, wall=wall)
+
+
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
     tensor moved by ``.to(dev)`` (a device, or a dtype: the zoo widens the
@@ -3628,6 +3988,10 @@ def main() -> int:
             tz.append(phase_train_zoo(torch, arch, smi))
         header("== train remat (whisper-small, full width)")
         phase_train_remat(torch)
+        torch.cuda.empty_cache()
+        header(f"== mesh ({MESH_ARGS['arch']}, full width, bf16; "
+               f"{torch.cuda.device_count()} card(s))")
+        phase_mesh(torch, smi)
     print("  train zoo summary: " + "; ".join(
         f"{r['arch']} {r['ms_admm']:.2f} / {r['ms_fine']:.2f} ms ADMM / masked step, "
         f"{r['tok_admm']:.0f} / {r['tok_fine']:.0f} tok/s, MFU {r['mfu']['admm']:.1%} / "

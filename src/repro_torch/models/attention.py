@@ -17,6 +17,7 @@ package's forward-based path is plain jnp: the decoder plans
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,6 +33,7 @@ from .layers import (
     linear_auto,
     rmsnorm,
 )
+from .sharding import attention_on_shards, is_dtensor, merge_last, on_rows, split_last
 
 __all__ = [
     "sdpa",
@@ -152,6 +154,11 @@ def sdpa(
     """Softmax attention, ``impl`` "full" (materialized scores) or "chunked"
     (online softmax); "auto" is chunked when there are more than 8192 keys
     and more than one query, as in the JAX package."""
+    if is_dtensor(q) or is_dtensor(k):  # on a mesh: each rank's batch rows and heads
+        q_pos, kv_pos = (t.full_tensor() if is_dtensor(t) else t for t in (q_pos, kv_pos))
+        return attention_on_shards(functools.partial(
+            sdpa, q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+            prefix_len=prefix_len, impl=impl, chunk=chunk, scale=scale), q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if impl == "auto":
         impl = "chunked" if k.shape[1] > 8192 and q.shape[1] > 1 else "full"
@@ -195,11 +202,10 @@ def init_gqa(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16) -> Par
 def gqa_project_qkv(
     p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, *, mode: str = "dense"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = linear_auto(p["w_q"], x, mode).reshape(b, s, cfg.n_heads, dh)
-    k = linear_auto(p["w_k"], x, mode).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear_auto(p["w_v"], x, mode).reshape(b, s, cfg.n_kv_heads, dh)
+    q = split_last(linear_auto(p["w_q"], x, mode), cfg.n_heads, dh)
+    k = split_last(linear_auto(p["w_k"], x, mode), cfg.n_kv_heads, dh)
+    v = split_last(linear_auto(p["w_v"], x, mode), cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -227,8 +233,7 @@ def gqa_attention(
     pos1d = positions[0]
     out = sdpa(q, k, v, pos1d, pos1d, causal=causal, window=window, prefix_len=prefix_len,
                impl=impl, chunk=chunk)
-    b, s = x.shape[:2]
-    return linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
+    return linear_auto(p["w_o"], merge_last(out), mode)
 
 
 # ----------------------------- KV cache ------------------------------------ #
@@ -271,11 +276,10 @@ def gqa_decode_step(
     q, k_new, v_new = gqa_project_qkv(p, cfg, x_t, pos[:, None], mode=mode)
     size = cache["k"].shape[1]
     slot = pos % size if window is not None else torch.clamp(pos, max=size - 1)
-    rows = torch.arange(b, device=x_t.device)
-    k = cache["k"].clone()
-    v = cache["v"].clone()
-    k[rows, slot.long()] = k_new[:, 0].to(k.dtype)
-    v[rows, slot.long()] = v_new[:, 0].to(v.dtype)
+    at = (torch.arange(b, device=x_t.device), slot.long())
+    # out of place (new cache tensors; DTensor has no in-place rule here)
+    k = torch.index_put(cache["k"], at, k_new[:, 0].to(cache["k"].dtype))
+    v = torch.index_put(cache["v"], at, v_new[:, 0].to(cache["v"].dtype))
     idx = torch.arange(size, dtype=torch.int32, device=x_t.device)
     if window is None:
         valid = idx[None, :] <= pos[:, None]
@@ -287,14 +291,17 @@ def gqa_decode_step(
         valid = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (
             pos[:, None] - kv_pos < (window or size))
     g = cfg.n_kv_heads
-    qg = q.reshape(b, 1, g, cfg.n_heads // g, dh).float()
-    logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) / math.sqrt(dh)
-    logits = torch.where(valid[:, None, None, None, :], logits,
-                         torch.full((), NEG_INF, device=x_t.device))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float())
-    out = out.reshape(b, 1, cfg.n_heads * dh).to(x_t.dtype)
-    y = linear_auto(p["w_o"], out, mode)
+
+    def attend(q, k, v, valid):  # row-wise: on a mesh, each rank's batch rows
+        qg = q.reshape(q.shape[0], 1, g, cfg.n_heads // g, dh).float()
+        logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) / math.sqrt(dh)
+        logits = torch.where(valid[:, None, None, None, :], logits,
+                             torch.full((), NEG_INF, device=q.device))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float())
+        return out.reshape(q.shape[0], 1, cfg.n_heads * dh).to(x_t.dtype)
+
+    y = linear_auto(p["w_o"], on_rows(attend, q, k, v, valid), mode)
     return y, {"k": k, "v": v, "pos": pos + 1}
 
 
@@ -363,7 +370,7 @@ def _mla_q(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor)
         q = linear(p["w_uq"], rmsnorm(p["q_norm"], linear(p["w_dq"], x), cfg.norm_eps))
     else:
         q = linear(p["w_q"], x)
-    q = q.reshape(b, s, cfg.n_heads, dh + dr)
+    q = split_last(q, cfg.n_heads, dh + dr)
     return q[..., :dh], apply_rope(q[..., dh:], positions, cfg.rope_theta)
 
 
@@ -384,13 +391,13 @@ def mla_attention(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.
     dh, dr, h = cfg.resolved_head_dim, cfg.rope_head_dim, cfg.n_heads
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
-    k_nope = linear(p["w_uk"], c_kv).reshape(b, s, h, dh)
-    v = linear(p["w_uv"], c_kv).reshape(b, s, h, dh)
+    k_nope = split_last(linear(p["w_uk"], c_kv), h, dh)
+    v = split_last(linear(p["w_uv"], c_kv), h, dh)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
     pos1d = positions[0]
     out = sdpa(q, k, v, pos1d, pos1d, causal=True, impl=impl, scale=1.0 / math.sqrt(dh + dr))
-    return linear(p["w_o"], out.reshape(b, s, h * dh))
+    return linear(p["w_o"], merge_last(out))
 
 
 def mla_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -435,14 +442,14 @@ def mla_decode_step(p: Params, cfg: ArchConfig, x_t: torch.Tensor, cache: Params
     q_nope, q_rope = _mla_q(p, cfg, x_t, pos[:, None])  # [B,1,H,dh], [B,1,H,dr]
     c_new, kr_new = _mla_latent(p, cfg, x_t, pos[:, None])
     size = cache["c_kv"].shape[1]
-    c_kv, k_rope = cache["c_kv"].clone(), cache["k_rope"].clone()
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     # the drop without a host sync: a row past the end rewrites its last
-    # slot with what is already there
+    # slot with what is already there; out of place (new cache tensors)
     fits = (pos < size)[:, None]
-    rows = torch.arange(b, device=x_t.device)
-    at = pos.clamp(max=size - 1).long()
-    c_kv[rows, at] = torch.where(fits, c_new[:, 0].to(c_kv.dtype), c_kv[rows, at])
-    k_rope[rows, at] = torch.where(fits, kr_new.reshape(b, dr).to(k_rope.dtype), k_rope[rows, at])
+    at = (torch.arange(b, device=x_t.device), pos.clamp(max=size - 1).long())
+    c_kv = torch.index_put(c_kv, at, torch.where(fits, c_new[:, 0].to(c_kv.dtype), c_kv[at]))
+    k_rope = torch.index_put(k_rope, at, torch.where(fits, kr_new.reshape(b, dr).to(k_rope.dtype),
+                                                     k_rope[at]))
     w_uk = p["w_uk"]["w"].reshape(r, h, dh).float()
     q_r = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
     s_nope = torch.einsum("bhr,btr->bht", q_r, c_kv.float())
@@ -473,18 +480,17 @@ def init_cross_attention(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bflo
 
 
 def cross_attention_kv(p: Params, cfg: ArchConfig, enc_out: torch.Tensor):
-    b, s, _ = enc_out.shape
     dh = cfg.resolved_head_dim
-    k = linear(p["w_k"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear(p["w_v"], enc_out).reshape(b, s, cfg.n_kv_heads, dh)
+    k = split_last(linear(p["w_k"], enc_out), cfg.n_kv_heads, dh)
+    v = split_last(linear(p["w_v"], enc_out), cfg.n_kv_heads, dh)
     return k, v
 
 
 def cross_attention(p: Params, cfg: ArchConfig, x: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
-    q = linear(p["w_q"], x).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    s = x.shape[1]
+    q = split_last(linear(p["w_q"], x), cfg.n_heads, cfg.resolved_head_dim)
     q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
     kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     out = sdpa(q, k, v, q_pos, kv_pos, causal=False, impl="full")
-    return linear(p["w_o"], out.reshape(b, s, -1))
+    return linear(p["w_o"], merge_last(out))

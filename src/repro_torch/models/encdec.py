@@ -29,6 +29,7 @@ from ..configs.base import ArchConfig
 from . import attention as attn_mod
 from .ffn import init_mlp, mlp
 from .layers import _normal, embed, init_embedding, init_layernorm, init_linear, layernorm, linear
+from .sharding import gather_last, mesh_context, replicate_axis
 from .transformer import checkpointed, model_dtype
 
 __all__ = ["init_encdec", "encode", "decode_train", "loss_fn", "init_cache",
@@ -95,39 +96,41 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *, attn_impl="
            remat: bool = False, layout_scan: bool = False) -> torch.Tensor:
     """``frames [B, T_enc, D]`` (the stub frontend's output) -> the encoder
     output ``[B, T_enc, D]``."""
-    x = frames + params["enc_pos"][None, : frames.shape[1]]
-    positions = _positions(x)
+    with mesh_context(frames, params):
+        x = frames + params["enc_pos"][None, : frames.shape[1]]
+        positions = _positions(x)
 
-    def one(p, x):
-        h = layernorm(p["norm1"], x, cfg.norm_eps)
-        x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, causal=False,
-                                       impl=attn_impl)
-        h = layernorm(p["norm2"], x, cfg.norm_eps)
-        return x + mlp(p["ffn"], h, activation="gelu")
+        def one(p, x):
+            h = layernorm(p["norm1"], x, cfg.norm_eps)
+            x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, causal=False,
+                                           impl=attn_impl)
+            h = layernorm(p["norm2"], x, cfg.norm_eps)
+            return x + mlp(p["ffn"], h, activation="gelu")
 
-    x = _run_stack(params["encoder"], one, x, remat=remat, layout_scan=layout_scan)
-    return layernorm(params["enc_norm"], x, cfg.norm_eps)
+        x = _run_stack(params["encoder"], one, x, remat=remat, layout_scan=layout_scan)
+        return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def decode_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
                  *, attn_impl="auto", remat: bool = False, layout_scan: bool = False
                  ) -> torch.Tensor:
     """Teacher-forced decoder pass: logits ``[B, S, V_pad]``."""
-    x = embed(params["embed"], tokens)
-    positions = _positions(x)
+    with mesh_context(tokens, enc_out, params):
+        x = embed(params["embed"], tokens)
+        positions = _positions(x)
 
-    def one(p, x):
-        h = layernorm(p["norm1"], x, cfg.norm_eps)
-        x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, impl=attn_impl)
-        h = layernorm(p["norm_x"], x, cfg.norm_eps)
-        ck, cv = attn_mod.cross_attention_kv(p["cross"], cfg, enc_out)
-        x = x + attn_mod.cross_attention(p["cross"], cfg, h, ck, cv)
-        h = layernorm(p["norm2"], x, cfg.norm_eps)
-        return x + mlp(p["ffn"], h, activation="gelu")
+        def one(p, x):
+            h = layernorm(p["norm1"], x, cfg.norm_eps)
+            x = x + attn_mod.gqa_attention(p["attn"], cfg, h, positions, impl=attn_impl)
+            h = layernorm(p["norm_x"], x, cfg.norm_eps)
+            ck, cv = attn_mod.cross_attention_kv(p["cross"], cfg, enc_out)
+            x = x + attn_mod.cross_attention(p["cross"], cfg, h, ck, cv)
+            h = layernorm(p["norm2"], x, cfg.norm_eps)
+            return x + mlp(p["ffn"], h, activation="gelu")
 
-    x = _run_stack(params["decoder"], one, x, remat=remat, layout_scan=layout_scan)
-    x = layernorm(params["dec_norm"], x, cfg.norm_eps)
-    return _mask_pad_logits(cfg, linear(params["lm_head"], x))
+        x = _run_stack(params["decoder"], one, x, remat=remat, layout_scan=layout_scan)
+        x = layernorm(params["dec_norm"], x, cfg.norm_eps)
+        return _mask_pad_logits(cfg, linear(params["lm_head"], x))
 
 
 def _mask_pad_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -144,10 +147,11 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     enc_out = encode(params, cfg, batch["frames"], remat=remat, layout_scan=layout_scan)
     logits = decode_train(params, cfg, batch["tokens"], enc_out, remat=remat,
                           layout_scan=layout_scan)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
-    ce = nll.mean()
-    return ce, {"ce": ce}
+    with mesh_context(logits):
+        logp = torch.log_softmax(replicate_axis(logits.float(), -1), dim=-1)
+        nll = -gather_last(logp, batch["labels"].long()[..., None])[..., 0]
+        ce = nll.mean()
+        return ce, {"ce": ce}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,

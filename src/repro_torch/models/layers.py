@@ -32,6 +32,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.ref import _ACT
+from .sharding import embedding
 
 __all__ = [
     "init_linear",
@@ -209,8 +210,9 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat1
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     # ``F.embedding``, not ``table[tokens]``: the same gather, and a backward
     # that sums each row's gradient in a fixed order (indexing's backward
-    # accumulates in parallel, so two runs of one training step could differ)
-    return torch.nn.functional.embedding(tokens.long(), p["table"])
+    # accumulates in parallel, so two runs of one training step could differ);
+    # a DTensor table is looked up vocab-parallel (``sharding.embedding``)
+    return embedding(tokens.long(), p["table"])
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

@@ -8,8 +8,10 @@
 * ``init_cache(batch, max_len)``         -> caches
 * ``decode_step(params, batch, caches)`` -> (logits, caches)      [decode_*]
 * ``loss(params, batch)``                -> (scalar, metrics)      [train_*]
-* ``input_specs``                        -> raises: the dry-run specs wait for
-                                            ROADMAP A9
+* ``input_specs(shape)``                 -> ``(step_name, batch, caches)``:
+                                            the dry run's inputs for a shape
+                                            cell, ``device="meta"`` tensors
+                                            (JAX's ``ShapeDtypeStruct``)
 
 ``batch`` is a dict of tensors.  Decoder-only models (dense, MoE, VLM, SSM,
 hybrid): ``{"tokens": [B, S]}`` (and ``"patch_embeds": [B, P, D]`` for a
@@ -49,9 +51,12 @@ class Model:
     input_specs: Callable[[ShapeConfig], Tuple[str, Dict[str, Any], Any]]
 
 
-def _input_specs(shape: ShapeConfig):
-    raise NotImplementedError(
-        "ShapeDtypeStruct input specs belong to the TPU dry-run (ROADMAP A9)")
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _token_spec(b: int, s: int) -> torch.Tensor:
+    return _spec((b, s), torch.int32)
 
 
 def get_model(cfg: ArchConfig, *, attn_impl: str = "auto", device=None) -> Model:
@@ -80,7 +85,21 @@ def _lm_model(cfg: ArchConfig, dtype, attn_impl: str, device) -> Model:
     def decode_step(params, batch, caches):
         return lm_mod.decode_step(params, cfg, batch["tokens_t"], caches)
 
-    return Model(cfg, init, loss, forward, init_cache, decode_step, _input_specs)
+    def input_specs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        if shape.kind in ("train", "prefill"):
+            text = s - cfg.vision_tokens if cfg.vision_tokens else s
+            batch = {"tokens": _token_spec(b, text)}
+            if shape.kind == "train":
+                batch["labels"] = _token_spec(b, text)
+            if cfg.vision_tokens:
+                batch["patch_embeds"] = _spec((b, cfg.vision_tokens, cfg.d_model), dtype)
+            return ("train_step" if shape.kind == "train" else "prefill"), batch, None
+        # decode: one new token against a cache of size seq_len
+        caches = lm_mod.init_cache(cfg, b, s, dtype, device="meta")
+        return "serve_step", {"tokens_t": _token_spec(b, 1)}, caches
+
+    return Model(cfg, init, loss, forward, init_cache, decode_step, input_specs)
 
 
 def _encdec_model(cfg: ArchConfig, dtype, device) -> Model:
@@ -104,4 +123,17 @@ def _encdec_model(cfg: ArchConfig, dtype, device) -> Model:
                                                      self_caches, cross_kv)
         return logits, (self_caches, cross_kv)
 
-    return Model(cfg, init, loss, forward, init_cache, decode_step, _input_specs)
+    def input_specs(shape: ShapeConfig):
+        b, s = shape.global_batch, shape.seq_len
+        frames = _spec((b, cfg.encoder_seq, cfg.d_model), dtype)
+        if shape.kind == "train":
+            return "train_step", {"frames": frames, "tokens": _token_spec(b, s),
+                                  "labels": _token_spec(b, s)}, None
+        if shape.kind == "prefill":
+            return "prefill", {"frames": frames, "tokens": _token_spec(b, s)}, None
+        self_caches = encdec_mod.init_cache(cfg, b, s, dtype=dtype, device="meta")
+        kv = _spec((b, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim), dtype)
+        cross_kv = [(kv, kv) for _ in range(cfg.n_layers)]
+        return "serve_step", {"tokens_t": _token_spec(b, 1)}, (self_caches, cross_kv)
+
+    return Model(cfg, init, loss, forward, init_cache, decode_step, input_specs)

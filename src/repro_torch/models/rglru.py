@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.ref import _ACT
 from .layers import causal_conv1d, conv1d_step, init_conv1d, init_linear, linear, linspace
+from .sharding import elementwise
 
 __all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache", "rglru_step", "linear_scan"]
 
@@ -60,7 +61,7 @@ def _gates(p: Params, x: torch.Tensor):
     """``x [..., W]`` (after the conv) -> ``(a, gated input)``, both f32."""
     r = torch.sigmoid(linear(p["w_r"], x).float())
     i = torch.sigmoid(linear(p["w_i"], x).float())
-    a = torch.exp(_C * r * F.logsigmoid(p["lam"]))
+    a = torch.exp(_C * r * elementwise(F.logsigmoid, p["lam"]))
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
     return a, b
 

@@ -1,0 +1,549 @@
+"""Path-pattern -> partition-spec rules on ``torch.distributed`` DTensors (a
+port of ``repro.models.sharding``).
+
+Tensor-parallel layout over the ``model`` mesh axis; batch over
+``("pod", "data")`` (or ``("data",)`` on one pod).  Rules are ordered; the
+first regex that matches a leaf's path (``utils.tree.leaves_with_path``,
+spelled as ``jax.tree_util.keystr``) wins.  Anything unmatched is
+replicated -- the safe default for norms and scalars.
+
+A spec is a :class:`PartitionSpec`: one entry a tensor dim, each ``None``
+(replicated), a mesh axis name, or a tuple of names (the dim split over
+those axes, the first the major one).  ``param_placements`` turns a spec
+into DTensor placements, one a mesh dim; ``distribute_params`` places a
+param tree on a mesh, where JAX's ``NamedSharding`` + ``device_put`` do.
+
+The helpers at the end are what GSPMD does for the JAX package inside the
+model code: ``mesh_context`` (a constant the model builds -- rope tables,
+masks, positions -- is replicated on every rank), ``constrain``
+(``with_sharding_constraint``), ``embedding`` (a vocab-sharded lookup and
+its all-reduce), ``logsumexp_pick`` (the vocab-parallel cross entropy),
+``reduce_partial`` and ``replicate_axis`` (gathering a tensor dim before an
+op that needs it whole).  Some work runs on each rank's shard instead,
+where DTensor has no sharding rule for an op (``scatter_reduce``), leaves a
+partial it cannot reduce (``gather``), or takes views and pads in one
+PyTorch version that it refuses in another (2.13 against the card's 2.11):
+``attention_on_shards`` (batch rows and heads), ``split_last`` /
+``merge_last`` (the head reshapes), ``on_rows`` (MoE dispatch, the Mamba-2
+and RG-LRU mixers), ``gather_last`` and ``elementwise``.  On plain tensors
+each of them is the plain op.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+import threading
+from typing import Any, Iterator, List, Optional, Tuple
+
+import torch
+
+from ..utils.tree import leaves, map_with_path, tree_map
+
+__all__ = [
+    "PartitionSpec",
+    "P",
+    "DEFAULT_RULES",
+    "FSDP_RULES",
+    "param_pspecs",
+    "param_placements",
+    "NamedSharding",
+    "param_shardings",
+    "distribute_params",
+    "batch_spec",
+    "is_dtensor",
+    "mesh_context",
+    "constrain",
+    "reduce_partial",
+    "embedding",
+    "replicate_axis",
+    "gather_last",
+    "logsumexp_pick",
+    "on_rows",
+    "elementwise",
+    "attention_on_shards",
+    "split_last",
+    "merge_last",
+]
+
+Tree = Any
+
+
+class PartitionSpec:
+    """A tuple of per-dim entries (``None``, an axis name or a tuple of
+    names); a tree leaf, not a container."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self, *parts):
+        self._parts = tuple(tuple(p) if isinstance(p, list) else p for p in parts)
+
+    def __iter__(self) -> Iterator:
+        return iter(self._parts)
+
+    def __len__(self) -> int:
+        return len(self._parts)
+
+    def __getitem__(self, i):
+        return self._parts[i]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PartitionSpec) and self._parts == other._parts
+
+    def __hash__(self) -> int:
+        return hash(self._parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self._parts!r}"
+
+    def axes(self, dim: int) -> Tuple[str, ...]:
+        """The mesh axes tensor dim ``dim`` is split over (major first)."""
+        e = self._parts[dim] if dim < len(self._parts) else None
+        if e is None:
+            return ()
+        return e if isinstance(e, tuple) else (e,)
+
+
+P = PartitionSpec
+
+# (regex, spec) -- specs name the "model" TP axis only; the batch axes never
+# appear in parameter specs.
+DEFAULT_RULES: List[Tuple[str, P]] = [
+    # embeddings / unembedding: vocab-sharded
+    (r"\['embed'\].*table", P("model", None)),
+    (r"\['lm_head'\].*\['w'\]", P(None, "model")),
+    # MoE expert stacks [E, D, F]: expert-parallel
+    (r"\['experts'\]\['w_gate'\]", P("model", None, None)),
+    (r"\['experts'\]\['w_up'\]", P("model", None, None)),
+    (r"\['experts'\]\['w_down'\]", P("model", None, None)),
+    (r"\['router'\]", P(None)),
+    # attention: heads over model
+    (r"\['(w_q|w_k|w_v|w_uq|w_uk|w_uv)'\]\['w'\]", P(None, "model")),
+    (r"\['(w_q|w_k|w_v|w_uq|w_uk|w_uv)'\]\['b'\]", P("model")),
+    (r"\['w_o'\]\['w'\]", P("model", None)),
+    (r"\['(w_dq|w_dkv|w_kr)'\]\['w'\]", P(None, None)),  # small latent projs
+    # gated FFN: column-parallel in, row-parallel out
+    (r"\['(w_gate|w_up|in_proj|gate_proj|w_r|w_i)'\]\['w'\]", P(None, "model")),
+    (r"\['(w_gate|w_up|in_proj|gate_proj|w_r|w_i)'\]\['b'\]", P("model")),
+    (r"\['(w_down|out_proj)'\]\['w'\]", P("model", None)),
+    # packed sparse weights: PBCSR values [Nb, S, bm, bn] -> output-column
+    # sharded (block-cols over model); ColumnCompact values like the dense w.
+    (r"\['values'\]", P("model", None, None, None)),
+    (r"\['block_rows'\]", P("model", None)),
+    # conv1d stems, norms, scalars: replicated
+]
+
+# FSDP variant: weights also sharded over ``data`` so the largest configs
+# fit a card's HBM; DTensor all-gathers the shards where they are used.
+FSDP_RULES: List[Tuple[str, P]] = [
+    (r"\['embed'\].*table", P("model", "data")),
+    (r"\['lm_head'\]\['w'\]", P("data", "model")),
+    (r"\['experts'\]\['w_gate'\]", P("model", "data", None)),
+    (r"\['experts'\]\['w_up'\]", P("model", "data", None)),
+    (r"\['experts'\]\['w_down'\]", P("model", "data", None)),
+    (r"\['router'\]", P(None)),
+    (r"\['(w_q|w_k|w_v|w_uq|w_uk|w_uv)'\]\['w'\]", P("data", "model")),
+    (r"\['(w_q|w_k|w_v|w_uq|w_uk|w_uv)'\]\['b'\]", P("model")),
+    (r"\['w_o'\]\['w'\]", P("model", "data")),
+    (r"\['(w_dq|w_dkv|w_kr)'\]\['w'\]", P("data", None)),
+    (r"\['(w_gate|w_up|in_proj|gate_proj|w_r|w_i)'\]\['w'\]", P("data", "model")),
+    (r"\['(w_gate|w_up|in_proj|gate_proj|w_r|w_i)'\]\['b'\]", P("model")),
+    (r"\['(w_down|out_proj)'\]\['w'\]", P("model", "data")),
+    (r"\['values'\]", P("model", None, None, None)),
+    (r"\['block_rows'\]", P("model", None)),
+]
+
+
+def _spec_for(path: str, rules) -> Optional[P]:
+    for pat, spec in rules:
+        if re.search(pat, path):
+            return spec
+    return None
+
+
+def param_pspecs(params: Tree, rules=None) -> Tree:
+    """Mirror tree of specs (``P()`` for unmatched leaves); a spec shorter
+    than its leaf's rank is padded with ``None``, one longer (a 2-D rule on a
+    packed 1-D leaf) replicates the leaf."""
+    rules = DEFAULT_RULES if rules is None else rules
+
+    def spec(path, leaf):
+        s = _spec_for(path, rules)
+        if s is None:
+            return P()
+        nd = getattr(leaf, "ndim", len(getattr(leaf, "shape", ())))
+        if len(s) > nd:
+            return P()
+        return P(*s, *([None] * (nd - len(s))))
+
+    return map_with_path(spec, params)
+
+
+def param_placements(mesh, spec: P) -> List:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on every mesh
+    dim that tensor dim ``d`` is split over, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out: List = [Replicate() for _ in names]
+    for d in range(len(spec)):
+        for a in spec.axes(d):
+            if a not in names:
+                raise ValueError(f"{spec}: mesh axis {a!r} not in mesh {names}")
+            out[names.index(a)] = Shard(d)
+    return out
+
+
+class NamedSharding:
+    """A mesh and a spec (JAX's ``NamedSharding``); a tree leaf."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh, spec: P):
+        self.mesh, self.spec = mesh, spec
+
+    @property
+    def placements(self) -> List:
+        return param_placements(self.mesh, self.spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.mesh_dim_names}, {self.spec})"
+
+
+def param_shardings(mesh, params: Tree, rules=None) -> Tree:
+    return map_with_path(lambda _, s: NamedSharding(mesh, s), param_pspecs(params, rules))
+
+
+def distribute_params(mesh, params: Tree, rules=None, specs: Optional[Tree] = None) -> Tree:
+    """``params`` as DTensors on ``mesh`` (each rank passes the same full
+    tree; ``specs`` defaults to ``param_pspecs(params, rules)``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    specs = param_pspecs(params, rules) if specs is None else specs
+    return map_with_path(
+        lambda _, leaf, s: distribute_tensor(leaf, mesh, param_placements(mesh, s)),
+        params, specs)
+
+
+def batch_spec(mesh) -> P:
+    """Batch axis spec: ``("pod", "data")`` when the pod axis exists."""
+    if "pod" in mesh.mesh_dim_names:
+        return P(("pod", "data"))
+    return P("data")
+
+
+# --------------------------------------------------------------------------- #
+# what GSPMD inserts inside the model code                                    #
+# --------------------------------------------------------------------------- #
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def constrain(x: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
+    """``x`` redistributed to ``spec`` on its own mesh (JAX's
+    ``with_sharding_constraint``); a plain tensor, or ``spec=None``, as is."""
+    if spec is None or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, param_placements(x.device_mesh, spec))
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending (partial) reductions carried out: every
+    ``Partial`` placement becomes ``Replicate`` (a vocab-sharded embedding
+    lookup leaves one over ``model``)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def replicate_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor with tensor dim ``dim`` whole on every rank (the mesh dims
+    sharding it become ``Replicate``)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim = dim % x.ndim
+    pl = [Replicate() if p.is_shard() and p.dim % x.ndim == dim else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _Nesting:
+    """Depth of nested :func:`mesh_context` blocks.  DTensor's
+    ``implicit_replication`` sets one process-wide flag and clears it on
+    exit, so only the outermost block may enter it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.ctx = None
+
+    def enter(self) -> None:
+        with self.lock:
+            if self.depth == 0:
+                from torch.distributed.tensor.experimental import implicit_replication
+
+                self.ctx = implicit_replication()
+                self.ctx.__enter__()
+            self.depth += 1
+
+    def exit(self) -> None:
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                ctx, self.ctx = self.ctx, None
+                ctx.__exit__(None, None, None)
+
+
+_NESTING = _Nesting()
+
+
+@contextlib.contextmanager
+def mesh_context(*trees):
+    """Inside, a plain tensor that meets a DTensor counts as replicated on
+    the DTensor's mesh (the constants the model code builds: positions, rope
+    tables, masks); entered only when a leaf of ``trees`` is a DTensor, so a
+    plain run sees nothing.  Nests; the backward of a step whose forward
+    ran inside must run inside too (autograd saved those constants)."""
+    if not any(is_dtensor(x) for x in leaves(trees)):
+        yield
+        return
+    _NESTING.enter()
+    try:
+        yield
+    finally:
+        _NESTING.exit()
+
+
+def gather_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, -1, index)``.  On a DTensor the last dim is made
+    whole and the gather runs on each rank's local shard, ``index`` placed
+    as ``x`` (DTensor's own gather strategy leaves a masked partial that a
+    later op cannot reduce)."""
+    if not is_dtensor(x):
+        return torch.gather(x, -1, index)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    x = replicate_axis(reduce_partial(x), -1)
+    mesh, pl = x.device_mesh, x.placements
+    index = (index.redistribute(mesh, pl) if is_dtensor(index)
+             else distribute_tensor(index, mesh, pl))
+    return DTensor.from_local(torch.gather(x.to_local(), -1, index.to_local()), mesh, pl)
+
+
+def on_rows(fn, *rows, params=None):
+    """``fn(*rows)`` (``fn(params, *rows)`` when ``params`` is given) on each
+    rank's batch rows: every DTensor in the ``rows`` (tensors or trees of
+    them, batch-leading) is placed as the first one with only its dim-0
+    shards kept (its pending reductions carried out), ``params`` -- a tree
+    -- come whole to every rank (gathered; each rank's gradient is its
+    rows' share, summed over the batch shards), and every tensor in what
+    ``fn`` returns is a DTensor of the rows' placements.  For work that is
+    row-wise over the batch: MoE's dispatch, the Mamba-2 and RG-LRU mixers,
+    a decode step's attention over its cache.  Without a DTensor row, the
+    plain call."""
+    first = next((t for t in leaves(rows) if is_dtensor(t)), None)
+    if first is None:
+        return fn(*rows) if params is None else fn(params, *rows)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = first.device_mesh
+    pl = [p if p.is_shard() and p.dim == 0 else Replicate() for p in first.placements]
+    local = [tree_map(lambda t: t.redistribute(mesh, pl).to_local() if is_dtensor(t) else t, a)
+             for a in rows]
+    if params is None:
+        out = fn(*local)
+    else:
+        grad = [Partial() if p.is_shard() else Replicate() for p in pl]
+        whole = lambda t: (t.redistribute(mesh, [Replicate()] * mesh.ndim)  # noqa: E731
+                           .to_local(grad_placements=grad) if is_dtensor(t) else t)
+        out = fn(tree_map(whole, params), *local)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, pl)
+                    if isinstance(t, torch.Tensor) else t, out)
+
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  A DTensor table is looked up as
+    Megatron's vocab-parallel embedding: on a mesh dim that shards the table's
+    rows and not the tokens, each rank looks up the tokens of its row range
+    (the others read zero) and the partial rows are all-reduced -- GSPMD's
+    lowering of JAX's gather on a ``P("model", None)`` table.  Shards of the
+    table's other dim (FSDP rules) are gathered first."""
+    if not is_dtensor(table):
+        return torch.nn.functional.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim)
+    tok_pl = [p if p.is_shard() and p.dim == 0 else Replicate() for p in tokens.placements]
+    tab_pl, out_pl, grad_pl, vocab_dims = [], [], [], []
+    for i, (t, w) in enumerate(zip(tok_pl, table.placements)):
+        rows = w.is_shard() and w.dim == 0 and not t.is_shard() and not vocab_dims
+        if rows:
+            vocab_dims.append(i)
+        tab_pl.append(Shard(0) if rows else Replicate())
+        out_pl.append(Partial() if rows else t)
+        # each rank's table gradient is its own tokens' share
+        grad_pl.append(Shard(0) if rows else (Partial() if t.is_shard() else Replicate()))
+    w_local = table.redistribute(mesh, tab_pl).to_local(grad_placements=grad_pl)
+    tok_local = tokens.redistribute(mesh, tok_pl).to_local()
+    if vocab_dims:
+        d = vocab_dims[0]
+        per = -(-table.shape[0] // mesh.size(d))  # torch.chunk's rows a shard
+        lo = mesh.get_local_rank(d) * per
+        inside = (tok_local >= lo) & (tok_local < lo + w_local.shape[0])
+        idx = torch.where(inside, tok_local - lo, torch.zeros_like(tok_local))
+        out = torch.nn.functional.embedding(idx, w_local) * inside[..., None].to(w_local.dtype)
+    else:
+        out = torch.nn.functional.embedding(tok_local, w_local)
+    return reduce_partial(DTensor.from_local(out, mesh, out_pl))
+
+
+def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``, on each rank's shard of a
+    DTensor ``x`` (placements kept)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+
+    x = reduce_partial(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              shape=x.shape, stride=x.stride())
+
+
+def logsumexp_pick(x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(torch.logsumexp(x, -1), x[..., labels])``.  When a DTensor ``x``
+    is split over its last dim (vocab-sharded logits), each rank reduces its
+    shard and the partial results are all-reduced (Megatron's vocab-parallel
+    cross entropy, what GSPMD makes of JAX's ``logsumexp``): the logits are
+    never gathered whole.  The max each rank subtracts is a constant of the
+    gradient."""
+    vocab = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim % x.ndim == x.ndim - 1
+             and x.device_mesh.size(i) > 1] if is_dtensor(x) else []
+    if not vocab:
+        return torch.logsumexp(x, dim=-1), gather_last(x, labels[..., None])[..., 0]
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+
+    x = reduce_partial(x)
+    mesh = x.device_mesh
+    rows_pl = [Replicate() if i in vocab else p for i, p in enumerate(x.placements)]
+    labels = (labels.redistribute(mesh, rows_pl) if is_dtensor(labels)
+              else distribute_tensor(labels, mesh, rows_pl))
+    part_pl = [Partial() if i in vocab else p for i, p in enumerate(rows_pl)]
+    local, lab = x.to_local(), labels.to_local()
+    m = local.detach().amax(dim=-1)
+    for i in vocab:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    sumexp = torch.exp(local - m[..., None]).sum(dim=-1)
+    lse = DTensor.from_local(sumexp, mesh, part_pl).redistribute(mesh, rows_pl).log() \
+        + DTensor.from_local(m, mesh, rows_pl)
+    # this shard's columns: [lo, lo + width) of the vocab
+    (d,) = vocab[:1] if len(vocab) == 1 else (None,)
+    if d is None:
+        raise ValueError(f"logsumexp_pick: vocab split over several mesh dims {vocab}")
+    width = local.shape[-1]
+    lo = mesh.get_local_rank(d) * -(-x.shape[-1] // mesh.size(d))
+    inside = (lab >= lo) & (lab < lo + width)
+    idx = torch.where(inside, lab - lo, torch.zeros_like(lab))
+    picked = torch.gather(local, -1, idx.long()[..., None])[..., 0] * inside.to(local.dtype)
+    return lse, DTensor.from_local(picked, mesh, part_pl).redistribute(mesh, rows_pl)
+
+
+def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` (``q [B, Sq, H, dh]``, ``k`` / ``v [B, Skv, G, d]``,
+    output ``[B, Sq, H, dv]``) on each rank's batch rows and heads.  The
+    batch shards of ``q`` are kept; so is its head shard over a mesh dim of
+    n ranks when H divides by n: with G too, each rank holds whole KV groups
+    and their query heads; with n a multiple of G (fewer KV groups than
+    ranks: GQA under wide TP), each rank takes its H / n query heads and the
+    one KV group they read from the gathered K / V.  Anything else is
+    gathered.  The output is placed as ``q`` was cut."""
+    first = q if is_dtensor(q) else k if is_dtensor(k) else v if is_dtensor(v) else None
+    if first is None:
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = first.device_mesh
+    h, g = q.shape[2], k.shape[2]
+    q_pl, kv_pl, pick = [], [], None
+    for i, p in enumerate(first.placements):
+        n = mesh.size(i)
+        if p.is_shard() and p.dim == 0:
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        elif p.is_shard() and p.dim == 2 and Shard(2) not in q_pl and h % n == 0 and (
+                g % n == 0 or n % g == 0):
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2) if g % n == 0 else Replicate())
+            pick = None if g % n == 0 else i
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+
+    def placed(t, pl, grad_pl=None):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    ql = placed(q, q_pl)
+    if pick is None:
+        kl, vl = placed(k, kv_pl), placed(v, kv_pl)
+    else:  # this rank's heads read one KV group; its gradient is this rank's share
+        grad_pl = [Partial() if i == pick else p for i, p in enumerate(kv_pl)]
+        grp = mesh.get_local_rank(pick) * (h // mesh.size(pick)) // (h // g)
+        kl = placed(k, kv_pl, grad_pl)[:, :, grp:grp + 1]
+        vl = placed(v, kv_pl, grad_pl)[:, :, grp:grp + 1]
+    return DTensor.from_local(fn(ql, kl, vl), mesh, q_pl)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _local_view(x, new_shape, local_shape, placements):
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(new_shape)
+    return DTensor.from_local(x.to_local().reshape(local_shape), x.device_mesh, placements,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def split_last(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """``x.reshape(*x.shape[:-1], n, d)`` (``[..., n * d]`` -> heads).  On a
+    DTensor a shard of the last dim becomes a shard of the ``n`` heads when
+    ``n`` divides by its mesh dim, else the last dim is gathered first."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-1], n, d)
+    x = reduce_partial(x)
+    last = x.ndim - 1
+    cut = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == last]
+    if len(cut) > 1 or (cut and n % x.device_mesh.size(cut[0])):
+        x, cut = replicate_axis(x, -1), []
+    k = x.device_mesh.size(cut[0]) if cut else 1
+    local = x.to_local().shape
+    return _local_view(x, (*x.shape[:-1], n, d), (*local[:-1], n // k, d), x.placements)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x.reshape(*x.shape[:-2], -1)`` (heads -> ``[..., n * d]``).  On a
+    DTensor a shard of the heads dim becomes a shard of the merged dim; a
+    shard of the last dim is gathered first."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], -1)
+    x = replicate_axis(reduce_partial(x), -1)
+    local = x.to_local().shape
+    return _local_view(x, (*x.shape[:-2], x.shape[-2] * x.shape[-1]),
+                       (*local[:-2], local[-2] * local[-1]), x.placements)

@@ -57,6 +57,7 @@ from . import ffn as ffn_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
+from .sharding import constrain, logsumexp_pick, mesh_context, on_rows, replicate_axis
 
 __all__ = ["block_kinds", "scan_plan", "checkpointed", "init_layer", "init_lm", "forward",
            "loss_fn", "prefill", "init_cache", "decode_step"]
@@ -131,8 +132,12 @@ def checkpointed(fn, policy: str = "full"):
         kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                              _save_dots)
 
+    def on_mesh(*args):  # the recompute runs in the backward, outside forward
+        with mesh_context(args):
+            return fn(*args)
+
     def run(*args):
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        return ckpt.checkpoint(on_mesh, *args, use_reentrant=False, **kw)
 
     return run
 
@@ -215,10 +220,14 @@ def _apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(x_out, aux_loss or None)``."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    # the recurrent mixers are row-wise: on a mesh each rank runs them on its
+    # batch rows with the mixer's weights whole
     if kind == "mamba":
-        return x + ssm_mod.mamba2_forward(p["mixer"], cfg, h), None
+        return x + on_rows(lambda pm, hh: ssm_mod.mamba2_forward(pm, cfg, hh), h,
+                           params=p["mixer"]), None
     if kind == "rec":
-        mixed = rglru_mod.rglru_block(p["mixer"], cfg, h)
+        mixed = on_rows(lambda pm, hh: rglru_mod.rglru_block(pm, cfg, hh), h,
+                        params=p["mixer"])
     elif _attn_kind(cfg) == "mla":
         mixed = attn_mod.mla_attention(p["attn"], cfg, h, positions, impl=attn_impl)
     else:
@@ -248,23 +257,41 @@ def forward(
     ``remat=True`` checkpoints each block (:func:`checkpointed` with
     ``remat_policy``), the memory / compute trade of full-width training;
     ``layout_scan=True`` runs ``scan_plan``'s groups in order, the unrolled
-    loop's computation (:func:`_layer_order`); ``residual_spec`` is a
-    TPU sharding constraint: only ``None`` is taken."""
+    loop's computation (:func:`_layer_order`); ``residual_spec`` (a
+    ``sharding.PartitionSpec``) redistributes the residual stream after
+    every block when it is a DTensor, JAX's ``with_sharding_constraint``
+    (e.g. sequence parallelism: ``P("data", "model", None)``).
+
+    DTensor params and inputs (``sharding.distribute_params``) run the same
+    code on a mesh: the constants it builds count as replicated
+    (``sharding.mesh_context``).  On plain tensors nothing changes."""
+    with mesh_context(tokens, params):
+        x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        kinds = block_kinds(cfg)
+        for i in _layer_order(cfg, layout_scan):
+            blk = functools.partial(_constrained_block, params["layers"][i], cfg, kinds[i],
+                                    positions=positions, prefix_len=prefix_len,
+                                    attn_impl=attn_impl, mode=mode, attn_chunk=attn_chunk,
+                                    residual_spec=residual_spec)
+            x, aux = (checkpointed(blk, remat_policy) if remat else blk)(x)
+            if aux is not None:
+                aux_total = aux_total + aux
+        if residual_spec is not None:
+            x = replicate_axis(x, 1)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _unembed(params, cfg, x[:, prefix_len:]), aux_total
+
+
+def _constrained_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, *,
+                       residual_spec=None, **kw):
+    """A block under ``residual_spec``: the residual stream is kept as the
+    spec says between blocks; a block runs on whole sequences (sequence
+    parallelism gathers the sequence at a block's entry)."""
     if residual_spec is not None:
-        raise NotImplementedError(
-            "residual_spec is a sharding constraint of the TPU mesh (ROADMAP A9)")
-    x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    kinds = block_kinds(cfg)
-    for i in _layer_order(cfg, layout_scan):
-        blk = functools.partial(_apply_block, params["layers"][i], cfg, kinds[i],
-                                positions=positions, prefix_len=prefix_len,
-                                attn_impl=attn_impl, mode=mode, attn_chunk=attn_chunk)
-        x, aux = (checkpointed(blk, remat_policy) if remat else blk)(x)
-        if aux is not None:
-            aux_total = aux_total + aux
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x[:, prefix_len:]), aux_total
+        x = replicate_axis(x, 1)
+    out, aux = _apply_block(p, cfg, kind, x, **kw)
+    return constrain(out, residual_spec), aux
 
 
 def _unembed(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -305,18 +332,18 @@ def loss_fn(
                           attn_impl=attn_impl, mode=mode, remat=remat,
                           layout_scan=layout_scan, remat_policy=remat_policy,
                           residual_spec=residual_spec, attn_chunk=attn_chunk)
-    labels = batch["labels"].long()
-    # CE via logsumexp: one f32 reduction instead of a full log_softmax copy
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    picked = torch.gather(logits32, -1, labels[..., None])[..., 0]
-    nll = lse - picked
-    weights = batch.get("weights")
-    if weights is None:
-        weights = torch.ones_like(nll)
-    ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
-    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
-    return ce + aux_w * aux, {"ce": ce, "aux": aux}
+    with mesh_context(logits):
+        labels = batch["labels"].long()
+        # CE via logsumexp: one f32 reduction instead of a full log_softmax
+        # copy (vocab-parallel on vocab-sharded logits)
+        lse, picked = logsumexp_pick(logits.float(), labels)
+        nll = lse - picked
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones_like(nll)
+        ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
+        aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+        return ce + aux_w * aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #
@@ -385,11 +412,13 @@ def decode_step(
     for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if kind == "mamba":
-            mixed, cache = ssm_mod.mamba2_step(p["mixer"], cfg, h, cache)
+            mixed, cache = on_rows(lambda pm, hh, c: ssm_mod.mamba2_step(pm, cfg, hh, c),
+                                   h, cache, params=p["mixer"])
             x = x + mixed
         else:
             if kind == "rec":
-                mixed, cache = rglru_mod.rglru_step(p["mixer"], cfg, h, cache)
+                mixed, cache = on_rows(lambda pm, hh, c: rglru_mod.rglru_step(pm, cfg, hh, c),
+                                       h, cache, params=p["mixer"])
             elif _attn_kind(cfg) == "mla":
                 mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
             else:

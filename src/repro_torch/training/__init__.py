@@ -1,7 +1,8 @@
-"""Training (port): AdamW, the ADMM-aware train step, checkpoints and
-fault-tolerance plumbing.  The mesh modules of the JAX package
-(``compression``, ``collective_matmul``, ``pipeline_parallel``) and
-``zero1_pspecs`` wait for ROADMAP A9."""
+"""Training (port): AdamW (with ZeRO-1 moment specs), the ADMM-aware train
+step, mesh-elastic checkpoints, fault-tolerance plumbing, and the mesh
+modules on ``torch.distributed``: int8 / top-k gradient compression
+(``compression``), the overlapped ring matmuls (``collective_matmul``) and
+GPipe (``pipeline_parallel``)."""
 
 from .checkpoint import CheckpointManager, restore, save
 from .fault_tolerance import Heartbeat, PreemptionHandler, StragglerMonitor, retry

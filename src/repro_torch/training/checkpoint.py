@@ -19,6 +19,13 @@ numpy has no bf16: a bf16 tensor is stored by its 16-bit patterns (uint16)
 with ``"bfloat16"`` in ``meta.json``'s ``dtypes``; a bf16 array the JAX
 package stored (an ``ml_dtypes`` array, read back as 2-byte void) is read by
 its bits the same way.
+
+Mesh-elastic: ``save`` gathers a DTensor leaf to its full array (every rank
+of its mesh calls ``save``; rank 0 writes, the others wait for it), and
+``restore(..., placements=)`` places each leaf by a tree of
+``models.sharding.NamedSharding`` -- pass those of a *different* mesh to
+re-scale, the JAX package's ``shardings=``.  A DTensor template leaf with
+no placement given is placed as the template.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..utils.tree import leaves_with_path, map_with_path
+from ..models.sharding import is_dtensor
+from ..utils.tree import leaves, leaves_with_path, map_with_path
 
 __all__ = ["save", "restore", "latest_step", "all_steps", "CheckpointManager"]
 
@@ -60,7 +69,7 @@ def _flatten(tree: Tree) -> List[Tuple[str, Any]]:
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """``(array, dtype name)`` of a leaf; bf16 as its bits."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = (leaf.full_tensor() if is_dtensor(leaf) else leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -76,17 +85,23 @@ def save(
     *,
     extra_meta: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Atomic full-tree save.  Returns the final checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomic full-tree save.  Returns the final checkpoint path.  With
+    DTensor leaves every rank of their mesh calls it (the gathers are
+    collectives) and rank 0 of the default group writes."""
     final = os.path.join(directory, f"step_{step:09d}")
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     flat = _flatten(tree)
     arrays, dtypes = {}, {}
     for k, v in flat:
         arrays[k], dtypes[k] = _to_numpy(v)
+    meshed = any(is_dtensor(v) for _, v in flat)
+    if meshed and dist.get_rank() != 0:
+        dist.barrier()  # rank 0 is writing
+        return final
+    os.makedirs(directory, exist_ok=True)
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = {
         "step": step,
@@ -100,10 +115,12 @@ def save(
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    if meshed:
+        dist.barrier()
     return final
 
 
-def _from_numpy(arr: np.ndarray, dtype_name: Optional[str], tmpl):
+def _from_numpy(arr: np.ndarray, dtype_name: Optional[str], tmpl, sharding=None):
     if not isinstance(tmpl, torch.Tensor):
         if isinstance(tmpl, bool):
             return bool(arr)
@@ -116,7 +133,15 @@ def _from_numpy(arr: np.ndarray, dtype_name: Optional[str], tmpl):
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=tmpl.device, dtype=tmpl.dtype)
+    if sharding is None and is_dtensor(tmpl):
+        mesh, placements = tmpl.device_mesh, tmpl.placements
+    elif sharding is not None:
+        mesh, placements = sharding.mesh, sharding.placements
+    else:
+        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(device=mesh.device_type, dtype=tmpl.dtype), mesh, placements)
 
 
 def restore(
@@ -124,8 +149,13 @@ def restore(
     template: Tree,
     *,
     step: Optional[int] = None,
+    placements: Optional[Tree] = None,
 ) -> Tuple[Tree, int]:
-    """Restore into the structure of ``template``; returns (tree, step)."""
+    """Restore into the structure of ``template``; returns (tree, step).
+
+    ``placements`` (a tree of ``NamedSharding`` mirroring ``template``)
+    distributes each leaf on its mesh: those of another mesh than the saved
+    one re-scale elastically."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -140,12 +170,15 @@ def restore(
         missing = set(keys) - set(arrays)
         extra = set(arrays) - set(keys)
         raise ValueError(f"checkpoint/template mismatch: missing={missing} extra={extra}")
+    shardings = leaves(placements) if placements is not None else [None] * len(flat)
+    if len(shardings) != len(flat):
+        raise ValueError(f"{len(shardings)} placements for {len(flat)} leaves")
     out = []
-    for k, tmpl in flat:
+    for (k, tmpl), sh in zip(flat, shardings):
         arr = arrays[k]
         if tuple(arr.shape) != tuple(np.shape(tmpl)):
             raise ValueError(f"{k}: saved {arr.shape} vs template {tuple(np.shape(tmpl))}")
-        out.append(_from_numpy(arr, dtypes.get(k), tmpl))
+        out.append(_from_numpy(arr, dtypes.get(k), tmpl, sh))
     it = iter(out)
     return map_with_path(lambda *_: next(it), template), step
 
@@ -182,10 +215,11 @@ class CheckpointManager:
         self._gc()
         return path
 
-    def restore_latest(self, template: Tree) -> Optional[Tuple[Tree, int]]:
+    def restore_latest(self, template: Tree, *, placements: Optional[Tree] = None
+                       ) -> Optional[Tuple[Tree, int]]:
         if latest_step(self.directory) is None:
             return None
-        return restore(self.directory, template)
+        return restore(self.directory, template, placements=placements)
 
     def _gc(self) -> None:
         steps = all_steps(self.directory)

@@ -13,19 +13,26 @@ card: the step count and the learning rate live on the host (an int, and a
 float that is an exact f32 value), so no step needs a device sync; and
 :func:`adamw_update` / :func:`clip_by_global_norm` update the params,
 moments and grads in place, leaf by leaf, where a jitted JAX step would get
-the same effect from donated buffers.  The ZeRO-1 moment sharding
-(``zero1_pspecs``) needs a mesh and waits for ROADMAP A9.
+the same effect from donated buffers.
+
+On a mesh (DTensor params, ``models.sharding``) the same functions run
+unchanged.  ``zero1_pspecs`` gives ZeRO-1 moment specs (each moment split
+over ``data`` along the first dim its param leaves replicated) and
+``adamw_init(..., mesh=, moment_specs=)`` places the moments so; inside the
+in-place update DTensor slices the gradient to the moment's placement, and
+``p.copy_`` gathers the updated slices back to the param's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.sharding import P, is_dtensor, param_placements
 from ..utils.tree import leaves, tree_map
 
 __all__ = [
@@ -37,6 +44,7 @@ __all__ = [
     "linear_warmup",
     "global_norm",
     "clip_by_global_norm",
+    "zero1_pspecs",
 ]
 
 Tree = Any
@@ -66,10 +74,26 @@ class AdamWState(NamedTuple):
     v: Tree
 
 
-def adamw_init(params: Tree, config: AdamWConfig) -> AdamWState:
+def adamw_init(params: Tree, config: AdamWConfig, *, mesh=None,
+               moment_specs: Optional[Tree] = None) -> AdamWState:
+    """Zero moments in ``config.state_dtype``: placed by ``moment_specs``
+    on ``mesh`` when given (ZeRO-1), else as each param."""
     dt = _STATE_DTYPES[config.state_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
-    return AdamWState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
+
+    def zeros(p, spec=None):
+        if spec is not None:
+            from torch.distributed.tensor import zeros as dzeros
+
+            return dzeros(p.shape, dtype=dt, device_mesh=mesh,
+                          placements=param_placements(mesh, spec))
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=dt)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    if moment_specs is None:
+        return AdamWState(step=0, m=tree_map(zeros, params), v=tree_map(zeros, params))
+    return AdamWState(step=0, m=tree_map(zeros, params, moment_specs),
+                      v=tree_map(zeros, params, moment_specs))
 
 
 _F = np.float32
@@ -150,3 +174,37 @@ def adamw_update(
 
     new_params = tree_map(upd, params, grads, state.m, state.v)
     return new_params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}
+
+
+def zero1_pspecs(
+    param_pspecs: Tree,
+    params: Optional[Tree] = None,
+    *,
+    data_axis: str = "data",
+    data_size: int = 0,
+) -> Tree:
+    """ZeRO-1: shard optimizer moments along the first dim the param spec
+    leaves replicated (classic moment sharding over data).
+
+    When ``params`` / ``data_size`` are given, only dims divisible by the
+    data axis are sharded (uneven leaves like positional tables stay
+    replicated).  A spec that already uses ``data_axis`` (FSDP rules) is
+    kept."""
+
+    def shard(spec: P, leaf=None) -> P:
+        shape = getattr(leaf, "shape", None)
+        parts = list(spec) if len(spec) else ([None] * (len(shape) if shape else 0))
+        used = {a for i in range(len(parts)) for a in P(*parts).axes(i)}
+        if data_axis in used:
+            return spec
+        for i, part in enumerate(parts):
+            if part is None:
+                if shape is not None and data_size and shape[i] % data_size != 0:
+                    continue
+                parts[i] = data_axis
+                return P(*parts)
+        return spec  # fully sharded already (or nothing divisible)
+
+    if params is None:
+        return tree_map(shard, param_pspecs)
+    return tree_map(shard, param_pspecs, params)

@@ -29,6 +29,7 @@ from ..core.pruning.admm import (
     convergence_metrics,
 )
 from ..core.pruning.masks import apply_masks, mask_gradients
+from ..models.sharding import mesh_context
 from ..utils.tree import leaves, map_with_path, tree_map
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
 
@@ -68,12 +69,14 @@ def _value_and_grad(loss_fn, state: TrainState, batch: Batch):
     for w in ws:
         w.requires_grad_(True)
     try:
-        p_eff = apply_masks(state.params, state.masks) if state.masks is not None \
-            else state.params
-        loss, metrics = loss_fn(p_eff, batch)
-        if state.admm is not None:
-            loss = loss + admm_penalty(state.params, state.admm)
-        grads = torch.autograd.grad(loss, ws, allow_unused=True)
+        # on a mesh, the backward meets the constants the forward built
+        with mesh_context(state.params, batch):
+            p_eff = apply_masks(state.params, state.masks) if state.masks is not None \
+                else state.params
+            loss, metrics = loss_fn(p_eff, batch)
+            if state.admm is not None:
+                loss = loss + admm_penalty(state.params, state.admm)
+            grads = torch.autograd.grad(loss, ws, allow_unused=True)
     finally:
         for w in ws:
             w.requires_grad_(False)

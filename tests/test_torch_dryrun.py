@@ -1,0 +1,117 @@
+"""The port's dry run (``launch/dryrun.py``, ``utils/op_costs.py``) and
+roofline (``launch/roofline.py``) on smoke cells of a fake (2, 2)
+``(data, model)`` mesh, in one process: a ``"fake"`` process group and meta
+tensors, nothing allocated.
+
+* the train cell's FLOPs (all devices) within 2x of ``model_flops`` (6ND;
+  remat's recompute puts the eager count near 8ND), its argument bytes equal
+  to the local shards' bytes reckoned here from the specs (params, ZeRO-1
+  f32 moments, the batch), collectives counted by kind, a peak of live bytes
+  above the arguments;
+* prefill and decode cells run; a cell that cannot run is recorded with
+  ``ok: false`` and its error, as in JAX;
+* ``analyze_record`` gives three terms and a dominant one; ``main`` writes
+  the JAX package's field names; the roofline table lists the cells.
+"""
+
+import json
+import math
+
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, roofline
+from repro_torch.models import get_model
+from repro_torch.models import sharding
+from repro_torch.training.optimizer import zero1_pspecs
+from repro_torch.utils.flops import meta_params
+from repro_torch.utils.tree import leaves_with_path
+
+MESH = ((2, 2), ("data", "model"))
+SHAPES = {"train_4k": ShapeConfig("train_4k", 32, 8, "train"),
+          "prefill_32k": ShapeConfig("prefill_32k", 64, 4, "prefill"),
+          "decode_32k": ShapeConfig("decode_32k", 64, 4, "decode")}
+
+
+def _cell(arch, shape, **kw):
+    return dryrun.run_cell(arch, shape, "single", cfg_override=smoke_config(arch),
+                           mesh_shape=MESH, shape_override=SHAPES[shape], verbose=False, **kw)
+
+
+@pytest.fixture(scope="module")
+def train_rec():
+    return _cell("qwen2.5-3b", "train_4k")
+
+
+def _local_bytes(tree, specs, dtype=None):
+    """Bytes of rank 0's shards: a dim split over n ranks keeps
+    ``ceil(size / n)`` (``torch.chunk``'s first chunk)."""
+    sizes = dict(zip(*MESH[::-1]))
+    total = 0
+    for (_, leaf), (_, spec) in zip(leaves_with_path(tree), leaves_with_path(specs)):
+        shape = list(leaf.shape)
+        for d in range(len(shape)):
+            for a in spec.axes(d):
+                shape[d] = -(-shape[d] // sizes[a])
+        total += math.prod(shape) * (dtype or leaf.dtype).itemsize
+    return total
+
+
+def test_train_cell_counts(train_rec):
+    rec = train_rec
+    assert rec["ok"], rec.get("error")
+    assert rec["step"] == "train_step" and rec["chips"] == 4 and rec["rules"] == "default"
+    assert rec["probes"].startswith("none")
+    ratio = rec["cost"]["flops"] * rec["chips"] / rec["model_flops"]
+    assert 0.5 < ratio < 2.0, ratio
+    cfg = smoke_config("qwen2.5-3b")
+    meta = meta_params(cfg)
+    specs = sharding.param_pspecs(meta)
+    moments = zero1_pspecs(specs, meta, data_size=2)
+    _, batch, _ = get_model(cfg).input_specs(SHAPES["train_4k"])
+    bspecs = {k: sharding.P("data", None) for k in batch}
+    want = (_local_bytes(meta, specs) + 2 * _local_bytes(meta, moments, torch.float32)
+            + _local_bytes(batch, bspecs))
+    assert rec["memory"]["argument_bytes"] == want
+    assert rec["memory"]["live_bytes"] > rec["memory"]["argument_bytes"]
+    assert rec["memory"]["fits_hbm"]
+    kinds = rec["collectives"]["per_kind"]
+    assert rec["collectives"]["total_bytes"] == sum(kinds.values()) > 0
+    assert set(kinds) <= {"all-gather", "reduce-scatter", "all-reduce", "all-to-all"}
+    assert rec["cost"]["bytes_accessed"] > rec["memory"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("shape,step", [("prefill_32k", "prefill"), ("decode_32k", "serve_step")])
+def test_serving_cells_run(shape, step):
+    rec = _cell("qwen2.5-3b", shape)
+    assert rec["ok"], rec.get("error")
+    assert rec["step"] == step and rec["cost"]["flops"] > 0
+    if step == "serve_step":  # the KV caches are arguments
+        assert rec["memory"]["argument_bytes"] > 2 * 64 * 4 * smoke_config("qwen2.5-3b").d_model
+
+
+def test_failed_cell_is_recorded():
+    rec = dryrun.run_cell("qwen2.5-3b", "train_4k", "single",
+                          cfg_override=smoke_config("qwen2.5-3b"),
+                          mesh_shape=((4,), ("data",)), shape_override=SHAPES["train_4k"],
+                          verbose=False)
+    assert rec["ok"] is False and rec["error"] and "traceback" in rec
+
+
+def test_roofline_of_the_cell(train_rec, tmp_path):
+    a = roofline.analyze_record(train_rec)
+    assert a["dominant"] in ("compute", "memory", "collective")
+    assert a["dominant"] == max(("compute", "memory", "collective"),
+                                key=lambda k: a[f"t_{k}_s"])
+    assert 0 < a["useful_ratio"] < 10 and 0 < a["roofline_fraction"] <= 1
+    with open(dryrun.cell_path(str(tmp_path), "qwen2.5-3b", "train_4k", "single"), "w") as f:
+        json.dump(train_rec, f)
+    md = tmp_path / "table.md"
+    assert roofline.main(["--dir", str(tmp_path), "--md", str(md)]) == 0
+    table = md.read_text()
+    assert "| qwen2.5-3b | train_4k | train_step |" in table and "NVLink" in table
+    for key in ("arch", "shape", "mesh", "status", "chips", "params_total", "params_active",
+                "model_flops", "step", "memory", "cost", "collectives", "ok"):
+        assert key in train_rec, key

@@ -131,8 +131,13 @@ def test_get_model_namespace_and_the_parts_not_ported():
     want, _ = tlm.loss_fn(params, c["cfg"], batch)
     assert loss.ndim == 0 and bool(torch.isfinite(loss)) and loss.item() == want.item()
     assert metrics["ce"].item() == want.item() and metrics["aux"].item() == 0.0
-    with pytest.raises(NotImplementedError, match="A9"):
-        model.input_specs(None)
+    # the dry run's input specs are ported (held to JAX's in
+    # tests/test_torch_sharding.py): meta tensors, no memory
+    from repro_torch.configs.base import SHAPES
+
+    step, specs, caches = model.input_specs(SHAPES["train_4k"])
+    assert step == "train_step" and caches is None
+    assert all(t.device.type == "meta" for t in specs.values())
     # the zoo is ported: a windowed (ring-buffer) cache is the JAX package's,
     # and get_model serves a MoE config
     from repro.models import attention as jattention

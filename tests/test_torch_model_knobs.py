@@ -39,6 +39,7 @@ from repro.models import transformer as jlm
 from repro.utils import flops as jflops
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_cells, smoke_config
 from repro_torch.models import encdec as tencdec
+from repro_torch.models.sharding import P
 from repro_torch.models import transformer as tlm
 from repro_torch.utils import flops
 from repro_torch.utils.tree import leaves, leaves_with_path
@@ -214,12 +215,17 @@ def test_remat_recomputes_in_the_backward(arch):
 
 
 def test_residual_spec_still_raises():
+    """``residual_spec`` no longer raises (the mesh modules are ported): on
+    plain tensors the constraint is a no-op, forward and loss bit-equal to
+    the default; a spec naming an axis of no mesh is only checked where a
+    DTensor meets it (``tests/test_torch_distributed.py``)."""
     c = zoo_case("qwen2.5-3b")
     b = {k: torch.from_numpy(v) for k, v in _batch(c["cfg"]).items()}
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlm.loss_fn(c["params"], c["cfg"], b, residual_spec=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlm.forward(c["params"], c["cfg"], b["tokens"], residual_spec=("data", None, None))
+    spec = P("data", "model", None)
+    assert tlm.loss_fn(c["params"], c["cfg"], b, residual_spec=spec)[0].item() == \
+        tlm.loss_fn(c["params"], c["cfg"], b)[0].item()
+    assert torch.equal(tlm.forward(c["params"], c["cfg"], b["tokens"], residual_spec=spec)[0],
+                       tlm.forward(c["params"], c["cfg"], b["tokens"])[0])
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

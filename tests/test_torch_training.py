@@ -59,6 +59,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.launch.train import default_prune_plan
 from repro_torch.models import get_model
 from repro_torch.models import transformer as tlm
+from repro_torch.models.sharding import P
 from repro_torch.training import checkpoint as tckpt
 from repro_torch.training import optimizer as topt
 from repro_torch.training.fault_tolerance import (
@@ -174,16 +175,16 @@ def test_loss_fn_and_gradients_match_jax(lm, weighted):
 
 
 def test_loss_fn_takes_only_the_default_tpu_knobs(lm):
-    """Only the sharding knob is refused: a non-``None`` ``residual_spec``
-    raises naming A9; the memory knobs run (``remat`` and ``layout_scan``
-    give the default loss bit for bit; ``tests/test_torch_model_knobs.py``
-    holds them to JAX)."""
+    """Every knob runs and gives the default loss bit for bit on plain
+    tensors: the memory knobs (``remat``, ``layout_scan``;
+    ``tests/test_torch_model_knobs.py`` holds them to JAX) and the sharding
+    knob ``residual_spec``, a constraint that only redistributes DTensors
+    (``tests/test_torch_distributed.py`` runs it on a mesh)."""
     b = _t(_batches(lm["cfg"], 1)[0])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlm.loss_fn(_params(lm), lm["cfg"], b, residual_spec=object())
     default = tlm.loss_fn(_params(lm), lm["cfg"], b)[0].item()
     for kw in (dict(remat=True), dict(remat=True, remat_policy="dots"), dict(layout_scan=True),
-               dict(attn_chunk=512), dict(residual_spec=None)):
+               dict(attn_chunk=512), dict(residual_spec=None),
+               dict(residual_spec=P("data", "model", None))):
         assert tlm.loss_fn(_params(lm), lm["cfg"], b, **kw)[0].item() == default, kw
     full, _ = tlm.loss_fn(_params(lm), lm["cfg"], b, attn_impl="full")
     assert full.item() == tlm.loss_fn(_params(lm), lm["cfg"], b)[0].item()
@@ -245,10 +246,13 @@ def test_adamw_update_matches_jax_on_identical_inputs(param_dtype, state_dtype, 
     jp, js, jmet = jopt.adamw_update({k: jnp.asarray(a, jdt) for k, a in g.items()}, jstate,
                                      {k: jnp.asarray(a, jdt) for k, a in p.items()},
                                      jopt.AdamWConfig(**cfg))
-    tstate = topt.AdamWState(3, {k: torch.from_numpy(a).to(st) for k, a in m.items()},
-                             {k: torch.from_numpy(a).to(st) for k, a in v.items()})
-    params = {k: torch.from_numpy(a).to(tdt) for k, a in p.items()}
-    tp, ts, tmet = topt.adamw_update({k: torch.from_numpy(a).to(tdt) for k, a in g.items()},
+    # the port updates in place: it gets copies, and JAX (dispatched
+    # asynchronously, its inputs possibly aliasing the numpy arrays) is done
+    jax.block_until_ready((jp, js, jmet))
+    tstate = topt.AdamWState(3, {k: torch.tensor(a).to(st) for k, a in m.items()},
+                             {k: torch.tensor(a).to(st) for k, a in v.items()})
+    params = {k: torch.tensor(a).to(tdt) for k, a in p.items()}
+    tp, ts, tmet = topt.adamw_update({k: torch.tensor(a).to(tdt) for k, a in g.items()},
                                      tstate, params, topt.AdamWConfig(**cfg))
     assert ts.step == int(js.step) == 4
     assert tp["w"] is params["w"]  # updated in place
