@@ -234,6 +234,22 @@ Phases (each prints its own lines):
               sequential loop; then ``launch.dryrun``'s qwen2.5-3b
               ``train_4k`` cell on the fake 16 x 16 mesh and its roofline
               row (``launch.roofline``).  No kernel of the port launches.
+19. examples -- the JAX package's four ``examples/*.py`` as the port's
+              ``repro_torch.examples`` twins, each through its ``main`` at
+              its own full settings: ``quickstart`` (ADMM block pruning,
+              PBCSR, the reorder, then ``bsr_matmul`` at M = 128, f32,
+              within 1e-4 x max(1, max|plain|) of ``bsr_matmul_plain``,
+              timed beside its plain version and a dense ``torch.matmul``);
+              ``prune_style_transfer`` (base 32, one 128 x 128 frame: ms a
+              frame of the unpruned / pruned / pruned + compiler variants
+              beside each one's device busy ms a frame, the last on the
+              kernel backend within 1e-3 of its reference plan, exact
+              conv2d / dense_matmul launches); ``serve_pruned_lm``
+              (every served row and request through ``serve.parity_rule``);
+              ``train_lm_100m --prune --ckpt`` (200 steps of the ~100M f32
+              model: finite ce, hard-prune sparsity 0.5 +- 0.05, the last
+              checkpoint restoring ``torch.equal`` params; median step ms,
+              tok/s, MFU).  Their launches count in the kernels line.
 
 The line before the last is a JSON object with every kernel's numbers (the
 conv kernel once per scheme the main path launches; the pipelined kernels
@@ -3879,6 +3895,139 @@ def phase_dryrun_cell(smi):
     return dict(rec=rec, row=a, wall=wall)
 
 
+def _launched(ops, before):
+    """Launches by kernels-line entry since the counts ``before``."""
+    now = main_path_launches(ops)
+    return {name: now[name] - before[name] for name in now}
+
+
+def phase_examples(torch, results):
+    """Phase 19 (see the module docstring).  Runs each twin's ``main`` on the
+    card at its full settings and checks it; times the quickstart's
+    block-sparse product and adds it to ``results``.  Returns the twins'
+    launches by kernels-line entry."""
+    import shutil
+
+    from repro_torch.examples import prune_style_transfer, quickstart, serve_pruned_lm
+    from repro_torch.examples import train_lm_100m
+    from repro_torch.kernels import bsr_matmul as kbsr
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import greedy_parity, parity_text
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.utils.tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_kernel_launches()
+    total = {name: 0 for name in KERNELS}
+    secs = {}
+
+    def run(name, mod, argv):
+        before = main_path_launches(ops)
+        t0 = time.perf_counter()
+        print(f"  -- {name} {' '.join(argv)}", flush=True)
+        r = mod.main(argv + ["--device", "cuda"])
+        secs[name] = time.perf_counter() - t0
+        got = _launched(ops, before)
+        for k, n in got.items():
+            total[k] += n
+        return r, {k: n for k, n in got.items() if n}
+
+    # quickstart: ADMM -> PBCSR -> reorder -> the block-sparse kernel
+    qs, got = run("quickstart", quickstart, [])
+    fmt, x, out = qs["fmt"], qs["x"], qs["out"]
+    n_launch = sum(stop > start for start, stop, _ in qs["bands"])
+    check(got == {"bsr_matmul": n_launch}, f"quickstart: launches {got}, want {n_launch} bsr_matmul")
+    want = kbsr.bsr_matmul_plain(x, fmt.values, fmt.block_rows)
+    err = (out - want).abs().max().item()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    check(err <= tol, f"quickstart: bsr_matmul vs its plain version {err} > {tol}")
+    routes = [kbsr.plan_for(x, fmt.values, stop - start, count).route
+              for start, stop, count in qs["bands"]]
+    dense = fmt.to_dense()
+    kernel = lambda: ops.bsr_matmul(x, fmt.values, fmt.block_rows, bands=qs["bands"])
+    ms, plain_ms = device_ms(torch, kernel), device_ms(
+        torch, lambda: kbsr.bsr_matmul_plain(x, fmt.values, fmt.block_rows), reps=5)
+    lib_ms, _ = library_ms(torch, lambda: torch.matmul(x, dense))
+    nb = fmt.n_blocks * fmt.bm * fmt.bn * fmt.values.element_size() + nbytes(fmt.block_rows, x, out)
+    b_ms, b_by = bound(nb, 2.0 * x.shape[0] * fmt.n_blocks * fmt.bm * fmt.bn)
+    results["bsr_matmul"].append(dict(
+        label=f"quickstart M={x.shape[0]} 256->256 b64 f32", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    print(f"  quickstart: primal residual {qs['primal_residual']:.4f}, {fmt.n_blocks} blocks "
+          f"(pad {fmt.padded_blocks}), bands {qs['bands']}, bsr_matmul M={x.shape[0]} "
+          f"{fmt.shape[0]}x{fmt.shape[1]} b{fmt.bm} route {routes} max_err {err:.3e} "
+          f"(tol {tol:.1e}); ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(torch.matmul, dense) bound_ms={b_ms:.4f} ({b_by})")
+
+    # the style-transfer app's three Table-1 variants
+    st, got = run("prune_style_transfer", prune_style_transfer, [])
+    calls = prune_style_transfer.REPS + 2  # the kernel plan: a warm-up, REPS timed, the outputs
+    conv_n, dense_n = EXPECTED["style_transfer"][1:3]
+    want_l = {"conv2d": conv_n * calls, "dense_matmul": dense_n * calls}
+    check(got == want_l, f"style transfer: launches {got}, want {want_l}")
+    tol = 1e-3 * max(1.0, st["reference_max"])
+    check(st["kernel_vs_reference_err"] <= tol and st["agreement_max_err"] <= tol,
+          f"style transfer: kernel plan vs reference plan {st['kernel_vs_reference_err']}, "
+          f"vs masked dense {st['agreement_max_err']} (tol {tol})")
+    # the card's busy time a frame (its kernels, not the idle between them),
+    # beside the frame's wall: how far the host holds each variant back
+    with torch.no_grad():
+        busy = {v: device_ms(torch, lambda: fn(p, st["x"]), reps=prune_style_transfer.REPS)
+                for v, (fn, p) in st["variants"].items()}
+    print(f"  style transfer (base 32, 1x3x128x128): ms/frame " + ", ".join(
+        f"{v} {st['ms'][v]:.3f} (paper {st['paper_ms'][v]}; device busy {busy[v]:.3f}, "
+        f"idle {1 - busy[v] / st['ms'][v]:.0%})" for v in st["ms"])
+        + f"; FLOPs {st['flops']['unpruned']:.4e} -> {st['flops']['pruned_compiler']:.4e} "
+        f"(cut {st['flop_cut']:.2f}x); param bytes {st['param_bytes']['unpruned']} -> "
+        f"{st['param_bytes']['pruned_compiler']} (cut {st['bytes_cut']:.2f}x); plan steps "
+        f"{st['plan_steps']}; peak activations {st['peak_activation_bytes']} B; kernel plan vs "
+        f"reference {st['kernel_vs_reference_err']:.3e}, vs masked dense "
+        f"{st['agreement_max_err']:.3e} (tol {tol:.1e}); launches {got}")
+
+    # a pruned LM through the Engine and the RequestScheduler
+    sv, got = run("serve_pruned_lm", serve_pruned_lm, [])
+    check(not got, f"serve_pruned_lm: port kernels launched {got} (the Engine is plain torch)")
+    llm = dict(cfg=sv["cfg"], params=sv["params"], device=torch.device("cuda"))
+    pars = [greedy_parity(llm, p, t) for p, t in zip(sv["prompts"], sv["tokens"])]
+    pars += [greedy_parity(llm, r.prompt, r.generated) for r in sv["served"]]
+    check(sv["queue_drained"] and sv["finished"] == len(sv["served"]),
+          f"serve_pruned_lm: queue drained {sv['queue_drained']}, {sv['finished']} of "
+          f"{len(sv['served'])} in slots finished")
+    print(f"  serve_pruned_lm: {len(sv['masks'])} pruned leaves, generate "
+          f"{sv['tok_per_s']:.1f} tok/s ({sv['generate_s']:.3f} s for 4 x 24 tokens), scheduler "
+          f"{sv['scheduler_s']:.3f} s; {len(pars)} rows: {parity_text(pars[0])}; "
+          f"all {len(pars)} exact={all(p['exact'] for p in pars)}")
+
+    # the ~100M LM trained with ADMM, checkpoints and preemption handling
+    ckpt = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tr, got = run("train_lm_100m", train_lm_100m, ["--prune", "--ckpt", str(ckpt)])
+    check(not got, f"train_lm_100m: port kernels launched {got} (training is plain autograd)")
+    ces = [h["ce"] for h in tr["history"]]
+    check(all(np.isfinite(ces)) and not tr["preempted"], f"train_lm_100m: ce {ces[-5:]}")
+    sp = tr["sparsity"]["pruned_global"]
+    check(abs(sp - 0.5) <= 0.05, f"train_lm_100m: hard-prune sparsity {sp}")
+    template = (tr["state"], tr["data_state"])
+    (restored, data), step = CheckpointManager(str(ckpt)).restore_latest(template)
+    want_p = dict(leaves_with_path(tr["state"].params))
+    same = [torch.equal(v, want_p[k]) for k, v in leaves_with_path(restored.params)]
+    check(step == len(ces) and len(same) == len(want_p) and all(same)
+          and {k: int(v) for k, v in data.items()} == tr["data_state"],
+          f"train_lm_100m: checkpoint step {step}, {sum(same)} of {len(want_p)} leaves equal")
+    med = statistics.median(h["seconds"] for h in tr["history"][1:])
+    tok_s = tr["tokens_per_step"] / med
+    print(f"  train_lm_100m ({tr['cfg'].name}, {tr['n_params'] / 1e6:.1f}M params, f32, "
+          f"{len(ces)} steps): ce {ces[0]:.4f} -> {ces[-1]:.4f}, hard prune at step "
+          f"{tr['hard_at']} sparsity {sp:.3f}; median step {med * 1e3:.2f} ms (steps 1-), "
+          f"{tok_s:.0f} tok/s, MFU {6.0 * tr['n_params'] * tok_s / PEAK_F32_FLOPS:.2%} of 67 "
+          f"TFLOP/s f32; checkpoint step {step} restores torch.equal params")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print("  examples: " + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def _to_device(tree, dev):
     """``tree`` (dicts, lists, tuples of tensors and other leaves) with every
     tensor moved by ``.to(dev)`` (a device, or a dtype: the zoo widens the
@@ -3997,6 +4146,9 @@ def main() -> int:
         f"{r['tok_admm']:.0f} / {r['tok_fine']:.0f} tok/s, MFU {r['mfu']['admm']:.1%} / "
         f"{r['mfu']['masked']:.1%}, peak {max(v for v in r['peak_gb'].values()):.3f} GB"
         for r in tz))
+    header("== examples (the JAX package's four scripts through repro_torch.examples)")
+    for name, n in phase_examples(torch, results).items():
+        launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     line = {"kernels": []}

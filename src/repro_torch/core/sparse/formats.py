@@ -1,8 +1,9 @@
 """Compact sparse weight storage (paper section 3, "Sparse model storage").
 
-A port of ``repro.core.sparse.formats`` for the formats the compiler
-produces (the storage-only CSR baseline is not ported).  They pack torch
-tensors on the tensors' device, so a bf16 weight on the card packs there.
+A port of ``repro.core.sparse.formats``.  The three formats the compiler
+produces pack torch tensors on the tensors' device, so a bf16 weight on the
+card packs there; the storage baseline ``CSR`` is host-side numpy, as in
+the JAX package.
 
 ``PBCSR``
     Packed Block Compressed Sparse (column-major) storage for block pruning:
@@ -22,6 +23,10 @@ tensors on the tensors' device, so a bf16 weight on the card packs there.
     indices; the graph pass folds the index map into the *next* layer, so
     runtime cost is zero.
 
+``CSR``
+    The textbook baseline the paper compares against (storage only): one
+    int32 column index per surviving weight.
+
 All round-trip exactly through ``to_dense`` and report ``nbytes``.
 """
 
@@ -30,11 +35,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .packing import block_mask
 
-__all__ = ["PBCSR", "ColumnCompact", "ChannelCompact", "dense_nbytes"]
+__all__ = ["PBCSR", "ColumnCompact", "ChannelCompact", "CSR", "dense_nbytes"]
 
 
 def dense_nbytes(shape: Tuple[int, ...], dtype=torch.bfloat16) -> int:
@@ -165,3 +171,50 @@ class ChannelCompact:
     @property
     def nbytes(self) -> int:
         return self.values.numel() * self.values.element_size() + self.kept.numel() * 4
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+@dataclasses.dataclass
+class CSR:
+    """Textbook CSR -- storage-size baseline only (host-side, numpy; a torch
+    tensor is read through ``.cpu().numpy()``, so it needs a numpy dtype)."""
+
+    data: np.ndarray
+    indices: np.ndarray  # int32 column index per nonzero  <- the redundancy
+    indptr: np.ndarray  # [K+1] int64
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_dense(cls, w, mask) -> "CSR":
+        w = _host(w)
+        w = w * _host(mask).astype(w.dtype)
+        k, n = w.shape
+        indptr = np.zeros(k + 1, np.int64)
+        idx, data = [], []
+        for i in range(k):
+            nz = np.nonzero(w[i])[0]
+            idx.append(nz.astype(np.int32))
+            data.append(w[i, nz])
+            indptr[i + 1] = indptr[i] + len(nz)
+        return cls(
+            data=np.concatenate(data) if data else np.zeros(0, w.dtype),
+            indices=np.concatenate(idx) if idx else np.zeros(0, np.int32),
+            indptr=indptr,
+            shape=(k, n),
+        )
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, self.data.dtype)
+        for i in range(self.shape[0]):
+            lo, hi = self.indptr[i], self.indptr[i + 1]
+            out[i, self.indices[lo:hi]] = self.data[lo:hi]
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.nbytes + self.indices.nbytes + self.indptr.nbytes

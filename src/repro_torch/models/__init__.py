@@ -5,7 +5,8 @@ dense decoder's plan lowering (``transformer_graph``), the uniform model
 API (``registry.get_model``) and the mesh's sharding rules (``sharding``:
 the same model code runs on DTensor params)."""
 
-from . import cnn
+from . import attention, cnn, encdec, ffn, layers, rglru, sharding, ssm, transformer
 from .registry import Model, get_model
 
-__all__ = ["cnn", "Model", "get_model"]
+__all__ = ["attention", "cnn", "encdec", "ffn", "layers", "rglru", "sharding", "ssm",
+           "transformer", "Model", "get_model"]
