@@ -511,6 +511,11 @@ _GEMM_ENTRY = re.compile(r"(simt_gemm_kernelI[fa]|int8_gemm_kernelI)"
                          r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d)ELi(\d)E")
 _GEMM_SCHEME = {"simt_gemm_kernelIf": "f32", "simt_gemm_kernelIa": "w8",
                 "int8_gemm_kernelI": "w8a8"}
+#: registers a thread of each f32 gate/up body instance, by (body, template
+#: arguments): ffn_gateup_simt_kernel<BM> (48, 64) and
+#: ffn_gateup_skinny_kernel<VEC, MT> (4 / 1 x 1 / 2 / 4 / 8)
+FFN_REGISTERS = {}
+_FFN_ENTRY = re.compile(r"ffn_gateup_(simt|skinny)_kernelI((?:Li\d+E)+)E")
 
 
 def phase_build():
@@ -522,14 +527,15 @@ def phase_build():
     dt = time.perf_counter() - t0
     print(f"build: {dt:.1f}s -> {path.relative_to(ROOT)}")
     log = (path.parent / "build.log").read_text()
-    entry = gemm = None
+    entry = gemm = ffn = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = _CONV_ENTRY.search(m.group(1))
             gemm = _GEMM_ENTRY.search(m.group(1))
+            ffn = _FFN_ENTRY.search(m.group(1))
         spill = "spill" in line and " 0 bytes spill" not in line
-        if ("registers" in line and not gemm) or spill:
+        if ("registers" in line and not gemm and not ffn) or spill:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
         regs = re.search(r"Used (\d+) registers", line)
         if regs and entry:
@@ -537,9 +543,17 @@ def phase_build():
         if regs and gemm:
             g = gemm.groups()
             GEMM_REGISTERS[(_GEMM_SCHEME[g[0]], *map(int, g[1:]))] = int(regs.group(1))
+        if regs and ffn:
+            key = (ffn.group(1), *map(int, re.findall(r"Li(\d+)E", ffn.group(2))))
+            FFN_REGISTERS[key] = int(regs.group(1))
     check(len(CONV_REGISTERS) == 3 * 6, f"build log: {len(CONV_REGISTERS)} conv kernel "
                                         f"instances with registers, want 18")
     gemm_registers()
+    check(len(FFN_REGISTERS) == 2 + 2 * 4, f"build log: {len(FFN_REGISTERS)} f32 gate/up "
+                                          f"instances with registers, want 10")
+    print("  ffn_gateup f32 registers: " + " ".join(
+        f"{body}<{','.join(map(str, args))}>={r}"
+        for (body, *args), r in sorted(FFN_REGISTERS.items())))
     sass_check(path)
 
 
@@ -567,7 +581,7 @@ def gemm_registers():
 
 #: the CUDA-core GEMM templates that must hold no bf16 instance: bf16 runs
 #: the tensor-core kernel (mma_gemm_kernel) and the skinny kernel
-_FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_kernel")
+_FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_simt_kernel", "ffn_gateup_skinny_kernel")
 #: the bf16 tensor-core kernels, whose SASS must issue HMMA
 _TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
 
@@ -1089,6 +1103,8 @@ def phase_llm_kernels(torch, results):
         out = kffn.ffn_gateup(x, wg, wu, activation=act)
         want = kffn.ffn_gateup_plain(x, wg, wu, activation=act)
         actf = _ACT[act]
+        if dtype == torch.float32:
+            ffn_f32_checks(label, x, wg, wu, act, out)
 
         def library():
             return actf(torch.matmul(x, wg)) * torch.matmul(x, wu)
@@ -1100,6 +1116,35 @@ def phase_llm_kernels(torch, results):
                nbytes(x, wg, wu, out), 4.0 * m * k * f, peak)
         if role:
             per_call[role[0]][role[1]] = results["ffn_gateup"][-1]["ms"]
+
+    def ffn_f32_checks(label, x, wg, wu, act, out):
+        """An f32 call launches one kernel (no fill or memset) and, after
+        the first call, allocates no counter buffer; its route and plan;
+        weights 4 bytes past a 16-byte boundary (4-byte loads / copies) give
+        the same bits, the K ranges being fixed by the shape."""
+        m, k = x.shape
+        f = wg.shape[1]
+        call = lambda: kffn.ffn_gateup(x, wg, wu, activation=act)  # noqa: E731
+        allocs = _build.counter_allocations
+        names = device_kernels(torch, call)
+        check(len(names) == 1 and "ffn_gateup_s" in names[0],
+              f"ffn_gateup {label}: one call launched {names}")
+        check(_build.counter_allocations == allocs,
+              f"ffn_gateup {label}: {_build.counter_allocations - allocs} counter buffers "
+              f"allocated after the first call")
+        if m <= _build.SKINNY_MT and k > 0:
+            route = f"stream, plan {_build.skinny_plan_f32(m, f, k, 4 if f % 4 == 0 else 1)}"
+        else:
+            route = (f"two-weight GEMM, tile {_build.ffn_tile_f32(m)}, K ranges "
+                     f"{_build.ffn_split_f32(m, f, k)}")
+        shifted = [torch.empty(k * f + 1, device=dev)[1:].view(k, f) for _ in range(2)]
+        for s_, w_ in zip(shifted, (wg, wu)):
+            s_.copy_(w_)
+        same = torch.equal(kffn.ffn_gateup(x, *shifted, activation=act), out)
+        check(same, f"ffn_gateup {label}: 4-byte-aligned weights give other bits")
+        print(f"  {'ffn_gateup':18s} {label:42s} {route}; 1 kernel a call "
+              f"({names[0].split('(')[0][:48]}), no counter allocation; unaligned weights "
+              f"torch.equal")
 
     ffn_case("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16,
              role=("decode", "ffn"))
@@ -1117,11 +1162,21 @@ def phase_llm_kernels(torch, results):
     smoke = smoke_config("qwen2.5-3b")
     prompts = serve.llm_prompts(argparse.Namespace(**LLM_ARGS), smoke)
     m_pre = len(prompts) * max(len(p) for p in prompts)
+    smoke_ms = {}
     for label, m in (("decode", len(prompts)), ("prefill", m_pre)):
         ffn_case(f"smoke {label} M={m} K={smoke.d_model} F={smoke.d_ff} f32 silu "
                  f"({smoke.n_layers} launches a plan call)", m, smoke.d_model, smoke.d_ff,
                  torch.float32)
+        smoke_ms[label] = results["ffn_gateup"][-1]["ms"]
+    print(f"  {'ffn_gateup':18s} smoke decoder per plan call ({smoke.n_layers} layers, device "
+          f"ms x launches): prefill {smoke.n_layers * smoke_ms['prefill']:.4f} ms, decode "
+          f"{smoke.n_layers * smoke_ms['decode']:.4f} ms")
     ffn_case("M=20 K=130 F=77 bf16 silu (ragged)", 20, 130, 77, bf16)
+    # the f32 routes at qwen2.5-3b's widths (kernel alone: every full-width
+    # decoder serves bf16), and the two-weight GEMM on a ragged shape
+    ffn_case("decode M=3 K=2048 F=11008 f32 silu", 3, 2048, 11008, torch.float32)
+    ffn_case("prefill M=48 K=2048 F=11008 f32 silu", 48, 2048, 11008, torch.float32)
+    ffn_case("M=20 K=130 F=77 f32 gelu (ragged)", 20, 130, 77, torch.float32, "gelu")
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
     def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False, role=None):
@@ -2012,7 +2067,8 @@ def phase_serve_async(torch, np, apps):
 _OWN = {"conv2d_igemm": "conv2d", "simt_gemm_kernel<float": "dense_matmul",
         "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
         "simt_gemm_kernel<signed char": "quant_matmul", "int8_gemm_kernel": "quant_matmul",
-        "ffn_gateup_kernel": "ffn_gateup", "GateUpEpilogue": "ffn_gateup",
+        "ffn_gateup_simt_kernel": "ffn_gateup", "ffn_gateup_skinny_kernel": "ffn_gateup",
+        "GateUpEpilogue": "ffn_gateup",
         "bsr_matmul": "bsr_matmul", "Memcpy": "memcpy"}
 #: the conv kernel's first template argument is its scheme (csrc/scheme.cuh)
 _CONV_SCHEME = {"0": "conv2d", "1": "conv2d_w8", "2": "conv2d_w8a8"}

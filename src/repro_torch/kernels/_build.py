@@ -46,6 +46,8 @@ __all__ = [
     "FLOAT_CODES",
     "skinny_plan",
     "skinny_plan_f32",
+    "ffn_tile_f32",
+    "ffn_split_f32",
     "gemm_split",
     "split_counters",
     "GEMM_TILES",
@@ -86,10 +88,16 @@ FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAYOUT_CODES = {"row": 0, "nchw": 1}
 
 #: the skinny split-K GEMMs (M <= SKINNY_MT rows: csrc/skinny_bf16.cuh for
-#: bf16, csrc/skinny_gemm.cuh for the f32 gate/up): most rows, most K rows
-#: a block stages, the blocks to aim for (two per SM of an H100's 132), and
-#: the fewest K rows of a bf16 range
+#: bf16, csrc/ffn_f32.cuh's streaming kernel for the f32 gate/up): most
+#: rows, most K rows a block stages, the blocks to aim for (two per SM of an
+#: H100's 132), and the fewest K rows of a range
 SKINNY_MT, SKINNY_KC, SKINNY_TARGET_BLOCKS, SKINNY_MIN_K = 8, 1024, 264, 128
+#: the f32 gate/up GEMM (csrc/ffn_f32.cuh, M > 8): the rows a tile may have
+#: (:func:`ffn_tile_f32`), its columns and K slab; the blocks to aim for
+#: (four per SM: the CTAs an SM holds at once), the fewest K rows of a range
+#: (one slab), and the most ranges (a thread block cluster's portable size)
+FFN_F32_BMS, FFN_F32_BN, FFN_F32_BK = (48, 64), 64, 16
+FFN_SPLIT_TARGET, FFN_SPLIT_MIN_K, FFN_SPLIT_MAX = 528, 16, 8
 #: the bf16 tensor-core GEMM's K split (csrc/mma_gemm.cuh): the blocks to
 #: aim for (one per SM), the fewest and the most K rows of a range (a block
 #: walks its range's slabs one after another), and the multiple a range is
@@ -486,17 +494,37 @@ def skinny_plan(m: int, n: int, k: int, vec: int) -> Tuple[int, int, int]:
 
 
 def skinny_plan_f32(m: int, n: int, k: int, vec: int) -> Tuple[int, int, int]:
-    """``(kchunk, nsplit, tiles)`` of the f32 gate/up skinny launch
-    (``csrc/skinny_gemm.cuh``, M <= 8): the K chunk per block (at most
-    ``SKINNY_KC``), the number of K splits, and the number of output tiles
-    (one counter each).  The splits are chosen so that the grid has about
-    ``SKINNY_TARGET_BLOCKS`` blocks, at least 64 K rows each."""
-    tiles = _cdiv(n, 32 * vec) * _cdiv(m, SKINNY_MT)
-    nsplit = max(_cdiv(SKINNY_TARGET_BLOCKS, tiles), _cdiv(k, SKINNY_KC), 1)
-    nsplit = min(nsplit, max(1, _cdiv(k, 64)))  # at least 64 K rows per block
-    nsplit = max(nsplit, _cdiv(k, SKINNY_KC))
-    kchunk = _cdiv(k, nsplit)
-    return kchunk, _cdiv(k, kchunk), tiles
+    """``(kchunk, nsplit, tiles)`` of the f32 gate/up streaming launch
+    (``csrc/ffn_f32.cuh``, M <= 8): :func:`skinny_plan`'s K ranges on the
+    16-byte column tile (``8 * 4`` f32 columns) whatever ``vec`` is -- so
+    the 4-byte route sums each output over the same ranges -- and the
+    column tiles of ``vec`` (``8 * vec`` columns, one counter each)."""
+    kchunk, nsplit, _ = skinny_plan(m, n, k, 4)
+    return kchunk, nsplit, _cdiv(n, 8 * vec)
+
+
+def ffn_tile_f32(m: int) -> Tuple[int, int, int]:
+    """``(bm, bn, bk)`` of the f32 gate/up GEMM (``csrc/ffn_f32.cuh``, M >
+    8): the tile rows of ``FFN_F32_BMS`` that pad ``m`` least (the larger on
+    a tie), 64 columns, 16-deep K slabs."""
+    bm = min(FFN_F32_BMS, key=lambda b: (_cdiv(m, b) * b, -b))
+    return bm, FFN_F32_BN, FFN_F32_BK
+
+
+def ffn_split_f32(m: int, n: int, k: int) -> Tuple[int, int]:
+    """``(kchunk, nsplit)``: the K ranges of the f32 gate/up GEMM, fixed by
+    the shape.  One range where the tiles of :func:`ffn_tile_f32` are more
+    than half of ``FFN_SPLIT_TARGET`` blocks; else as many ranges as fit the
+    target, none shorter than ``FFN_SPLIT_MIN_K`` rows, at most
+    ``FFN_SPLIT_MAX`` (a tile's ranges form one thread block cluster);
+    whole slabs each (the last may be shorter)."""
+    bm, bn, bk = ffn_tile_f32(m)
+    if k <= 0:
+        return bk, 1
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    nsplit = max(1, min(FFN_SPLIT_TARGET // tiles, k // FFN_SPLIT_MIN_K, FFN_SPLIT_MAX))
+    kchunk = _cdiv(_cdiv(k, nsplit), bk) * bk
+    return kchunk, _cdiv(k, kchunk)
 
 
 def gemm_split(m: int, n: int, k: int) -> Tuple[int, int]:
@@ -521,8 +549,9 @@ def gemm_split(m: int, n: int, k: int) -> Tuple[int, int]:
 
 
 #: (device, stream) -> int32 tile counters, zero between launches: the
-#: split kernels of csrc/mma_gemm.cuh, csrc/skinny_bf16.cuh and
-#: csrc/bsr_matmul.cu reset each counter they use before they exit
+#: split kernels of csrc/mma_gemm.cuh, csrc/skinny_bf16.cuh,
+#: csrc/ffn_f32.cuh and csrc/bsr_matmul.cu reset each counter they use
+#: before they exit
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 #: counter buffers :func:`split_counters` has allocated (a zeroing
 #: allocation each), so a run can show that split launches make none

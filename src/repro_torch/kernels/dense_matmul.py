@@ -201,8 +201,8 @@ def dense_matmul(
 
 def split_buffers(dev, nsplit: int, n_weights: int, m: int, n: int, tiles: int):
     """The f32 workspace ``[nsplit, n_weights, m, n]`` and the zeroed tile
-    counters of a bf16 launch whose K is split in ``nsplit`` ranges, or
-    ``(None, None)`` for one range."""
+    counters of a streaming or bf16 launch whose K is split in ``nsplit``
+    ranges, or ``(None, None)`` for one range."""
     if nsplit <= 1:
         return None, None
     ws = torch.empty((nsplit, n_weights, m, n), dtype=torch.float32, device=dev)

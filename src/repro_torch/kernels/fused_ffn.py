@@ -15,13 +15,21 @@ masks ragged M / K / F itself (the TPU wrapper pads to 128-blocks):
   fixes from the shape;
 * bf16 with at most 8 rows (decode): the weight-streaming split-K kernel
   (``csrc/skinny_bf16.cuh``, planned by ``_build.skinny_plan``);
-* f32: a tiled FMA kernel, or with at most 8 rows the split-K kernel of
-  ``csrc/skinny_gemm.cuh`` (``_build.skinny_plan_f32``).
+* f32 with more than 8 rows: the two-weight CUDA-core GEMM of
+  ``csrc/ffn_f32.cuh`` on the tile ``_build.ffn_tile_f32`` picks by M, its K
+  ranges (``_build.ffn_split_f32``, fixed by the shape) summed in a thread
+  block cluster -- no workspace, no counters;
+* f32 with at most 8 rows: that file's weight-streaming split-K kernel
+  (``_build.skinny_plan_f32``), 16-byte weight loads where F % 4 == 0 and
+  both weights are 16-byte aligned.
 
-Workspaces and tile counters of the split routes are this wrapper's.
+Workspaces of the split routes are this wrapper's (``torch.empty``); tile
+counters come from ``_build.split_counters``, which the kernels leave
+zeroed, so a call launches one kernel and nothing else.
 
-What bounds it on an H100: the bytes of both weights (qwen2.5-3b: 90 MB a
-layer, at least 27 us at 3.35 TB/s) at decode and at the M = 48 prefill.
+What bounds it on an H100 (qwen2.5-3b): the bytes of both weights at decode
+(bf16 90 MB a layer, 27 us at 3.35 TB/s; f32 54 us) and at the bf16 M = 48
+prefill; the f32 prefill's FMAs (4.3 GFLOP, 65 us at 67 TFLOP/s).
 Routing: a CPU tensor takes :func:`ffn_gateup_plain`, a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches.
 """
@@ -47,6 +55,12 @@ def ffn_gateup_plain(
     return ffn_gateup_ref(x, w_gate, w_up, activation=activation)
 
 
+def _aligned(f: int, vec: int, *ws: torch.Tensor) -> bool:
+    """Rows of ``vec`` elements load as one 16-byte word: ``f`` a multiple
+    of ``vec`` and every weight 16-byte aligned."""
+    return f % vec == 0 and all(w.data_ptr() % 16 == 0 for w in ws)
+
+
 def ffn_gateup(
     x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *, activation: str = "silu"
 ) -> torch.Tensor:
@@ -69,25 +83,25 @@ def ffn_gateup(
         return ffn_gateup_plain(x, w_gate, w_up, activation=activation)
     out = torch.empty((m, f), dtype=x.dtype, device=dev)
     ws = counters = None
-    kchunk = vec = 0
-    tile = _build.bf16_default_tile(m, f)
+    vec = 0
+    skinny = m <= _build.SKINNY_MT and k > 0
     if x.dtype == torch.bfloat16:
-        if m <= _build.SKINNY_MT and k > 0:
-            vec = 8 if f % 8 == 0 and w_gate.data_ptr() % 16 == 0 \
-                and w_up.data_ptr() % 16 == 0 else 1
+        tile = _build.bf16_default_tile(m, f)
+        if skinny:
+            vec = 8 if _aligned(f, 8, w_gate, w_up) else 1
             kchunk, nsplit, tiles = _build.skinny_plan(m, f, k, vec)
         else:
             kchunk, nsplit = _build.gemm_split(m, f, k)
             tiles = -(-m // tile[0]) * -(-f // tile[1])
         ws, counters = split_buffers(dev, nsplit, 2, m, f, tiles)
-    elif m <= _build.SKINNY_MT and k > 0:
-        align = 4 * x.element_size()
-        vec = 4 if f % 4 == 0 and w_gate.data_ptr() % align == 0 \
-            and w_up.data_ptr() % align == 0 else 1
+    elif skinny:
+        tile = (0, 0, 0)
+        vec = 4 if _aligned(f, 4, w_gate, w_up) else 1
         kchunk, nsplit, tiles = _build.skinny_plan_f32(m, f, k, vec)
-        if nsplit > 1:
-            ws = torch.empty((nsplit, 2, m, f), dtype=torch.float32, device=dev)
-            counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        ws, counters = split_buffers(dev, nsplit, 2, m, f, tiles)
+    else:
+        tile = _build.ffn_tile_f32(m)
+        kchunk, _ = _build.ffn_split_f32(m, f, k)
     err = _build.lib().repro_ffn_gateup(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(), m, f, k,
         _build.activation_code(activation), _build.FLOAT_CODES[x.dtype],

@@ -186,14 +186,6 @@ def test_skinny_plan(shape):
     assert tiles * (nsplit - 1) < _build.SKINNY_TARGET_BLOCKS or kchunk == _build.SKINNY_KC
 
 
-@pytest.mark.parametrize("shape,want", [((3, 256, 128, 4), (64, 2, 2)),
-                                        ((3, 11008, 2048, 4), (512, 4, 86)),
-                                        ((5, 50, 70, 1), (35, 2, 2))])
-def test_skinny_plan_f32_is_the_gate_up_decode_plan_it_was(shape, want):
-    """The f32 gate/up route keeps its kernel and its plan bit for bit."""
-    assert _build.skinny_plan_f32(*shape) == want
-
-
 # --------------------------------------------------------------------------- #
 # tuning candidates by element type                                            #
 # --------------------------------------------------------------------------- #

@@ -18,10 +18,14 @@ package runs the same loop (``repro.launch.train.main``'s, jitted).  Held:
   report equal: no expert stack among them (dense in both packages),
   none at all for Mamba-2 (``pruned_global`` 0.0 in both);
 * ``python -m repro_torch.launch.train --arch <a> --smoke ...`` runs for
-  every arch of ``ARCH_IDS`` and prints the JAX launcher's lines.
+  every arch of ``ARCH_IDS`` and prints the JAX launcher's lines.  The CLI
+  tests give the straggler monitor (``training.fault_tolerance``) a steady
+  fake clock, so its count depends on the code and not on the machine's
+  load: every step takes the same time, or the last one is made slow.
 """
 
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,7 @@ from repro.training.train_loop import TrainState as JTrainState
 from repro.training.train_loop import init_train_state as jinit_state
 from repro_torch.configs import ARCH_IDS
 from repro_torch.launch import train as tlaunch
+from repro_torch.training import fault_tolerance
 from repro_torch.utils.tree import leaves_with_path
 from test_torch_zoo_models import zoo_case
 from test_torch_zoo_training import ADMM, ZOO, fresh_params, jax_step
@@ -138,9 +143,30 @@ _STEP_LINE = re.compile(r"^step +\d+ loss=-?\d+\.\d{4} ce=-?\d+\.\d{4} residual=
                         r"\(\d+\.\d{2}s\)$")
 
 
+class _SteadyClock:
+    """``time.monotonic`` for the straggler monitor: each call advances by
+    ``step`` seconds, the calls listed in ``slow`` by ``slow_step``."""
+
+    def __init__(self, step=0.05, slow=(), slow_step=1.0):
+        self.t, self.calls, self.step, self.slow, self.slow_step = 100.0, 0, step, slow, slow_step
+
+    def monotonic(self):
+        self.calls += 1
+        self.t += self.slow_step if self.calls in self.slow else self.step
+        return self.t
+
+
+def _fake_clock(monkeypatch, **kw):
+    clock = _SteadyClock(**kw)
+    monkeypatch.setattr(fault_tolerance, "time", types.SimpleNamespace(monotonic=clock.monotonic))
+    return clock
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_cli_trains_every_arch_and_prints_the_jax_lines(arch, capsys):
+def test_cli_trains_every_arch_and_prints_the_jax_lines(arch, capsys, monkeypatch):
+    clock = _fake_clock(monkeypatch)
     rep = tlaunch.main(["--arch", arch] + ARGV)
+    assert clock.calls == 2 * STEPS  # one start and one end a step
     lines = capsys.readouterr().out.splitlines()
     sparsity = 0.0 if arch == "mamba2-1.3b" else 0.5
     assert [ln.split()[1] for ln in lines if ln.startswith("step")] == ["0", "5"]
@@ -151,3 +177,17 @@ def test_cli_trains_every_arch_and_prints_the_jax_lines(arch, capsys):
     assert len(lines) == 4
     assert np.isfinite([h["loss"] for h in rep["history"]]).all()
     assert rep["n_updates"] == 2 and rep["param_counts"]["total"] > 0
+
+
+def test_cli_reports_a_slow_last_step_as_a_straggler(capsys, monkeypatch):
+    """The same CLI with the fake clock making step 6 (the 12th reading, its
+    end) take 1 s against the others' 0.05 s: the monitor flags it, and the
+    CLI prints one straggler line and ends in ``stragglers: 1``."""
+    clock = _fake_clock(monkeypatch, slow=(2 * STEPS,))
+    tlaunch.main(["--arch", ARCH_IDS[0]] + ARGV)
+    lines = capsys.readouterr().out.splitlines()
+    assert clock.calls == 2 * STEPS
+    assert [ln for ln in lines if "[straggler]" in ln] == [
+        "  [straggler] step 6: 1.00s vs median 0.05s"]
+    assert lines[-1] == "done; median step 0.05s, stragglers: 1"
+    assert len(lines) == 5

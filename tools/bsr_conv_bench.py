@@ -3,7 +3,7 @@
 source tree on the card, without stopping at a disagreement.
 
     python3 tools/bsr_conv_bench.py [--src DIR] [--label NAME] [--tiles]
-                                    [--only bsr|conv|w8a8|flash]
+                                    [--only bsr|conv|w8a8|flash|ffn]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default this repository's; give another checkout's to time it in the same
@@ -18,9 +18,16 @@ dense weight, ``F.conv2d`` with TF32 off) and, on trees that have it, the
 7x7, 3x3 96-of-192->32, W8 3x3 s2 and W8A8 cases; ``--only`` runs one
 kernel's cases (``w8a8``: the conv kernel's W8A8 cases alone; ``flash``:
 flash attention at qwen2.5-3b's shapes, with its route on trees that have
-one and ``F.scaled_dot_product_attention`` as the library call); ``--mma-target`` / ``--stream-target`` set the block-sparse
-routes' split targets for the run (a sweep of the split), ``--flash-target``
-/ ``--flash-chunk`` the flash split route's CTAs and most keys a split.  A case over its tolerance is marked ``FAIL`` and
+one and ``F.scaled_dot_product_attention`` as the library call; ``ffn``:
+the gate/up FFN in f32 at the smoke decoder's and qwen2.5-3b's widths, a
+ragged case a route, and the bf16 gate/up and dense q / down at
+qwen2.5-3b's widths as controls -- with the byte / FMA bound, the kernels
+one call launches, and the smoke decoder's ms a plan call);
+``--mma-target`` / ``--stream-target`` set the block-sparse routes' split
+targets for the run (a sweep of the split), ``--flash-target``
+/ ``--flash-chunk`` the flash split route's CTAs and most keys a split,
+``--ffn-target`` / ``--ffn-min-k`` the f32 gate/up GEMM's split target and
+fewest K rows a range.  A case over its tolerance is marked ``FAIL`` and
 the script exits 1 after the last case.
 """
 
@@ -34,7 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 #: kernels whose registers and spills the build log's lines are printed for
-_WATCHED = ("bsr_matmul", "conv2d_igemm", "flash_attention")
+_WATCHED = ("bsr_matmul", "conv2d_igemm", "flash_attention", "ffn_gateup", "skinny_gemm")
 
 
 def main() -> int:
@@ -42,7 +49,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--tiles", action="store_true")
-    ap.add_argument("--only", choices=("bsr", "conv", "w8a8", "flash"),
+    ap.add_argument("--only", choices=("bsr", "conv", "w8a8", "flash", "ffn"),
                     help="one kernel's cases only")
     ap.add_argument("--mma-target", type=int, help="bsr_matmul.MMA_TARGET for this run")
     ap.add_argument("--stream-target", type=int, help="bsr_matmul.STREAM_TARGET for this run")
@@ -50,6 +57,10 @@ def main() -> int:
                     help="flash_attention.SPLIT_TARGET for this run (the split route's CTAs)")
     ap.add_argument("--flash-chunk", type=int,
                     help="flash_attention.SPLIT_MAX_CHUNK for this run (most keys a split)")
+    ap.add_argument("--ffn-target", type=int,
+                    help="_build.FFN_SPLIT_TARGET for this run (the f32 gate/up GEMM's blocks)")
+    ap.add_argument("--ffn-min-k", type=int,
+                    help="_build.FFN_SPLIT_MIN_K for this run (fewest K rows a range)")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -99,6 +110,10 @@ def main() -> int:
         from repro_torch.kernels import flash_attention as kflash
 
         kflash.SPLIT_MAX_CHUNK = args.flash_chunk
+    if args.ffn_target:
+        _build.FFN_SPLIT_TARGET = args.ffn_target
+    if args.ffn_min_k:
+        _build.FFN_SPLIT_MIN_K = args.ffn_min_k
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     bf16 = torch.bfloat16
@@ -116,6 +131,7 @@ def main() -> int:
             failed.append(label)
         print(f"  {kind:5s} {label:48s} err={err:.3e} tol={tol:.1e}{' FAIL' if bad else ''} "
               f"ms={ms:.4f} library_ms={lib_ms:.4f} {extra}")
+        return ms
 
     # -- bsr_matmul ---------------------------------------------------------- #
     def bsr(label, m, k, n, bm, bn, dtype, balanced=True, bias=True, add=False, bands=None,
@@ -280,7 +296,11 @@ def main() -> int:
               bf16, bf16)
         flash("f32 B2 H4/G2 S20 d32 causal +len [20, 0]", 2, 4, 2, 20, 20, 32, [20, 0], True,
               f32, f32)
-    if args.only in ("bsr", "flash"):
+    if args.only == "ffn":
+        ffn_cases(torch, cs, dev, randn, report, bf16)
+    if args.only in ("bsr", "flash", "ffn"):
+        if failed:
+            print(f"FAILED: {failed}")
         return 1 if failed else 0
     B, S = 4, 256
     if args.only == "w8a8":
@@ -313,6 +333,70 @@ def main() -> int:
         print(f"FAILED: {failed}")
         return 1
     return 0
+
+
+def ffn_cases(torch, cs, dev, randn, report, bf16):
+    """The gate/up FFN's f32 routes at the served shapes and qwen2.5-3b's
+    widths, their ragged cases, and bf16 controls (the gate/up and the
+    dense q / down projections)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dense_matmul as kdense
+    from repro_torch.kernels import fused_ffn as kffn
+    from repro_torch.kernels.ref import _ACT, bf16_ulp
+
+    ms = {}
+
+    def ffn(label, m, k, f, dtype, act="silu", offset=0):
+        x = randn(m, k, dtype=dtype)
+        # offset > 0: weights 4 * offset bytes past a 16-byte boundary
+        wg, wu = (randn(k * f + offset, scale=k ** -0.5, dtype=dtype)[offset:].view(k, f)
+                  for _ in range(2))
+        call = lambda: kffn.ffn_gateup(x, wg, wu, activation=act)  # noqa: E731
+        out, want = call(), kffn.ffn_gateup_plain(x, wg, wu, activation=act)
+        top = want.float().abs().max().item()
+        tol = bf16_ulp(top) if dtype == bf16 else 1e-4 * max(1.0, top)
+        kernels = cs.device_kernels(torch, call)
+        nb = cs.nbytes(x, wg, wu, out)
+        b_ms, b_by = cs.bound(nb, 4.0 * m * k * f,
+                              cs.PEAK_BF16_FLOPS if dtype == bf16 else cs.PEAK_F32_FLOPS)
+        plan = ""
+        if dtype == torch.float32 and hasattr(_build, "ffn_split_f32"):
+            if m <= _build.SKINNY_MT and k > 0:
+                plan = f"plan={_build.skinny_plan_f32(m, f, k, 4 if f % 4 == 0 else 1)}"
+            else:
+                plan = f"tile={_build.ffn_tile_f32(m)} plan={_build.ffn_split_f32(m, f, k)}"
+        ms[label] = report("ffn", label, out, want, tol, call,
+                           lambda: _ACT[act](torch.matmul(x, wg)) * torch.matmul(x, wu),
+                           f"bound_ms={b_ms:.4f} ({b_by}) kernels/call={len(kernels)} {plan} "
+                           f"[{'; '.join(n.split('(')[0][:60] for n in kernels)}]")
+
+    def dense(label, m, k, n):
+        x = randn(m, k, dtype=bf16)
+        wt = randn(k, n, scale=k ** -0.5, dtype=bf16)
+        call = lambda: kdense.dense_matmul(x, wt)  # noqa: E731
+        out, want = call(), kdense.dense_matmul_plain(x, wt)
+        report("dense", label, out, want, bf16_ulp(want.float().abs().max().item()), call,
+               lambda: torch.matmul(x, wt))
+
+    f32 = torch.float32
+    ffn("smoke decode M=3 K=128 F=256 f32 silu", 3, 128, 256, f32)
+    ffn("smoke prefill M=45 K=128 F=256 f32 silu", 45, 128, 256, f32)
+    ffn("decode M=3 K=2048 F=11008 f32 silu", 3, 2048, 11008, f32)
+    ffn("prefill M=48 K=2048 F=11008 f32 silu", 48, 2048, 11008, f32)
+    ffn("M=5 K=70 F=50 f32 gelu (ragged)", 5, 70, 50, f32, "gelu")
+    ffn("M=20 K=130 F=77 f32 gelu (ragged)", 20, 130, 77, f32, "gelu")
+    ffn("M=100 K=200 F=96 f32 relu (two row tiles)", 100, 200, 96, f32, "relu")
+    ffn("decode M=3 K=2048 F=11008 f32 unaligned w", 3, 2048, 11008, f32, offset=1)
+    ffn("prefill M=48 K=2048 F=11008 f32 unaligned w", 48, 2048, 11008, f32, offset=1)
+    ffn("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16)
+    ffn("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16)
+    dense("q decode M=3 2048->2048 bf16", 3, 2048, 2048)
+    dense("q prefill M=48 2048->2048 bf16", 48, 2048, 2048)
+    dense("down decode M=3 11008->2048 bf16", 3, 11008, 2048)
+    pre = ms["smoke prefill M=45 K=128 F=256 f32 silu"]
+    dec = ms["smoke decode M=3 K=128 F=256 f32 silu"]
+    print(f"  smoke decoder per plan call (2 layers, one ffn_gateup each): prefill "
+          f"{2 * pre:.4f} ms, decode {2 * dec:.4f} ms (device)")
 
 
 if __name__ == "__main__":
