@@ -223,7 +223,14 @@ Phases (each prints its own lines):
               ZeRO-1 moments) sharded, their losses ``torch.equal`` to the
               unsharded step's on one card (else within 1e-3), ms a step,
               peak GB a rank and the collectives of one forward + backward
-              (``CommDebugMode``); ``compressed_mean_grads`` (int8, topk)
+              (``CommDebugMode``); the paper's ADMM recipe on the same
+              model (``default_prune_plan(0.5)``, ``update_every=2``, 3
+              steps, ``hard_prune``, one masked step) unsharded then
+              sharded, Z and U placed like the params: losses ``torch.equal``
+              on one card (else within 1e-3), the masks ``torch.equal``,
+              one Z/U update each, U's local shape the weight's, ms a
+              step, the Z/U update's ms and peak GB a rank;
+              ``compressed_mean_grads`` (int8, topk)
               on that model's gradient tree, the error against the f32
               mean (int8 within half a quantization step of each leaf) and
               the wire bytes against an f32 all-reduce; ``ag`` / ``rs`` at
@@ -3618,24 +3625,36 @@ MESH_ARGS = dict(arch="qwen2.5-3b", batch=8, seq=128, steps=3, ring=(1024, 2048,
                  pipe_layers=36, pipe_d=2048, pipe_micro=4, pipe_rows=256)
 #: the sharded losses against the unsharded step's, with more than one card
 MESH_LOSS_RTOL = 1e-3
+#: the ADMM run's Z/U update interval: once in its three steps
+MESH_ADMM_EVERY = 2
 #: seconds: the ranks' process-group timeout, and the dry-run cell's limit
 MESH_TIMEOUT_S = 300
 DRYRUN_TIMEOUT_S = 420
 
 
-def _mesh_train(torch, cfg, dev, mesh, margs, sharded):
+def _mesh_train(torch, cfg, dev, mesh, margs, sharded, admm=False):
     """``margs["steps"]`` train steps from the seeded init: ``(losses, ms,
-    peak GB, params, batch, loss_fn)``; ``sharded`` places params, ZeRO-1
-    moments and the batch on ``mesh``."""
+    peak GB, params, batch, loss_fn, admm_out)``; ``sharded`` places params,
+    ZeRO-1 moments and the batch on ``mesh``.  ``admm`` runs the paper's
+    recipe (``default_prune_plan(0.5)``, ``update_every=MESH_ADMM_EVERY``,
+    Z and U placed like the params), then ``hard_prune`` and one masked
+    step; ``admm_out`` holds the masked step's loss and ms, the Z/U
+    updates' ms, ``n_updates``, the masks (bool, on the host) and whether
+    every U has its weight's local shape (``None`` without ``admm``)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
+    from repro_torch.core.pruning.admm import AdmmConfig, hard_prune
     from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.train import default_prune_plan
     from repro_torch.models import get_model
     from repro_torch.models import sharding
     from repro_torch.training import optimizer, train_loop
+    from repro_torch.utils.tree import leaves, map_with_path
 
     model = get_model(cfg, device=dev)
     ocfg = optimizer.AdamWConfig(lr=1e-4, total_steps=10, warmup_steps=2)
+    acfg = AdmmConfig(update_every=MESH_ADMM_EVERY) if admm else None
+    plan = default_prune_plan(0.5) if admm else None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -3643,26 +3662,63 @@ def _mesh_train(torch, cfg, dev, mesh, margs, sharded):
         specs = sharding.param_pspecs(params)
         params = sharding.distribute_params(mesh, params, specs=specs)
         mv = optimizer.zero1_pspecs(specs, params, data_size=mesh.size(0))
-        state = train_loop.TrainState(params, optimizer.adamw_init(params, ocfg, mesh=mesh,
-                                                                   moment_specs=mv))
+        state = train_loop.init_train_state(params, ocfg, admm_cfg=acfg, prune_plan=plan)
+        state.opt = optimizer.adamw_init(params, ocfg, mesh=mesh, moment_specs=mv)
     else:
-        state = train_loop.init_train_state(params, ocfg)
-    step = train_loop.make_train_step(model.loss, ocfg)
+        state = train_loop.init_train_state(params, ocfg, admm_cfg=acfg, prune_plan=plan)
+    step = train_loop.make_train_step(model.loss, ocfg, admm_cfg=acfg)
     pipe = SyntheticPipeline(cfg, batch=margs["batch"], seq=margs["seq"] + 1, seed=SEED)
-    losses, ms = [], []
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    for _ in range(margs["steps"]):
+    update_ms = []
+    admm_update = train_loop.admm_update
+
+    def timed_update(*args, **kw):  # the Z/U update inside the step, on the device clock
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = admm_update(*args, **kw)
+        _sync(torch, dev)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def run(step, state):
         b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next().items()}
         if sharded:
             b = {k: distribute_tensor(v, mesh, [Shard(0), Replicate()]) for k, v in b.items()}
         t0 = time.perf_counter()
         state, m = step(state, b)
         loss = m["loss"].full_tensor() if sharding.is_dtensor(m["loss"]) else m["loss"]
-        losses.append(loss.detach().float().cpu())  # a host sync ends the step
-        ms.append((time.perf_counter() - t0) * 1e3)
+        loss = loss.detach().float().cpu()  # a host sync ends the step
+        return state, b, loss, (time.perf_counter() - t0) * 1e3
+
+    losses, ms = [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    train_loop.admm_update = timed_update
+    try:
+        for _ in range(margs["steps"]):
+            state, b, loss, t = run(step, state)
+            losses.append(loss)
+            ms.append(t)
+    finally:
+        train_loop.admm_update = admm_update
+    admm_out = None
+    if admm:
+        local = lambda t: t.to_local() if sharding.is_dtensor(t) else t  # noqa: E731
+        u_local = all(local(u).shape == local(w).shape for w, u in zip(
+            leaves(map_with_path(lambda _, w, u: None if u is None else w, state.params,
+                                 state.admm.u)),
+            leaves(state.admm.u)))
+        n_updates = state.admm.n_updates
+        pruned, masks = hard_prune(state.params, state.admm)
+        state = train_loop.TrainState(pruned, state.opt, None, masks)
+        del pruned
+        state, b, masked_loss, masked_ms = run(train_loop.make_train_step(model.loss, ocfg), state)
+        full = lambda t: t.full_tensor() if sharding.is_dtensor(t) else t  # noqa: E731
+        admm_out = dict(masked_loss=masked_loss, masked_ms=masked_ms, update_ms=update_ms,
+                        n_updates=n_updates, u_local=u_local,
+                        masks=[full(m).bool().cpu() for m in leaves(masks)])
+        del masks
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
-    return losses, ms, peak, state.params, b, model.loss
+    return losses, ms, peak, state.params, b, model.loss, admm_out
 
 
 def mesh_rank(rank, world, rdzv, out_path, device, smoke):
@@ -3718,9 +3774,10 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     out = {"world": world, "mesh": list(shape), "backend": str(dist.get_backend())}
 
     # the train step, unsharded then sharded, from the same seed
-    plain, plain_ms, plain_peak, _, _, _ = _mesh_train(torch, cfg, dev, None, margs, False)
+    plain, plain_ms, plain_peak, _, _, _, _ = _mesh_train(torch, cfg, dev, None, margs, False)
     mesh = make_mesh(shape, ("data", "model"), device=dev.type)
-    losses, ms, peak, params, batch, loss_fn = _mesh_train(torch, cfg, dev, mesh, margs, True)
+    losses, ms, peak, params, batch, loss_fn, _ = _mesh_train(torch, cfg, dev, mesh, margs,
+                                                               True)
     out["losses"] = [float(x) for x in losses]
     out["plain_losses"] = [float(x) for x in plain]
     out["equal"] = all(bool(torch.equal(a, b)) for a, b in zip(losses, plain))
@@ -3735,6 +3792,32 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     out["collectives"] = {str(k).split(".")[-1]: int(v)
                           for k, v in comm.get_comm_counts().items()}
     del params, batch, w
+
+    # the paper's ADMM recipe, unsharded then sharded, from the same seed
+    out["admm"] = {}
+    for sharded in (False, True):
+        losses, ms, peak, _, _, _, a = _mesh_train(torch, cfg, dev, mesh if sharded else None,
+                                                   margs, sharded, admm=True)
+        peaks = torch.tensor([peak], device=dev)
+        dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+        out["admm"]["sharded" if sharded else "plain"] = dict(
+            losses=[float(x) for x in losses + [a["masked_loss"]]], ms=ms,
+            masked_ms=a["masked_ms"], update_ms=a["update_ms"], n_updates=a["n_updates"],
+            u_local=a["u_local"], peak_gb=float(peaks))
+        if not sharded:
+            plain_admm, plain_masks = losses + [a["masked_loss"]], a["masks"]
+        else:
+            out["admm"]["equal"] = all(bool(torch.equal(x, y)) for x, y in zip(
+                losses + [a["masked_loss"]], plain_admm))
+            out["admm"]["masks_equal"] = len(a["masks"]) == len(plain_masks) > 0 and all(
+                bool(torch.equal(x, y)) for x, y in zip(a["masks"], plain_masks))
+            out["admm"]["n_masks"] = len(a["masks"])
+            out["admm"]["sparsity"] = 1.0 - sum(int(x.sum()) for x in a["masks"]) / sum(
+                x.numel() for x in a["masks"])
+        del a
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del plain_masks
 
     # compression: each data rank's gradient of its batch shard, on a 1-D mesh
     dmesh = make_mesh((world,), ("data",), device=dev.type)
@@ -3907,6 +3990,35 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
         print(f"  mesh {name}_matmul M,K,N = {MESH_ARGS['ring']} bf16: max abs err "
               f"{c['max_abs_err']:.3e} (tolerance {tol:.3e}), {c['ms']:.3f} ms (host clock, "
               f"median of 5) vs torch.matmul {r['ring']['matmul_ms']:.3f} ms")
+    a, ap, asd = r["admm"], r["admm"]["plain"], r["admm"]["sharded"]
+    lo, pl = asd["losses"], ap["losses"]
+    rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(lo, pl))
+    check(all(np.isfinite(lo)), f"mesh admm: non-finite losses {lo}")
+    if world == 1:
+        check(a["equal"], f"mesh admm: sharded losses {lo} differ from the unsharded {pl}")
+    else:
+        check(rel <= MESH_LOSS_RTOL, f"mesh admm: sharded losses {lo} vs unsharded {pl} "
+              f"({rel:.2e})")
+    check(a["masks_equal"], "mesh admm: the sharded hard-prune masks differ from the unsharded")
+    for k, v in (("unsharded", ap), ("sharded", asd)):
+        check(v["n_updates"] == 1 and len(v["update_ms"]) == 1,
+              f"mesh admm: {k} ran {v['n_updates']} Z/U updates ({v['update_ms']}), not 1")
+    check(asd["u_local"], "mesh admm: a U's local shape differs from its weight's")
+
+    def step_ms(v):
+        return statistics.median(v["ms"][1:]) if len(v["ms"]) > 1 else v["ms"][0]
+
+    print(f"  mesh admm ({MESH_ARGS['arch']}, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
+          f"tokens, default_prune_plan(0.5), update_every={MESH_ADMM_EVERY}, {smi}): losses of "
+          f"{len(asd['ms'])} ADMM steps + 1 masked step {[round(x, 6) for x in lo]}, unsharded "
+          f"{[round(x, 6) for x in pl]} ({'torch.equal' if a['equal'] else f'max rel {rel:.2e}'});"
+          f" hard-prune masks torch.equal ({a['n_masks']} leaves, sparsity {a['sparsity']:.4f});"
+          f" U local shape = the weight's; ms a step {step_ms(asd):.2f} sharded vs "
+          f"{step_ms(ap):.2f} unsharded (medians of steps 1-{len(asd['ms']) - 1}; step 0 "
+          f"{asd['ms'][0]:.2f} / {ap['ms'][0]:.2f}; masked step {asd['masked_ms']:.2f} / "
+          f"{ap['masked_ms']:.2f}); Z/U update ms {asd['update_ms'][0]:.2f} sharded vs "
+          f"{ap['update_ms'][0]:.2f} unsharded (inside its step); peak GB a rank "
+          f"{asd['peak_gb']:.3f} sharded, {ap['peak_gb']:.3f} unsharded")
     p = r["pipe"]
     check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
     print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "

@@ -13,7 +13,10 @@ quadratic augment to add to the task loss; :func:`admm_update` performs the
 Z/U steps (run every ``update_every`` optimizer steps); :func:`hard_prune`
 projects the final weights and returns masks for masked fine-tuning.
 
-Z and U are f32 trees that mirror the params with ``None`` on dense leaves.
+Z and U are f32 trees that mirror the params with ``None`` on dense leaves;
+on a mesh each is a DTensor placed like its weight (the JAX package's Z and
+U inherit each weight's sharding), the Z-step projecting the whole leaf
+(``projections.project``).
 ``rho`` and ``n_updates`` live on the host (a Python float that is an exact
 f32 value, ramped in f32 as the JAX package ramps it, and an int), so the
 train step decides when to update without a device sync.  The penalty's
@@ -158,7 +161,7 @@ def admm_init(params: Tree, plan: PrunePlan, config: AdmmConfig) -> AdmmState:
     def init_u(name, w):
         if structures.get(name) is None:
             return None
-        return torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        return torch.zeros_like(w, dtype=torch.float32)
 
     return AdmmState(
         z=map_with_path(init_z, params),
@@ -192,10 +195,11 @@ class _Penalty(torch.autograd.Function):
     def forward(ctx, rho, zs, us, *ws):
         ctx.rho, ctx.zs, ctx.us = rho, zs, us
         ctx.save_for_backward(*ws)
-        total = torch.zeros((), dtype=torch.float32, device=ws[0].device)
+        total = None
         for w, z, u in zip(ws, zs, us):
             d = w.float() - z + u
-            total = total + 0.5 * torch.sum(d * d)
+            t = 0.5 * torch.sum(d * d)
+            total = t if total is None else total + t
         return rho * total
 
     @staticmethod

@@ -12,6 +12,12 @@ bit for bit.
 
 Shapes follow structures.py: 2-D ``W[K, N]`` for matrix structures, 4-D
 ``W[C_out, C_in, kh, kw]`` for PatternKernel.
+
+A DTensor leaf (params on a mesh) is projected whole: gathered to every
+rank, projected as above and cut back to its placements
+(``models.sharding.on_whole``), so its mask is the whole leaf's bit for bit
+under any rules -- JAX's ``project`` on a sharded array is the same
+function.  That costs one f32 leaf on each rank while it runs.
 """
 
 from __future__ import annotations
@@ -151,8 +157,13 @@ _DISPATCH = {
 
 
 def project(w: torch.Tensor, structure: Structure) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Euclidean projection of ``w`` onto ``structure``; returns (w_proj, mask)."""
+    """Euclidean projection of ``w`` onto ``structure``; returns (w_proj, mask)
+    (DTensors of ``w``'s placements when ``w`` is one)."""
     structure.validate(tuple(w.shape))
+    from ...models.sharding import is_dtensor, on_whole  # models import this package
+
+    if is_dtensor(w):
+        return on_whole(lambda t: project(t, structure), w)
     try:
         fn = _DISPATCH[type(structure)]
     except KeyError:

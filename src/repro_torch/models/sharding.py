@@ -25,8 +25,11 @@ partial it cannot reduce (``gather``), or takes views and pads in one
 PyTorch version that it refuses in another (2.13 against the card's 2.11):
 ``attention_on_shards`` (batch rows and heads), ``split_last`` /
 ``merge_last`` (the head reshapes), ``on_rows`` (MoE dispatch, the Mamba-2
-and RG-LRU mixers), ``gather_last`` and ``elementwise``.  On plain tensors
-each of them is the plain op.
+and RG-LRU mixers), ``gather_last`` and ``elementwise``.  ``on_whole`` runs
+work that needs a tensor whole (the ADMM projections' global top-k, the
+micro-batch split of a batch) on the gathered tensor and cuts the result
+back to the tensor's placements, each rank keeping its chunk.  On plain
+tensors each of them is the plain op.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ __all__ = [
     "attention_on_shards",
     "split_last",
     "merge_last",
+    "on_whole",
 ]
 
 Tree = Any
@@ -547,3 +551,36 @@ def merge_last(x: torch.Tensor) -> torch.Tensor:
     local = x.to_local().shape
     return _local_view(x, (*x.shape[:-2], x.shape[-2] * x.shape[-1]),
                        (*local[:-2], local[-2] * local[-1]), x.placements)
+
+
+def _shard_like(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The plain tensor ``t`` -- whole, the same on every rank -- as a
+    DTensor of ``placements`` on ``mesh``: each rank keeps its own chunk
+    (``torch.chunk`` over each mesh dim in turn, DTensor's layout), with no
+    collective.  A ``Partial`` placement becomes ``Replicate``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    pl = [Replicate() if p.is_partial() else p for p in placements]
+    local = t
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            chunks = torch.chunk(local, n, dim=p.dim)
+            local = chunks[r] if r < len(chunks) else local.narrow(p.dim, 0, 0)
+    return DTensor.from_local(local.contiguous(), mesh, pl, shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
+def on_whole(fn, x: torch.Tensor):
+    """``fn(x)`` on the whole of ``x``: a DTensor ``x`` is gathered to
+    every rank, ``fn`` runs on the plain tensor, and each tensor it returns
+    (of ``x``'s rank) is cut back to ``x``'s placements (``_shard_like``).
+    For work whose result must equal the plain op's bit for bit where a
+    per-shard version would not: a projection's global top-k and its ties,
+    the micro-batch rows of a batch.  Costs one gather of ``x`` and one
+    whole result on each rank.  Without a DTensor, the plain call."""
+    if not is_dtensor(x):
+        return fn(x)
+    mesh, pl = x.device_mesh, x.placements
+    out = fn(x.full_tensor())
+    return tree_map(lambda t: _shard_like(t, mesh, pl) if isinstance(t, torch.Tensor) else t, out)

@@ -29,7 +29,7 @@ from ..core.pruning.admm import (
     convergence_metrics,
 )
 from ..core.pruning.masks import apply_masks, mask_gradients
-from ..models.sharding import mesh_context
+from ..models.sharding import mesh_context, on_whole
 from ..utils.tree import leaves, map_with_path, tree_map
 from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
 
@@ -98,18 +98,22 @@ def make_train_step(
     ``accum > 1`` splits the batch leading dim into micro-batches whose f32
     gradients are summed and divided by ``accum`` (the optimizer sees the
     mean gradient; the metrics are the last micro-batch's, the loss the
-    mean).
+    mean).  On a mesh micro-batch ``i`` is the JAX package's rows of the
+    global batch, ``[i * B / accum, (i + 1) * B / accum)``, placed as the
+    batch (``sharding.on_whole``), and the accumulators are placed like
+    the params.
     """
+
+    def micro(v, i):
+        return v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
 
     def compute_grads(state: TrainState, batch: Batch):
         if accum == 1:
             return _value_and_grad(loss_fn, state, batch)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       state.params)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
         loss_sum = 0.0
         for i in range(accum):
-            mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-                  for k, v in batch.items()}
+            mb = {k: on_whole(lambda t: micro(t, i), v) for k, v in batch.items()}
             loss, metrics, grads = _value_and_grad(loss_fn, state, mb)
             tree_map(lambda a, g: a.add_(g.float()), acc, grads)
             loss_sum = loss_sum + loss

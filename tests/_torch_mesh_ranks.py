@@ -10,11 +10,17 @@ Cases:
 * ``mesh4`` (4 ranks): the sharded train step on a (2, 2) ``(data,
   model)`` mesh and the unsharded step; the vocab-parallel cross entropy;
   the ring matmuls on a (4,) ``model`` mesh; GPipe on a (4,) ``pipe``
-  mesh; a checkpoint saved on a (4, 1) mesh and restored onto (2, 2).
+  mesh; a checkpoint saved on a (4, 1) mesh and restored onto (2, 2), and
+  an ADMM train state the same way.
 * ``compress8`` (8 ranks): the compressed all-reduce on an (8,) ``data``
   mesh, each rank with its own gradient.
+* ``admm4`` (4 ranks, ``tests/test_torch_distributed_admm.py``): the
+  paper's ADMM recipe on a (2, 2) mesh and unsharded, at ``accum`` 1 and 2
+  (3 ADMM steps, ``hard_prune``, one masked step); every structure's
+  projection of sharded leaves under ``DEFAULT_RULES`` and ``FSDP_RULES``.
 """
 
+import dataclasses
 import datetime
 import os
 import sys
@@ -102,6 +108,162 @@ def _train(out, io_dir):
                                                for a, c in zip(g1, g0))])
 
 
+ADMM_UPDATE_EVERY = 2
+
+
+def _admm_train(out, io_dir):
+    """3 ADMM steps, ``hard_prune`` and one masked step of smoke qwen2.5-3b
+    at ``accum`` 1 and 2, unsharded and on a (2, 2) mesh (``DEFAULT_RULES``,
+    ZeRO-1 moments): the metrics of each step, Z, U and the masks gathered,
+    and whether Z, U and the masks are placed like their weights."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning.admm import AdmmConfig, admm_update, hard_prune
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import default_prune_plan
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import checkpoint, optimizer, train_loop
+    from repro_torch.utils.flops import meta_params
+    from repro_torch.utils.tree import leaves, leaves_with_path, tree_map
+
+    cfg = smoke_config("qwen2.5-3b")
+    model = get_model(cfg)
+    template = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), meta_params(cfg))
+    ocfg = optimizer.AdamWConfig(lr=2e-3, total_steps=20, warmup_steps=2)
+    acfg = AdmmConfig(update_every=ADMM_UPDATE_EVERY)
+    plan = default_prune_plan(0.5)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    for accum in (2, 1):
+        for sharded in (False, True):
+            tag = f"a{accum}_{'sharded' if sharded else 'plain'}"
+            params, _ = checkpoint.restore(os.path.join(io_dir, "params"), template)
+            if sharded:
+                specs = sh.param_pspecs(params)
+                params = sh.distribute_params(mesh, params, specs=specs)
+                mv = optimizer.zero1_pspecs(specs, params, data_size=2)
+                state = train_loop.init_train_state(params, ocfg, admm_cfg=acfg, prune_plan=plan)
+                state.opt = optimizer.adamw_init(params, ocfg, mesh=mesh, moment_specs=mv)
+            else:
+                state = train_loop.init_train_state(params, ocfg, admm_cfg=acfg, prune_plan=plan)
+            step = train_loop.make_train_step(model.loss, ocfg, admm_cfg=acfg, accum=accum)
+            pipe = SyntheticPipeline(cfg, batch=8, seq=33, seed=0)
+
+            def batch():
+                b = {k: torch.from_numpy(v) for k, v in pipe.next().items()}
+                if sharded:
+                    b = {k: distribute_tensor(v, mesh, [Shard(0), Replicate()])
+                         for k, v in b.items()}
+                return b
+
+            rows = []
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, batch())
+                rows.append([float(_np(m[k])) for k in ("ce", "loss", "primal_residual")])
+            out[f"{tag}_metrics"] = np.asarray(rows)
+            out[f"{tag}_n_updates"] = np.asarray(state.admm.n_updates)
+            adm = state.admm
+            out[f"{tag}_paths"] = np.asarray([p for p, _ in leaves_with_path(adm.z)])
+            for i, (z, u) in enumerate(zip(leaves(adm.z), leaves(adm.u))):
+                out[f"{tag}_z{i}"], out[f"{tag}_u{i}"] = _np(z), _np(u)
+            if sharded:  # the Z/U update on the mesh against the same on the whole leaves
+                whole = lambda t: tree_map(lambda x: x.full_tensor(), t)  # noqa: E731
+                own = lambda t: tree_map(lambda x: x.clone(), t)  # noqa: E731
+                got = admm_update(state.params, dataclasses.replace(adm, u=own(adm.u)), acfg)
+                ref = admm_update(whole(state.params), dataclasses.replace(
+                    adm, z=whole(adm.z), u=whole(adm.u)), acfg)
+                out[f"{tag}_update_exact"] = np.asarray([
+                    torch.equal(a.full_tensor(), b)
+                    for a, b in zip(leaves((got.z, got.u)), leaves((ref.z, ref.u)))])
+            pruned, masks = hard_prune(state.params, adm)
+            if sharded:
+                placed = []
+                for w, z, u, mk, wp in zip(*(
+                        [x for x in leaves(t) if x is not None]
+                        for t in (_pruned_weights(state.params, adm), adm.z, adm.u,
+                                  masks, _pruned_weights(pruned, adm)))):
+                    placed += [all(sh.is_dtensor(t) and t.placements == w.placements
+                                   and t.to_local().shape == w.to_local().shape
+                                   for t in (z, u, mk, wp))]
+                out[f"{tag}_placed"] = np.asarray(placed)
+                u_o = adm.u["layers"][0]["attn"]["w_o"]["w"]
+                w_o = state.params["layers"][0]["attn"]["w_o"]["w"]
+                out[f"{tag}_u_o"] = np.asarray([_spec(u_o), _spec(w_o)])
+                out[f"{tag}_u_o_local"] = np.asarray([tuple(u_o.to_local().shape),
+                                                      tuple(u_o.shape)])
+            for i, mk in enumerate(leaves(masks)):
+                out[f"{tag}_mask{i}"] = _np(mk)
+            state = train_loop.TrainState(pruned, state.opt, None, masks)
+            mstep = train_loop.make_train_step(model.loss, ocfg, accum=accum)
+            state, m = mstep(state, batch())
+            out[f"{tag}_masked"] = np.asarray([float(_np(m["ce"])), float(_np(m["loss"]))])
+
+
+def _pruned_weights(params, adm):
+    """The weights of the pruned leaves (the others ``None``), in Z's tree."""
+    from repro_torch.utils.tree import map_with_path
+
+    return map_with_path(lambda _, w, z: None if z is None else w, params, adm.z)
+
+
+def _spec(t):
+    """``t``'s placements as a spec string: the mesh axes of each dim."""
+    names = t.device_mesh.mesh_dim_names
+    dims = [[] for _ in range(t.ndim)]
+    for name, p in zip(names, t.placements):
+        if p.is_shard():
+            dims[p.dim].append(name)
+    return repr(tuple(d[0] if len(d) == 1 else (tuple(d) or None) for d in dims))
+
+
+PROJ_STRUCTURES = ("unstructured", "row", "column", "channel", "block", "block_global", "nm",
+                   "bank")
+
+
+def _structure(name):
+    from repro_torch.core.pruning import structures as st
+
+    return {"unstructured": st.Unstructured(0.5), "row": st.Row(0.5), "column": st.Column(0.5),
+            "channel": st.Channel(0.5), "block": st.Block(0.5, bm=16, bn=16),
+            "block_global": st.Block(0.5, bm=16, bn=16, balanced=False),
+            "nm": st.NM(n_keep=2, m=4), "bank": st.BankBalanced(0.5, bank=16)}[name]
+
+
+def _projections(out, inputs):
+    """Each structure's projection of the leaves of a small tree placed on a
+    (2, 2) mesh by ``DEFAULT_RULES`` and by ``FSDP_RULES``: the projected
+    leaf and its mask bit-equal to ``project`` on the whole leaf, placed like
+    the leaf."""
+    from repro_torch.core.pruning.projections import project
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.utils.tree import leaves, leaves_with_path
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    tree = {"layers": [{"attn": {"w_o": {"w": torch.from_numpy(inputs["proj_w_o"])}},
+                        "ffn": {"w_gate": {"w": torch.from_numpy(inputs["proj_w_gate"])}}}],
+            "embed": {"table": torch.from_numpy(inputs["proj_table"])}}
+    specs = []
+    for name in PROJ_STRUCTURES:
+        s = _structure(name)
+        ok = []
+        for rules in (sh.DEFAULT_RULES, sh.FSDP_RULES):
+            placed = sh.distribute_params(mesh, tree, rules)
+            for (path, w), d in zip(leaves_with_path(tree), leaves(placed)):
+                wp, m = project(w, s)
+                dp, dm = project(d, s)
+                ok.append(all(sh.is_dtensor(t) and t.placements == d.placements
+                              and t.to_local().shape == d.to_local().shape for t in (dp, dm))
+                          and torch.equal(dp.full_tensor(), wp)
+                          and torch.equal(dm.full_tensor(), m.expand(w.shape)))
+                if name == PROJ_STRUCTURES[0]:
+                    specs.append(f"{path} {_spec(d)}")
+        out[f"proj_{name}"] = np.asarray(ok)
+    out["proj_specs"] = np.asarray(specs)
+
+
 def _vocab_parallel(out, inputs):
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -183,6 +345,90 @@ def _elastic(out, io_dir):
     out["elastic_paths"] = np.asarray([p for p, _ in leaves_with_path(restored)])
 
 
+def _elastic_admm(out, io_dir):
+    """An ADMM ``TrainState`` of smoke qwen2.5-3b (params, ZeRO-1 moments, Z
+    and U with their ``None`` leaves) after one step on a (4, 1) mesh, saved
+    and restored onto (2, 2) with Z / U placed like the params: bit-exact,
+    and its next step equal to the next step of the same state moved onto
+    (2, 2) without the save, and within 1e-5 of the next step on (4, 1)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.pruning.admm import AdmmConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import default_prune_plan
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import checkpoint, optimizer, train_loop
+    from repro_torch.utils.flops import meta_params
+    from repro_torch.utils.tree import leaves, map_with_path, tree_map
+
+    cfg = smoke_config("qwen2.5-3b")
+    model = get_model(cfg)
+    template = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), meta_params(cfg))
+    params, _ = checkpoint.restore(os.path.join(io_dir, "params"), template)
+    ocfg = optimizer.AdamWConfig(lr=2e-3, total_steps=20, warmup_steps=2)
+    acfg = AdmmConfig(update_every=1)
+    step = train_loop.make_train_step(model.loss, ocfg, admm_cfg=acfg)
+    pipe = SyntheticPipeline(cfg, batch=8, seq=17, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in pipe.next().items()} for _ in range(2)]
+    specs = sh.param_pspecs(params)
+
+    def on(mesh, b):
+        return {k: distribute_tensor(v, mesh, [Shard(0), Replicate()]) for k, v in b.items()}
+
+    def shardings(mesh, state):
+        """The state's placements on ``mesh``: params by the rules, moments
+        ZeRO-1, Z / U like the params."""
+        ns = lambda t: tree_map(lambda s: sh.NamedSharding(mesh, s), t)  # noqa: E731
+        rep = sh.NamedSharding(mesh, sh.P())
+        mv = optimizer.zero1_pspecs(specs, params, data_size=mesh.size(0))
+        zs = map_with_path(lambda _, s, z: None if z is None else s, specs, state.admm.z)
+        return train_loop.TrainState(
+            ns(specs), optimizer.AdamWState(rep, ns(mv), ns(mv)),
+            dataclasses.replace(state.admm, z=ns(zs), u=ns(zs), rho=rep, n_updates=rep))
+
+    mesh_a = make_mesh((4, 1), ("data", "model"), device="cpu")
+    mesh_b = make_mesh((2, 2), ("data", "model"), device="cpu")
+    pa = sh.distribute_params(mesh_a, params, specs=specs)
+    state = train_loop.init_train_state(pa, ocfg, admm_cfg=acfg, prune_plan=default_prune_plan(0.5))
+    state.opt = optimizer.adamw_init(pa, ocfg, mesh=mesh_a, moment_specs=optimizer.zero1_pspecs(
+        specs, pa, data_size=4))
+    state, _ = step(state, on(mesh_a, batches[0]))
+    ckpt = os.path.join(io_dir, "elastic_admm")
+    checkpoint.save(ckpt, 1, state)
+    place_b = shardings(mesh_b, state)
+    restored, at = checkpoint.restore(ckpt, state, placements=place_b)
+
+    def whole(x):
+        return x.full_tensor() if sh.is_dtensor(x) else x
+
+    def same(a, b):
+        return all(torch.equal(whole(x), whole(y)) if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    # the step updates its state in place: the moved copy must own its tensors
+    moved = tree_map(lambda x, ns: distribute_tensor(x.full_tensor().clone(), ns.mesh,
+                                                     ns.placements)
+                     if sh.is_dtensor(x) else x, state, place_b)
+    u = restored.admm.u["layers"][0]["attn"]["w_o"]["w"]
+    w = restored.params["layers"][0]["attn"]["w_o"]["w"]
+    placed = (u.placements == w.placements and u.device_mesh.shape == (2, 2)
+              and u.to_local().shape == w.to_local().shape)
+    exact = same(restored, state)
+    n_none = len(leaves(params)) - len(leaves(state.admm.z))  # the dense leaves
+    after_b, m_b = step(restored, on(mesh_b, batches[1]))
+    moved_b, mm_b = step(moved, on(mesh_b, batches[1]))
+    after_a, m_a = step(state, on(mesh_a, batches[1]))
+    losses = [float(_np(m["loss"])) for m in (m_b, mm_b, m_a)]
+    out["elastic_admm"] = np.asarray([at, exact, placed, n_none > 0, restored.admm.n_updates,
+                                      same(after_b, moved_b), same(m_b, mm_b)])
+    out["elastic_admm_losses"] = np.asarray(losses)
+    out["elastic_admm_residual"] = np.asarray([float(_np(m["primal_residual"]))
+                                               for m in (m_b, m_a)])
+
+
 def _compress(out, inputs, rank):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training.compression import CompressionConfig, make_compressed_allreduce
@@ -215,8 +461,12 @@ def main(case: str, rank: int, world: int, io_dir: str) -> None:
             _ring(out, inputs)
             _gpipe(out, inputs)
             _elastic(out, io_dir)
+            _elastic_admm(out, io_dir)
         elif case == "compress8":
             _compress(out, inputs, rank)
+        elif case == "admm4":
+            _projections(out, inputs)
+            _admm_train(out, io_dir)
         else:
             raise ValueError(f"unknown case {case!r}")
         np.savez(os.path.join(io_dir, f"{case}_rank{rank}.npz"), **out)

@@ -135,13 +135,13 @@ np.savez(io + "/jax.npz", **out)
 """
 
 
-def _start_jax(io_dir):
+def _start_jax(io_dir, script_text=JAX_REF):
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
     log = open(os.path.join(io_dir, "jax.log"), "w")
     script = os.path.join(io_dir, "jax_ref.py")
     with open(script, "w") as f:
-        f.write(textwrap.dedent(JAX_REF))
+        f.write(textwrap.dedent(script_text))
     return [subprocess.Popen([sys.executable, script, str(io_dir)], env=env, stdout=log,
                              stderr=subprocess.STDOUT)], [log]
 
@@ -307,3 +307,19 @@ def test_elastic_restore_is_bit_exact(runs):
     step, same, n, model_size, local_cols, cols = runs["mesh4"]["elastic"]
     assert step == 7 and same and n == len(runs["mesh4"]["elastic_paths"]) > 0
     assert model_size == 2 and local_cols == cols // 2
+
+
+def test_elastic_restore_carries_the_admm_state(runs):
+    """An ADMM ``TrainState`` (params, ZeRO-1 moments, Z and U with their
+    ``None`` leaves) after a step on (4, 1), saved and restored onto (2, 2)
+    with Z / U placed like the params: bit-exact, its next step (a Z/U
+    update) equal to the next step of the same state moved onto (2, 2)
+    without the save, and within 1e-5 of the next step on (4, 1)."""
+    at, exact, placed, has_none, n_updates, next_equal, metrics_equal = \
+        runs["mesh4"]["elastic_admm"]
+    assert at == 1 and exact and placed and has_none and n_updates == 1
+    assert next_equal and metrics_equal
+    on_b, moved_b, on_a = runs["mesh4"]["elastic_admm_losses"]
+    assert on_b == moved_b
+    np.testing.assert_allclose(on_b, on_a, rtol=1e-5)
+    np.testing.assert_allclose(*runs["mesh4"]["elastic_admm_residual"], rtol=1e-5)
