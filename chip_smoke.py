@@ -230,6 +230,16 @@ Phases (each prints its own lines):
               on one card (else within 1e-3), the masks ``torch.equal``,
               one Z/U update each, U's local shape the weight's, ms a
               step, the Z/U update's ms and peak GB a rank;
+              deepseek-v2-lite-16b at full width (6 of 27 layers, bf16, 8 x
+              128 tokens) under ``FSDP_RULES``: three train steps unsharded
+              then sharded (the expert stacks cut over ``data`` too; losses
+              ``torch.equal`` on one card, else within 1e-3; ms a step, peak
+              GB a rank; deterministic algorithms on, as the dispatch's
+              gather backward sums with atomics otherwise), then three
+              decode steps from a prefill of 16 tokens into 64 slots,
+              unsharded and from the caches placed as the dry run places
+              them (logits ``torch.equal`` on one card, every cache leaf in
+              its placements after each step, ms a step);
               ``compressed_mean_grads`` (int8, topk)
               on that model's gradient tree, the error against the f32
               mean (int8 within half a quantization step of each leaf) and
@@ -239,8 +249,10 @@ Phases (each prints its own lines):
               f32 product); ``pipeline_forward`` over 36 layers of
               ``tanh(h @ W)`` at D = 2048 ``torch.equal`` to the
               sequential loop; then ``launch.dryrun``'s qwen2.5-3b
-              ``train_4k`` cell on the fake 16 x 16 mesh and its roofline
-              row (``launch.roofline``).  No kernel of the port launches.
+              ``train_4k`` and qwen3-14b ``decode_32k`` cells on the fake
+              16 x 16 mesh (FLOPs, bytes, collectives, argument and live
+              bytes a device) and their roofline rows
+              (``launch.roofline``).  No kernel of the port launches.
 19. examples -- the JAX package's four ``examples/*.py`` as the port's
               ``repro_torch.examples`` twins, each through its ``main`` at
               its own full settings: ``quickstart`` (ADMM block pruning,
@@ -3630,12 +3642,19 @@ MESH_ADMM_EVERY = 2
 #: seconds: the ranks' process-group timeout, and the dry-run cell's limit
 MESH_TIMEOUT_S = 300
 DRYRUN_TIMEOUT_S = 420
+#: == mesh's MoE rows: the arch (at TRAIN_ZOO's depth) under FSDP_RULES, and
+#: its decode run: rows, prompt tokens, cache slots, decode steps
+MESH_MOE_ARCH = "deepseek-v2-lite-16b"
+MESH_DECODE = dict(batch=8, prompt=16, max_len=64, steps=3)
+#: the dry-run cells == mesh runs: (arch, shape)
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen3-14b", "decode_32k"))
 
 
-def _mesh_train(torch, cfg, dev, mesh, margs, sharded, admm=False):
+def _mesh_train(torch, cfg, dev, mesh, margs, sharded, admm=False, rules=None):
     """``margs["steps"]`` train steps from the seeded init: ``(losses, ms,
-    peak GB, params, batch, loss_fn, admm_out)``; ``sharded`` places params,
-    ZeRO-1 moments and the batch on ``mesh``.  ``admm`` runs the paper's
+    peak GB, params, batch, loss_fn, admm_out)``; ``sharded`` places params
+    (by ``rules``, ``DEFAULT_RULES`` if None), ZeRO-1 moments and the batch
+    on ``mesh``.  ``admm`` runs the paper's
     recipe (``default_prune_plan(0.5)``, ``update_every=MESH_ADMM_EVERY``,
     Z and U placed like the params), then ``hard_prune`` and one masked
     step; ``admm_out`` holds the masked step's loss and ms, the Z/U
@@ -3659,7 +3678,7 @@ def _mesh_train(torch, cfg, dev, mesh, margs, sharded, admm=False):
         torch.cuda.empty_cache()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     if sharded:
-        specs = sharding.param_pspecs(params)
+        specs = sharding.param_pspecs(params, rules)
         params = sharding.distribute_params(mesh, params, specs=specs)
         mv = optimizer.zero1_pspecs(specs, params, data_size=mesh.size(0))
         state = train_loop.init_train_state(params, ocfg, admm_cfg=acfg, prune_plan=plan)
@@ -3819,6 +3838,8 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
             torch.cuda.empty_cache()
     del plain_masks
 
+    out["moe"] = _mesh_moe(torch, dist, dev, mesh, margs, smoke)
+
     # compression: each data rank's gradient of its batch shard, on a 1-D mesh
     dmesh = make_mesh((world,), ("data",), device=dev.type)
     params = get_model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
@@ -3924,6 +3945,92 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     return out
 
 
+def _mesh_moe(torch, dist, dev, mesh, margs, smoke):
+    """MESH_MOE_ARCH (TRAIN_ZOO's depth; its smoke config with ``smoke``) under
+    FSDP_RULES: the train step unsharded then sharded (losses, ms, peak GB a
+    rank), then MESH_DECODE's decode steps unsharded and sharded from one
+    prefill, the caches placed as the dry run places a decode cell's
+    (logits, whether every cache leaf kept its placements, ms a step)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tlm
+    from repro_torch.utils.tree import leaves, map_with_path
+
+    cfg = smoke_config(MESH_MOE_ARCH) if smoke else train_zoo_cfg(MESH_MOE_ARCH)
+    rules = sharding.FSDP_RULES
+    # the dispatch's gathers read each token once an expert: their backward
+    # sums those reads with atomics on the card unless told to keep an order
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain, plain_ms, plain_peak, _, _, _, _ = _mesh_train(torch, cfg, dev, None, margs,
+                                                              False)
+        losses, ms, peak, _, _, _, _ = _mesh_train(torch, cfg, dev, mesh, margs, True,
+                                                   rules=rules)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    peaks = torch.tensor([peak], device=dev)
+    dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+    out = dict(arch=MESH_MOE_ARCH, layers=cfg.n_layers,
+               full_layers=get_config(MESH_MOE_ARCH).n_layers, losses=[float(x) for x in losses],
+               plain_losses=[float(x) for x in plain], ms=ms, plain_ms=plain_ms,
+               peak_gb=float(peaks), plain_peak_gb=plain_peak,
+               equal=all(bool(torch.equal(a, b)) for a, b in zip(losses, plain)))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    md = MESH_DECODE
+    model = get_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (md["batch"], md["prompt"]), generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab, (md["batch"], md["steps"]), generator=gen, device=dev)
+    with torch.no_grad():
+        _, caches = tlm.prefill(params, cfg, prompt, md["max_len"])
+    rows = sharding.param_placements(mesh, sharding.batch_spec(mesh))
+    specs = dryrun._maybe_replicate_batch(
+        dryrun._cache_pspecs(caches, sharding.batch_spec(mesh)), caches, mesh)
+    placed = map_with_path(lambda _, t, s: distribute_tensor(
+        t, mesh, sharding.param_placements(mesh, s)), caches, specs)
+    layout = lambda tree: [(tuple(t.placements), tuple(t.to_local().shape))  # noqa: E731
+                           for t in leaves(tree)]
+    given = layout(placed)
+    dp = sharding.distribute_params(mesh, params, rules)
+    logits, kept, times = {}, [], {"plain": [], "sharded": []}
+    for name, p, c in (("plain", params, caches), ("sharded", dp, placed)):
+        logits[name] = []
+        for t in range(md["steps"]):
+            tok = steps[:, t:t + 1]
+            if name == "sharded":
+                tok = distribute_tensor(tok, mesh, rows)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with torch.no_grad(), sharding.mesh_context(p, tok, c):
+                lg, c = model.decode_step(p, {"tokens_t": tok}, c)
+            lg = lg.full_tensor() if sharding.is_dtensor(lg) else lg
+            _sync(torch, dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            logits[name].append(lg.float().cpu())
+            if name == "sharded":
+                kept.append(layout(c) == given)
+    out["decode"] = dict(
+        equal=all(bool(torch.equal(a, b)) for a, b in zip(logits["sharded"], logits["plain"])),
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(logits["sharded"], logits["plain"])),
+        ref_max=max(float(b.abs().max()) for b in logits["plain"]),
+        finite=all(bool(torch.isfinite(x).all()) for x in logits["sharded"]),
+        kept=kept, ms=times["sharded"], plain_ms=times["plain"],
+        cut=sorted({repr(pl) for pl, _ in given}))
+    del params, dp, caches, placed, c
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh(torch, smi, *, device="cuda", smoke=False):
     """Phase 18 (see the module docstring).  Spawns the ranks, checks and
     prints their results, then runs the dry-run cell and its roofline row.
@@ -4019,6 +4126,37 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
           f"{ap['masked_ms']:.2f}); Z/U update ms {asd['update_ms'][0]:.2f} sharded vs "
           f"{ap['update_ms'][0]:.2f} unsharded (inside its step); peak GB a rank "
           f"{asd['peak_gb']:.3f} sharded, {ap['peak_gb']:.3f} unsharded")
+    mo, dec = r["moe"], r["moe"]["decode"]
+    lo, pl = mo["losses"], mo["plain_losses"]
+    rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(lo, pl))
+    check(all(np.isfinite(lo)), f"mesh moe: non-finite losses {lo}")
+    check(dec["finite"], "mesh moe: non-finite decode logits")
+    check(all(dec["kept"]) and len(dec["kept"]) == MESH_DECODE["steps"],
+          f"mesh moe: a decode step moved a cache leaf off its placements ({dec['kept']})")
+    if world == 1:
+        check(mo["equal"], f"mesh moe: sharded losses {lo} differ from the unsharded {pl}")
+        check(dec["equal"], f"mesh moe: sharded decode logits differ from the unsharded "
+              f"(max abs {dec['max_abs_err']:.3e})")
+    else:
+        check(rel <= MESH_LOSS_RTOL, f"mesh moe: sharded losses {lo} vs unsharded {pl} "
+              f"({rel:.2e})")
+        check(dec["max_abs_err"] <= MESH_LOSS_RTOL * dec["ref_max"],
+              f"mesh moe: sharded decode logits off by {dec['max_abs_err']:.3e}")
+    md = MESH_DECODE
+    print(f"  mesh moe ({mo['arch']}, full width, {mo['layers']} of "
+          f"{mo['full_layers']} layers, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
+          f"tokens, FSDP_RULES, ZeRO-1, {smi}): losses {[round(x, 6) for x in lo]}, unsharded "
+          f"{[round(x, 6) for x in pl]} ({'torch.equal' if mo['equal'] else f'max rel {rel:.2e}'});"
+          f" ms a step {step_ms(mo):.2f} sharded vs {step_ms(dict(ms=mo['plain_ms'])):.2f} "
+          f"unsharded (medians of steps 1-{len(mo['ms']) - 1}; step 0 {mo['ms'][0]:.2f} / "
+          f"{mo['plain_ms'][0]:.2f}); peak GB a rank {mo['peak_gb']:.3f} sharded, "
+          f"{mo['plain_peak_gb']:.3f} unsharded")
+    print(f"  mesh moe decode ({md['batch']} rows, a {md['prompt']}-token prefill into "
+          f"{md['max_len']} slots, {md['steps']} steps; caches cut {dec['cut']}): logits "
+          f"{'torch.equal' if dec['equal'] else 'max abs err %.3e' % dec['max_abs_err']} to the "
+          f"unsharded steps', every cache leaf in its placements after each step; ms a step "
+          f"{[round(x, 2) for x in dec['ms']]} sharded vs {[round(x, 2) for x in dec['plain_ms']]}"
+          f" unsharded (host clock, synced)")
     p = r["pipe"]
     check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
     print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "
@@ -4026,24 +4164,24 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
           f"{MESH_ARGS['pipe_rows']} rows, f32): torch.equal to the sequential loop, "
           f"{p['ms']:.2f} ms")
     if not smoke:
-        r["dryrun"] = phase_dryrun_cell(smi)
+        r["dryrun"] = [phase_dryrun_cell(smi, arch, shape) for arch, shape in DRYRUN_CELLS]
     return r
 
 
-def phase_dryrun_cell(smi):
-    """``launch.dryrun`` on qwen2.5-3b ``train_4k`` (the fake 16 x 16
-    mesh) in a subprocess, then its ``launch.roofline`` row."""
+def phase_dryrun_cell(smi, arch, shape):
+    """``launch.dryrun`` on ``arch`` ``shape`` (the fake 16 x 16 mesh) in a
+    subprocess, then its ``launch.roofline`` row."""
     out_dir = ROOT / "build" / "dryrun"
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                          "qwen2.5-3b", "--shape", "train_4k", "--mesh", "single", "--force",
+                          arch, "--shape", shape, "--mesh", "single", "--force",
                           "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=DRYRUN_TIMEOUT_S)
     wall = time.perf_counter() - t0
     check(run.returncode == 0, f"dryrun: rc {run.returncode}\n{run.stdout[-2000:]}"
           f"\n{run.stderr[-2000:]}")
-    with open(out_dir / "qwen2.5-3b__train_4k__single.json") as f:
+    with open(out_dir / f"{arch}__{shape}__single.json") as f:
         rec = json.load(f)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import roofline
@@ -4052,7 +4190,7 @@ def phase_dryrun_cell(smi):
     check(a is not None and a["dominant"] in ("compute", "memory", "collective"),
           f"dryrun: no roofline row for {rec.get('error')}")
     m = rec["memory"]
-    print(f"  dryrun qwen2.5-3b train_4k single ({rec['chips']} fake ranks, {wall:.1f}s, "
+    print(f"  dryrun {arch} {shape} single ({rec['chips']} fake ranks, {wall:.1f}s, "
           f"{rec['ops']} local ops a device): per device {rec['cost']['flops']:.4e} FLOPs, "
           f"{rec['cost']['bytes_accessed']:.4e} bytes, collectives {rec['collectives']}; "
           f"arguments {m['argument_bytes'] / 1e9:.3f} GB, peak live {m['live_bytes'] / 1e9:.3f} "

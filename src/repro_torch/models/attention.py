@@ -33,7 +33,8 @@ from .layers import (
     linear_auto,
     rmsnorm,
 )
-from .sharding import attention_on_shards, is_dtensor, merge_last, on_rows, split_last
+from .sharding import (attention_on_shards, is_dtensor, merge_last, on_cache, on_heads,
+                       placed_like, split_last)
 
 __all__ = [
     "sdpa",
@@ -257,6 +258,32 @@ def init_kv_cache(
     }
 
 
+def _write_slot(t: torch.Tensor, local: torch.Tensor, new: torch.Tensor,
+                fits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``t [B, n, ...]`` with row b's ``new[b]`` at slot ``local[b]`` where
+    that slot is one of ``t``'s ``n`` (on a mesh: the rank whose slice of
+    the cache holds it) and ``fits[b]`` allows; elsewhere the row rewrites a
+    slot with what is already there (no host sync).  Out of place (a new
+    cache tensor; the input is not modified)."""
+    b, n = t.shape[:2]
+    if n == 0:
+        return t
+    keep = (local >= 0) & (local < n)
+    if fits is not None:
+        keep = keep & fits
+    at = (torch.arange(b, device=t.device), local.clamp(0, n - 1).long())
+    keep = keep.reshape(b, *[1] * (new.ndim - 1))
+    return torch.index_put(t, at, torch.where(keep, new.to(t.dtype), t[at]))
+
+
+def _partials(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The max of ``logits`` over its last dim and the sum of
+    ``exp(logit - max)``: what a split-K combine weighs a slice's
+    normalized output by."""
+    m = logits.amax(dim=-1)
+    return m, torch.exp(logits - m[..., None]).sum(dim=-1)
+
+
 def gqa_decode_step(
     p: Params,
     cfg: ArchConfig,
@@ -269,40 +296,46 @@ def gqa_decode_step(
     """One decode step: write the new k/v at slot ``pos`` (clamped to the
     last slot; ``pos % size`` in a ring buffer when ``window`` is set),
     attend over the valid slots, advance ``pos``.  Returns new cache tensors
-    (the inputs are not modified)."""
-    b = x_t.shape[0]
+    (the inputs are not modified).  On a mesh each rank attends over its
+    own slots of the cache (``sharding.on_cache``), which keeps its
+    placements."""
     dh = cfg.resolved_head_dim
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
     pos = cache["pos"]
     q, k_new, v_new = gqa_project_qkv(p, cfg, x_t, pos[:, None], mode=mode)
     size = cache["k"].shape[1]
-    slot = pos % size if window is not None else torch.clamp(pos, max=size - 1)
-    at = (torch.arange(b, device=x_t.device), slot.long())
-    # out of place (new cache tensors; DTensor has no in-place rule here)
-    k = torch.index_put(cache["k"], at, k_new[:, 0].to(cache["k"].dtype))
-    v = torch.index_put(cache["v"], at, v_new[:, 0].to(cache["v"].dtype))
-    idx = torch.arange(size, dtype=torch.int32, device=x_t.device)
-    if window is None:
-        valid = idx[None, :] <= pos[:, None]
-    else:
-        # absolute positions of the ring's slots, per row
-        wraps = torch.div(pos, size, rounding_mode="floor")[:, None]
-        kv_pos = torch.where(idx[None, :] <= slot[:, None], wraps * size + idx[None, :],
-                             (wraps - 1) * size + idx[None, :])
-        valid = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (
-            pos[:, None] - kv_pos < (window or size))
-    g = cfg.n_kv_heads
 
-    def attend(q, k, v, valid):  # row-wise: on a mesh, each rank's batch rows
-        qg = q.reshape(q.shape[0], 1, g, cfg.n_heads // g, dh).float()
+    def attend(rows, kv, lo, partial):  # the batch rows' slots [lo, lo + n)
+        q, k_new, v_new, pos = rows
+        b, n = q.shape[0], kv["k"].shape[1]
+        slot = pos % size if window is not None else torch.clamp(pos, max=size - 1)
+        k = _write_slot(kv["k"], slot - lo, k_new[:, 0])
+        v = _write_slot(kv["v"], slot - lo, v_new[:, 0])
+        idx = lo + torch.arange(n, dtype=torch.int32, device=q.device)
+        if window is None:
+            valid = idx[None, :] <= pos[:, None]
+        else:
+            # absolute positions of the ring's slots, per row
+            wraps = torch.div(pos, size, rounding_mode="floor")[:, None]
+            kv_pos = torch.where(idx[None, :] <= slot[:, None], wraps * size + idx[None, :],
+                                 (wraps - 1) * size + idx[None, :])
+            valid = (kv_pos >= 0) & (kv_pos <= pos[:, None]) & (
+                pos[:, None] - kv_pos < (window or size))
+        qg = q.reshape(b, 1, g, rep, dh).float()
         logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) / math.sqrt(dh)
         logits = torch.where(valid[:, None, None, None, :], logits,
                              torch.full((), NEG_INF, device=q.device))
         probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float())
-        return out.reshape(q.shape[0], 1, cfg.n_heads * dh).to(x_t.dtype)
+        out = torch.einsum("bgrst,btgd->bsgrd", probs, v.float()).reshape(b, 1, g * rep, dh)
+        if not partial:
+            return out, {"k": k, "v": v}
+        m, l = (t.reshape(b, 1, g * rep) for t in _partials(logits[..., 0, :]))
+        return out, m, l, {"k": k, "v": v}
 
-    y = linear_auto(p["w_o"], on_rows(attend, q, k, v, valid), mode)
-    return y, {"k": k, "v": v, "pos": pos + 1}
+    out, kv = on_cache(attend, (q, k_new, v_new, pos), {"k": cache["k"], "v": cache["v"]})
+    y = linear_auto(p["w_o"], merge_last(out).to(x_t.dtype), mode)
+    return y, {**kv, "pos": pos + 1}
 
 
 def gqa_prefill(
@@ -435,33 +468,46 @@ def mla_decode_step(p: Params, cfg: ArchConfig, x_t: torch.Tensor, cache: Params
     out_h      = (sum_t p_t c_t) W_uv_h
 
     A row at ``pos >= max_len`` writes nothing (JAX drops an out-of-range
-    scatter) and attends over the whole cache."""
-    b = x_t.shape[0]
-    dh, dr, r, h = cfg.resolved_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank, cfg.n_heads
+    scatter) and attends over the whole cache.  On a mesh the absorptions
+    run on each rank's heads (``sharding.on_heads``) and the attention on
+    each rank's slots of the cache (``sharding.on_cache``), which keeps its
+    placements."""
+    dh, dr, r = cfg.resolved_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
     pos = cache["pos"]
     q_nope, q_rope = _mla_q(p, cfg, x_t, pos[:, None])  # [B,1,H,dh], [B,1,H,dr]
-    c_new, kr_new = _mla_latent(p, cfg, x_t, pos[:, None])
+    c_new, kr_new = _mla_latent(p, cfg, x_t, pos[:, None])  # [B,1,r], [B,1,1,dr]
     size = cache["c_kv"].shape[1]
-    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    # the drop without a host sync: a row past the end rewrites its last
-    # slot with what is already there; out of place (new cache tensors)
-    fits = (pos < size)[:, None]
-    at = (torch.arange(b, device=x_t.device), pos.clamp(max=size - 1).long())
-    c_kv = torch.index_put(c_kv, at, torch.where(fits, c_new[:, 0].to(c_kv.dtype), c_kv[at]))
-    k_rope = torch.index_put(k_rope, at, torch.where(fits, kr_new.reshape(b, dr).to(k_rope.dtype),
-                                                     k_rope[at]))
-    w_uk = p["w_uk"]["w"].reshape(r, h, dh).float()
-    q_r = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
-    s_nope = torch.einsum("bhr,btr->bht", q_r, c_kv.float())
-    s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), k_rope.float())
-    valid = torch.arange(size, device=x_t.device)[None, :] <= pos[:, None]
-    logits = (s_nope + s_rope) / math.sqrt(dh + dr)
-    logits = torch.where(valid[:, None, :], logits, torch.full((), NEG_INF, device=x_t.device))
-    probs = torch.softmax(logits, dim=-1)
-    ctx = torch.einsum("bht,btr->bhr", probs, c_kv.float())
-    out = torch.einsum("bhr,rhd->bhd", ctx, p["w_uv"]["w"].reshape(r, h, dh).float())
-    y = linear(p["w_o"], out.reshape(b, 1, h * dh).to(x_t.dtype))
-    return y, {"c_kv": c_kv, "k_rope": k_rope, "pos": pos + 1}
+    q_r = on_heads(lambda q, w: torch.einsum("bhd,rhd->bhr", q[:, 0].float(),
+                                             w.reshape(r, -1, dh).float())[:, None],
+                   q_nope, p["w_uk"]["w"])  # [B,1,H,r]
+
+    def attend(rows, latent, lo, partial):  # the batch rows' slots [lo, lo + n)
+        q_r, q_rope, c_new, kr_new, pos = rows
+        b, n = q_r.shape[0], latent["c_kv"].shape[1]
+        fits = pos < size  # the drop, without a host sync
+        c_kv = _write_slot(latent["c_kv"], pos - lo, c_new[:, 0], fits)
+        k_rope = _write_slot(latent["k_rope"], pos - lo, kr_new.reshape(b, dr), fits)
+        s_nope = torch.einsum("bhr,btr->bht", q_r[:, 0], c_kv.float())
+        s_rope = torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), k_rope.float())
+        valid = lo + torch.arange(n, device=q_r.device)[None, :] <= pos[:, None]
+        logits = (s_nope + s_rope) / math.sqrt(dh + dr)
+        logits = torch.where(valid[:, None, :], logits,
+                             torch.full((), NEG_INF, device=q_r.device))
+        probs = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bht,btr->bhr", probs, c_kv.float())[:, None]
+        new = {"c_kv": c_kv, "k_rope": k_rope}
+        if not partial:
+            return ctx, new
+        m, l = _partials(logits)
+        return ctx, m[:, None], l[:, None], new
+
+    ctx, latent = on_cache(attend, (q_r, q_rope, c_new, kr_new, pos),
+                           {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]})
+    out = on_heads(lambda c, w: torch.einsum("bhr,rhd->bhd", c[:, 0],
+                                             w.reshape(r, -1, dh).float())[:, None],
+                   placed_like(ctx, q_r), p["w_uv"]["w"])  # [B,1,H,dh], on q's heads
+    y = linear(p["w_o"], merge_last(out).to(x_t.dtype))
+    return y, {**latent, "pos": pos + 1}
 
 
 # --------------------------------------------------------------------------- #

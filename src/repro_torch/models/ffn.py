@@ -30,7 +30,7 @@ from ..configs.base import ArchConfig, MoEConfig
 from ..kernels import ops as kops
 from ..kernels.ref import _ACT
 from .layers import _normal, init_linear, init_pruned_linear, linear, linear_auto
-from .sharding import on_rows
+from .sharding import on_experts, on_rows
 
 __all__ = ["init_mlp", "mlp", "init_moe", "moe"]
 
@@ -137,19 +137,30 @@ def _dispatch_indices(expert_idx: torch.Tensor, n_experts: int, capacity: int):
 
 def _gather_in(x: torch.Tensor, expert_idx: torch.Tensor, *, n_e: int, capacity: int, k: int):
     """Each expert slot's token row of ``x [B, S, D]`` (zero where the slot is
-    empty), with the dispatch bookkeeping."""
+    empty), ``[B, E, C, D]``, with the dispatch bookkeeping."""
     gather_idx, slot_valid, kept, flat_slot = _dispatch(expert_idx, n_e, capacity)
     token_of_slot = torch.div(gather_idx, k, rounding_mode="floor")  # [B, E*C]
     xe = torch.gather(x, 1, token_of_slot[..., None].expand(-1, -1, x.shape[-1]))
     xe = xe * slot_valid[..., None].to(x.dtype)
-    return xe, gather_idx, slot_valid, kept, flat_slot
+    return xe.reshape(x.shape[0], n_e, capacity, -1), gather_idx, slot_valid, kept, flat_slot
+
+
+def _experts(xe: torch.Tensor, we: Params, *, activation: str) -> torch.Tensor:
+    """The expert stacks' gated MLP over their slots: ``[B, E, C, D]`` in and
+    out."""
+    gt = _einsum("becd,edf->becf", xe, we["w_gate"])
+    ut = _einsum("becd,edf->becf", xe, we["w_up"])
+    h = _ACT["silu" if activation == "silu" else "gelu"](gt.float()).to(gt.dtype) * ut
+    return _einsum("becf,efd->becd", h, we["w_down"])
 
 
 def _gather_out(ye: torch.Tensor, slot_valid: torch.Tensor, gather_idx: torch.Tensor,
                 flat_slot: torch.Tensor) -> torch.Tensor:
-    """Each token-slot's expert output ``[B, Tk, D]``: the slot it was written
-    to, if it still owns it (what the JAX package's scatter-add of the valid
-    slots' outputs gives: a token-slot owns at most one slot)."""
+    """Each token-slot's expert output ``[B, Tk, D]`` from the slots' outputs
+    ``ye [B, E, C, D]``: the slot it was written to, if it still owns it
+    (what the JAX package's scatter-add of the valid slots' outputs gives: a
+    token-slot owns at most one slot)."""
+    ye = ye.reshape(ye.shape[0], -1, ye.shape[-1])
     owner = (torch.gather(slot_valid, 1, flat_slot)
              & (torch.gather(gather_idx, 1, flat_slot)
                 == torch.arange(flat_slot.shape[1], device=flat_slot.device)))
@@ -179,16 +190,11 @@ def moe(p: Params, cfg: ArchConfig, x: torch.Tensor, *, activation: str = "silu"
     capacity = max(int(s * k / n_e * mc.capacity_factor), 4)
     expert_idx = top_i.reshape(b, s * k)  # [B, Tk]
     # dispatch and combine are row-wise: on a mesh each rank runs them on its
-    # batch rows (``on_rows``)
+    # batch rows (``on_rows``), and the experts on its rows and experts
+    # (``on_experts``)
     xe, gather_idx, slot_valid, kept, flat_slot = on_rows(
         functools.partial(_gather_in, n_e=n_e, capacity=capacity, k=k), x, expert_idx)
-    xe = xe.reshape(b, n_e, capacity, d)
-
-    we = p["experts"]
-    gt = _einsum("becd,edf->becf", xe, we["w_gate"])
-    ut = _einsum("becd,edf->becf", xe, we["w_up"])
-    h = _ACT["silu" if activation == "silu" else "gelu"](gt.float()).to(gt.dtype) * ut
-    ye = _einsum("becf,efd->becd", h, we["w_down"]).reshape(b, n_e * capacity, d)
+    ye = on_experts(functools.partial(_experts, activation=activation), xe, p["experts"])
 
     # combine: each token-slot reads back the expert slot it was written to
     y_slots = on_rows(_gather_out, ye, slot_valid, gather_idx, flat_slot)

@@ -25,11 +25,17 @@ partial it cannot reduce (``gather``), or takes views and pads in one
 PyTorch version that it refuses in another (2.13 against the card's 2.11):
 ``attention_on_shards`` (batch rows and heads), ``split_last`` /
 ``merge_last`` (the head reshapes), ``on_rows`` (MoE dispatch, the Mamba-2
-and RG-LRU mixers), ``gather_last`` and ``elementwise``.  ``on_whole`` runs
-work that needs a tensor whole (the ADMM projections' global top-k, the
-micro-batch split of a batch) on the gathered tensor and cuts the result
-back to the tensor's placements, each rank keeping its chunk.  On plain
-tensors each of them is the plain op.
+and RG-LRU mixers), ``on_experts`` (the MoE expert stacks, gathered over
+``data`` under ``FSDP_RULES`` as GSPMD gathers an FSDP weight),
+``on_heads`` (MLA's absorbed projections), ``on_cache`` (a decode step's
+attention on each rank's slots of its cache, combined over ``model`` as
+flash-decoding's split-K: no rank gathers a cache), ``gather_last`` and
+``elementwise``.  ``on_whole`` runs work that needs a tensor whole (the ADMM
+projections' global top-k, the micro-batch split of a batch) on the
+gathered tensor and cuts the result back to the tensor's placements, each
+rank keeping its chunk; ``placed_like`` cuts a decode step's new state back
+to the placements it came in.  On plain tensors each of them is the plain
+op.
 """
 
 from __future__ import annotations
@@ -63,6 +69,10 @@ __all__ = [
     "gather_last",
     "logsumexp_pick",
     "on_rows",
+    "on_experts",
+    "on_heads",
+    "on_cache",
+    "placed_like",
     "elementwise",
     "attention_on_shards",
     "split_last",
@@ -350,9 +360,8 @@ def on_rows(fn, *rows, params=None):
     -- come whole to every rank (gathered; each rank's gradient is its
     rows' share, summed over the batch shards), and every tensor in what
     ``fn`` returns is a DTensor of the rows' placements.  For work that is
-    row-wise over the batch: MoE's dispatch, the Mamba-2 and RG-LRU mixers,
-    a decode step's attention over its cache.  Without a DTensor row, the
-    plain call."""
+    row-wise over the batch: MoE's dispatch, the Mamba-2 and RG-LRU mixers
+    and their decode steps.  Without a DTensor row, the plain call."""
     first = next((t for t in leaves(rows) if is_dtensor(t)), None)
     if first is None:
         return fn(*rows) if params is None else fn(params, *rows)
@@ -507,6 +516,148 @@ def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
         kl = placed(k, kv_pl, grad_pl)[:, :, grp:grp + 1]
         vl = placed(v, kv_pl, grad_pl)[:, :, grp:grp + 1]
     return DTensor.from_local(fn(ql, kl, vl), mesh, q_pl)
+
+
+def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A plain tensor as a DTensor replicated on ``mesh``; a DTensor's
+    pending reductions carried out."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if is_dtensor(t):
+        return reduce_partial(t)
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _placed(local: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """``local`` as a DTensor of global ``shape`` (contiguous); the shards
+    may be uneven (``torch.chunk``'s)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, placements, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _on_cut(fn, x: torch.Tensor, weights, x_dim: int, w_dim: int, by_x: bool):
+    """``fn(x, weights)`` on each rank's batch rows of ``x`` and its part of
+    a dim that ``x`` (dim ``x_dim``) and every weight (dim ``w_dim``) share:
+    a mesh dim that cuts the rows of ``x`` gathers the weights (each rank's
+    gradient its rows' share, summed back over the rows' ranks); one that
+    cuts the shared dim -- of ``x`` when ``by_x``, else of the weights --
+    keeps that cut on both; any other shard is gathered for the call.  The
+    output (``x``'s leading dims up to ``x_dim``) is placed as ``x`` was
+    cut.  Without a DTensor, the plain call."""
+    ws = leaves(weights)
+    first = next((t for t in [x, *ws] if is_dtensor(t)), None)
+    if first is None:
+        return fn(x, weights)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = first.device_mesh
+    x = _as_dtensor(x, mesh)
+    w0 = next((w for w in ws if is_dtensor(w)), None)
+    x_pl, w_pl, grad_pl = [], [], []
+    for i, xp in enumerate(x.placements):
+        cut = xp if by_x else (w0.placements[i] if w0 is not None else Replicate())
+        if xp.is_shard() and xp.dim == 0:
+            x_pl.append(Shard(0))
+            w_pl.append(Replicate())
+            grad_pl.append(Partial())
+        elif cut.is_shard() and cut.dim == (x_dim if by_x else w_dim):
+            x_pl.append(Shard(x_dim))
+            w_pl.append(Shard(w_dim))
+            grad_pl.append(Shard(w_dim))
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            grad_pl.append(Replicate())
+    local = lambda w: _as_dtensor(w, mesh).redistribute(mesh, w_pl).to_local(  # noqa: E731
+        grad_placements=grad_pl)
+    out = fn(x.redistribute(mesh, x_pl).to_local(), tree_map(local, weights))
+    return _placed(out, mesh, x_pl, (*x.shape[:x_dim + 1], *out.shape[x_dim + 1:]))
+
+
+def on_experts(fn, x: torch.Tensor, experts):
+    """``fn(x, experts)`` for a MoE expert block: ``x [B, E, C, D]`` (each
+    expert's token slots), ``experts`` a tree of ``[E, ...]`` stacks, the
+    output ``[B, E, ...]``.  On a mesh each rank runs ``fn`` on its batch
+    rows and its experts, as GSPMD runs an FSDP weight: the stacks' expert
+    cut is kept (``x`` takes the matching experts), any other cut of the
+    stacks (``FSDP_RULES``' ``data`` cut of their rows) is gathered for the
+    call and the gradient reduce-scattered back (``_on_cut``)."""
+    return _on_cut(fn, x, experts, 1, 0, by_x=False)
+
+
+def on_heads(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``fn(x, w)`` for ``x [B, S, H, d]`` and a weight ``w [r, H * d']``
+    whose last dim holds the heads in order (MLA's ``w_uk`` / ``w_uv``),
+    the output ``[B, S, H, d'']``.  On a mesh each rank runs ``fn`` on its
+    batch rows and, where ``x`` is cut over its heads, its heads of ``x``
+    and of ``w``; any other cut of ``w`` is gathered (``_on_cut``)."""
+    return _on_cut(fn, x, w, 2, 1, by_x=True)
+
+
+def on_cache(fn, rows, cache):
+    """One decode step's attention over a KV cache kept where it lies:
+    ``fn(rows, cache, lo, partial)``, where ``rows`` are batch-leading
+    tensors (the queries, the new token's entries, ``pos``), ``cache`` a
+    dict of ``[B, S, ...]`` tensors of one placement and ``lo`` the first
+    sequence slot of the ``cache`` that ``fn`` is handed.  ``fn`` writes the
+    new token into its slots that hold it and returns ``(out, cache)`` --
+    ``out [B, 1, H, d]`` normalized over its slots, in f32 -- or, with
+    ``partial``, ``(out, m, l, cache)``, ``m`` / ``l [B, 1, H]`` the max and
+    the sum of ``exp(logit - m)`` over its slots.
+
+    On a mesh each rank runs ``fn`` on its batch rows of the rows and its
+    rows and sequence slots of the cache (flash-decoding's split-K, as the
+    JAX package's ``_cache_pspecs`` lays a decode cache out: batch over the
+    data axes, sequence over ``model``); a mesh dim that cuts the sequence
+    combines the ranks' partial outputs with a log-sum-exp all-reduce, so
+    no rank gathers the cache.  A shard of any other cache dim is gathered
+    for the call and cut back.  Returns ``(out, cache)``: ``out`` placed as
+    the batch rows, every cache tensor in the placements it came in.  With
+    one slice (no DTensor, or no sequence cut over more than one rank)
+    ``out`` is ``fn``'s own, bit for bit."""
+    first = next((t for t in cache.values() if is_dtensor(t)), None)
+    if first is None:
+        return fn(rows, cache, 0, False)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, given = first.device_mesh, first.placements
+    split = next((i for i, p in enumerate(given) if p.is_shard() and p.dim == 1), None)
+    c_pl = [p if p.is_shard() and (p.dim == 0 or i == split) else Replicate()
+            for i, p in enumerate(given)]
+    r_pl = [Shard(0) if p.is_shard() and p.dim == 0 else Replicate() for p in given]
+    local_rows = tree_map(lambda t: _as_dtensor(t, mesh).redistribute(mesh, r_pl).to_local()
+                          if isinstance(t, torch.Tensor) else t, rows)
+    local = {k: t.redistribute(mesh, c_pl).to_local() for k, t in cache.items()}
+    lo = 0
+    if split is not None:
+        per = -(-first.shape[1] // mesh.size(split))  # torch.chunk's slots a shard
+        lo = min(mesh.get_local_rank(split) * per, first.shape[1])
+    if split is None or mesh.size(split) == 1:
+        out, new = fn(local_rows, local, lo, False)
+    else:
+        out, m, l, new = fn(local_rows, local, lo, True)
+        group = (mesh, split)  # functional collectives: the dry run counts them
+        c = l * torch.exp(m - funcol.all_reduce(m, "max", group))
+        out = funcol.all_reduce(out * (c / funcol.all_reduce(c, "sum", group))[..., None],
+                                "sum", group)
+        if isinstance(out, funcol.AsyncCollectiveTensor):
+            out = out.wait()
+    b = rows[0].shape[0]
+    out = _placed(out, mesh, r_pl, (b, *out.shape[1:]))
+    return out, {k: _placed(new[k], mesh, c_pl, t.shape).redistribute(mesh, given)
+                 for k, t in cache.items()}
+
+
+def placed_like(tree, like):
+    """Each DTensor of ``tree`` redistributed to the placements of its
+    counterpart in ``like`` (a decode step's new cache to the placements
+    the step was given); plain tensors as they are."""
+    return tree_map(lambda t, ref: t.redistribute(ref.device_mesh, ref.placements)
+                    if is_dtensor(t) and is_dtensor(ref) else t, tree, like)
 
 
 def _contiguous_stride(shape) -> Tuple[int, ...]:

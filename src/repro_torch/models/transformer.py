@@ -57,7 +57,8 @@ from . import ffn as ffn_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
-from .sharding import constrain, logsumexp_pick, mesh_context, on_rows, replicate_axis
+from .sharding import (constrain, logsumexp_pick, mesh_context, on_rows, placed_like,
+                       replicate_axis)
 
 __all__ = ["block_kinds", "scan_plan", "checkpointed", "init_layer", "init_lm", "forward",
            "loss_fn", "prefill", "init_cache", "decode_step"]
@@ -406,19 +407,23 @@ def decode_step(
     mode: str = "dense",
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One token for the whole stack.  Returns ``(logits [B, 1, V_pad],
-    caches)``: new cache tensors, the inputs are not modified."""
+    caches)``: new cache tensors, the inputs are not modified.  On a mesh
+    every cache tensor comes back in the placements it came in."""
     x = embed(params["embed"], tokens_t)
     new_caches: List[Params] = []
     for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        # on a mesh the recurrent steps run on each rank's batch rows with the
+        # state whole; their new state is cut back to the placements it came in
         if kind == "mamba":
-            mixed, cache = on_rows(lambda pm, hh, c: ssm_mod.mamba2_step(pm, cfg, hh, c),
-                                   h, cache, params=p["mixer"])
-            x = x + mixed
+            mixed, new = on_rows(lambda pm, hh, c: ssm_mod.mamba2_step(pm, cfg, hh, c),
+                                 h, cache, params=p["mixer"])
+            x, cache = x + mixed, placed_like(new, cache)
         else:
             if kind == "rec":
-                mixed, cache = on_rows(lambda pm, hh, c: rglru_mod.rglru_step(pm, cfg, hh, c),
-                                       h, cache, params=p["mixer"])
+                mixed, new = on_rows(lambda pm, hh, c: rglru_mod.rglru_step(pm, cfg, hh, c),
+                                     h, cache, params=p["mixer"])
+                cache = placed_like(new, cache)
             elif _attn_kind(cfg) == "mla":
                 mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
             else:

@@ -18,6 +18,11 @@ Cases:
   paper's ADMM recipe on a (2, 2) mesh and unsharded, at ``accum`` 1 and 2
   (3 ADMM steps, ``hard_prune``, one masked step); every structure's
   projection of sharded leaves under ``DEFAULT_RULES`` and ``FSDP_RULES``.
+* ``zoo4`` (4 ranks, ``tests/test_torch_distributed_zoo.py``): every
+  ``ARCH_IDS`` family's smoke config under both rule sets on (2, 2) and
+  (4, 1) meshes against the unsharded port: one forward + backward, and
+  ``DECODE_STEPS`` decode steps from a cache placed as the dry run places
+  it, with every returned cache leaf's placements; a windowed GQA cache.
 """
 
 import dataclasses
@@ -447,6 +452,212 @@ def _compress(out, inputs, rank):
         out[f"{policy}_mean"], out[f"{policy}_err"] = mean["w"].numpy(), err["w"].numpy()
 
 
+ZOO_MESHES = ((2, 2), (4, 1))
+ZOO_RULES = ("default", "fsdp")
+#: the train batch; the decode batch, cache slots and the prefix filled
+#: before the decode steps (their slots 19-21 cross the (2, 2) mesh's cut
+#: of the 40 slots at 20)
+ZOO_BATCH, ZOO_SEQ = 4, 16
+ZOO_MAX_LEN, ZOO_FILL, DECODE_STEPS = 40, 19, 3
+#: the windowed GQA cache: a ring of 8 slots, 4 a rank on (2, 2)
+ZOO_WINDOW = 8
+
+
+def zoo_decode_inputs(cfg, seed=0):
+    """The decode run's numpy inputs for ``cfg`` (either package's config):
+    the prompt's text tokens (the VLM's 16 patches fill the rest of the
+    ``ZOO_FILL`` positions), its patch embeddings or whisper's frames, and
+    the ``DECODE_STEPS`` tokens fed one a step."""
+    rng = np.random.default_rng(seed)
+    b, d = ZOO_BATCH, cfg.d_model
+    out = {"prompt": rng.integers(0, cfg.vocab, (b, ZOO_FILL - (cfg.vision_tokens or 0))
+                                  ).astype(np.int32),
+           "steps": rng.integers(0, cfg.vocab, (b, DECODE_STEPS)).astype(np.int32)}
+    if cfg.vision_tokens:
+        out["patch_embeds"] = rng.standard_normal((b, cfg.vision_tokens, d)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((b, cfg.encoder_seq, d)).astype(np.float32)
+    return out
+
+
+def _zoo_fill(model, params, inp, max_len):
+    """The plain caches after the prompt: ``prefill``, or for whisper its
+    encoder, the cross K/V and one decode step a prompt token."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tlm
+
+    cfg = model.cfg
+    prompt = torch.from_numpy(inp["prompt"])
+    if cfg.is_encdec:
+        enc = encdec.encode(params, cfg, torch.from_numpy(inp["frames"]))
+        caches = (model.init_cache(prompt.shape[0], max_len),
+                  encdec.precompute_cross_kv(params, cfg, enc))
+        for t in range(prompt.shape[1]):
+            _, caches = model.decode_step(params, {"tokens_t": prompt[:, t:t + 1]}, caches)
+        return caches
+    pe = inp.get("patch_embeds")
+    return tlm.prefill(params, cfg, prompt, max_len,
+                       patch_embeds=None if pe is None else torch.from_numpy(pe))[1]
+
+
+def _place(tree, specs, mesh):
+    """``tree`` -- the same on every rank -- placed by ``specs``, each rank
+    keeping its chunk (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import sharding as sh
+    from repro_torch.utils.tree import map_with_path
+
+    return map_with_path(lambda _, t, s: distribute_tensor(
+        t, mesh, sh.param_placements(mesh, s), src_data_rank=None), tree, specs)
+
+
+def place_caches(caches, mesh):
+    """``caches`` placed on ``mesh`` as the dry run places a decode cell's
+    (the JAX package's ``_cache_pspecs``: batch over ``data``, sequence,
+    heads or channels over ``model``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as sh
+
+    specs = dryrun._maybe_replicate_batch(dryrun._cache_pspecs(caches, sh.batch_spec(mesh)),
+                                          caches, mesh)
+    return _place(caches, specs, mesh)
+
+
+def _layout(tree):
+    """Each leaf's placements and local shape."""
+    from repro_torch.utils.tree import leaves
+
+    return [(tuple(t.placements), tuple(t.to_local().shape)) for t in leaves(tree)]
+
+
+def _zoo_decode(model, params, caches, steps, mesh=None):
+    """``DECODE_STEPS`` decode steps: the logits of each, and on a mesh
+    whether every cache leaf came back in the placements and local shape it
+    was given."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import sharding as sh
+
+    given = _layout(caches) if mesh is not None else None
+    logits, kept = [], []
+    for t in range(steps.shape[1]):
+        tok = torch.from_numpy(steps[:, t:t + 1])
+        if mesh is not None:
+            tok = distribute_tensor(tok, mesh, sh.param_placements(mesh, sh.batch_spec(mesh)))
+        with sh.mesh_context(params, tok, caches):
+            lg, caches = model.decode_step(params, {"tokens_t": tok}, caches)
+        logits.append(_np(lg))
+        if mesh is not None:
+            kept.append(_layout(caches) == given)
+    return np.stack(logits), np.asarray(kept)
+
+
+def _grad_err(grads, plain, mesh):
+    """max |sharded - plain| of each gradient leaf over the mesh: each rank
+    compares its shard with its chunk of the plain gradient, and one
+    all-reduce takes the max."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.sharding import reduce_partial
+    from repro_torch.utils.tree import leaves
+
+    def err(g, p):
+        g = reduce_partial(g)
+        mine = distribute_tensor(torch.from_numpy(p), mesh, g.placements, src_data_rank=None)
+        d = g.to_local() - mine.to_local()
+        return d.abs().max() if d.numel() else torch.zeros(())
+
+    errs = torch.stack([err(g, p) for g, p in zip(leaves(grads), plain)])
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+    return errs.numpy()
+
+
+def _zoo_batch(cfg):
+    from repro_torch.data.pipeline import SyntheticPipeline
+
+    return SyntheticPipeline(cfg, batch=ZOO_BATCH, seq=ZOO_SEQ + 1, seed=0).next()
+
+
+def _zoo(out, io_dir):
+    """Every family's sharded forward + backward and decode steps against the
+    unsharded port's (``zoo4``)."""
+    import time
+
+    from repro_torch.configs import ARCH_IDS, smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import checkpoint, train_loop
+    from repro_torch.utils.flops import meta_params
+    from repro_torch.utils.tree import leaves, leaves_with_path, tree_map
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in ZOO_MESHES}
+    rules = {"default": sh.DEFAULT_RULES, "fsdp": sh.FSDP_RULES}
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = smoke_config(arch)
+        model = get_model(cfg, device="cpu")
+        template = tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype), meta_params(cfg))
+        params, _ = checkpoint.restore(os.path.join(io_dir, f"params_{arch}"), template)
+        batch = {k: torch.from_numpy(v) for k, v in _zoo_batch(cfg).items()}
+        loss, _, grads = train_loop._value_and_grad(model.loss, train_loop.TrainState(
+            params, None), batch)
+        out[f"{arch}_loss"] = np.asarray(float(loss))
+        g_plain = [_np(g) for g in leaves(grads)]
+        out[f"{arch}_grad_max"] = np.asarray([np.abs(g).max() for g in g_plain])
+        inp = zoo_decode_inputs(cfg)
+        caches = _zoo_fill(model, params, inp, ZOO_MAX_LEN)
+        out[f"{arch}_logits"], _ = _zoo_decode(model, params, caches, inp["steps"])
+        for shape, mesh in meshes.items():
+            bd = _place(batch, {k: sh.P("data") for k in batch}, mesh)
+            for name, r in rules.items():
+                tag = f"{arch}_{shape[0]}x{shape[1]}_{name}"
+                dp = _place(params, sh.param_pspecs(params, r), mesh)
+                loss, _, grads = train_loop._value_and_grad(
+                    model.loss, train_loop.TrainState(dp, None), bd)
+                out[f"{tag}_loss"] = np.asarray(float(_np(loss)))
+                out[f"{tag}_grad_err"] = _grad_err(grads, g_plain, mesh)
+                if arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2):
+                    for i, x in enumerate(leaves(grads)):
+                        out[f"{tag}_grad{i}"] = _np(x)
+                out[f"{tag}_logits"], out[f"{tag}_kept"] = _zoo_decode(
+                    model, dp, place_caches(caches, mesh), inp["steps"], mesh)
+        out[f"{arch}_paths"] = np.asarray([p for p, _ in leaves_with_path(params)])
+        print(f"{arch}: {time.perf_counter() - t0:.1f}s", flush=True)
+    _zoo_window(out, meshes[(2, 2)])
+
+
+def _zoo_window(out, mesh):
+    """A windowed GQA layer's decode steps on a ring cache of ``ZOO_WINDOW``
+    slots, cut over ``model``, against the plain steps."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import sharding as sh
+
+    cfg = smoke_config("qwen2.5-3b")
+    gen = torch.Generator().manual_seed(1)
+    p = attn.init_gqa(gen, cfg, torch.float32)
+    x = torch.randn(ZOO_BATCH, ZOO_FILL + DECODE_STEPS, cfg.d_model, generator=gen)
+    pos = torch.arange(ZOO_FILL).expand(ZOO_BATCH, ZOO_FILL)
+    _, cache = attn.gqa_prefill(p, cfg, x[:, :ZOO_FILL], pos, ZOO_MAX_LEN, window=ZOO_WINDOW)
+    dp = sh.distribute_params(mesh, {"attn": p})["attn"]
+    dc = place_caches(cache, mesh)
+    given = _layout(dc)
+    ys, kept = [], []
+    for t in range(DECODE_STEPS):
+        xt = x[:, ZOO_FILL + t:ZOO_FILL + t + 1]
+        y, cache = attn.gqa_decode_step(p, cfg, xt, cache, window=ZOO_WINDOW)
+        xd = _place(xt, sh.P("data", None, None), mesh)
+        with sh.mesh_context(dp, xd, dc):
+            yd, dc = attn.gqa_decode_step(dp, cfg, xd, dc, window=ZOO_WINDOW)
+        ys.append((_np(y), _np(yd)))
+        kept.append(_layout(dc) == given)
+    out["window_y"] = np.asarray(ys)
+    out["window_kept"] = np.asarray(kept)
+    out["window_cut"] = np.asarray([repr(pl) for pl, _ in given])
+
+
 def main(case: str, rank: int, world: int, io_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(io_dir, 'rdzv_' + case)}",
@@ -467,6 +678,8 @@ def main(case: str, rank: int, world: int, io_dir: str) -> None:
         elif case == "admm4":
             _projections(out, inputs)
             _admm_train(out, io_dir)
+        elif case == "zoo4":
+            _zoo(out, io_dir)
         else:
             raise ValueError(f"unknown case {case!r}")
         np.savez(os.path.join(io_dir, f"{case}_rank{rank}.npz"), **out)

@@ -158,10 +158,10 @@ def _start_ranks(case, world, io_dir):
     return procs, logs
 
 
-def _finish(groups):
+def _finish(groups, wall_s=WALL_S):
     """Wait for every group under the wall limit; kill them all on a
     timeout or a failure, and raise with the failing logs."""
-    deadline = time.monotonic() + WALL_S
+    deadline = time.monotonic() + wall_s
     failed = []
     try:
         for name, (procs, logs) in groups.items():

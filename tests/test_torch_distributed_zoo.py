@@ -1,0 +1,231 @@
+"""Every zoo family's sharded train and decode steps in the port against its
+unsharded steps and the JAX package's sharded steps, on the CPU, across
+processes.
+
+The port runs as 4 gloo ranks (``tests/_torch_mesh_ranks.py``, case
+``zoo4``) behind a file rendezvous: for the smoke config of each of the ten
+``ARCH_IDS`` families, under ``DEFAULT_RULES`` and ``FSDP_RULES``, on (2, 2)
+and (4, 1) ``(data, model)`` meshes,
+
+* one sharded forward + backward (``train_loop._value_and_grad``) against
+  the unsharded one;
+* ``DECODE_STEPS`` sharded decode steps from the caches of an unsharded
+  prefill (whisper: its encoder and a decode step a prompt token), placed
+  as the dry run places a decode cell's (``launch/dryrun._cache_pspecs``:
+  batch over ``data``, sequence, heads or channels over ``model``), against
+  the unsharded steps' logits, with every returned cache leaf's placements
+  and local shape after each step;
+* a windowed GQA layer's steps on a ring cache cut over ``model``.
+
+The JAX reference runs in one subprocess on (2, 2) meshes of
+``AxisType.Auto`` axes (see ``tests/test_torch_distributed.py``): the
+deepseek-v2 smoke configs' loss and gradients under ``FSDP_RULES``, and the
+qwen2.5-3b, deepseek-v2-lite and mamba2 decode steps from its own prefill,
+its caches placed by its ``_cache_pspecs``, under both rule sets.  Both
+packages read the same params: ``numpy_tree``'s arrays in the JAX layout,
+carried into the port by ``convert.lm_params_from_numpy`` and saved as a
+checkpoint that both restore.
+
+Tolerances: losses within 1e-5 (relative) of the unsharded port's and of
+JAX's sharded step; every gradient leaf within 1e-4 x its max |unsharded|
+(and of JAX's); decode logits within 1e-5 x max |logits| of the unsharded
+port's and of JAX's sharded step (the same f32 ops, summed in other orders
+and, where the cache is cut over its sequence, combined by a log-sum-exp
+all-reduce).
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs.registry import smoke_config as jsmoke_config
+from repro.models import encdec as jencdec
+from repro.models import transformer as jlm
+from repro_torch.configs import ARCH_IDS, smoke_config
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.training import checkpoint
+from test_torch_distributed import _finish, _start_jax, _start_ranks
+from test_torch_zoo_models import numpy_tree
+
+import _torch_mesh_ranks as ranks
+
+RTOL = 1e-5
+GRAD_TOL = 1e-4
+#: the ranks' wall limit: 40 sharded train and 40 sharded decode cells, each
+#: paying DTensor's first sharding propagation of its shapes, take 80-130 s
+#: on 8 shared CPU cores (``tests/test_torch_distributed.py`` allows its
+#: smaller groups 120 s)
+WALL_S = 300
+MESHES = [f"{a}x{b}" for a, b in ranks.ZOO_MESHES]
+CELLS = [(arch, mesh, rules) for arch in ARCH_IDS for mesh in MESHES for rules in ranks.ZOO_RULES]
+JAX_TRAIN = ("deepseek-v2-lite-16b", "deepseek-v2-236b")
+JAX_DECODE = ("qwen2.5-3b", "deepseek-v2-lite-16b", "mamba2-1.3b")
+
+JAX_REF = """
+import sys
+import numpy as np
+import jax
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+
+jax.devices()  # the backend first: launch.dryrun sets XLA_FLAGS at import
+from repro.configs import smoke_config
+from repro.data.pipeline import SyntheticPipeline
+from repro.launch.dryrun import _cache_pspecs, _maybe_replicate_batch
+from repro.models import get_model
+from repro.models import transformer as lm
+from repro.models.sharding import FSDP_RULES, param_pspecs
+from repro.training import checkpoint
+
+io = sys.argv[1]
+inp = dict(np.load(io + "/inputs.npz"))
+out = {}
+m22 = jax.make_mesh((2, 2), ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                    devices=jax.devices()[:4])
+is_p = lambda x: isinstance(x, P)
+
+def place(tree, specs):
+    return jax.tree.map(lambda s, a: jax.device_put(a, NamedSharding(m22, s)), specs, tree,
+                        is_leaf=is_p)
+
+def rows(a):
+    return jax.device_put(a, NamedSharding(m22, P("data", *[None] * (a.ndim - 1))))
+
+def restore(arch):
+    cfg = smoke_config(arch)
+    model = get_model(cfg)
+    params, _ = checkpoint.restore(io + "/params_" + arch,
+                                   jax.eval_shape(model.init, jax.random.PRNGKey(0)))
+    return cfg, model, params
+
+for arch in %(train)r:
+    cfg, model, params = restore(arch)
+    params = place(params, param_pspecs(params, FSDP_RULES))
+    b = SyntheticPipeline(cfg, batch=%(batch)d, seq=%(seq)d + 1, seed=0).next()
+    with m22:
+        (loss, _), grads = jax.jit(jax.value_and_grad(model.loss, has_aux=True))(
+            params, {k: rows(v) for k, v in b.items()})
+    out[arch + "_loss"] = np.asarray(float(loss))
+    for i, g in enumerate(jax.tree.leaves(grads)):
+        out[arch + "_grad%%d" %% i] = np.asarray(g, np.float32)
+
+prefill = jax.jit(lm.prefill, static_argnums=(1, 3))
+for arch in %(decode)r:
+    cfg, model, plain = restore(arch)
+    _, caches = prefill(plain, cfg, inp[arch + "_prompt"], %(max_len)d)
+    specs = _maybe_replicate_batch(_cache_pspecs(caches, P("data")), caches, m22)
+    step = jax.jit(model.decode_step)
+    for name, rules in (("default", None), ("fsdp", FSDP_RULES)):
+        params = place(plain, param_pspecs(plain, rules))
+        c = place(caches, specs)
+        logits = []
+        with m22:
+            for t in range(%(steps)d):
+                lg, c = step(params, {"tokens_t": rows(inp[arch + "_steps"][:, t:t + 1])}, c)
+                logits.append(np.asarray(lg))
+        out[arch + "_" + name + "_logits"] = np.stack(logits)
+np.savez(io + "/jax.npz", **out)
+""" % dict(train=JAX_TRAIN, decode=JAX_DECODE, batch=ranks.ZOO_BATCH, seq=ranks.ZOO_SEQ,
+           max_len=ranks.ZOO_MAX_LEN, steps=ranks.DECODE_STEPS)
+
+
+def _numpy_params(arch):
+    """``numpy_tree``'s arrays in the JAX package's layout of ``arch``'s smoke
+    config (as ``tests/test_torch_zoo_models.zoo_case`` draws them)."""
+    cfg = jsmoke_config(arch)
+    init = jencdec.init_encdec if cfg.is_encdec else jlm.init_lm
+    return numpy_tree(jax.eval_shape(lambda: init(jax.random.PRNGKey(0), cfg)), seed=len(arch))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    io_dir = tmp_path_factory.mktemp("zoo")
+    inputs = {}
+    for arch in ARCH_IDS:
+        checkpoint.save(str(io_dir / f"params_{arch}"), 0,
+                        lm_params_from_numpy(_numpy_params(arch), device="cpu"))
+        if arch in JAX_DECODE:
+            for k, v in ranks.zoo_decode_inputs(smoke_config(arch)).items():
+                inputs[f"{arch}_{k}"] = v
+    np.savez(io_dir / "inputs.npz", **inputs)
+    _finish({"jax": _start_jax(io_dir, JAX_REF), "zoo4": _start_ranks("zoo4", 4, io_dir)},
+            wall_s=WALL_S)
+    return {"jax": dict(np.load(io_dir / "jax.npz")),
+            "port": dict(np.load(io_dir / "zoo4_rank0.npz"))}
+
+
+def _within(got, ref, tol):
+    """``|got - ref| <= tol * max|ref|``, elementwise."""
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err <= tol, err
+
+
+# --------------------------------------------------------------------------- #
+# the train step                                                               #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("arch,mesh,rules", CELLS)
+def test_sharded_forward_backward_matches_unsharded(runs, arch, mesh, rules):
+    """The loss within 1e-5 of the unsharded port's, every gradient leaf
+    within 1e-4 x its max |unsharded| (the MoE experts under ``FSDP_RULES``
+    included: gathered for use, reduce-scattered back)."""
+    p = runs["port"]
+    tag = f"{arch}_{mesh}_{rules}"
+    np.testing.assert_allclose(p[f"{tag}_loss"], p[f"{arch}_loss"], rtol=RTOL)
+    err, gmax = p[f"{tag}_grad_err"], p[f"{arch}_grad_max"]
+    assert len(err) == len(gmax) == len(p[f"{arch}_paths"]) > 0
+    worst = int(np.argmax(err / np.maximum(gmax, 1e-30)))
+    assert err[worst] <= GRAD_TOL * gmax[worst], (p[f"{arch}_paths"][worst], err[worst],
+                                                 gmax[worst])
+
+
+@pytest.mark.parametrize("arch", JAX_TRAIN)
+def test_deepseek_fsdp_step_matches_jax_sharded(runs, arch):
+    """Under ``FSDP_RULES`` on (2, 2): the loss within 1e-5 of JAX's
+    sharded step, every gradient leaf within 1e-4 x its max |JAX|."""
+    p, j = runs["port"], runs["jax"]
+    tag = f"{arch}_2x2_fsdp"
+    np.testing.assert_allclose(p[f"{tag}_loss"], j[f"{arch}_loss"], rtol=RTOL)
+    n = len(p[f"{arch}_paths"])
+    assert n == sum(k.startswith(f"{arch}_grad") for k in j)
+    for i in range(n):
+        _within(p[f"{tag}_grad{i}"], j[f"{arch}_grad{i}"], GRAD_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# decode                                                                       #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("arch,mesh,rules", CELLS)
+def test_sharded_decode_matches_unsharded(runs, arch, mesh, rules):
+    """Each step's logits within 1e-5 x max |logits| of the unsharded
+    steps', and after each step every cache leaf (GQA / MLA / Mamba-2 /
+    RG-LRU state, ``pos``, whisper's self-attention caches and its cross
+    K/V) in the placements and local shape it was given."""
+    p = runs["port"]
+    tag = f"{arch}_{mesh}_{rules}"
+    got, ref = p[f"{tag}_logits"], p[f"{arch}_logits"]
+    assert got.shape == ref.shape and got.shape[0] == ranks.DECODE_STEPS
+    _within(got, ref, RTOL)
+    kept = p[f"{tag}_kept"]
+    assert kept.shape == (ranks.DECODE_STEPS,) and kept.all()
+
+
+@pytest.mark.parametrize("rules", ranks.ZOO_RULES)
+@pytest.mark.parametrize("arch", JAX_DECODE)
+def test_sharded_decode_matches_jax_sharded(runs, arch, rules):
+    p, j = runs["port"], runs["jax"]
+    _within(p[f"{arch}_2x2_{rules}_logits"], j[f"{arch}_{rules}_logits"], RTOL)
+
+
+def test_windowed_gqa_cache_on_the_mesh(runs):
+    """A GQA layer with a window of 8 slots (its ring cache cut 4 a rank over
+    ``model``): each step's output within 1e-5 of the plain step's, the
+    cache's placements kept (``pos`` stays batch-sharded)."""
+    p = runs["port"]
+    y = p["window_y"]
+    _within(y[:, 1], y[:, 0], RTOL)
+    assert p["window_kept"].all()
+    assert set(p["window_cut"]) == {"(Shard(dim=0), Shard(dim=1))",
+                                    "(Shard(dim=0), Replicate())"}

@@ -11,7 +11,11 @@ tensors, nothing allocated.
 * prefill and decode cells run; a cell that cannot run is recorded with
   ``ok: false`` and its error, as in JAX;
 * ``analyze_record`` gives three terms and a dominant one; ``main`` writes
-  the JAX package's field names; the roofline table lists the cells.
+  the JAX package's field names; the roofline table lists the cells;
+* deepseek-v2-lite-16b at full width under ``FSDP_RULES`` (train and
+  decode, on (2, 2) and (4, 1)) runs, and qwen3-14b ``decode_32k`` on the
+  16 x 16 mesh keeps its caches cut (live bytes, all-gather bytes).  Every
+  family's smoke cells: ``tests/test_torch_dryrun_grid.py``.
 """
 
 import json
@@ -20,7 +24,8 @@ import math
 import pytest
 import torch
 
-from repro_torch.configs import smoke_config
+from repro_torch.configs import SHAPES as FULL_SHAPES
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, roofline
 from repro_torch.models import get_model
@@ -115,3 +120,38 @@ def test_roofline_of_the_cell(train_rec, tmp_path):
     for key in ("arch", "shape", "mesh", "status", "chips", "params_total", "params_active",
                 "model_flops", "step", "memory", "cost", "collectives", "ok"):
         assert key in train_rec, key
+
+
+# --------------------------------------------------------------------------- #
+# full-width cells                                                             #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_full_width_moe_cell_under_fsdp(shape, mesh):
+    """deepseek-v2-lite-16b at full width (27 layers, 64 experts) under
+    ``FSDP_RULES``: the expert stacks carry a ``data`` shard of their rows,
+    gathered for the expert products and reduce-scattered back."""
+    rec = dryrun.run_cell("deepseek-v2-lite-16b", shape, "single",
+                          mesh_shape=(mesh, ("data", "model")), shape_override=SHAPES[shape],
+                          verbose=False, overrides={"rules": "fsdp"})
+    assert rec["ok"], rec.get("error")
+    assert rec["rules"] == "fsdp" and rec["memory"]["fits_hbm"]
+    assert rec["cost"]["flops"] > 0
+
+
+def test_decode_cell_on_the_production_mesh_keeps_its_caches_cut():
+    """qwen3-14b ``decode_32k`` on the 16 x 16 mesh: the step holds at most
+    twice its arguments live (new caches beside the old, no cache gathered:
+    73.79 GB live against 4.53 GB of arguments before the caches kept their
+    cut), and its all-gathers move less than one layer's cache shard."""
+    rec = dryrun.run_cell("qwen3-14b", "decode_32k", "single", verbose=False)
+    assert rec["ok"], rec.get("error")
+    m = rec["memory"]
+    assert m["argument_bytes"] < m["live_bytes"] < 2 * m["argument_bytes"]
+    cfg = get_config("qwen3-14b")
+    shape = FULL_SHAPES["decode_32k"]
+    layer_shard = (shape.global_batch // 16) * (shape.seq_len // 16) * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2  # bf16 k of one layer on one device
+    assert rec["collectives"]["per_kind"].get("all-gather", 0) < layer_shard
