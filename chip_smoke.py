@@ -239,7 +239,11 @@ Phases (each prints its own lines):
               decode steps from a prefill of 16 tokens into 64 slots,
               unsharded and from the caches placed as the dry run places
               them (logits ``torch.equal`` on one card, every cache leaf in
-              its placements after each step, ms a step);
+              its placements after each step, ms a step); the same train
+              and decode rows for mamba2-1.3b at full width (every layer,
+              bf16) under ``DEFAULT_RULES``, its Mamba-2 mixers
+              tensor-parallel over ``model`` (``sharding.on_mixer``: each
+              rank's heads, the state and conv window where they lie);
               ``compressed_mean_grads`` (int8, topk)
               on that model's gradient tree, the error against the f32
               mean (int8 within half a quantization step of each leaf) and
@@ -249,7 +253,8 @@ Phases (each prints its own lines):
               f32 product); ``pipeline_forward`` over 36 layers of
               ``tanh(h @ W)`` at D = 2048 ``torch.equal`` to the
               sequential loop; then ``launch.dryrun``'s qwen2.5-3b
-              ``train_4k`` and qwen3-14b ``decode_32k`` cells on the fake
+              ``train_4k``, qwen3-14b ``decode_32k`` and mamba2-1.3b
+              ``decode_32k`` cells on the fake
               16 x 16 mesh (FLOPs, bytes, collectives, argument and live
               bytes a device) and their roofline rows
               (``launch.roofline``).  No kernel of the port launches.
@@ -3646,8 +3651,12 @@ DRYRUN_TIMEOUT_S = 420
 #: its decode run: rows, prompt tokens, cache slots, decode steps
 MESH_MOE_ARCH = "deepseek-v2-lite-16b"
 MESH_DECODE = dict(batch=8, prompt=16, max_len=64, steps=3)
+#: == mesh's ssm rows: the arch (at TRAIN_ZOO's depth) under DEFAULT_RULES,
+#: its Mamba-2 mixers tensor-parallel over ``model`` (``sharding.on_mixer``)
+MESH_SSM_ARCH = "mamba2-1.3b"
 #: the dry-run cells == mesh runs: (arch, shape)
-DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen3-14b", "decode_32k"))
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen3-14b", "decode_32k"),
+                ("mamba2-1.3b", "decode_32k"))
 
 
 def _mesh_train(torch, cfg, dev, mesh, margs, sharded, admm=False, rules=None):
@@ -3778,7 +3787,7 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, sharding
     from repro_torch.training import compression, train_loop
     from repro_torch.training.collective_matmul import make_overlapped_tp_matmuls
     from repro_torch.training.pipeline_parallel import pipeline_forward
@@ -3838,7 +3847,9 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
             torch.cuda.empty_cache()
     del plain_masks
 
-    out["moe"] = _mesh_moe(torch, dist, dev, mesh, margs, smoke)
+    out["moe"] = _mesh_model(torch, dist, dev, mesh, margs, smoke, MESH_MOE_ARCH,
+                             sharding.FSDP_RULES)
+    out["ssm"] = _mesh_model(torch, dist, dev, mesh, margs, smoke, MESH_SSM_ARCH, None)
 
     # compression: each data rank's gradient of its batch shard, on a 1-D mesh
     dmesh = make_mesh((world,), ("data",), device=dev.type)
@@ -3945,12 +3956,13 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     return out
 
 
-def _mesh_moe(torch, dist, dev, mesh, margs, smoke):
-    """MESH_MOE_ARCH (TRAIN_ZOO's depth; its smoke config with ``smoke``) under
-    FSDP_RULES: the train step unsharded then sharded (losses, ms, peak GB a
-    rank), then MESH_DECODE's decode steps unsharded and sharded from one
-    prefill, the caches placed as the dry run places a decode cell's
-    (logits, whether every cache leaf kept its placements, ms a step)."""
+def _mesh_model(torch, dist, dev, mesh, margs, smoke, arch, rules):
+    """``arch`` at TRAIN_ZOO's depth (its smoke config with ``smoke``) under
+    ``rules`` (``DEFAULT_RULES`` if None): the train step unsharded then
+    sharded (losses, ms, peak GB a rank), then MESH_DECODE's decode steps
+    unsharded and sharded from one prefill, the caches placed as the dry
+    run places a decode cell's (logits, whether every cache leaf kept its
+    placements, ms a step)."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config, smoke_config
@@ -3960,8 +3972,7 @@ def _mesh_moe(torch, dist, dev, mesh, margs, smoke):
     from repro_torch.models import transformer as tlm
     from repro_torch.utils.tree import leaves, map_with_path
 
-    cfg = smoke_config(MESH_MOE_ARCH) if smoke else train_zoo_cfg(MESH_MOE_ARCH)
-    rules = sharding.FSDP_RULES
+    cfg = smoke_config(arch) if smoke else train_zoo_cfg(arch)
     # the dispatch's gathers read each token once an expert: their backward
     # sums those reads with atomics on the card unless told to keep an order
     deterministic = torch.are_deterministic_algorithms_enabled()
@@ -3975,8 +3986,8 @@ def _mesh_moe(torch, dist, dev, mesh, margs, smoke):
         torch.use_deterministic_algorithms(deterministic)
     peaks = torch.tensor([peak], device=dev)
     dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
-    out = dict(arch=MESH_MOE_ARCH, layers=cfg.n_layers,
-               full_layers=get_config(MESH_MOE_ARCH).n_layers, losses=[float(x) for x in losses],
+    out = dict(arch=arch, layers=cfg.n_layers,
+               full_layers=get_config(arch).n_layers, losses=[float(x) for x in losses],
                plain_losses=[float(x) for x in plain], ms=ms, plain_ms=plain_ms,
                peak_gb=float(peaks), plain_peak_gb=plain_peak,
                equal=all(bool(torch.equal(a, b)) for a, b in zip(losses, plain)))
@@ -4029,6 +4040,41 @@ def _mesh_moe(torch, dist, dev, mesh, margs, smoke):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _print_mesh_model(key, mo, rules, world, smi, step_ms):
+    """Check and print ``== mesh``'s rows of one model (``_mesh_model``)."""
+    dec = mo["decode"]
+    lo, pl = mo["losses"], mo["plain_losses"]
+    rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(lo, pl))
+    check(all(np.isfinite(lo)), f"mesh {key}: non-finite losses {lo}")
+    check(dec["finite"], f"mesh {key}: non-finite decode logits")
+    check(all(dec["kept"]) and len(dec["kept"]) == MESH_DECODE["steps"],
+          f"mesh {key}: a decode step moved a cache leaf off its placements ({dec['kept']})")
+    if world == 1:
+        check(mo["equal"], f"mesh {key}: sharded losses {lo} differ from the unsharded {pl}")
+        check(dec["equal"], f"mesh {key}: sharded decode logits differ from the unsharded "
+              f"(max abs {dec['max_abs_err']:.3e})")
+    else:
+        check(rel <= MESH_LOSS_RTOL, f"mesh {key}: sharded losses {lo} vs unsharded {pl} "
+              f"({rel:.2e})")
+        check(dec["max_abs_err"] <= MESH_LOSS_RTOL * dec["ref_max"],
+              f"mesh {key}: sharded decode logits off by {dec['max_abs_err']:.3e}")
+    md = MESH_DECODE
+    print(f"  mesh {key} ({mo['arch']}, full width, {mo['layers']} of "
+          f"{mo['full_layers']} layers, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
+          f"tokens, {rules}, ZeRO-1, {smi}): losses {[round(x, 6) for x in lo]}, unsharded "
+          f"{[round(x, 6) for x in pl]} ({'torch.equal' if mo['equal'] else f'max rel {rel:.2e}'});"
+          f" ms a step {step_ms(mo):.2f} sharded vs {step_ms(dict(ms=mo['plain_ms'])):.2f} "
+          f"unsharded (medians of steps 1-{len(mo['ms']) - 1}; step 0 {mo['ms'][0]:.2f} / "
+          f"{mo['plain_ms'][0]:.2f}); peak GB a rank {mo['peak_gb']:.3f} sharded, "
+          f"{mo['plain_peak_gb']:.3f} unsharded")
+    print(f"  mesh {key} decode ({md['batch']} rows, a {md['prompt']}-token prefill into "
+          f"{md['max_len']} slots, {md['steps']} steps; caches cut {dec['cut']}): logits "
+          f"{'torch.equal' if dec['equal'] else 'max abs err %.3e' % dec['max_abs_err']} to the "
+          f"unsharded steps', every cache leaf in its placements after each step; ms a step "
+          f"{[round(x, 2) for x in dec['ms']]} sharded vs {[round(x, 2) for x in dec['plain_ms']]}"
+          f" unsharded (host clock, synced)")
 
 
 def phase_mesh(torch, smi, *, device="cuda", smoke=False):
@@ -4126,37 +4172,8 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
           f"{ap['masked_ms']:.2f}); Z/U update ms {asd['update_ms'][0]:.2f} sharded vs "
           f"{ap['update_ms'][0]:.2f} unsharded (inside its step); peak GB a rank "
           f"{asd['peak_gb']:.3f} sharded, {ap['peak_gb']:.3f} unsharded")
-    mo, dec = r["moe"], r["moe"]["decode"]
-    lo, pl = mo["losses"], mo["plain_losses"]
-    rel = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(lo, pl))
-    check(all(np.isfinite(lo)), f"mesh moe: non-finite losses {lo}")
-    check(dec["finite"], "mesh moe: non-finite decode logits")
-    check(all(dec["kept"]) and len(dec["kept"]) == MESH_DECODE["steps"],
-          f"mesh moe: a decode step moved a cache leaf off its placements ({dec['kept']})")
-    if world == 1:
-        check(mo["equal"], f"mesh moe: sharded losses {lo} differ from the unsharded {pl}")
-        check(dec["equal"], f"mesh moe: sharded decode logits differ from the unsharded "
-              f"(max abs {dec['max_abs_err']:.3e})")
-    else:
-        check(rel <= MESH_LOSS_RTOL, f"mesh moe: sharded losses {lo} vs unsharded {pl} "
-              f"({rel:.2e})")
-        check(dec["max_abs_err"] <= MESH_LOSS_RTOL * dec["ref_max"],
-              f"mesh moe: sharded decode logits off by {dec['max_abs_err']:.3e}")
-    md = MESH_DECODE
-    print(f"  mesh moe ({mo['arch']}, full width, {mo['layers']} of "
-          f"{mo['full_layers']} layers, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
-          f"tokens, FSDP_RULES, ZeRO-1, {smi}): losses {[round(x, 6) for x in lo]}, unsharded "
-          f"{[round(x, 6) for x in pl]} ({'torch.equal' if mo['equal'] else f'max rel {rel:.2e}'});"
-          f" ms a step {step_ms(mo):.2f} sharded vs {step_ms(dict(ms=mo['plain_ms'])):.2f} "
-          f"unsharded (medians of steps 1-{len(mo['ms']) - 1}; step 0 {mo['ms'][0]:.2f} / "
-          f"{mo['plain_ms'][0]:.2f}); peak GB a rank {mo['peak_gb']:.3f} sharded, "
-          f"{mo['plain_peak_gb']:.3f} unsharded")
-    print(f"  mesh moe decode ({md['batch']} rows, a {md['prompt']}-token prefill into "
-          f"{md['max_len']} slots, {md['steps']} steps; caches cut {dec['cut']}): logits "
-          f"{'torch.equal' if dec['equal'] else 'max abs err %.3e' % dec['max_abs_err']} to the "
-          f"unsharded steps', every cache leaf in its placements after each step; ms a step "
-          f"{[round(x, 2) for x in dec['ms']]} sharded vs {[round(x, 2) for x in dec['plain_ms']]}"
-          f" unsharded (host clock, synced)")
+    for key, rules in (("moe", "FSDP_RULES"), ("ssm", "DEFAULT_RULES")):
+        _print_mesh_model(key, r[key], rules, world, smi, step_ms)
     p = r["pipe"]
     check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
     print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "

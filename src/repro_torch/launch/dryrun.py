@@ -16,7 +16,9 @@ Per device it records argument bytes (the local shards), the peak of live
 bytes and whether it fits a card's HBM, FLOPs, bytes accessed (inputs plus
 outputs of every aten op: no fusion in eager PyTorch), collective bytes by
 kind (from the collectives DTensor issues), plus the analytic
-``model_flops`` and parameter counts (``utils.flops``).
+``model_flops`` and parameter counts (``utils.flops``); a decode cell also
+records whether every cache leaf came back in the placements and local
+shape it was given (``caches_kept``).
 
 XLA's cost analysis counts a while-loop body once, so the JAX package
 reconstructs its counts from 1- and 2-unit probes.  Eager PyTorch runs
@@ -224,6 +226,9 @@ def _run_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *, zero1: bool, remat: 
         out_bytes = sum(_local(t).untyped_storage().nbytes() for t in out_tensors)
     rep = costs.report()
     live = rep["peak_live_bytes"]
+    extra = {}
+    if step_name == "serve_step":
+        extra["caches_kept"] = _layout(out[1]) == _layout(caches)
     return {
         "step": step_name,
         "trace_s": round(time.time() - t0, 2),
@@ -240,11 +245,18 @@ def _run_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *, zero1: bool, remat: 
         "cost": {"flops": rep["flops"], "bytes_accessed": rep["bytes_accessed"]},
         "collectives": rep["collectives"],
         "ops": sum(costs.ops.values()),
+        **extra,
     }
 
 
 def _local(t):
     return t.to_local() if is_dtensor(t) else t
+
+
+def _layout(tree):
+    """Each tensor leaf's placements and local shape."""
+    return [(tuple(getattr(t, "placements", ())), tuple(_local(t).shape)) for t in leaves(tree)
+            if isinstance(t, torch.Tensor)]
 
 
 # --------------------------------------------------------------------------- #

@@ -15,6 +15,16 @@ log-depth doubling scan (Hillis-Steele: ceil(log2 S) rounds of whole-tensor
 ops), where the JAX package runs ``jax.lax.associative_scan``: the same
 combine, composed in another order, so the two agree to f32 rounding, not
 bit for bit.  Decode is the plain recurrence with a ``[B, W]`` f32 state.
+
+Tensor parallelism (``sharding.on_mixer``, as the JAX package's rules cut
+the block): each of the ranks of ``cut`` runs its share of the W channels.
+``gate_proj`` and ``in_proj`` run on its column cut, the conv and Lambda
+(replicated) on its channels; ``W_r`` and ``W_i`` are cut by columns too
+and read the conv's output whole, so that activation is gathered.  The
+scan runs on the rank's channels, ``out_proj`` (cut by rows) leaves a
+partial sum, and a decode step's ``h`` and conv window stay on the
+channels the JAX package's ``_cache_pspecs`` gives the rank.  With one
+rank (``WHOLE``) every step is the plain op.
 """
 
 from __future__ import annotations
@@ -28,11 +38,18 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.ref import _ACT
 from .layers import causal_conv1d, conv1d_step, init_conv1d, init_linear, linear, linspace
-from .sharding import elementwise
+from .sharding import WHOLE, MixerCut
 
-__all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache", "rglru_step", "linear_scan"]
+__all__ = ["init_rglru_block", "rglru_block", "init_rglru_cache", "rglru_step", "linear_scan",
+           "TP"]
 
 Params = Dict[str, Any]
+
+#: ``sharding.on_mixer``'s layout of the block: the input projections and
+#: the gates cut by columns, ``out_proj`` by rows, ``h`` and the conv window
+#: by channels
+TP = dict(cols=("in_proj", "gate_proj", "w_r", "w_i"), rows=("out_proj",),
+          cache_dims={"h": 1, "conv": 2})
 
 _C = 8.0  # Griffin's fixed exponent scale
 _gelu = _ACT["gelu"]  # tanh GeLU, jax.nn.gelu's default
@@ -57,13 +74,27 @@ def init_rglru_block(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16
     }
 
 
-def _gates(p: Params, x: torch.Tensor):
-    """``x [..., W]`` (after the conv) -> ``(a, gated input)``, both f32."""
-    r = torch.sigmoid(linear(p["w_r"], x).float())
-    i = torch.sigmoid(linear(p["w_i"], x).float())
-    a = torch.exp(_C * r * elementwise(F.logsigmoid, p["lam"]))
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
+def _share(cfg: ArchConfig, cut: MixerCut) -> Tuple[int, int]:
+    """The rank's channels ``[c0, c1)``."""
+    w = _width(cfg)
+    c0, k = cut.split(w, f"{cfg.name}: the {w} RG-LRU channels")
+    return c0, c0 + k
+
+
+def _gates(p: Params, cfg: ArchConfig, u: torch.Tensor, cut: MixerCut, c0: int, c1: int):
+    """``u [..., W_rank]`` (after the conv, the rank's channels) -> ``(a,
+    gated input)`` on those channels, both f32; the gates read ``u``
+    whole."""
+    whole = cut.gather(u, _width(cfg))
+    r = torch.sigmoid(linear(p["w_r"], whole).float())
+    i = torch.sigmoid(linear(p["w_i"], whole).float())
+    a = torch.exp(_C * r * F.logsigmoid(p["lam"][c0:c1]))
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
     return a, b
+
+
+def _conv_cols(p: Params, c0: int, c1: int) -> Params:
+    return {"w": p["w"][:, c0:c1], "b": p["b"][c0:c1]}
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -79,13 +110,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return b.movedim(0, dim)
 
 
-def rglru_block(p: Params, cfg: ArchConfig, x: torch.Tensor, *, return_state: bool = False):
+def rglru_block(p: Params, cfg: ArchConfig, x: torch.Tensor, *, return_state: bool = False,
+                cut: MixerCut = WHOLE):
     """Full-sequence recurrent block, ``x [B, S, D]``; with ``return_state``
     also the decode cache (the final h and the conv window) for chunked
-    prefill."""
+    prefill.  With ``cut`` (``sharding.on_mixer``) on the rank's channels;
+    the output is then a partial sum over the ranks, the cache the rank's
+    share."""
+    c0, c1 = _share(cfg, cut)
     gate = _gelu(linear(p["gate_proj"], x).float())
     u_raw = linear(p["in_proj"], x)
-    a, b = _gates(p, causal_conv1d(p["conv"], u_raw))  # [B, S, W] each, f32
+    u = causal_conv1d(_conv_cols(p["conv"], c0, c1), u_raw)
+    a, b = _gates(p, cfg, u, cut, c0, c1)  # [B, S, W] each, f32
     h = linear_scan(a, b, dim=1)
     out = linear(p["out_proj"], (h * gate).to(x.dtype))
     if not return_state:
@@ -103,11 +139,15 @@ def init_rglru_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16, device=N
     }
 
 
-def rglru_step(p: Params, cfg: ArchConfig, x_t: torch.Tensor, cache: Params
-               ) -> Tuple[torch.Tensor, Params]:
-    """One decode step: ``x_t [B, 1, D]``."""
+def rglru_step(p: Params, cfg: ArchConfig, x_t: torch.Tensor, cache: Params,
+               cut: MixerCut = WHOLE) -> Tuple[torch.Tensor, Params]:
+    """One decode step: ``x_t [B, 1, D]``.  With ``cut``, on the rank's
+    channels, which ``cache["h"]`` and ``cache["conv"]`` hold; the output is
+    a partial sum."""
+    c0, c1 = _share(cfg, cut)
     gate = _gelu(linear(p["gate_proj"], x_t[:, 0]).float())
-    u, conv_win = conv1d_step(p["conv"], cache["conv"], linear(p["in_proj"], x_t[:, 0]))
-    a, b = _gates(p, u)
+    u, conv_win = conv1d_step(_conv_cols(p["conv"], c0, c1), cache["conv"],
+                              linear(p["in_proj"], x_t[:, 0]))
+    a, b = _gates(p, cfg, u, cut, c0, c1)
     h = a * cache["h"] + b
     return linear(p["out_proj"], (h * gate).to(x_t.dtype)[:, None, :]), {"h": h, "conv": conv_win}

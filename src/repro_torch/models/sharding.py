@@ -24,18 +24,20 @@ where DTensor has no sharding rule for an op (``scatter_reduce``), leaves a
 partial it cannot reduce (``gather``), or takes views and pads in one
 PyTorch version that it refuses in another (2.13 against the card's 2.11):
 ``attention_on_shards`` (batch rows and heads), ``split_last`` /
-``merge_last`` (the head reshapes), ``on_rows`` (MoE dispatch, the Mamba-2
-and RG-LRU mixers), ``on_experts`` (the MoE expert stacks, gathered over
-``data`` under ``FSDP_RULES`` as GSPMD gathers an FSDP weight),
-``on_heads`` (MLA's absorbed projections), ``on_cache`` (a decode step's
-attention on each rank's slots of its cache, combined over ``model`` as
-flash-decoding's split-K: no rank gathers a cache), ``gather_last`` and
-``elementwise``.  ``on_whole`` runs work that needs a tensor whole (the ADMM
-projections' global top-k, the micro-batch split of a batch) on the
-gathered tensor and cuts the result back to the tensor's placements, each
-rank keeping its chunk; ``placed_like`` cuts a decode step's new state back
-to the placements it came in.  On plain tensors each of them is the plain
-op.
+``merge_last`` (the head reshapes), ``on_rows`` (MoE dispatch),
+``on_mixer`` (the Mamba-2 and RG-LRU mixers and their decode steps on each
+rank's heads or channels: input projections cut by columns, the output
+projection by rows, the recurrent state where it lies), ``on_experts``
+(the MoE expert stacks, gathered over ``data`` under ``FSDP_RULES`` as
+GSPMD gathers an FSDP weight), ``on_heads`` (MLA's absorbed projections),
+``on_cache`` (a decode step's attention on each rank's slots of its cache,
+combined over ``model`` as flash-decoding's split-K: no rank gathers a
+cache) and ``gather_last``.  ``on_whole`` runs work that needs a tensor
+whole (the ADMM projections' global top-k, the micro-batch split of a
+batch) on the gathered tensor and cuts the result back to the tensor's
+placements, each rank keeping its chunk; ``placed_like`` redistributes a
+tree to the placements of another (MLA's absorbed context onto the
+query's heads).  On plain tensors each of them is the plain op.
 """
 
 from __future__ import annotations
@@ -69,11 +71,13 @@ __all__ = [
     "gather_last",
     "logsumexp_pick",
     "on_rows",
+    "MixerCut",
+    "WHOLE",
+    "on_mixer",
     "on_experts",
     "on_heads",
     "on_cache",
     "placed_like",
-    "elementwise",
     "attention_on_shards",
     "split_last",
     "merge_last",
@@ -352,34 +356,24 @@ def gather_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(torch.gather(x.to_local(), -1, index.to_local()), mesh, pl)
 
 
-def on_rows(fn, *rows, params=None):
-    """``fn(*rows)`` (``fn(params, *rows)`` when ``params`` is given) on each
-    rank's batch rows: every DTensor in the ``rows`` (tensors or trees of
-    them, batch-leading) is placed as the first one with only its dim-0
-    shards kept (its pending reductions carried out), ``params`` -- a tree
-    -- come whole to every rank (gathered; each rank's gradient is its
-    rows' share, summed over the batch shards), and every tensor in what
-    ``fn`` returns is a DTensor of the rows' placements.  For work that is
-    row-wise over the batch: MoE's dispatch, the Mamba-2 and RG-LRU mixers
-    and their decode steps.  Without a DTensor row, the plain call."""
+def on_rows(fn, *rows):
+    """``fn(*rows)`` on each rank's batch rows: every DTensor in the
+    ``rows`` (tensors or trees of them, batch-leading) is placed as the
+    first one with only its dim-0 shards kept (its pending reductions
+    carried out), and every tensor in what ``fn`` returns is a DTensor of
+    the rows' placements.  For work that is row-wise over the batch and has
+    no weights: MoE's dispatch.  Without a DTensor row, the plain call."""
     first = next((t for t in leaves(rows) if is_dtensor(t)), None)
     if first is None:
-        return fn(*rows) if params is None else fn(params, *rows)
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+        return fn(*rows)
+    from torch.distributed.tensor import DTensor, Replicate
 
     mesh = first.device_mesh
     pl = [p if p.is_shard() and p.dim == 0 else Replicate() for p in first.placements]
     local = [tree_map(lambda t: t.redistribute(mesh, pl).to_local() if is_dtensor(t) else t, a)
              for a in rows]
-    if params is None:
-        out = fn(*local)
-    else:
-        grad = [Partial() if p.is_shard() else Replicate() for p in pl]
-        whole = lambda t: (t.redistribute(mesh, [Replicate()] * mesh.ndim)  # noqa: E731
-                           .to_local(grad_placements=grad) if is_dtensor(t) else t)
-        out = fn(tree_map(whole, params), *local)
     return tree_map(lambda t: DTensor.from_local(t, mesh, pl)
-                    if isinstance(t, torch.Tensor) else t, out)
+                    if isinstance(t, torch.Tensor) else t, fn(*local))
 
 
 def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -418,18 +412,6 @@ def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.nn.functional.embedding(tok_local, w_local)
     return reduce_partial(DTensor.from_local(out, mesh, out_pl))
-
-
-def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for an elementwise ``fn``, on each rank's shard of a
-    DTensor ``x`` (placements kept)."""
-    if not is_dtensor(x):
-        return fn(x)
-    from torch.distributed.tensor import DTensor
-
-    x = reduce_partial(x)
-    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
-                              shape=x.shape, stride=x.stride())
 
 
 def logsumexp_pick(x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -597,6 +579,185 @@ def on_heads(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _on_cut(fn, x, w, 2, 1, by_x=True)
 
 
+class MixerCut:
+    """This rank's share of a mixer that :func:`on_mixer` runs
+    tensor-parallel: ``n`` ranks cut its heads or channels over one mesh
+    dim, this one is rank ``r`` of them.  On tensors whose dim 0 holds the
+    batch rows, ``gather(t, total)`` joins every rank's chunk of ``t``'s
+    last dim (``total`` wide in all; the gradient is reduce-scattered back)
+    and ``sum(t)`` adds ``t`` over the ranks (the gradient comes whole to
+    each).  :data:`WHOLE`, the cut of a plain call, is one rank: both
+    return ``t`` itself."""
+
+    def __init__(self, mesh=None, dim: Optional[int] = None, rows_pl=None, rows: int = 0):
+        self.mesh, self.dim, self.rows_pl, self.rows = mesh, dim, rows_pl, rows
+        self.n = 1 if dim is None else mesh.size(dim)
+        self.r = 0 if dim is None else mesh.get_local_rank(dim)
+
+    def split(self, total: int, what: str) -> Tuple[int, int]:
+        """``(first, count)`` of this rank's even share of ``total`` heads
+        or channels; raises when the ranks do not divide them (a mixer is
+        never gathered whole for want of a cut)."""
+        if total % self.n:
+            names = self.mesh.mesh_dim_names
+            raise ValueError(
+                f"{what} do not divide over the {self.n} ranks of mesh dim "
+                f"{names[self.dim]!r} of the mesh {dict(zip(names, self.mesh.shape))}")
+        k = total // self.n
+        return self.r * k, k
+
+    def chunk(self, total: int) -> Tuple[int, int]:
+        """``[lo, hi)``: this rank's ``torch.chunk`` piece of ``total`` (a
+        decode cache's cut, which need not be even)."""
+        return self._span(self.r, total)
+
+    def _on(self, p) -> list:
+        """The rows' placements with ``p`` over the cut's mesh dim."""
+        return [p if i == self.dim else q for i, q in enumerate(self.rows_pl)]
+
+    def gather(self, t: torch.Tensor, total: int) -> torch.Tensor:
+        if self.n == 1:
+            return t
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        d = _placed(t, self.mesh, self._on(Shard(t.ndim - 1)), (self.rows, *t.shape[1:-1], total))
+        return d.redistribute(self.mesh, self._on(Replicate())).to_local(
+            grad_placements=self._on(Partial()))
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.n == 1:
+            return t
+        return _SumOver.apply(t, (self.mesh, self.dim))
+
+    def columns(self, w: torch.Tensor, total: int, keep) -> torch.Tensor:
+        """The columns ``keep(r)`` (ascending) of a weight cut by columns
+        over the ranks (``w``, ``[..., k]``: this rank's ``torch.chunk``
+        piece of ``total``), for this rank ``r``, through one all-to-all in
+        which each rank sends every rank the columns it holds of that
+        rank's ``keep``; the gradient goes back the same way and is summed
+        where several ranks took one column."""
+        from torch.distributed import _functional_collectives as funcol
+
+        spans = [self._span(k, total) for k in range(self.n)]
+        lo, hi = spans[self.r]
+        send, out_splits = [], []
+        for m in range(self.n):
+            send += [c - lo for c in keep(m) if lo <= c < hi]
+        for k_lo, k_hi in spans:
+            out_splits.append(sum(k_lo <= c < k_hi for c in keep(self.r)))
+        in_splits = [sum(lo <= c < hi for c in keep(m)) for m in range(self.n)]
+        idx = torch.tensor(send, dtype=torch.long, device=w.device)
+        rows = w.index_select(-1, idx).movedim(-1, 0).contiguous()
+        got = funcol.all_to_all_single_autograd(rows, out_splits, in_splits,
+                                                (self.mesh, self.dim))
+        if isinstance(got, funcol.AsyncCollectiveTensor):
+            got = got.wait()
+        return got.movedim(0, -1)
+
+    def _span(self, r: int, total: int) -> Tuple[int, int]:
+        per = -(-total // self.n)
+        lo = min(r * per, total)
+        return lo, min(lo + per, total)
+
+
+class _SumOver(torch.autograd.Function):
+    """``t`` summed over a mesh dim's ranks, whose uses of the sum differ
+    (each rank normalizes its own channels by it): the gradient is summed
+    over the ranks too."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    out = funcol.all_reduce(t, "sum", group)  # functional: the dry run counts it
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+#: the cut of a plain call: one rank, every head and channel
+WHOLE = MixerCut()
+
+
+def on_mixer(fn, x: torch.Tensor, params, cache=None, *, cols=(), rows=(), cache_dims=None):
+    """``fn(params, x, cut)`` -- or ``fn(params, x, cache, cut)``, which
+    returns ``(out, cache)`` -- for a recurrent mixer whose ``params[k]["w"]``
+    is cut by columns for ``k`` in ``cols`` (the input projections, ``[D,
+    F]``) and by rows for ``k`` in ``rows`` (the output projection, ``[F,
+    D]``), every other param replicated; ``x [B, ...]`` is batch-leading,
+    and ``cache`` a dict of batch-leading tensors, leaf ``k`` cut over its
+    dim ``cache_dims[k]``.
+
+    On a mesh each rank runs ``fn`` on its batch rows and, over the mesh dim
+    that cuts ``params[cols[0]]`` by columns, on its share of the mixer's
+    heads or channels (``cut``, a :class:`MixerCut`): the column and row
+    cuts are kept, the replicated params are whole (``fn`` slices its
+    share), and ``fn``'s output is a partial sum over the cut, reduced into
+    ``x``'s placements.  A mesh dim that cuts the rows of ``x`` gathers the
+    params' cut there (``FSDP_RULES``' ``data`` cut; each rank's gradient is
+    its rows' share, reduce-scattered back), as ``_on_cut`` does; any other
+    cut of ``x`` is gathered.  The cache comes to ``fn`` cut over the rows
+    and, over the mixer's cut, as ``cache_dims`` says (where it was placed
+    so, as the JAX package's ``_cache_pspecs`` places it, nothing moves),
+    and comes back in the placements it was given.  Without a DTensor,
+    ``fn(..., WHOLE)``: the plain call."""
+    first = next((t for t in [x, *leaves(params), *leaves(cache or {})] if is_dtensor(t)), None)
+    if first is None:
+        return fn(params, x, WHOLE) if cache is None else fn(params, x, cache, WHOLE)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = first.device_mesh
+    x = _as_dtensor(x, mesh)
+    col = params[cols[0]]["w"] if cols else None
+    tp = None
+    row_dims = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == 0]
+    if is_dtensor(col):
+        tp = next((i for i, p in enumerate(col.placements)
+                   if i not in row_dims and p.is_shard() and p.dim == col.ndim - 1), None)
+    rows_pl = [Shard(0) if i in row_dims else Replicate() for i in range(mesh.ndim)]
+    x_grad = [Partial() if i == tp else p for i, p in enumerate(rows_pl)]
+
+    def weight(path, w):
+        key = path.split("]")[0].strip("['") if path.endswith("['w']") else None
+        own = Shard(w.ndim - 1) if key in cols else Shard(0) if key in rows else Replicate()
+        pl = [own if i == tp else Replicate() for i in range(mesh.ndim)]
+        # each rank's gradient: its rows' share, and of a replicated param
+        # its own heads' or channels' share
+        grad = [Partial() if i in row_dims or (i == tp and not own.is_shard()) else p
+                for i, p in enumerate(pl)]
+        return _as_dtensor(w, mesh).redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    cut = MixerCut(mesh, tp, rows_pl, x.shape[0])
+    p_local = map_with_path(weight, params)
+    x_local = x.redistribute(mesh, rows_pl).to_local(grad_placements=x_grad)
+    partial = [Partial() if i == tp else p for i, p in enumerate(rows_pl)]
+
+    def reduced(out):
+        return _placed(out, mesh, partial, (x.shape[0], *out.shape[1:])).redistribute(
+            mesh, x.placements)
+
+    if cache is None:
+        return reduced(fn(p_local, x_local, cut))
+    c_pl = {k: [Shard(cache_dims[k]) if i == tp else p for i, p in enumerate(rows_pl)]
+            for k in cache}
+    c_local = {k: _as_dtensor(t, mesh).redistribute(mesh, c_pl[k]).to_local()
+               for k, t in cache.items()}
+    out, new = fn(p_local, x_local, c_local, cut)
+    placed = {}
+    for k, t in cache.items():
+        placed[k] = _placed(new[k], mesh, c_pl[k], t.shape)
+        if is_dtensor(t) and list(t.placements) != c_pl[k]:
+            placed[k] = placed[k].redistribute(mesh, t.placements)
+    return reduced(out), placed
+
+
 def on_cache(fn, rows, cache):
     """One decode step's attention over a KV cache kept where it lies:
     ``fn(rows, cache, lo, partial)``, where ``rows`` are batch-leading
@@ -654,8 +815,8 @@ def on_cache(fn, rows, cache):
 
 def placed_like(tree, like):
     """Each DTensor of ``tree`` redistributed to the placements of its
-    counterpart in ``like`` (a decode step's new cache to the placements
-    the step was given); plain tensors as they are."""
+    counterpart in ``like`` (MLA's absorbed context onto the query's
+    heads); plain tensors as they are."""
     return tree_map(lambda t, ref: t.redistribute(ref.device_mesh, ref.placements)
                     if is_dtensor(t) and is_dtensor(ref) else t, tree, like)
 

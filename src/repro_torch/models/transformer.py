@@ -57,8 +57,7 @@ from . import ffn as ffn_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
-from .sharding import (constrain, logsumexp_pick, mesh_context, on_rows, placed_like,
-                       replicate_axis)
+from .sharding import constrain, logsumexp_pick, mesh_context, on_mixer, replicate_axis
 
 __all__ = ["block_kinds", "scan_plan", "checkpointed", "init_layer", "init_lm", "forward",
            "loss_fn", "prefill", "init_cache", "decode_step"]
@@ -221,14 +220,14 @@ def _apply_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns ``(x_out, aux_loss or None)``."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    # the recurrent mixers are row-wise: on a mesh each rank runs them on its
-    # batch rows with the mixer's weights whole
+    # the recurrent mixers are tensor-parallel: on a mesh each rank runs them
+    # on its batch rows and its share of the heads or channels
     if kind == "mamba":
-        return x + on_rows(lambda pm, hh: ssm_mod.mamba2_forward(pm, cfg, hh), h,
-                           params=p["mixer"]), None
+        return x + on_mixer(lambda pm, hh, cut: ssm_mod.mamba2_forward(pm, cfg, hh, cut=cut),
+                            h, p["mixer"], **ssm_mod.TP), None
     if kind == "rec":
-        mixed = on_rows(lambda pm, hh: rglru_mod.rglru_block(pm, cfg, hh), h,
-                        params=p["mixer"])
+        mixed = on_mixer(lambda pm, hh, cut: rglru_mod.rglru_block(pm, cfg, hh, cut=cut),
+                         h, p["mixer"], **rglru_mod.TP)
     elif _attn_kind(cfg) == "mla":
         mixed = attn_mod.mla_attention(p["attn"], cfg, h, positions, impl=attn_impl)
     else:
@@ -413,17 +412,18 @@ def decode_step(
     new_caches: List[Params] = []
     for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        # on a mesh the recurrent steps run on each rank's batch rows with the
-        # state whole; their new state is cut back to the placements it came in
+        # on a mesh the recurrent steps run on each rank's batch rows and its
+        # heads or channels, with the state and conv window where they lie
         if kind == "mamba":
-            mixed, new = on_rows(lambda pm, hh, c: ssm_mod.mamba2_step(pm, cfg, hh, c),
-                                 h, cache, params=p["mixer"])
-            x, cache = x + mixed, placed_like(new, cache)
+            mixed, cache = on_mixer(
+                lambda pm, hh, c, cut: ssm_mod.mamba2_step(pm, cfg, hh, c, cut),
+                h, p["mixer"], cache, **ssm_mod.TP)
+            x = x + mixed
         else:
             if kind == "rec":
-                mixed, new = on_rows(lambda pm, hh, c: rglru_mod.rglru_step(pm, cfg, hh, c),
-                                     h, cache, params=p["mixer"])
-                cache = placed_like(new, cache)
+                mixed, cache = on_mixer(
+                    lambda pm, hh, c, cut: rglru_mod.rglru_step(pm, cfg, hh, c, cut),
+                    h, p["mixer"], cache, **rglru_mod.TP)
             elif _attn_kind(cfg) == "mla":
                 mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
             else:

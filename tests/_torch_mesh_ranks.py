@@ -23,6 +23,11 @@ Cases:
   (4, 1) meshes against the unsharded port: one forward + backward, and
   ``DECODE_STEPS`` decode steps from a cache placed as the dry run places
   it, with every returned cache leaf's placements; a windowed GQA cache.
+* ``ssm4`` (4 ranks, ``tests/test_torch_distributed_ssm.py``): the Mamba-2
+  and RG-LRU smoke configs (``SSM_ARCHS``) tensor-parallel over ``model``
+  on (1, 4) and (2, 2) meshes under both rule sets, against the unsharded
+  port: one forward + backward (with each gradient leaf's placements) and
+  ``DECODE_STEPS`` decode steps, every cache leaf kept where it lies.
 """
 
 import dataclasses
@@ -582,19 +587,32 @@ def _zoo_batch(cfg):
 def _zoo(out, io_dir):
     """Every family's sharded forward + backward and decode steps against the
     unsharded port's (``zoo4``)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in ZOO_MESHES}
+    _families(out, io_dir, ARCH_IDS, meshes, lambda arch, shape, name: (
+        arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2)))
+    _zoo_window(out, meshes[(2, 2)])
+
+
+def _families(out, io_dir, archs, meshes, keep_grads):
+    """Each of ``archs``' smoke config, unsharded and on each of ``meshes``
+    under both rule sets: the loss, each gradient leaf's error (and, where
+    ``keep_grads(arch, shape, rules)``, the leaves), whether each came back
+    in its weight's placements and local shape, and ``DECODE_STEPS`` decode
+    steps' logits with whether the caches and weights kept theirs."""
     import time
 
-    from repro_torch.configs import ARCH_IDS, smoke_config
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.configs import smoke_config
     from repro_torch.models import get_model
     from repro_torch.models import sharding as sh
     from repro_torch.training import checkpoint, train_loop
     from repro_torch.utils.flops import meta_params
     from repro_torch.utils.tree import leaves, leaves_with_path, tree_map
 
-    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in ZOO_MESHES}
     rules = {"default": sh.DEFAULT_RULES, "fsdp": sh.FSDP_RULES}
-    for arch in ARCH_IDS:
+    for arch in archs:
         t0 = time.perf_counter()
         cfg = smoke_config(arch)
         model = get_model(cfg, device="cpu")
@@ -614,18 +632,21 @@ def _zoo(out, io_dir):
             for name, r in rules.items():
                 tag = f"{arch}_{shape[0]}x{shape[1]}_{name}"
                 dp = _place(params, sh.param_pspecs(params, r), mesh)
+                weights = _layout(dp)
                 loss, _, grads = train_loop._value_and_grad(
                     model.loss, train_loop.TrainState(dp, None), bd)
                 out[f"{tag}_loss"] = np.asarray(float(_np(loss)))
                 out[f"{tag}_grad_err"] = _grad_err(grads, g_plain, mesh)
-                if arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2):
+                out[f"{tag}_grad_cut"] = np.asarray([g == w for g, w in zip(
+                    _layout(tree_map(sh.reduce_partial, grads)), weights)])
+                if keep_grads(arch, shape, name):
                     for i, x in enumerate(leaves(grads)):
                         out[f"{tag}_grad{i}"] = _np(x)
                 out[f"{tag}_logits"], out[f"{tag}_kept"] = _zoo_decode(
                     model, dp, place_caches(caches, mesh), inp["steps"], mesh)
+                out[f"{tag}_weights_kept"] = np.asarray(_layout(dp) == weights)
         out[f"{arch}_paths"] = np.asarray([p for p, _ in leaves_with_path(params)])
         print(f"{arch}: {time.perf_counter() - t0:.1f}s", flush=True)
-    _zoo_window(out, meshes[(2, 2)])
 
 
 def _zoo_window(out, mesh):
@@ -658,6 +679,20 @@ def _zoo_window(out, mesh):
     out["window_cut"] = np.asarray([repr(pl) for pl, _ in given])
 
 
+SSM_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
+SSM_MESHES = ((1, 4), (2, 2))
+
+
+def _ssm(out, io_dir):
+    """The recurrent mixers' sharded forward + backward and decode steps
+    against the unsharded port's (``ssm4``); on (1, 4) the gradients are
+    kept, for the JAX package's sharded step."""
+    from repro_torch.launch.mesh import make_mesh
+
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in SSM_MESHES}
+    _families(out, io_dir, SSM_ARCHS, meshes, lambda arch, shape, name: shape == (1, 4))
+
+
 def main(case: str, rank: int, world: int, io_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(io_dir, 'rdzv_' + case)}",
@@ -680,6 +715,8 @@ def main(case: str, rank: int, world: int, io_dir: str) -> None:
             _admm_train(out, io_dir)
         elif case == "zoo4":
             _zoo(out, io_dir)
+        elif case == "ssm4":
+            _ssm(out, io_dir)
         else:
             raise ValueError(f"unknown case {case!r}")
         np.savez(os.path.join(io_dir, f"{case}_rank{rank}.npz"), **out)

@@ -14,8 +14,13 @@ tensors, nothing allocated.
   the JAX package's field names; the roofline table lists the cells;
 * deepseek-v2-lite-16b at full width under ``FSDP_RULES`` (train and
   decode, on (2, 2) and (4, 1)) runs, and qwen3-14b ``decode_32k`` on the
-  16 x 16 mesh keeps its caches cut (live bytes, all-gather bytes).  Every
-  family's smoke cells: ``tests/test_torch_dryrun_grid.py``.
+  16 x 16 mesh keeps its caches cut (live bytes, all-gather bytes);
+* mamba2-1.3b and recurrentgemma-9b at full width on the 16 x 16 mesh run
+  their mixers tensor-parallel over ``model``: per device FLOPs near the
+  analytic count, no all-gather as large as one layer's local ``in_proj``
+  shard, and decode caches kept where they lie; a ``model`` size that does
+  not divide their heads or channels raises.  Every family's smoke cells:
+  ``tests/test_torch_dryrun_grid.py``.
 """
 
 import json
@@ -155,3 +160,65 @@ def test_decode_cell_on_the_production_mesh_keeps_its_caches_cut():
     layer_shard = (shape.global_batch // 16) * (shape.seq_len // 16) * cfg.n_kv_heads * \
         cfg.resolved_head_dim * 2  # bf16 k of one layer on one device
     assert rec["collectives"]["per_kind"].get("all-gather", 0) < layer_shard
+
+
+#: the JAX package's dry run of the same cells on the same fake 16 x 16
+#: mesh (``python -m repro.launch.dryrun``, jax 0.9 on the CPU; ``PERF.md``
+#: section 5): collective bytes a device of the two decode cells, and the
+#: peak of live bytes of mamba2-1.3b ``train_4k``
+JAX_COLLECTIVES = {("mamba2-1.3b", "decode_32k"): 6.64e6,
+                   ("recurrentgemma-9b", "decode_32k"): 1.222e7}
+JAX_LIVE = {("mamba2-1.3b", "train_4k"): 39.52e9}
+
+
+@pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", "decode_32k"),
+                                        ("mamba2-1.3b", "long_500k"),
+                                        ("mamba2-1.3b", "train_4k"),
+                                        ("recurrentgemma-9b", "decode_32k")])
+def test_recurrent_mixers_are_tensor_parallel_on_the_production_mesh(arch, shape):
+    """Each rank runs its 4 of mamba2's 64 heads, or 256 of the 4096
+    RG-LRU channels: the FLOPs a device within 1.5x of the analytic count
+    (2x for training, whose remat recomputes the forward; the batch of 1 of
+    ``long_500k`` is not cut over ``data``, so its count is over the 16
+    ``model`` ranks), all-gathers smaller than one layer's local ``in_proj``
+    shard (the mixers' weights and recurrent states are never gathered:
+    before, 2.059e8 and 2.732e8 bytes a decode step), at most 3x the JAX
+    package's collective bytes, no more live bytes in training than JAX
+    holds, and every decode cache leaf back in its ``_cache_pspecs``
+    placement and local shape."""
+    rec = dryrun.run_cell(arch, shape, "single", verbose=False)
+    assert rec["ok"], rec.get("error")
+    cfg = get_config(arch)
+    chips, model = rec["chips"], rec["mesh_shape"]["model"]
+    per_device = rec["model_flops"] / (model if shape == "long_500k" else chips)
+    assert rec["cost"]["flops"] <= (2.0 if shape == "train_4k" else 1.5) * per_device
+    if cfg.ssm:
+        sc = cfg.ssm
+        d_inner = sc.expand * cfg.d_model
+        cols = 2 * d_inner + 2 * sc.n_groups * sc.d_state + d_inner // sc.head_dim
+    else:
+        cols = cfg.recurrent.lru_width
+    in_proj_shard = cfg.d_model * -(-cols // model) * 2  # bf16
+    kinds = rec["collectives"]["per_kind"]
+    if shape == "train_4k":
+        assert rec["memory"]["live_bytes"] <= JAX_LIVE[(arch, shape)]
+        return
+    assert rec["caches_kept"]
+    assert kinds.get("all-gather", 0) < in_proj_shard
+    if (arch, shape) in JAX_COLLECTIVES:
+        assert rec["collectives"]["total_bytes"] <= 3 * JAX_COLLECTIVES[(arch, shape)]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+@pytest.mark.parametrize("arch,what", [("mamba2-1.3b", "the 8 Mamba-2 heads"),
+                                       ("recurrentgemma-9b", "the 128 RG-LRU channels")])
+def test_mixer_cut_that_does_not_divide_raises(arch, what, shape):
+    """A ``model`` size that does not divide the mixer's heads or channels
+    (3 ranks: 8 heads, 128 channels in the smoke configs) raises, naming the
+    arch, the mesh dim and the mesh; no path gathers the mixer whole."""
+    rec = dryrun.run_cell(arch, shape, "single", cfg_override=smoke_config(arch),
+                          mesh_shape=((1, 3), ("data", "model")), shape_override=SHAPES[shape],
+                          verbose=False)
+    assert rec["ok"] is False
+    assert rec["error"] == (f"ValueError: {arch}-smoke: {what} do not divide over the 3 ranks "
+                            "of mesh dim 'model' of the mesh {'data': 1, 'model': 3}")

@@ -8,10 +8,11 @@ A decode cell's caches are placed as the JAX package's ``_cache_pspecs``
 places them (batch over ``data``, sequence, heads or channels over
 ``model``).  Its attention runs on each rank's slots of the cache and
 combines the slots' partial softmaxes over ``model``
-(``sharding.on_cache``); the Mamba-2 / RG-LRU state is gathered for a step
-and cut back.  So every collective a decode step issues moves activations,
-weights or a recurrent state, never a KV cache: its bytes by kind are the
-same at two cache lengths.
+(``sharding.on_cache``); the Mamba-2 / RG-LRU mixers run on each rank's
+heads or channels, their state and conv window where they lie
+(``sharding.on_mixer``).  So every collective a decode step issues moves
+activations or weights, never a cache: its bytes by kind are the same at
+two cache lengths.
 """
 
 import functools

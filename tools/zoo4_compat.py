@@ -1,10 +1,12 @@
-"""``tests/_torch_mesh_ranks.py``'s ``zoo4`` case on the installed torch: 4
-gloo ranks on the CPU, every family's smoke config with the port's own
-seeded init (no JAX needed), checked against the unsharded numbers with
-``tests/test_torch_distributed_zoo.py``'s tolerances.  Prints the worst
-loss / gradient / logit errors and PASS or FAIL (exit 1).  Use it to run
-the mesh paths on another PyTorch than the test suite's (DTensor's view
-and einsum rules differ between versions).
+"""``tests/_torch_mesh_ranks.py``'s ``zoo4`` and ``ssm4`` cases on the
+installed torch: 4 gloo ranks on the CPU each, every family's smoke config
+(``ssm4``: the Mamba-2 and RG-LRU ones, tensor-parallel over ``model`` on
+(1, 4) and (2, 2)) with the port's own seeded init (no JAX needed), checked
+against the unsharded numbers with ``tests/test_torch_distributed_zoo.py``'s
+and ``tests/test_torch_distributed_ssm.py``'s tolerances.  Prints the worst
+loss / gradient / logit errors of each case and PASS or FAIL (exit 1).  Use
+it to run the mesh paths on another PyTorch than the test suite's (DTensor's
+view and einsum rules differ between versions).
 
     python tools/zoo4_compat.py      # logs and results in build/compat_zoo/
 """
@@ -28,49 +30,77 @@ for i, arch in enumerate(ARCH_IDS):
                     get_model(smoke_config(arch), device="cpu").init(torch.Generator().manual_seed(i)))
 np.savez(os.path.join(io, "inputs.npz"), none=np.zeros(1))
 env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-t0 = time.time()
-logs = [open(os.path.join(io, f"zoo4_rank{r}.log"), "w") for r in range(4)]
-ps = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "_torch_mesh_ranks.py"),
-                        "zoo4", str(r), "4", io], env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-      for r in range(4)]
-rcs = []
-for p in ps:
-    try:
-        rcs.append(p.wait(timeout=600))
-    except subprocess.TimeoutExpired:
-        rcs.append("timeout")
-for p in ps:
-    if p.poll() is None:
-        p.kill()
-for f in logs:
-    f.close()
-print(f"compat zoo4: rcs {rcs} in {time.time() - t0:.1f}s", flush=True)
-if rcs != [0] * 4:
-    print(open(os.path.join(io, "zoo4_rank0.log")).read()[-6000:])
-    print("compat: FAIL")
-    sys.exit(1)
+
+
+def run(case):
+    """The case's 4 ranks; its rank 0 results, or None (the log printed)."""
+    t0 = time.time()
+    logs = [open(os.path.join(io, f"{case}_rank{r}.log"), "w") for r in range(4)]
+    ps = [subprocess.Popen([sys.executable, os.path.join(ROOT, "tests", "_torch_mesh_ranks.py"),
+                            case, str(r), "4", io], env=env, stdout=logs[r],
+                           stderr=subprocess.STDOUT) for r in range(4)]
+    rcs = []
+    for p in ps:
+        try:
+            rcs.append(p.wait(timeout=600))
+        except subprocess.TimeoutExpired:
+            rcs.append("timeout")
+    for p in ps:
+        if p.poll() is None:
+            p.kill()
+    for f in logs:
+        f.close()
+    print(f"compat {case}: rcs {rcs} in {time.time() - t0:.1f}s", flush=True)
+    if rcs != [0] * 4:
+        print(open(os.path.join(io, f"{case}_rank0.log")).read()[-6000:])
+        return None
+    return dict(np.load(os.path.join(io, f"{case}_rank0.npz")))
+
+
 import _torch_mesh_ranks as ranks
 
-o = dict(np.load(os.path.join(io, "zoo4_rank0.npz")))
-bad, worst = [], {"loss": 0.0, "grad": 0.0, "logits": 0.0}
-for arch in ARCH_IDS:
-    for a, b in ranks.ZOO_MESHES:
-        for rules in ranks.ZOO_RULES:
-            t = f"{arch}_{a}x{b}_{rules}"
-            le = abs(float(o[t + "_loss"]) - float(o[arch + "_loss"])) / abs(float(o[arch + "_loss"]))
-            ge = float((o[t + "_grad_err"] / np.maximum(o[arch + "_grad_max"], 1e-30)).max())
-            lg = o[arch + "_logits"]
-            de = float(np.abs(o[t + "_logits"] - lg).max() / np.abs(lg).max())
-            worst = {"loss": max(worst["loss"], le), "grad": max(worst["grad"], ge),
-                     "logits": max(worst["logits"], de)}
-            if le > 1e-5 or ge > 1e-4 or de > 1e-5 or not o[t + "_kept"].all():
-                bad.append((t, le, ge, de, o[t + "_kept"].tolist()))
-y = o["window_y"]
-we = float(np.abs(y[:, 1] - y[:, 0]).max() / np.abs(y[:, 0]).max())
-if we > 1e-5 or not o["window_kept"].all():
-    bad.append(("window", we))
-print(f"compat zoo4: worst loss rel {worst['loss']:.2e}, grad {worst['grad']:.2e} x max, "
-      f"logits {worst['logits']:.2e} x max, window {we:.2e}; every cache leaf kept: "
-      f"{not any('kept' in str(x) for x in bad)}", flush=True)
+
+def check(case, o, archs, meshes, ssm=False):
+    """Worst errors over ``archs`` x ``meshes`` x rule sets; the failing tags."""
+    bad, worst = [], {"loss": 0.0, "grad": 0.0, "logits": 0.0}
+    for arch in archs:
+        mixer = np.char.find(o[arch + "_paths"], "['mixer']") >= 0
+        for a, b in meshes:
+            for rules in ranks.ZOO_RULES:
+                t = f"{arch}_{a}x{b}_{rules}"
+                le = abs(float(o[t + "_loss"]) - float(o[arch + "_loss"])) / abs(float(o[arch + "_loss"]))
+                ge = float((o[t + "_grad_err"] / np.maximum(o[arch + "_grad_max"], 1e-30)).max())
+                lg = o[arch + "_logits"]
+                de = float(np.abs(o[t + "_logits"] - lg).max() / np.abs(lg).max())
+                worst = {"loss": max(worst["loss"], le), "grad": max(worst["grad"], ge),
+                         "logits": max(worst["logits"], de)}
+                kept = bool(o[t + "_kept"].all())
+                if ssm:  # the weights, and the mixers' gradients, in their placements
+                    kept = kept and bool(o[t + "_weights_kept"]) and bool(
+                        o[t + "_grad_cut"][mixer].all())
+                if le > 1e-5 or ge > 1e-4 or de > 1e-5 or not kept:
+                    bad.append((t, le, ge, de, kept))
+    print(f"compat {case}: worst loss rel {worst['loss']:.2e}, grad {worst['grad']:.2e} x max, "
+          f"logits {worst['logits']:.2e} x max; every cache leaf kept: "
+          f"{not any(not x[-1] for x in bad)}", flush=True)
+    return bad
+
+
+bad = []
+o = run("zoo4")
+if o is None:
+    bad.append("zoo4 did not run")
+else:
+    bad += check("zoo4", o, ARCH_IDS, ranks.ZOO_MESHES)
+    y = o["window_y"]
+    we = float(np.abs(y[:, 1] - y[:, 0]).max() / np.abs(y[:, 0]).max())
+    print(f"compat zoo4: window {we:.2e}", flush=True)
+    if we > 1e-5 or not o["window_kept"].all():
+        bad.append(("window", we))
+o = run("ssm4")
+if o is None:
+    bad.append("ssm4 did not run")
+else:
+    bad += check("ssm4", o, ranks.SSM_ARCHS, ranks.SSM_MESHES, ssm=True)
 print("compat:", "PASS" if not bad else f"FAIL {bad}", flush=True)
 sys.exit(0 if not bad else 1)
