@@ -235,15 +235,23 @@ Phases (each prints its own lines):
               then sharded (the expert stacks cut over ``data`` too; losses
               ``torch.equal`` on one card, else within 1e-3; ms a step, peak
               GB a rank; deterministic algorithms on, as the dispatch's
-              gather backward sums with atomics otherwise), then three
-              decode steps from a prefill of 16 tokens into 64 slots,
-              unsharded and from the caches placed as the dry run places
-              them (logits ``torch.equal`` on one card, every cache leaf in
-              its placements after each step, ms a step); the same train
-              and decode rows for mamba2-1.3b at full width (every layer,
-              bf16) under ``DEFAULT_RULES``, its Mamba-2 mixers
-              tensor-parallel over ``model`` (``sharding.on_mixer``: each
-              rank's heads, the state and conv window where they lie);
+              gather backward sums with atomics otherwise), then a prefill
+              of 16 tokens into 64 slots unsharded and on the sharded
+              params with the prompt cut over the batch (logits and every
+              cache leaf ``torch.equal`` on one card, every leaf in the
+              placements and local shape ``sharding.cache_pspecs`` gives
+              it, ms of each), and three decode steps from each one's
+              caches (logits ``torch.equal`` on one card, every cache leaf
+              in its placements after each step, ms a step); the same
+              train, prefill and decode rows for mamba2-1.3b at full width
+              (every layer, bf16) under ``DEFAULT_RULES``, its Mamba-2
+              mixers tensor-parallel over ``model`` (``sharding.on_mixer``:
+              each rank's heads, the state and conv window where they
+              lie); qwen2.5-3b at full width and depth in bf16 under
+              ``DEFAULT_RULES``: the same prefill row, then
+              ``Engine.generate`` of 8 tokens for 8 rows of 16 on the plain
+              and on the sharded params (greedy tokens equal on one card,
+              every cache leaf in its placements after each step, tok/s);
               ``compressed_mean_grads`` (int8, topk)
               on that model's gradient tree, the error against the f32
               mean (int8 within half a quantization step of each leaf) and
@@ -3654,6 +3662,9 @@ MESH_DECODE = dict(batch=8, prompt=16, max_len=64, steps=3)
 #: == mesh's ssm rows: the arch (at TRAIN_ZOO's depth) under DEFAULT_RULES,
 #: its Mamba-2 mixers tensor-parallel over ``model`` (``sharding.on_mixer``)
 MESH_SSM_ARCH = "mamba2-1.3b"
+#: == mesh's Engine row: the arch at full width and depth under
+#: DEFAULT_RULES, its rows, prompt tokens, new tokens and cache slots
+MESH_ENGINE = dict(arch="qwen2.5-3b", batch=8, prompt=16, new=8, max_len=64)
 #: the dry-run cells == mesh runs: (arch, shape)
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen3-14b", "decode_32k"),
                 ("mamba2-1.3b", "decode_32k"))
@@ -3850,6 +3861,7 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     out["moe"] = _mesh_model(torch, dist, dev, mesh, margs, smoke, MESH_MOE_ARCH,
                              sharding.FSDP_RULES)
     out["ssm"] = _mesh_model(torch, dist, dev, mesh, margs, smoke, MESH_SSM_ARCH, None)
+    out["engine"] = _mesh_engine(torch, dev, mesh, smoke)
 
     # compression: each data rank's gradient of its batch shard, on a 1-D mesh
     dmesh = make_mesh((world,), ("data",), device=dev.type)
@@ -3956,21 +3968,65 @@ def _mesh_rank_body(torch, dist, dev, world, smoke):
     return out
 
 
+def _mesh_prefill(torch, dev, mesh, params, dp, cfg, prompt, max_len):
+    """``transformer.prefill`` of ``prompt`` into ``max_len`` slots on the
+    plain params, then on their DTensors ``dp`` with the prompt cut over the
+    batch (``sharding.place_rows``): ``(plain caches, sharded caches,
+    record)``, the record holding each run's ms (host clock, synced),
+    whether the logits and every cache leaf are ``torch.equal`` (else the
+    worst error relative to each one's max), and whether every leaf lies in
+    its ``cache_pspecs`` placements with the local shape those give it.
+    Deterministic algorithms are on (the MoE dispatch's sums)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tlm
+    from repro_torch.utils.tree import leaves, map_with_path
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ms, runs = [], []
+    try:
+        for p, tok in ((params, prompt), (dp, sharding.place_rows(prompt, mesh))):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, caches = tlm.prefill(p, cfg, tok, max_len)
+            _sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            runs.append((lg, caches))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (lg, caches), (dlg, dcaches) = runs
+    whole = lambda t: t.full_tensor() if sharding.is_dtensor(t) else t  # noqa: E731
+    pairs = [(whole(dlg), lg)] + [(whole(a), b) for a, b in zip(leaves(dcaches), leaves(caches))]
+    specs = sharding.cache_pspecs(caches, mesh)
+    want = map_with_path(lambda _, t, s: distribute_tensor(
+        t, mesh, sharding.param_placements(mesh, s), src_data_rank=None), caches, specs)
+    layout = lambda tree: [(tuple(t.placements), tuple(t.to_local().shape))  # noqa: E731
+                           for t in leaves(tree)]
+    rec = dict(ms=ms[1], plain_ms=ms[0],
+               equal=all(bool(torch.equal(a, b)) for a, b in pairs),
+               max_rel_err=max(float((a.float() - b.float()).abs().max())
+                               / max(float(b.float().abs().max()), 1e-30) for a, b in pairs),
+               placed=layout(dcaches) == layout(want), leaves=len(pairs) - 1)
+    del want, dlg, lg
+    return caches, dcaches, rec
+
+
 def _mesh_model(torch, dist, dev, mesh, margs, smoke, arch, rules):
     """``arch`` at TRAIN_ZOO's depth (its smoke config with ``smoke``) under
     ``rules`` (``DEFAULT_RULES`` if None): the train step unsharded then
-    sharded (losses, ms, peak GB a rank), then MESH_DECODE's decode steps
-    unsharded and sharded from one prefill, the caches placed as the dry
-    run places a decode cell's (logits, whether every cache leaf kept its
+    sharded (losses, ms, peak GB a rank), then MESH_DECODE's prefill
+    unsharded and on the sharded params (``_mesh_prefill``) and its decode
+    steps from each one's caches (logits, whether every cache leaf kept its
     placements, ms a step)."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.launch import dryrun
     from repro_torch.models import get_model
     from repro_torch.models import sharding
-    from repro_torch.models import transformer as tlm
-    from repro_torch.utils.tree import leaves, map_with_path
+    from repro_torch.utils.tree import leaves
 
     cfg = smoke_config(arch) if smoke else train_zoo_cfg(arch)
     # the dispatch's gathers read each token once an expert: their backward
@@ -4000,17 +4056,13 @@ def _mesh_model(torch, dist, dev, mesh, margs, smoke, arch, rules):
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab, (md["batch"], md["prompt"]), generator=gen, device=dev)
     steps = torch.randint(0, cfg.vocab, (md["batch"], md["steps"]), generator=gen, device=dev)
-    with torch.no_grad():
-        _, caches = tlm.prefill(params, cfg, prompt, md["max_len"])
+    dp = sharding.distribute_params(mesh, params, rules)
+    caches, placed, out["prefill"] = _mesh_prefill(torch, dev, mesh, params, dp, cfg, prompt,
+                                                   md["max_len"])
     rows = sharding.param_placements(mesh, sharding.batch_spec(mesh))
-    specs = dryrun._maybe_replicate_batch(
-        dryrun._cache_pspecs(caches, sharding.batch_spec(mesh)), caches, mesh)
-    placed = map_with_path(lambda _, t, s: distribute_tensor(
-        t, mesh, sharding.param_placements(mesh, s)), caches, specs)
     layout = lambda tree: [(tuple(t.placements), tuple(t.to_local().shape))  # noqa: E731
                            for t in leaves(tree)]
     given = layout(placed)
-    dp = sharding.distribute_params(mesh, params, rules)
     logits, kept, times = {}, [], {"plain": [], "sharded": []}
     for name, p, c in (("plain", params, caches), ("sharded", dp, placed)):
         logits[name] = []
@@ -4020,7 +4072,7 @@ def _mesh_model(torch, dist, dev, mesh, margs, smoke, arch, rules):
                 tok = distribute_tensor(tok, mesh, rows)
             _sync(torch, dev)
             t0 = time.perf_counter()
-            with torch.no_grad(), sharding.mesh_context(p, tok, c):
+            with torch.no_grad():
                 lg, c = model.decode_step(p, {"tokens_t": tok}, c)
             lg = lg.full_tensor() if sharding.is_dtensor(lg) else lg
             _sync(torch, dev)
@@ -4042,6 +4094,72 @@ def _mesh_model(torch, dist, dev, mesh, margs, smoke, arch, rules):
     return out
 
 
+def _mesh_engine(torch, dev, mesh, smoke):
+    """MESH_ENGINE's arch (bf16, full width and depth; its smoke config with
+    ``smoke``) under ``DEFAULT_RULES``: its prefill unsharded and on the
+    sharded params (``_mesh_prefill``), then ``Engine.generate`` on the
+    plain params and on their DTensors: each run's greedy tokens and tok/s
+    (the new tokens of every row over the host clock's seconds of the whole
+    call, synced), and after each sharded decode step whether every cache
+    leaf came back in the placements and local shape it went in with."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import get_model, sharding
+    from repro_torch.serving.engine import Engine
+    from repro_torch.utils.tree import leaves
+
+    me = MESH_ENGINE
+    cfg = smoke_config(me["arch"]) if smoke else get_config(me["arch"])
+    model = get_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg.vocab, (me["batch"], me["prompt"]), generator=gen, device=dev)
+    dp = sharding.distribute_params(mesh, params)
+    _, _, out = _mesh_prefill(torch, dev, mesh, params, dp, cfg, prompt, me["max_len"])
+    out["layers"] = cfg.n_layers
+    layout = lambda tree: [(tuple(t.placements), tuple(t.to_local().shape))  # noqa: E731
+                           for t in leaves(tree)]
+    kept, tokens = [], {}
+    for name, p in (("plain", params), ("sharded", dp)):
+        eng = Engine(model, p, batch_size=me["batch"], max_len=me["max_len"])
+        if name == "sharded":
+            decode = eng._decode
+
+            def checked(pp, tok, caches, decode=decode):
+                lg, new = decode(pp, tok, caches)
+                kept.append(layout(new) == layout(caches))
+                return lg, new
+
+            eng._decode = checked
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        tokens[name] = eng.generate(prompt, me["new"]).tokens
+        _sync(torch, dev)
+        out[f"{name}_tok_s"] = me["batch"] * me["new"] / (time.perf_counter() - t0)
+    out["tokens_equal"] = bool((tokens["plain"] == tokens["sharded"]).all())
+    out["tokens"] = tokens["sharded"][0].tolist()
+    out["kept"] = kept
+    del params, dp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _print_prefill(key, pf, world, smi, what):
+    """Check and print a ``== mesh`` prefill row (``_mesh_prefill``)."""
+    check(pf["placed"], f"mesh {key}: a sharded prefill's cache leaf is off its cache_pspecs "
+          f"placements or local shape")
+    if world == 1:
+        check(pf["equal"], f"mesh {key}: the sharded prefill differs from the unsharded (max "
+              f"rel {pf['max_rel_err']:.3e})")
+    else:
+        check(pf["max_rel_err"] <= MESH_LOSS_RTOL, f"mesh {key}: the sharded prefill is off "
+              f"by {pf['max_rel_err']:.3e} x max")
+    print(f"  mesh {key} prefill ({what}, {smi}): logits and {pf['leaves']} cache leaves "
+          f"{'torch.equal' if pf['equal'] else 'max rel err %.3e' % pf['max_rel_err']} to the "
+          f"unsharded prefill's, every leaf in its cache_pspecs placements and local shape; "
+          f"ms {pf['ms']:.2f} sharded vs {pf['plain_ms']:.2f} unsharded (host clock, synced)")
+
+
 def _print_mesh_model(key, mo, rules, world, smi, step_ms):
     """Check and print ``== mesh``'s rows of one model (``_mesh_model``)."""
     dec = mo["decode"]
@@ -4061,6 +4179,9 @@ def _print_mesh_model(key, mo, rules, world, smi, step_ms):
         check(dec["max_abs_err"] <= MESH_LOSS_RTOL * dec["ref_max"],
               f"mesh {key}: sharded decode logits off by {dec['max_abs_err']:.3e}")
     md = MESH_DECODE
+    _print_prefill(key, mo["prefill"], world, smi, f"{mo['arch']}, {mo['layers']} layers, "
+                   f"{rules}, {md['batch']} rows of {md['prompt']} tokens into {md['max_len']} "
+                   f"slots")
     print(f"  mesh {key} ({mo['arch']}, full width, {mo['layers']} of "
           f"{mo['full_layers']} layers, bf16, {MESH_ARGS['batch']} x {MESH_ARGS['seq']} "
           f"tokens, {rules}, ZeRO-1, {smi}): losses {[round(x, 6) for x in lo]}, unsharded "
@@ -4069,8 +4190,8 @@ def _print_mesh_model(key, mo, rules, world, smi, step_ms):
           f"unsharded (medians of steps 1-{len(mo['ms']) - 1}; step 0 {mo['ms'][0]:.2f} / "
           f"{mo['plain_ms'][0]:.2f}); peak GB a rank {mo['peak_gb']:.3f} sharded, "
           f"{mo['plain_peak_gb']:.3f} unsharded")
-    print(f"  mesh {key} decode ({md['batch']} rows, a {md['prompt']}-token prefill into "
-          f"{md['max_len']} slots, {md['steps']} steps; caches cut {dec['cut']}): logits "
+    print(f"  mesh {key} decode ({md['batch']} rows, {md['steps']} steps from each prefill's "
+          f"caches, the sharded one's cut {dec['cut']}): logits "
           f"{'torch.equal' if dec['equal'] else 'max abs err %.3e' % dec['max_abs_err']} to the "
           f"unsharded steps', every cache leaf in its placements after each step; ms a step "
           f"{[round(x, 2) for x in dec['ms']]} sharded vs {[round(x, 2) for x in dec['plain_ms']]}"
@@ -4174,6 +4295,21 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
           f"{asd['peak_gb']:.3f} sharded, {ap['peak_gb']:.3f} unsharded")
     for key, rules in (("moe", "FSDP_RULES"), ("ssm", "DEFAULT_RULES")):
         _print_mesh_model(key, r[key], rules, world, smi, step_ms)
+    e, me = r["engine"], MESH_ENGINE
+    _print_prefill("engine", e, world, smi, f"{me['arch']}, {e['layers']} layers, DEFAULT_RULES,"
+                   f" {me['batch']} rows of {me['prompt']} tokens into {me['max_len']} slots")
+    check(all(e["kept"]) and len(e["kept"]) == me["new"] - 1,
+          f"mesh engine: a decode step moved a cache leaf off its placements ({e['kept']})")
+    if world == 1:
+        check(e["tokens_equal"], "mesh engine: the sharded Engine's greedy tokens differ from "
+              "the unsharded Engine's on one card")
+    print(f"  mesh engine ({me['arch']}, bf16, full width, {e['layers']} layers, DEFAULT_RULES, "
+          f"{smi}): Engine.generate of {me['new']} tokens for {me['batch']} rows of "
+          f"{me['prompt']}: greedy tokens "
+          f"{'equal' if e['tokens_equal'] else 'NOT equal'} to the unsharded Engine's (row 0 "
+          f"{e['tokens']}), every cache leaf in its placements after each step; tok/s "
+          f"{e['sharded_tok_s']:.2f} sharded vs {e['plain_tok_s']:.2f} unsharded (host clock, "
+          f"synced, the whole generate call)")
     p = r["pipe"]
     check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
     print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "

@@ -61,7 +61,9 @@ from ..models import transformer as lm
 from ..models.sharding import (
     FSDP_RULES,
     P,
+    _maybe_replicate_batch,
     batch_spec,
+    cache_pspecs,
     is_dtensor,
     mesh_context,
     param_placements,
@@ -83,51 +85,13 @@ PROBES = "none: eager PyTorch runs every layer, so the counts are whole"
 
 
 # --------------------------------------------------------------------------- #
-# sharding for inputs & caches                                                 #
+# sharding for inputs (the caches': ``sharding.cache_pspecs``)                #
 # --------------------------------------------------------------------------- #
-
-
-def _cache_pspecs(cache_tree: Any, bspec: P) -> Any:
-    """Decode-cache specs: batch over the data axes, the long axis
-    (sequence / heads) over ``model`` -- flash-decoding-style split-K."""
-    batch_axes = bspec[0] if len(bspec) else None
-
-    def spec(path, leaf):
-        nd = leaf.ndim
-        if nd <= 1:
-            return P(batch_axes) if nd == 1 else P()
-        if path.endswith("['conv']"):  # [B, w-1, C]
-            return P(batch_axes, None, "model")
-        if nd >= 3:  # k/v/c_kv/k_rope/state: [B, S|H, ...]
-            return P(batch_axes, "model", *([None] * (nd - 2)))
-        return P(batch_axes, "model")  # rec h: [B, W]
-
-    return map_with_path(spec, cache_tree)
 
 
 def _batch_pspecs(batch_tree: Any, bspec: P) -> Any:
     return tree_map(lambda leaf: P(bspec[0] if len(bspec) else None,
                                    *([None] * (leaf.ndim - 1))), batch_tree)
-
-
-def _maybe_replicate_batch(specs, tree, mesh):
-    """Drop any spec axis whose mesh extent does not divide the dim
-    (long_500k has global_batch=1 -> TP-only decode; whisper's cross-KV has
-    T_enc=1500 which 16 does not divide -> replicated sequence)."""
-    names = mesh.mesh_dim_names
-
-    def extent(entry) -> int:
-        return math.prod(mesh.size(names.index(a)) for a in
-                         (entry if isinstance(entry, tuple) else (entry,)) if a is not None)
-
-    def fix(leaf, spec):
-        if not len(spec):
-            return spec
-        parts = list(spec) + [None] * (leaf.ndim - len(spec))
-        return P(*[None if e is not None and leaf.shape[d] % extent(e) else e
-                   for d, e in enumerate(parts)])
-
-    return tree_map(fix, tree, specs)
 
 
 # --------------------------------------------------------------------------- #
@@ -207,7 +171,7 @@ def _run_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *, zero1: bool, remat: 
                               residual_spec=overrides.get("residual_spec"),
                               attn_chunk=overrides.get("attn_chunk", 1024))[0]
     else:
-        c_specs = _maybe_replicate_batch(_cache_pspecs(cache_meta, bspec), cache_meta, mesh)
+        c_specs = cache_pspecs(cache_meta, mesh)
         caches = _meta_distribute(cache_meta, c_specs, mesh)
         args.append(caches)
 

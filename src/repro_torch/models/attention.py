@@ -34,7 +34,7 @@ from .layers import (
     rmsnorm,
 )
 from .sharding import (attention_on_shards, is_dtensor, merge_last, on_cache, on_heads,
-                       placed_like, split_last)
+                       on_sequence, placed_like, split_last)
 
 __all__ = [
     "sdpa",
@@ -358,17 +358,16 @@ def gqa_prefill(
     pos1d = positions[0]
     out = sdpa(q, k, v, pos1d, pos1d, causal=True, window=window, prefix_len=prefix_len,
                impl=impl)
-    y = linear_auto(p["w_o"], out.reshape(b, s, -1), mode)
+    y = linear_auto(p["w_o"], merge_last(out), mode)
     size = min(window, max_len) if window else max_len
-    if window is None or s <= size:
-        pad = max(size - s, 0)
-        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))[:, :size]
-        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))[:, :size]
-    else:
-        idx = torch.arange(size, device=x.device)
-        slot_pos = idx + size * torch.div(s - 1 - idx, size, rounding_mode="floor")
-        kc, vc = k[:, slot_pos], v[:, slot_pos]
-    cache = {"k": kc, "v": vc,
+
+    def slots(t):  # the prompt's k or v -> the cache's slots
+        if window is None or s <= size:
+            return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, max(size - s, 0)))[:, :size]
+        idx = torch.arange(size, device=t.device)
+        return t[:, idx + size * torch.div(s - 1 - idx, size, rounding_mode="floor")]
+
+    cache = {"k": on_sequence(slots, k, size), "v": on_sequence(slots, v, size),
              "pos": torch.full((b,), s, dtype=torch.int32, device=x.device)}
     return y, cache
 
@@ -441,10 +440,13 @@ def mla_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Te
         raise ValueError(f"mla_prefill: {s} positions do not fit a cache of {max_len}")
     y = mla_attention(p, cfg, x, positions, impl=impl)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
-    pad = max_len - s
+
+    def slots(t):  # the prompt's latents -> the cache's slots
+        return torch.nn.functional.pad(t, (0, 0, 0, max_len - s))
+
     cache = {
-        "c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
-        "k_rope": torch.nn.functional.pad(k_rope.reshape(b, s, -1), (0, 0, 0, pad)),
+        "c_kv": on_sequence(slots, c_kv, max_len),
+        "k_rope": on_sequence(slots, merge_last(k_rope), max_len),
         "pos": torch.full((b,), s, dtype=torch.int32, device=x.device),
     }
     return y, cache

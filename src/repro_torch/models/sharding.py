@@ -12,12 +12,17 @@ A spec is a :class:`PartitionSpec`: one entry a tensor dim, each ``None``
 those axes, the first the major one).  ``param_placements`` turns a spec
 into DTensor placements, one a mesh dim; ``distribute_params`` places a
 param tree on a mesh, where JAX's ``NamedSharding`` + ``device_put`` do.
+``cache_pspecs`` lays decode caches out as the JAX package's dry run does
+(batch over the data axes, the long axis over ``model``), ``place_cache``
+puts a layer's cache there and ``place_rows`` cuts a batch every rank holds
+(a prompt, a sampled token) over the batch axes.
 
 The helpers at the end are what GSPMD does for the JAX package inside the
 model code: ``mesh_context`` (a constant the model builds -- rope tables,
 masks, positions -- is replicated on every rank), ``constrain``
 (``with_sharding_constraint``), ``embedding`` (a vocab-sharded lookup and
-its all-reduce), ``logsumexp_pick`` (the vocab-parallel cross entropy),
+its all-reduce), ``head_operands`` (the LM head's logits split over the
+vocab), ``logsumexp_pick`` (the vocab-parallel cross entropy),
 ``reduce_partial`` and ``replicate_axis`` (gathering a tensor dim before an
 op that needs it whole).  Some work runs on each rank's shard instead,
 where DTensor has no sharding rule for an op (``scatter_reduce``), leaves a
@@ -32,7 +37,8 @@ projection by rows, the recurrent state where it lies), ``on_experts``
 GSPMD gathers an FSDP weight), ``on_heads`` (MLA's absorbed projections),
 ``on_cache`` (a decode step's attention on each rank's slots of its cache,
 combined over ``model`` as flash-decoding's split-K: no rank gathers a
-cache) and ``gather_last``.  ``on_whole`` runs work that needs a tensor
+cache), ``on_sequence`` (a prefill's cache filled on each rank's rows and
+heads) and ``gather_last``.  ``on_whole`` runs work that needs a tensor
 whole (the ADMM projections' global top-k, the micro-batch split of a
 batch) on the gathered tensor and cuts the result back to the tensor's
 placements, each rank keeping its chunk; ``placed_like`` redistributes a
@@ -43,6 +49,7 @@ query's heads).  On plain tensors each of them is the plain op.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from typing import Any, Iterator, List, Optional, Tuple
@@ -62,6 +69,9 @@ __all__ = [
     "param_shardings",
     "distribute_params",
     "batch_spec",
+    "cache_pspecs",
+    "place_rows",
+    "place_cache",
     "is_dtensor",
     "mesh_context",
     "constrain",
@@ -70,6 +80,7 @@ __all__ = [
     "replicate_axis",
     "gather_last",
     "logsumexp_pick",
+    "head_operands",
     "on_rows",
     "MixerCut",
     "WHOLE",
@@ -77,6 +88,7 @@ __all__ = [
     "on_experts",
     "on_heads",
     "on_cache",
+    "on_sequence",
     "placed_like",
     "attention_on_shards",
     "split_last",
@@ -248,6 +260,82 @@ def batch_spec(mesh) -> P:
     if "pod" in mesh.mesh_dim_names:
         return P(("pod", "data"))
     return P("data")
+
+
+def _cache_pspecs(cache_tree: Tree, bspec: P) -> Tree:
+    """Decode-cache specs: batch over the data axes, the long axis
+    (sequence / heads) over ``model`` -- flash-decoding-style split-K."""
+    batch_axes = bspec[0] if len(bspec) else None
+
+    def spec(path, leaf):
+        nd = leaf.ndim
+        if nd <= 1:
+            return P(batch_axes) if nd == 1 else P()
+        if path.endswith("['conv']"):  # [B, w-1, C]
+            return P(batch_axes, None, "model")
+        if nd >= 3:  # k/v/c_kv/k_rope/state: [B, S|H, ...]
+            return P(batch_axes, "model", *([None] * (nd - 2)))
+        return P(batch_axes, "model")  # rec h: [B, W]
+
+    return map_with_path(spec, cache_tree)
+
+
+def _maybe_replicate_batch(specs: Tree, tree: Tree, mesh) -> Tree:
+    """Drop any spec axis whose mesh extent does not divide the dim
+    (long_500k has global_batch=1 -> TP-only decode; whisper's cross-KV has
+    T_enc=1500 which 16 does not divide -> replicated sequence)."""
+    names = mesh.mesh_dim_names
+
+    def extent(entry) -> int:
+        return math.prod(mesh.size(names.index(a)) for a in
+                         (entry if isinstance(entry, tuple) else (entry,)) if a is not None)
+
+    def fix(leaf, spec):
+        if not len(spec):
+            return spec
+        parts = list(spec) + [None] * (leaf.ndim - len(spec))
+        return P(*[None if e is not None and leaf.shape[d] % extent(e) else e
+                   for d, e in enumerate(parts)])
+
+    return tree_map(fix, tree, specs)
+
+
+def cache_pspecs(caches: Tree, mesh) -> Tree:
+    """The specs of decode caches on ``mesh``, as the JAX package's dry run
+    lays them out: batch over the data axes (``batch_spec``), the sequence
+    of a KV or MLA cache, the heads of a Mamba-2 state and the channels of
+    an RG-LRU ``h`` or a conv window over ``model``; an axis whose extent
+    does not divide its dim is dropped (that dim stays whole)."""
+    return _maybe_replicate_batch(_cache_pspecs(caches, batch_spec(mesh)), caches, mesh)
+
+
+def place_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A batch-leading plain tensor -- the same on every rank (a prompt, a
+    sampled token) -- cut over ``mesh``'s batch axes, each rank keeping its
+    rows (no collective); whole where the batch does not divide."""
+    spec = _maybe_replicate_batch(P(*batch_spec(mesh), *([None] * (t.ndim - 1))), t, mesh)
+    return _shard_like(t, mesh, param_placements(mesh, spec))
+
+
+def place_cache(cache: Tree) -> Tree:
+    """A layer's decode cache in its decode placements (:func:`cache_pspecs`)
+    on the mesh of its DTensors: a DTensor is redistributed (nothing moves
+    where it already lies so), a plain tensor -- a constant every rank
+    holds, the prefill's ``pos`` -- is cut without a collective.  Without a
+    DTensor, the cache as it is."""
+    first = next((t for t in leaves(cache) if is_dtensor(t)), None)
+    if first is None:
+        return cache
+    mesh = first.device_mesh
+
+    def place(_, t, spec):
+        pl = param_placements(mesh, spec)
+        if not is_dtensor(t):
+            return _shard_like(t, mesh, pl)
+        t = reduce_partial(t)
+        return t if list(t.placements) == pl else t.redistribute(mesh, pl)
+
+    return map_with_path(place, cache, cache_pspecs(cache, mesh))
 
 
 # --------------------------------------------------------------------------- #
@@ -451,6 +539,29 @@ def logsumexp_pick(x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor,
     idx = torch.where(inside, lab - lo, torch.zeros_like(lab))
     picked = torch.gather(local, -1, idx.long()[..., None])[..., 0] * inside.to(local.dtype)
     return lse, DTensor.from_local(picked, mesh, part_pl).redistribute(mesh, rows_pl)
+
+
+def head_operands(x: torch.Tensor, w: torch.Tensor, vocab_dim: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x, w)`` placed for an LM head's product (``x [B, S, D]``, the
+    classes of ``w`` on its dim ``vocab_dim``), so that the logits come out
+    split over the vocab on every mesh dim that splits ``w``'s, as GSPMD
+    lays out JAX's head: ``x`` is made whole on those mesh dims (left batch-
+    or feature-split there, DTensor contracts over ``D`` and hands every
+    rank a partial sum of the whole vocabulary's logits), and ``w``'s other
+    dim (``FSDP_RULES``' ``data`` cut) is gathered, as an FSDP weight is.
+    On plain tensors both as they are."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x, w
+    from torch.distributed.tensor import Replicate
+
+    x = reduce_partial(x)
+    vocab = [i for i, p in enumerate(w.placements) if p.is_shard() and p.dim == vocab_dim]
+    pl = [Replicate() if i in vocab or (p.is_shard() and p.dim == x.ndim - 1) else p
+          for i, p in enumerate(x.placements)]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return x, replicate_axis(w, 1 - vocab_dim)
 
 
 def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -686,9 +797,14 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 WHOLE = MixerCut()
 
 
-def on_mixer(fn, x: torch.Tensor, params, cache=None, *, cols=(), rows=(), cache_dims=None):
+def on_mixer(fn, x: torch.Tensor, params, cache=None, *, cols=(), rows=(), cache_dims=None,
+             state=None):
     """``fn(params, x, cut)`` -- or ``fn(params, x, cache, cut)``, which
-    returns ``(out, cache)`` -- for a recurrent mixer whose ``params[k]["w"]``
+    returns ``(out, cache)``, or with ``state`` (and no ``cache``)
+    ``fn(params, x, cut)`` returning ``(out, cache)``, a prefill's whose
+    leaves have the global shapes of ``state``'s (a template: meta tensors
+    will do) -- for a
+    recurrent mixer whose ``params[k]["w"]``
     is cut by columns for ``k`` in ``cols`` (the input projections, ``[D,
     F]``) and by rows for ``k`` in ``rows`` (the output projection, ``[F,
     D]``), every other param replicated; ``x [B, ...]`` is batch-leading,
@@ -706,8 +822,11 @@ def on_mixer(fn, x: torch.Tensor, params, cache=None, *, cols=(), rows=(), cache
     cut of ``x`` is gathered.  The cache comes to ``fn`` cut over the rows
     and, over the mixer's cut, as ``cache_dims`` says (where it was placed
     so, as the JAX package's ``_cache_pspecs`` places it, nothing moves),
-    and comes back in the placements it was given.  Without a DTensor,
-    ``fn(..., WHOLE)``: the plain call."""
+    and comes back in the placements it was given.  A prefill's cache
+    (``state``) comes back in those placements:
+    over the rows and, on the mixer's cut, over ``cache_dims[k]``, where the
+    decode steps take it.  Without a DTensor, ``fn(..., WHOLE)``: the plain
+    call."""
     first = next((t for t in [x, *leaves(params), *leaves(cache or {})] if is_dtensor(t)), None)
     if first is None:
         return fn(params, x, WHOLE) if cache is None else fn(params, x, cache, WHOLE)
@@ -743,10 +862,13 @@ def on_mixer(fn, x: torch.Tensor, params, cache=None, *, cols=(), rows=(), cache
         return _placed(out, mesh, partial, (x.shape[0], *out.shape[1:])).redistribute(
             mesh, x.placements)
 
-    if cache is None:
-        return reduced(fn(p_local, x_local, cut))
     c_pl = {k: [Shard(cache_dims[k]) if i == tp else p for i, p in enumerate(rows_pl)]
-            for k in cache}
+            for k in (cache if cache is not None else state or {})}
+    if cache is None:
+        if state is None:
+            return reduced(fn(p_local, x_local, cut))
+        out, new = fn(p_local, x_local, cut)
+        return reduced(out), {k: _placed(new[k], mesh, c_pl[k], state[k].shape) for k in new}
     c_local = {k: _as_dtensor(t, mesh).redistribute(mesh, c_pl[k]).to_local()
                for k, t in cache.items()}
     out, new = fn(p_local, x_local, c_local, cut)
@@ -811,6 +933,20 @@ def on_cache(fn, rows, cache):
     out = _placed(out, mesh, r_pl, (b, *out.shape[1:]))
     return out, {k: _placed(new[k], mesh, c_pl, t.shape).redistribute(mesh, given)
                  for k, t in cache.items()}
+
+
+def on_sequence(fn, t: torch.Tensor, size: int) -> torch.Tensor:
+    """``fn(t)``, which maps a layer's prompt entries ``t [B, S, ...]`` to
+    the ``size`` slots of its cache ``[B, size, ...]`` (padded, or a ring's
+    slots picked), on each rank's shard of ``t`` with its sequence whole:
+    each rank fills the slots of its rows and heads, and the cache keeps
+    ``t``'s placements (:func:`place_cache` then cuts its slots).  On a
+    plain tensor the plain call."""
+    if not is_dtensor(t):
+        return fn(t)
+    t = replicate_axis(reduce_partial(t), 1)
+    return _placed(fn(t.to_local()), t.device_mesh, t.placements,
+                   (t.shape[0], size, *t.shape[2:]))
 
 
 def placed_like(tree, like):

@@ -57,7 +57,8 @@ from . import ffn as ffn_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import embed, init_embedding, init_linear, init_rmsnorm, linear, rmsnorm
-from .sharding import constrain, logsumexp_pick, mesh_context, on_mixer, replicate_axis
+from .sharding import (constrain, head_operands, logsumexp_pick, mesh_context, on_mixer,
+                       place_cache, replicate_axis)
 
 __all__ = ["block_kinds", "scan_plan", "checkpointed", "init_layer", "init_lm", "forward",
            "loss_fn", "prefill", "init_cache", "decode_step"]
@@ -295,10 +296,14 @@ def _constrained_block(p: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, *
 
 
 def _unembed(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The logits; on a mesh split over the vocab as the head's weight is,
+    whatever the padding (``sharding.head_operands``)."""
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
+        x, table = head_operands(x, params["embed"]["table"], 0)
+        logits = x @ table.T
     else:
-        logits = linear(params["lm_head"], x)
+        x, w = head_operands(x, params["lm_head"]["w"], 1)
+        logits = linear({**params["lm_head"], "w": w}, x)
     if cfg.vocab_padded != cfg.vocab:  # mask pad classes (never predicted)
         pad = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
         logits = torch.where(pad, logits, torch.full((), -1e30, dtype=logits.dtype,
@@ -356,28 +361,49 @@ def prefill(
     patch_embeds: Optional[torch.Tensor] = None, attn_impl: str = "auto",
 ) -> Tuple[torch.Tensor, List[Params]]:
     """Returns ``(logits [B, S_text, V_pad], caches)``: one cache a layer,
-    every row positioned after the prefix and the text."""
-    x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
-    caches: List[Params] = []
-    for p, kind in zip(params["layers"], block_kinds(cfg)):
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if kind == "mamba":
-            mixed, cache = ssm_mod.mamba2_forward(p["mixer"], cfg, h, return_state=True)
-            x = x + mixed
-        else:
-            if kind == "rec":
-                mixed, cache = rglru_mod.rglru_block(p["mixer"], cfg, h, return_state=True)
-            elif _attn_kind(cfg) == "mla":
-                mixed, cache = attn_mod.mla_prefill(p["attn"], cfg, h, positions, max_len,
-                                                    impl=attn_impl)
+    every row positioned after the prefix and the text.
+
+    DTensor params and batch-cut ``tokens`` / ``patch_embeds`` run the same
+    code on a mesh, as :func:`forward` does: the recurrent mixers run on
+    each rank's rows and heads or channels (``sharding.on_mixer``), each
+    attention cache is filled on each rank's rows and heads and then cut
+    over its slots, and every cache leaf comes back in the placements its
+    decode steps take (``sharding.cache_pspecs``: batch over the data axes;
+    the KV / MLA sequence, the Mamba-2 heads and the RG-LRU and conv
+    channels over ``model``; ``pos`` over the batch), so the first step
+    moves nothing.  The logits come back split over the batch and the
+    vocab.  On plain tensors nothing changes."""
+    with mesh_context(tokens, params, patch_embeds):
+        x, positions, prefix_len = _embed_inputs(params, tokens, patch_embeds)
+        b = x.shape[0]
+        caches: List[Params] = []
+        for p, kind in zip(params["layers"], block_kinds(cfg)):
+            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+            if kind == "mamba":
+                mixed, cache = on_mixer(
+                    lambda pm, hh, cut: ssm_mod.mamba2_forward(pm, cfg, hh, return_state=True,
+                                                               cut=cut),
+                    h, p["mixer"], state=ssm_mod.init_mamba2_cache(cfg, b, device="meta"),
+                    **ssm_mod.TP)
+                x = x + mixed
             else:
-                mixed, cache = attn_mod.gqa_prefill(
-                    p["attn"], cfg, h, positions, max_len, window=_window(cfg, kind),
-                    prefix_len=prefix_len, impl=attn_impl)
-            x, _ = _ffn(p, cfg, x + mixed, "dense")
-        caches.append(cache)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x[:, prefix_len:]), caches
+                if kind == "rec":
+                    mixed, cache = on_mixer(
+                        lambda pm, hh, cut: rglru_mod.rglru_block(pm, cfg, hh, return_state=True,
+                                                                  cut=cut),
+                        h, p["mixer"], state=rglru_mod.init_rglru_cache(cfg, b, device="meta"),
+                        **rglru_mod.TP)
+                elif _attn_kind(cfg) == "mla":
+                    mixed, cache = attn_mod.mla_prefill(p["attn"], cfg, h, positions, max_len,
+                                                        impl=attn_impl)
+                else:
+                    mixed, cache = attn_mod.gqa_prefill(
+                        p["attn"], cfg, h, positions, max_len, window=_window(cfg, kind),
+                        prefix_len=prefix_len, impl=attn_impl)
+                x, _ = _ffn(p, cfg, x + mixed, "dense")
+            caches.append(place_cache(cache))
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _unembed(params, cfg, x[:, prefix_len:]), caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -407,29 +433,32 @@ def decode_step(
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One token for the whole stack.  Returns ``(logits [B, 1, V_pad],
     caches)``: new cache tensors, the inputs are not modified.  On a mesh
-    every cache tensor comes back in the placements it came in."""
-    x = embed(params["embed"], tokens_t)
-    new_caches: List[Params] = []
-    for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        # on a mesh the recurrent steps run on each rank's batch rows and its
-        # heads or channels, with the state and conv window where they lie
-        if kind == "mamba":
-            mixed, cache = on_mixer(
-                lambda pm, hh, c, cut: ssm_mod.mamba2_step(pm, cfg, hh, c, cut),
-                h, p["mixer"], cache, **ssm_mod.TP)
-            x = x + mixed
-        else:
-            if kind == "rec":
+    (DTensor params, ``tokens_t`` and caches; the constants it builds count
+    as replicated) every cache tensor comes back in the placements it came
+    in."""
+    with mesh_context(tokens_t, params, caches):
+        x = embed(params["embed"], tokens_t)
+        new_caches: List[Params] = []
+        for p, kind, cache in zip(params["layers"], block_kinds(cfg), caches):
+            h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+            # on a mesh the recurrent steps run on each rank's batch rows and
+            # its heads or channels, with the state and conv window where they lie
+            if kind == "mamba":
                 mixed, cache = on_mixer(
-                    lambda pm, hh, c, cut: rglru_mod.rglru_step(pm, cfg, hh, c, cut),
-                    h, p["mixer"], cache, **rglru_mod.TP)
-            elif _attn_kind(cfg) == "mla":
-                mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
+                    lambda pm, hh, c, cut: ssm_mod.mamba2_step(pm, cfg, hh, c, cut),
+                    h, p["mixer"], cache, **ssm_mod.TP)
+                x = x + mixed
             else:
-                mixed, cache = attn_mod.gqa_decode_step(p["attn"], cfg, h, cache,
-                                                        window=_window(cfg, kind), mode=mode)
-            x, _ = _ffn(p, cfg, x + mixed, mode)
-        new_caches.append(cache)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x), new_caches
+                if kind == "rec":
+                    mixed, cache = on_mixer(
+                        lambda pm, hh, c, cut: rglru_mod.rglru_step(pm, cfg, hh, c, cut),
+                        h, p["mixer"], cache, **rglru_mod.TP)
+                elif _attn_kind(cfg) == "mla":
+                    mixed, cache = attn_mod.mla_decode_step(p["attn"], cfg, h, cache)
+                else:
+                    mixed, cache = attn_mod.gqa_decode_step(
+                        p["attn"], cfg, h, cache, window=_window(cfg, kind), mode=mode)
+                x, _ = _ffn(p, cfg, x + mixed, mode)
+            new_caches.append(cache)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _unembed(params, cfg, x), new_caches

@@ -15,11 +15,13 @@ temperature sampling), the slot-based continuous-batching
   both packages; the plan-compiled decoder with the kernels is
   ``AsyncPlanServer.submit_llm`` (``scheduler.py``).  Temperature sampling
   draws from a ``torch.Generator`` seeded with ``seed`` (``jax.random``
-  draws cannot be reproduced).
+  draws cannot be reproduced).  On DTensor params it serves on their
+  mesh (the class's docstring says how).
 * :class:`RequestScheduler` -- fixed-slot continuous batching: finished
   sequences release their slot, queued requests are prefilled one row at a
   time and spliced into the batched cache (every cache kind: each tensor of
-  a layer's cache is batch-leading).
+  a layer's cache is batch-leading); plain params only (an engine on a
+  mesh is refused).
 * :class:`PlanServer` -- frames queue up and execute in fixed-size batches
   via :meth:`ExecutionPlan.batched`, padding only the tail batch.
 """
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as _lm
+from ..models.sharding import is_dtensor, place_rows
 from ..obs import metrics as _metrics
 
 __all__ = ["GenerationResult", "Engine", "Request", "RequestScheduler", "PlanServer"]
@@ -48,7 +51,17 @@ class GenerationResult:
 class Engine:
     """``model`` (a :class:`repro_torch.models.Model`) over ``params``:
     prompts of ``batch_size`` rows, caches of ``max_len`` slots.  Tensors go
-    to the device of the params' embedding table."""
+    to the device of the params' embedding table.
+
+    DTensor params (``sharding.distribute_params``; every rank builds the
+    engine and calls ``generate`` with the same prompts) serve on their
+    mesh, as the JAX package's jitted engine serves placed params: the
+    prompts, the patch embeddings and each step's sampled token are cut
+    over the batch (``sharding.place_rows``), the caches come back from
+    ``prefill`` in their decode placements (``sharding.cache_pspecs``) and
+    keep them from step to step, and the last logits ``[B, V]`` are made
+    whole (``full_tensor``) only to sample, so every rank samples the same
+    tokens."""
 
     def __init__(
         self,
@@ -70,23 +83,35 @@ class Engine:
         self.batch_size = batch_size
         self.max_len = max_len
         self.temperature = temperature
-        self.device = params["embed"]["table"].device
+        table = params["embed"]["table"]
+        self.device = table.device
+        #: the params' mesh (DTensor params), else None
+        self.mesh = table.device_mesh if is_dtensor(table) else None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _rows(self, t) -> torch.Tensor:
+        """``t`` on the engine's device; on a mesh cut over the batch."""
+        t = torch.as_tensor(t, device=self.device)
+        return t if self.mesh is None else place_rows(t, self.mesh)
+
+    @staticmethod
+    def _last(logits: torch.Tensor) -> torch.Tensor:
+        """The last position's logits ``[B, V]``, whole on every rank."""
+        last = logits[:, -1]
+        return last.full_tensor() if is_dtensor(last) else last
 
     @torch.no_grad()
     def _prefill(self, params, tokens, patch_embeds=None):
-        tokens = torch.as_tensor(tokens, device=self.device)
         if patch_embeds is not None:
-            patch_embeds = torch.as_tensor(patch_embeds, device=self.device)
-        logits, caches = _lm.prefill(params, self.cfg, tokens, self.max_len,
+            patch_embeds = self._rows(patch_embeds)
+        logits, caches = _lm.prefill(params, self.cfg, self._rows(tokens), self.max_len,
                                      patch_embeds=patch_embeds)
-        return logits[:, -1], caches
+        return self._last(logits), caches
 
     @torch.no_grad()
     def _decode(self, params, tok_t, caches):
-        tok_t = torch.as_tensor(tok_t, device=self.device)
-        logits, caches = _lm.decode_step(params, self.cfg, tok_t, caches)
-        return logits[:, -1], caches
+        logits, caches = _lm.decode_step(params, self.cfg, self._rows(tok_t), caches)
+        return self._last(logits), caches
 
     # ------------------------------------------------------------------ #
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -279,6 +304,10 @@ class RequestScheduler:
     """
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None):
+        if engine.mesh is not None:
+            raise NotImplementedError(
+                "RequestScheduler splices single-row prefills into plain caches; an Engine on "
+                "a mesh serves whole batches through generate")
         self.engine = engine
         self.eos_id = eos_id
         self.queue: List[Request] = []

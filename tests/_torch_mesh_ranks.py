@@ -20,14 +20,24 @@ Cases:
   projection of sharded leaves under ``DEFAULT_RULES`` and ``FSDP_RULES``.
 * ``zoo4`` (4 ranks, ``tests/test_torch_distributed_zoo.py``): every
   ``ARCH_IDS`` family's smoke config under both rule sets on (2, 2) and
-  (4, 1) meshes against the unsharded port: one forward + backward, and
-  ``DECODE_STEPS`` decode steps from a cache placed as the dry run places
-  it, with every returned cache leaf's placements; a windowed GQA cache.
+  (4, 1) meshes against the unsharded port: one forward + backward, a
+  sharded ``prefill`` (every decoder family) with each cache leaf's error
+  and placements, and ``DECODE_STEPS`` decode steps from its caches
+  (whisper's: placed as the dry run places a decode cell's), with every
+  returned cache leaf's placements; a windowed GQA cache; the ``Engine``
+  on DTensor params (``ENGINE_ARCHS`` on (2, 2), ``DEFAULT_RULES``)
+  against the unsharded one.
+* ``vocab2`` (2 ranks, ``tests/test_torch_dryrun.py``): a smoke config
+  whose vocab needs no padding (256 classes) on a (1, 2) mesh, its residual
+  stream cut over the batch on both axes: the logits' placements where the
+  cross entropy takes them, and the loss and gradients against the
+  unsharded ones.
 * ``ssm4`` (4 ranks, ``tests/test_torch_distributed_ssm.py``): the Mamba-2
   and RG-LRU smoke configs (``SSM_ARCHS``) tensor-parallel over ``model``
   on (1, 4) and (2, 2) meshes under both rule sets, against the unsharded
-  port: one forward + backward (with each gradient leaf's placements) and
-  ``DECODE_STEPS`` decode steps, every cache leaf kept where it lies.
+  port: one forward + backward (with each gradient leaf's placements), a
+  sharded ``prefill`` and ``DECODE_STEPS`` decode steps from its caches,
+  every cache leaf kept where it lies.
 """
 
 import dataclasses
@@ -485,10 +495,13 @@ def zoo_decode_inputs(cfg, seed=0):
     return out
 
 
-def _zoo_fill(model, params, inp, max_len):
-    """The plain caches after the prompt: ``prefill``, or for whisper its
-    encoder, the cross K/V and one decode step a prompt token."""
+def _zoo_fill(model, params, inp, max_len, mesh=None):
+    """``(logits, caches)`` after the prompt: ``prefill`` -- on ``mesh``
+    with the prompt and patch embeddings cut over the batch, ``params``
+    then DTensors -- or for whisper (no logits) its encoder, the cross K/V
+    and one decode step a prompt token."""
     from repro_torch.models import encdec
+    from repro_torch.models import sharding as sh
     from repro_torch.models import transformer as tlm
 
     cfg = model.cfg
@@ -499,10 +512,36 @@ def _zoo_fill(model, params, inp, max_len):
                   encdec.precompute_cross_kv(params, cfg, enc))
         for t in range(prompt.shape[1]):
             _, caches = model.decode_step(params, {"tokens_t": prompt[:, t:t + 1]}, caches)
-        return caches
+        return None, caches
     pe = inp.get("patch_embeds")
-    return tlm.prefill(params, cfg, prompt, max_len,
-                       patch_embeds=None if pe is None else torch.from_numpy(pe))[1]
+    pe = None if pe is None else torch.from_numpy(pe)
+    if mesh is not None:
+        prompt = sh.place_rows(prompt, mesh)
+        pe = None if pe is None else sh.place_rows(pe, mesh)
+    return tlm.prefill(params, cfg, prompt, max_len, patch_embeds=pe)
+
+
+def _prefill_check(out, tag, logits, caches, ref_logits, ref_caches, mesh):
+    """The sharded prefill against the plain one: the logits' error and
+    each cache leaf's (relative to its max |plain|; an int leaf, ``pos``:
+    0 where equal, inf where not), and whether each leaf lies where
+    ``place_caches`` puts the plain one (placements and local shape)."""
+    from repro_torch.utils.tree import leaves
+
+    got = _np(logits)
+    out[f"{tag}_prefill_logits"] = got
+    out[f"{tag}_prefill_err"] = np.asarray(np.abs(got - ref_logits).max()
+                                           / np.abs(ref_logits).max())
+    errs = []
+    for c, r in zip(leaves(caches), leaves(ref_caches)):
+        a, b = _np(c), _np(r)
+        if r.is_floating_point():
+            errs.append(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        else:
+            errs.append(0.0 if np.array_equal(a, b) else np.inf)
+    out[f"{tag}_prefill_cache_err"] = np.asarray(errs)
+    out[f"{tag}_prefill_placed"] = np.asarray([
+        g == w for g, w in zip(_layout(caches), _layout(place_caches(ref_caches, mesh)))])
 
 
 def _place(tree, specs, mesh):
@@ -519,14 +558,11 @@ def _place(tree, specs, mesh):
 
 def place_caches(caches, mesh):
     """``caches`` placed on ``mesh`` as the dry run places a decode cell's
-    (the JAX package's ``_cache_pspecs``: batch over ``data``, sequence,
-    heads or channels over ``model``)."""
-    from repro_torch.launch import dryrun
+    (``sharding.cache_pspecs``, the JAX package's ``_cache_pspecs``: batch
+    over ``data``, sequence, heads or channels over ``model``)."""
     from repro_torch.models import sharding as sh
 
-    specs = dryrun._maybe_replicate_batch(dryrun._cache_pspecs(caches, sh.batch_spec(mesh)),
-                                          caches, mesh)
-    return _place(caches, specs, mesh)
+    return _place(caches, sh.cache_pspecs(caches, mesh), mesh)
 
 
 def _layout(tree):
@@ -592,16 +628,20 @@ def _zoo(out, io_dir):
 
     meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in ZOO_MESHES}
     _families(out, io_dir, ARCH_IDS, meshes, lambda arch, shape, name: (
-        arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2)))
+        arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2)),
+        lambda arch, shape, name: arch in ENGINE_ARCHS and shape == (2, 2) and name == "default")
     _zoo_window(out, meshes[(2, 2)])
 
 
-def _families(out, io_dir, archs, meshes, keep_grads):
+def _families(out, io_dir, archs, meshes, keep_grads, engine=lambda *cell: False):
     """Each of ``archs``' smoke config, unsharded and on each of ``meshes``
     under both rule sets: the loss, each gradient leaf's error (and, where
     ``keep_grads(arch, shape, rules)``, the leaves), whether each came back
-    in its weight's placements and local shape, and ``DECODE_STEPS`` decode
-    steps' logits with whether the caches and weights kept theirs."""
+    in its weight's placements and local shape, the sharded prefill against
+    the plain one (``_prefill_check``), and ``DECODE_STEPS`` decode steps'
+    logits from its caches with whether the caches and weights kept theirs;
+    where ``engine(arch, shape, rules)``, the ``Engine`` on the sharded
+    params against the plain one (``_engine``)."""
     import time
 
     from repro_torch.configs import smoke_config
@@ -625,7 +665,7 @@ def _families(out, io_dir, archs, meshes, keep_grads):
         g_plain = [_np(g) for g in leaves(grads)]
         out[f"{arch}_grad_max"] = np.asarray([np.abs(g).max() for g in g_plain])
         inp = zoo_decode_inputs(cfg)
-        caches = _zoo_fill(model, params, inp, ZOO_MAX_LEN)
+        fill_logits, caches = _zoo_fill(model, params, inp, ZOO_MAX_LEN)
         out[f"{arch}_logits"], _ = _zoo_decode(model, params, caches, inp["steps"])
         for shape, mesh in meshes.items():
             bd = _place(batch, {k: sh.P("data") for k in batch}, mesh)
@@ -642,11 +682,67 @@ def _families(out, io_dir, archs, meshes, keep_grads):
                 if keep_grads(arch, shape, name):
                     for i, x in enumerate(leaves(grads)):
                         out[f"{tag}_grad{i}"] = _np(x)
+                if cfg.is_encdec:  # no prefill: the plain caches, placed
+                    start = place_caches(caches, mesh)
+                else:
+                    lg, start = _zoo_fill(model, dp, inp, ZOO_MAX_LEN, mesh)
+                    _prefill_check(out, tag, lg, start, _np(fill_logits), caches, mesh)
                 out[f"{tag}_logits"], out[f"{tag}_kept"] = _zoo_decode(
-                    model, dp, place_caches(caches, mesh), inp["steps"], mesh)
+                    model, dp, start, inp["steps"], mesh)
+                if engine(arch, shape, name):
+                    _engine(out, arch, model, params, dp, inp, mesh)
                 out[f"{tag}_weights_kept"] = np.asarray(_layout(dp) == weights)
         out[f"{arch}_paths"] = np.asarray([p for p, _ in leaves_with_path(params)])
         print(f"{arch}: {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+#: the ``Engine`` on the mesh: these families on (2, 2) under
+#: ``DEFAULT_RULES``, ``ENGINE_STEPS`` new tokens a row
+ENGINE_ARCHS = ("qwen2.5-3b", "mamba2-1.3b", "paligemma-3b")
+ENGINE_STEPS = 4
+
+
+def _in_place(caches, mesh) -> bool:
+    """Whether every cache leaf has its ``sharding.cache_pspecs`` placements."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.utils.tree import leaves
+
+    specs = leaves(sh.cache_pspecs(caches, mesh))
+    return [tuple(t.placements) for t in leaves(caches)] == [
+        tuple(sh.param_placements(mesh, s)) for s in specs]
+
+
+def _engine(out, arch, model, params, dp, inp, mesh):
+    """``Engine.generate`` on the plain params and on their DTensors ``dp``:
+    both runs' greedy tokens, the plain run's logits at each step (the
+    near-tie rule reads them) and, after each sharded decode step, whether
+    every cache leaf came back in the placements and local shape it went in
+    with, those of ``cache_pspecs``."""
+    from repro_torch.serving.engine import Engine
+
+    tokens = []
+    for p in (params, dp):
+        eng = Engine(model, p, batch_size=ZOO_BATCH, max_len=ZOO_MAX_LEN)
+        sample, decode, logits, kept = eng._sample, eng._decode, [], []
+
+        def recorded(lg, sample=sample, logits=logits):
+            logits.append(lg.float().numpy())
+            return sample(lg)
+
+        def checked(params, tok, caches, decode=decode, kept=kept):
+            lg, new = decode(params, tok, caches)
+            kept.append(_layout(new) == _layout(caches) and _in_place(caches, mesh))
+            return lg, new
+
+        eng._sample = recorded
+        if p is dp:
+            eng._decode = checked
+        tokens.append(eng.generate(inp["prompt"], ENGINE_STEPS,
+                                   patch_embeds=inp.get("patch_embeds")).tokens)
+        if p is params:
+            out[f"{arch}_engine_logits"] = np.stack(logits)
+    out[f"{arch}_engine_tokens"] = np.stack(tokens)
+    out[f"{arch}_engine_kept"] = np.asarray(kept)
 
 
 def _zoo_window(out, mesh):
@@ -693,6 +789,52 @@ def _ssm(out, io_dir):
     _families(out, io_dir, SSM_ARCHS, meshes, lambda arch, shape, name: shape == (1, 4))
 
 
+def _vocab2(out):
+    """``vocab2``: qwen2.5-3b's smoke config (vocab 256 == its padded vocab)
+    in f32 on a (1, 2) ``(data, model)`` mesh, with ``residual_spec`` cutting
+    the residual stream's batch over both axes, so the head's input arrives
+    split over ``model``: the placements of the logits ``loss_fn`` hands
+    the cross entropy, and the loss and every gradient leaf's error against
+    the unsharded step's."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as tlm
+    from repro_torch.training import train_loop
+    from repro_torch.utils.tree import leaves
+
+    cfg = dataclasses.replace(smoke_config("qwen2.5-3b"), dtype="float32")
+    assert cfg.vocab == cfg.vocab_padded == 256
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticPipeline(cfg, batch=8, seq=129, seed=0).next().items()}
+    seen, pick = [], tlm.logsumexp_pick
+
+    def recorded(x, labels):
+        if sh.is_dtensor(x):
+            seen.append(repr(tuple(x.placements)))
+        return pick(x, labels)
+
+    tlm.logsumexp_pick = recorded
+    spec = sh.P(("data", "model"), None, None)
+    losses, grads = [], []
+    for p, b in ((params, batch), (sh.distribute_params(mesh, params),
+                                   {k: sh.place_rows(v, mesh) for k, v in batch.items()})):
+        loss, _, g = train_loop._value_and_grad(
+            lambda pp, bb: tlm.loss_fn(pp, cfg, bb, residual_spec=spec),
+            train_loop.TrainState(p, None), b)
+        losses.append(float(_np(loss)))
+        grads.append([_np(x) for x in leaves(g)])
+    out["vocab2_placements"] = np.asarray(seen)
+    out["vocab2_loss"] = np.asarray(losses)
+    out["vocab2_grad_err"] = np.asarray([np.abs(a - c).max() / max(np.abs(c).max(), 1e-30)
+                                         for a, c in zip(grads[1], grads[0])])
+
+
 def main(case: str, rank: int, world: int, io_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(io_dir, 'rdzv_' + case)}",
@@ -717,6 +859,8 @@ def main(case: str, rank: int, world: int, io_dir: str) -> None:
             _zoo(out, io_dir)
         elif case == "ssm4":
             _ssm(out, io_dir)
+        elif case == "vocab2":
+            _vocab2(out)
         else:
             raise ValueError(f"unknown case {case!r}")
         np.savez(os.path.join(io_dir, f"{case}_rank{rank}.npz"), **out)

@@ -10,10 +10,13 @@ runs 2 or 4 heads or 32 or 64 channels (``sharding.on_mixer``):
 
 * one sharded forward + backward against the unsharded one, each of the
   mixers' gradient leaves in its weight's placements and local shape;
-* ``DECODE_STEPS`` sharded decode steps from the caches of an unsharded
-  prefill, placed as the JAX package's ``_cache_pspecs`` places them (the
-  Mamba-2 state by heads, ``h`` and the conv windows by channels), against
-  the unsharded steps' logits, every cache leaf and weight in the
+* a sharded ``prefill`` against the unsharded one: the logits, every
+  cache leaf, and each leaf's placements and local shape, which must be
+  where the JAX package's ``_cache_pspecs`` places a decode cache (the
+  Mamba-2 state by heads, ``h`` and the conv windows by channels:
+  ``sharding.cache_pspecs``);
+* ``DECODE_STEPS`` sharded decode steps from that prefill's caches,
+  against the unsharded steps' logits, every cache leaf and weight in the
   placements and local shape it was given after each step.
 
 The JAX reference runs in one subprocess on a (1, 4) mesh of
@@ -23,8 +26,10 @@ from its own prefill, under both rule sets.  Both packages read the same
 params (``numpy_tree``'s arrays, saved as a checkpoint both restore).
 
 Tolerances, as the zoo's: losses within 1e-5 (relative), every gradient
-leaf within 1e-4 x its max |reference|, decode logits within 1e-5 x max
-|logits|.
+leaf within 1e-4 x its max |reference|, prefill logits and cache leaves
+and decode logits within 1e-5 x max |reference|.  (The JAX package's
+sharded prefill of both families is held in
+``tests/test_torch_distributed_zoo.py``.)
 """
 
 import numpy as np
@@ -34,7 +39,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.training import checkpoint
 from test_torch_distributed import _finish, _start_jax, _start_ranks
-from test_torch_distributed_zoo import _numpy_params, _within
+from test_torch_distributed_zoo import _numpy_params, _within, check_prefill
 
 import _torch_mesh_ranks as ranks
 
@@ -138,6 +143,13 @@ def test_tensor_parallel_forward_backward_matches_unsharded(runs, arch, mesh, ru
     cut, mixer = p[f"{tag}_grad_cut"], np.char.find(p[f"{arch}_paths"], "['mixer']") >= 0
     assert cut.shape == err.shape and mixer.sum() > 0
     assert cut[mixer].all(), p[f"{arch}_paths"][mixer & ~cut]
+
+
+@pytest.mark.parametrize("arch,mesh,rules", CELLS)
+def test_sharded_prefill_matches_unsharded(runs, arch, mesh, rules):
+    """The tensor-parallel prefill's logits and caches within 1e-5 x max
+    |plain|, every leaf in its decode placements."""
+    check_prefill(runs["port"], f"{arch}_{mesh}_{rules}")
 
 
 @pytest.mark.parametrize("arch,mesh,rules", CELLS)

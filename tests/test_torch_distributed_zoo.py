@@ -9,29 +9,40 @@ and (4, 1) ``(data, model)`` meshes,
 
 * one sharded forward + backward (``train_loop._value_and_grad``) against
   the unsharded one;
-* ``DECODE_STEPS`` sharded decode steps from the caches of an unsharded
-  prefill (whisper: its encoder and a decode step a prompt token), placed
-  as the dry run places a decode cell's (``launch/dryrun._cache_pspecs``:
-  batch over ``data``, sequence, heads or channels over ``model``), against
-  the unsharded steps' logits, with every returned cache leaf's placements
-  and local shape after each step;
-* a windowed GQA layer's steps on a ring cache cut over ``model``.
+* a sharded ``prefill`` of every decoder family (the prompt and a VLM's
+  patch embeddings cut over ``data``) against the unsharded one: its
+  logits, every cache leaf, and each leaf's placements and local shape,
+  which must be those the dry run gives a decode cell's caches
+  (``sharding.cache_pspecs``: batch over ``data``, sequence, heads or
+  channels over ``model``);
+* ``DECODE_STEPS`` sharded decode steps from that prefill's caches
+  (whisper, which has no prefill: from its encoder and a decode step a
+  prompt token, the caches placed by ``cache_pspecs``), against the
+  unsharded steps' logits, with every returned cache leaf's placements and
+  local shape after each step;
+* a windowed GQA layer's steps on a ring cache cut over ``model``;
+* ``Engine.generate`` on DTensor params (``ranks.ENGINE_ARCHS``, (2, 2),
+  ``DEFAULT_RULES``) against the unsharded ``Engine``'s greedy tokens.
 
 The JAX reference runs in one subprocess on (2, 2) meshes of
 ``AxisType.Auto`` axes (see ``tests/test_torch_distributed.py``): the
-deepseek-v2 smoke configs' loss and gradients under ``FSDP_RULES``, and the
+deepseek-v2 smoke configs' loss and gradients under ``FSDP_RULES``; the
 qwen2.5-3b, deepseek-v2-lite and mamba2 decode steps from its own prefill,
-its caches placed by its ``_cache_pspecs``, under both rule sets.  Both
-packages read the same params: ``numpy_tree``'s arrays in the JAX layout,
-carried into the port by ``convert.lm_params_from_numpy`` and saved as a
-checkpoint that both restore.
+its caches placed by its ``_cache_pspecs``; and the jitted ``lm.prefill`` on
+params placed by ``param_pspecs`` for ``JAX_PREFILL``; the last two under
+both rule sets.  Both packages read the same params: ``numpy_tree``'s
+arrays in the JAX layout, carried into the port by
+``convert.lm_params_from_numpy`` and saved as a checkpoint that both
+restore.
 
 Tolerances: losses within 1e-5 (relative) of the unsharded port's and of
 JAX's sharded step; every gradient leaf within 1e-4 x its max |unsharded|
-(and of JAX's); decode logits within 1e-5 x max |logits| of the unsharded
-port's and of JAX's sharded step (the same f32 ops, summed in other orders
-and, where the cache is cut over its sequence, combined by a log-sum-exp
-all-reduce).
+(and of JAX's); prefill logits and cache leaves, and decode logits, within
+1e-5 x max |reference| of the unsharded port's and of JAX's sharded step
+(the same f32 ops, summed in other orders and, where the cache is cut over
+its sequence, combined by a log-sum-exp all-reduce); ``pos`` and the
+greedy tokens equal (a token may differ only where the plain logits' top
+two are within 1e-5 x max |logits|).
 """
 
 import jax
@@ -60,6 +71,10 @@ MESHES = [f"{a}x{b}" for a, b in ranks.ZOO_MESHES]
 CELLS = [(arch, mesh, rules) for arch in ARCH_IDS for mesh in MESHES for rules in ranks.ZOO_RULES]
 JAX_TRAIN = ("deepseek-v2-lite-16b", "deepseek-v2-236b")
 JAX_DECODE = ("qwen2.5-3b", "deepseek-v2-lite-16b", "mamba2-1.3b")
+JAX_PREFILL = ("qwen2.5-3b", "deepseek-v2-lite-16b", "mamba2-1.3b", "recurrentgemma-9b",
+               "paligemma-3b")
+#: every decoder family (whisper has no prefill in either package)
+PREFILL_CELLS = [c for c in CELLS if not smoke_config(c[0]).is_encdec]
 
 JAX_REF = """
 import sys
@@ -123,9 +138,19 @@ for arch in %(decode)r:
                 lg, c = step(params, {"tokens_t": rows(inp[arch + "_steps"][:, t:t + 1])}, c)
                 logits.append(np.asarray(lg))
         out[arch + "_" + name + "_logits"] = np.stack(logits)
+
+for arch in %(prefill)r:
+    cfg, model, plain = restore(arch)
+    pe = inp.get(arch + "_patch_embeds")
+    kw = {} if pe is None else {"patch_embeds": rows(pe)}
+    for name, rules in (("default", None), ("fsdp", FSDP_RULES)):
+        params = place(plain, param_pspecs(plain, rules))
+        with m22:
+            lg, _ = prefill(params, cfg, rows(inp[arch + "_prompt"]), %(max_len)d, **kw)
+        out[arch + "_" + name + "_prefill_logits"] = np.asarray(lg, np.float32)
 np.savez(io + "/jax.npz", **out)
-""" % dict(train=JAX_TRAIN, decode=JAX_DECODE, batch=ranks.ZOO_BATCH, seq=ranks.ZOO_SEQ,
-           max_len=ranks.ZOO_MAX_LEN, steps=ranks.DECODE_STEPS)
+""" % dict(train=JAX_TRAIN, decode=JAX_DECODE, prefill=JAX_PREFILL, batch=ranks.ZOO_BATCH,
+           seq=ranks.ZOO_SEQ, max_len=ranks.ZOO_MAX_LEN, steps=ranks.DECODE_STEPS)
 
 
 def _numpy_params(arch):
@@ -143,7 +168,7 @@ def runs(tmp_path_factory):
     for arch in ARCH_IDS:
         checkpoint.save(str(io_dir / f"params_{arch}"), 0,
                         lm_params_from_numpy(_numpy_params(arch), device="cpu"))
-        if arch in JAX_DECODE:
+        if arch in JAX_DECODE + JAX_PREFILL:
             for k, v in ranks.zoo_decode_inputs(smoke_config(arch)).items():
                 inputs[f"{arch}_{k}"] = v
     np.savez(io_dir / "inputs.npz", **inputs)
@@ -217,6 +242,59 @@ def test_sharded_decode_matches_unsharded(runs, arch, mesh, rules):
 def test_sharded_decode_matches_jax_sharded(runs, arch, rules):
     p, j = runs["port"], runs["jax"]
     _within(p[f"{arch}_2x2_{rules}_logits"], j[f"{arch}_{rules}_logits"], RTOL)
+
+
+# --------------------------------------------------------------------------- #
+# prefill and the Engine                                                       #
+# --------------------------------------------------------------------------- #
+
+
+def check_prefill(p, tag):
+    """The sharded prefill's logits and every cache leaf within 1e-5 x max
+    |plain|, ``pos`` equal, each leaf in its ``cache_pspecs`` placements and
+    local shape (``ranks._prefill_check``'s record of cell ``tag``)."""
+    assert p[f"{tag}_prefill_err"] <= RTOL, p[f"{tag}_prefill_err"]
+    err, placed = p[f"{tag}_prefill_cache_err"], p[f"{tag}_prefill_placed"]
+    assert len(err) == len(placed) > 0
+    assert err.max() <= RTOL, err
+    assert placed.all(), np.flatnonzero(~placed)
+
+
+@pytest.mark.parametrize("arch,mesh,rules", PREFILL_CELLS)
+def test_sharded_prefill_matches_unsharded(runs, arch, mesh, rules):
+    check_prefill(runs["port"], f"{arch}_{mesh}_{rules}")
+
+
+@pytest.mark.parametrize("rules", ranks.ZOO_RULES)
+@pytest.mark.parametrize("arch", JAX_PREFILL)
+def test_sharded_prefill_matches_jax_sharded(runs, arch, rules):
+    """On (2, 2): the logits within 1e-5 x max |logits| of the JAX
+    package's jitted ``lm.prefill`` on params placed by ``param_pspecs``."""
+    p, j = runs["port"], runs["jax"]
+    got, ref = p[f"{arch}_2x2_{rules}_prefill_logits"], j[f"{arch}_{rules}_prefill_logits"]
+    assert got.shape == ref.shape
+    _within(got, ref, RTOL)
+
+
+@pytest.mark.parametrize("arch", ranks.ENGINE_ARCHS)
+def test_engine_on_the_mesh_matches_unsharded(runs, arch):
+    """``Engine.generate`` on DTensor params ((2, 2), ``DEFAULT_RULES``)
+    gives the unsharded engine's greedy tokens; at the first step where a
+    row differs, the plain logits' top two are within 1e-5 x max |logits|
+    (a near tie).  After each decode step every cache leaf is where it
+    went in, in its ``cache_pspecs`` placements."""
+    p = runs["port"]
+    (plain, sharded), logits = p[f"{arch}_engine_tokens"], p[f"{arch}_engine_logits"]
+    assert plain.shape == (ranks.ZOO_BATCH, ranks.ENGINE_STEPS) == sharded.shape
+    differ = np.flatnonzero((plain != sharded).any(axis=0))
+    if differ.size:
+        t = differ[0]
+        top2 = np.sort(logits[t], axis=-1)[:, -2:]
+        rows = plain[:, t] != sharded[:, t]
+        gap = (top2[:, 1] - top2[:, 0])[rows]
+        assert (gap <= RTOL * np.abs(logits[t]).max()).all(), (t, gap)
+    kept = p[f"{arch}_engine_kept"]
+    assert kept.shape == (ranks.ENGINE_STEPS - 1,) and kept.all()
 
 
 def test_windowed_gqa_cache_on_the_mesh(runs):

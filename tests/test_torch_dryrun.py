@@ -20,9 +20,17 @@ tensors, nothing allocated.
   analytic count, no all-gather as large as one layer's local ``in_proj``
   shard, and decode caches kept where they lie; a ``model`` size that does
   not divide their heads or channels raises.  Every family's smoke cells:
-  ``tests/test_torch_dryrun_grid.py``.
+  ``tests/test_torch_dryrun_grid.py``;
+* the LM head keeps its logits split over the vocab whether or not the
+  vocab needed padding: recurrentgemma-9b ``train_4k`` on the 16 x 16 mesh
+  holds no more live bytes than JAX's dry run, a 3-layer cut of
+  recurrentgemma-9b and deepseek-v2-lite-16b counts the same live and
+  collective bytes at its vocab and one class fewer, and on 2 gloo ranks
+  (``tests/_torch_mesh_ranks.py``, case ``vocab2``) a vocab-256 loss takes
+  vocab-split logits and matches the unsharded loss and gradients.
 """
 
+import dataclasses
 import json
 import math
 
@@ -168,13 +176,15 @@ def test_decode_cell_on_the_production_mesh_keeps_its_caches_cut():
 #: peak of live bytes of mamba2-1.3b ``train_4k``
 JAX_COLLECTIVES = {("mamba2-1.3b", "decode_32k"): 6.64e6,
                    ("recurrentgemma-9b", "decode_32k"): 1.222e7}
-JAX_LIVE = {("mamba2-1.3b", "train_4k"): 39.52e9}
+JAX_LIVE = {("mamba2-1.3b", "train_4k"): 39.52e9,
+            ("recurrentgemma-9b", "train_4k"): 72.0e9}
 
 
 @pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", "decode_32k"),
                                         ("mamba2-1.3b", "long_500k"),
                                         ("mamba2-1.3b", "train_4k"),
-                                        ("recurrentgemma-9b", "decode_32k")])
+                                        ("recurrentgemma-9b", "decode_32k"),
+                                        ("recurrentgemma-9b", "train_4k")])
 def test_recurrent_mixers_are_tensor_parallel_on_the_production_mesh(arch, shape):
     """Each rank runs its 4 of mamba2's 64 heads, or 256 of the 4096
     RG-LRU channels: the FLOPs a device within 1.5x of the analytic count
@@ -184,8 +194,9 @@ def test_recurrent_mixers_are_tensor_parallel_on_the_production_mesh(arch, shape
     shard (the mixers' weights and recurrent states are never gathered:
     before, 2.059e8 and 2.732e8 bytes a decode step), at most 3x the JAX
     package's collective bytes, no more live bytes in training than JAX
-    holds, and every decode cache leaf back in its ``_cache_pspecs``
-    placement and local shape."""
+    holds (recurrentgemma-9b: 272.3 GB before its unpadded 256000-class
+    head kept the logits split over the vocab), and every decode cache leaf
+    back in its ``cache_pspecs`` placement and local shape."""
     rec = dryrun.run_cell(arch, shape, "single", verbose=False)
     assert rec["ok"], rec.get("error")
     cfg = get_config(arch)
@@ -202,6 +213,7 @@ def test_recurrent_mixers_are_tensor_parallel_on_the_production_mesh(arch, shape
     kinds = rec["collectives"]["per_kind"]
     if shape == "train_4k":
         assert rec["memory"]["live_bytes"] <= JAX_LIVE[(arch, shape)]
+        assert rec["memory"]["fits_hbm"]
         return
     assert rec["caches_kept"]
     assert kinds.get("all-gather", 0) < in_proj_shard
@@ -222,3 +234,52 @@ def test_mixer_cut_that_does_not_divide_raises(arch, what, shape):
     assert rec["ok"] is False
     assert rec["error"] == (f"ValueError: {arch}-smoke: {what} do not divide over the 3 ranks "
                             "of mesh dim 'model' of the mesh {'data': 1, 'model': 3}")
+
+
+# --------------------------------------------------------------------------- #
+# the head's vocab split                                                       #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "deepseek-v2-lite-16b"])
+def test_unpadded_vocab_keeps_the_head_split(arch):
+    """``train_4k`` on the 16 x 16 mesh, cut to 3 layers: at the config's
+    own vocab (256000 and 102400, no padding) and at one class fewer
+    (padded to the next 256), the live and the collective bytes a device
+    agree within 5%.  Before the head kept its logits split, the unpadded
+    head's logits were a partial sum of every class on each device: 251.41
+    against 36.56 GiB live (recurrentgemma-9b), 100.60 against 14.66
+    (deepseek-v2-lite-16b)."""
+    base = get_config(arch)
+    recs = []
+    for vocab in (base.vocab, base.vocab - 1):
+        cfg = dataclasses.replace(base, n_layers=3, vocab=vocab)
+        rec = dryrun.run_cell(arch, "train_4k", "single", cfg_override=cfg, verbose=False)
+        assert rec["ok"], rec.get("error")
+        recs.append(rec)
+    assert recs[0]["memory"]["live_bytes"] == pytest.approx(recs[1]["memory"]["live_bytes"],
+                                                            rel=0.05)
+    assert recs[0]["collectives"]["total_bytes"] == pytest.approx(
+        recs[1]["collectives"]["total_bytes"], rel=0.05)
+
+
+def test_unpadded_vocab_loss_is_vocab_parallel(tmp_path):
+    """A vocab-256 smoke loss on a (1, 2) mesh of 2 gloo ranks, its residual
+    stream cut over the batch on ``model`` too, 8 x 128 tokens against the
+    head's 256 x 64 table (where DTensor's own choice for the head is to
+    contract over ``D`` and leave every class's logits on each rank): the
+    logits reach the cross entropy split over the vocab on ``model``
+    (``Shard(2)``), and the loss (within 1e-5) and every gradient leaf
+    (within 1e-4 x its max) match the unsharded step's."""
+    import numpy as np
+
+    from test_torch_distributed import _finish, _start_ranks
+
+    np.savez(tmp_path / "inputs.npz", none=np.zeros(1))
+    _finish({"vocab2": _start_ranks("vocab2", 2, tmp_path)})
+    out = dict(np.load(tmp_path / "vocab2_rank0.npz"))
+    assert list(out["vocab2_placements"]) == ["(Shard(dim=0), Shard(dim=2))"], \
+        out["vocab2_placements"]
+    plain, sharded = out["vocab2_loss"]
+    assert sharded == pytest.approx(plain, rel=1e-5)
+    assert out["vocab2_grad_err"].max() <= 1e-4, out["vocab2_grad_err"]

@@ -3,8 +3,11 @@ installed torch: 4 gloo ranks on the CPU each, every family's smoke config
 (``ssm4``: the Mamba-2 and RG-LRU ones, tensor-parallel over ``model`` on
 (1, 4) and (2, 2)) with the port's own seeded init (no JAX needed), checked
 against the unsharded numbers with ``tests/test_torch_distributed_zoo.py``'s
-and ``tests/test_torch_distributed_ssm.py``'s tolerances.  Prints the worst
-loss / gradient / logit errors of each case and PASS or FAIL (exit 1).  Use
+and ``tests/test_torch_distributed_ssm.py``'s tolerances: the train step,
+the sharded prefill (its logits, caches and their placements), the decode
+steps from its caches and, in ``zoo4``, the ``Engine`` on the mesh.  Prints
+the worst loss / gradient / prefill / logit errors of each case and PASS or
+FAIL (exit 1).  Use
 it to run the mesh paths on another PyTorch than the test suite's (DTensor's
 view and einsum rules differ between versions).
 
@@ -62,7 +65,7 @@ import _torch_mesh_ranks as ranks
 
 def check(case, o, archs, meshes, ssm=False):
     """Worst errors over ``archs`` x ``meshes`` x rule sets; the failing tags."""
-    bad, worst = [], {"loss": 0.0, "grad": 0.0, "logits": 0.0}
+    bad, worst = [], {"loss": 0.0, "grad": 0.0, "prefill": 0.0, "logits": 0.0}
     for arch in archs:
         mixer = np.char.find(o[arch + "_paths"], "['mixer']") >= 0
         for a, b in meshes:
@@ -72,17 +75,40 @@ def check(case, o, archs, meshes, ssm=False):
                 ge = float((o[t + "_grad_err"] / np.maximum(o[arch + "_grad_max"], 1e-30)).max())
                 lg = o[arch + "_logits"]
                 de = float(np.abs(o[t + "_logits"] - lg).max() / np.abs(lg).max())
+                pe, placed = 0.0, True
+                if t + "_prefill_err" in o:  # every decoder family
+                    pe = max(float(o[t + "_prefill_err"]), float(o[t + "_prefill_cache_err"].max()))
+                    placed = bool(o[t + "_prefill_placed"].all())
                 worst = {"loss": max(worst["loss"], le), "grad": max(worst["grad"], ge),
-                         "logits": max(worst["logits"], de)}
-                kept = bool(o[t + "_kept"].all())
+                         "prefill": max(worst["prefill"], pe), "logits": max(worst["logits"], de)}
+                kept = bool(o[t + "_kept"].all()) and placed
                 if ssm:  # the weights, and the mixers' gradients, in their placements
                     kept = kept and bool(o[t + "_weights_kept"]) and bool(
                         o[t + "_grad_cut"][mixer].all())
-                if le > 1e-5 or ge > 1e-4 or de > 1e-5 or not kept:
-                    bad.append((t, le, ge, de, kept))
+                if le > 1e-5 or ge > 1e-4 or pe > 1e-5 or de > 1e-5 or not kept:
+                    bad.append((t, le, ge, pe, de, kept))
     print(f"compat {case}: worst loss rel {worst['loss']:.2e}, grad {worst['grad']:.2e} x max, "
-          f"logits {worst['logits']:.2e} x max; every cache leaf kept: "
-          f"{not any(not x[-1] for x in bad)}", flush=True)
+          f"prefill {worst['prefill']:.2e} x max, logits {worst['logits']:.2e} x max; every "
+          f"cache leaf in place: {not any(not x[-1] for x in bad)}", flush=True)
+    return bad
+
+
+def check_engine(o):
+    """The ``Engine`` on the mesh: the greedy tokens equal to the unsharded
+    engine's (or, at the first step that differs, a near tie of the plain
+    logits), every cache leaf kept after each step."""
+    bad = []
+    for arch in ranks.ENGINE_ARCHS:
+        (plain, sharded), logits = o[arch + "_engine_tokens"], o[arch + "_engine_logits"]
+        differ = np.flatnonzero((plain != sharded).any(axis=0))
+        ok = bool(o[arch + "_engine_kept"].all())
+        if differ.size:
+            top2 = np.sort(logits[differ[0]], axis=-1)[:, -2:]
+            ok = ok and bool(((top2[:, 1] - top2[:, 0]) <= 1e-5 * np.abs(logits[differ[0]]).max()).all())
+        print(f"compat zoo4: engine {arch}: tokens {'equal' if not differ.size else 'differ'}",
+              flush=True)
+        if not ok:
+            bad.append(("engine", arch))
     return bad
 
 
@@ -92,6 +118,7 @@ if o is None:
     bad.append("zoo4 did not run")
 else:
     bad += check("zoo4", o, ARCH_IDS, ranks.ZOO_MESHES)
+    bad += check_engine(o)
     y = o["window_y"]
     we = float(np.abs(y[:, 1] - y[:, 0]).max() / np.abs(y[:, 0]).max())
     print(f"compat zoo4: window {we:.2e}", flush=True)
