@@ -251,7 +251,13 @@ Phases (each prints its own lines):
               ``DEFAULT_RULES``: the same prefill row, then
               ``Engine.generate`` of 8 tokens for 8 rows of 16 on the plain
               and on the sharded params (greedy tokens equal on one card,
-              every cache leaf in its placements after each step, tok/s);
+              every cache leaf in its placements after each step, tok/s),
+              and ``RequestScheduler`` over that engine, 16 requests (8 or
+              16 prompt tokens, 4-8 new each) over 8 slots, on the plain and
+              the sharded params: each request's tokens equal on one card
+              (on more, equal up to a near tie of the plain logits), none
+              failed, every cache leaf in its ``cache_pspecs`` placements
+              with ``8 / data`` local rows at each tick, ms and tok/s;
               ``compressed_mean_grads`` (int8, topk)
               on that model's gradient tree, the error against the f32
               mean (int8 within half a quantization step of each leaf) and
@@ -296,6 +302,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -3665,6 +3672,9 @@ MESH_SSM_ARCH = "mamba2-1.3b"
 #: == mesh's Engine row: the arch at full width and depth under
 #: DEFAULT_RULES, its rows, prompt tokens, new tokens and cache slots
 MESH_ENGINE = dict(arch="qwen2.5-3b", batch=8, prompt=16, new=8, max_len=64)
+#: == mesh's scheduler row, over MESH_ENGINE's model and slots: requests,
+#: their prompt lengths and their range of new tokens
+MESH_SCHED = dict(requests=16, prompts=(8, 16), new=(4, 8))
 #: the dry-run cells == mesh runs: (arch, shape)
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("qwen3-14b", "decode_32k"),
                 ("mamba2-1.3b", "decode_32k"))
@@ -4138,10 +4148,120 @@ def _mesh_engine(torch, dev, mesh, smoke):
     out["tokens_equal"] = bool((tokens["plain"] == tokens["sharded"]).all())
     out["tokens"] = tokens["sharded"][0].tolist()
     out["kept"] = kept
+    out["sched"] = _mesh_scheduler(torch, dev, mesh, model, params, dp)
     del params, dp
+    gc.collect()  # an engine whose wrapped steps refer back to it holds its params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _mesh_scheduler(torch, dev, mesh, model, params, dp):
+    """``RequestScheduler`` over an ``Engine`` of MESH_ENGINE's slots on the
+    plain params and on their DTensors ``dp``, MESH_SCHED's requests drawn
+    from SEED: each request's tokens and whether it was served to its
+    ``max_new``, the plain logits' top-two gap and max |logits| behind each
+    token (the near-tie rule reads them), the run's ms and tok/s (host
+    clock, synced), and at each sharded tick whether every cache leaf -- as
+    spliced and as the decode step returns it -- has its ``cache_pspecs``
+    placements and ``batch / data`` local rows."""
+    from repro_torch.models import sharding
+    from repro_torch.serving.engine import Engine, Request, RequestScheduler
+    from repro_torch.utils.tree import leaves
+
+    me, ms = MESH_ENGINE, MESH_SCHED
+    rng = np.random.default_rng(SEED + 3)
+    lens = rng.choice(ms["prompts"], ms["requests"])
+    news = rng.integers(ms["new"][0], ms["new"][1] + 1, ms["requests"])
+    asks = [(rng.integers(0, model.cfg.vocab, int(n)).astype(np.int32), int(m))
+            for n, m in zip(lens, news)]
+    rows = me["batch"] // mesh.size(0)
+
+    def in_place(caches):
+        specs = leaves(sharding.cache_pspecs(caches, mesh))
+        return all(tuple(t.placements) == tuple(sharding.param_placements(mesh, sp))
+                   and t.to_local().shape[0] == rows for t, sp in zip(leaves(caches), specs))
+
+    out, kept, seen = {}, [], []
+    for name, p in (("plain", params), ("sharded", dp)):
+        eng = Engine(model, p, batch_size=me["batch"], max_len=me["max_len"])
+        sched = RequestScheduler(eng)
+        reqs = [Request(j, prompt, n) for j, (prompt, n) in enumerate(asks)]
+        if name == "plain":  # each call's top two and max |logits|, left on the device
+            prefill, decode, admitted = eng._prefill, eng._decode, iter(reqs)
+
+            def record(rids, lg):
+                seen.append((rids, lg.float().topk(2, dim=-1).values, lg.float().abs().amax(-1)))
+
+            def prefilled(pp, tok, pe=None, prefill=prefill, admitted=admitted):
+                lg, caches = prefill(pp, tok, pe)
+                record([next(admitted).rid], lg)
+                return lg, caches
+
+            def decoded(pp, tok, caches, decode=decode, sched=sched):
+                lg, new = decode(pp, tok, caches)
+                record([r.rid if r is not None and not r.done else None for r in sched.slots],
+                       lg)
+                return lg, new
+
+            eng._prefill, eng._decode = prefilled, decoded
+        else:
+            decode = eng._decode
+
+            def checked(pp, tok, caches, decode=decode):
+                lg, new = decode(pp, tok, caches)
+                kept.append(in_place(caches) and in_place(new))
+                return lg, new
+
+            eng._decode = checked
+        for r in reqs:
+            sched.submit(r)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        sched.run()
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        n = sum(len(r.generated) for r in reqs)
+        out[name] = dict(tokens=[r.generated for r in reqs], ms=wall * 1e3, tok_s=n / wall,
+                         served=all(r.done and len(r.generated) == r.max_new for r in reqs),
+                         n_tokens=n)
+    gaps = {j: [] for j in range(ms["requests"])}
+    for rids, top, mx in seen:
+        top, mx = top.cpu().tolist(), mx.cpu().tolist()
+        for i, j in enumerate(rids):
+            if j is not None:
+                gaps[j].append((top[i][0] - top[i][1], mx[i]))
+    out["kept"] = kept
+    out["gaps"] = [gaps[j] for j in range(ms["requests"])]
+    return out
+
+
+def _print_scheduler(sc, world, smi, layers):
+    """Check and print ``== mesh``'s scheduler row (``_mesh_scheduler``)."""
+    me, ms = MESH_ENGINE, MESH_SCHED
+    pl, sd = sc["plain"], sc["sharded"]
+    check(pl["served"] and sd["served"], "mesh scheduler: a request was not served to its "
+          "max_new")
+    check(len(sc["kept"]) > 0 and all(sc["kept"]), f"mesh scheduler: a cache leaf left its "
+          f"cache_pspecs placements or local rows at a tick ({sc['kept']})")
+    differ = [j for j, (a, b) in enumerate(zip(pl["tokens"], sd["tokens"])) if a != b]
+    if world == 1:
+        check(not differ, f"mesh scheduler: requests {differ} differ from the unsharded "
+              f"scheduler's on one card")
+    for j in differ:
+        t = next(t for t, (a, b) in enumerate(zip(pl["tokens"][j], sd["tokens"][j])) if a != b)
+        g, m = sc["gaps"][j][t]
+        check(g <= MESH_LOSS_RTOL * m, f"mesh scheduler: request {j} token {t} differs where "
+              f"the plain logits' top two are {g:.3e} apart (max |logits| {m:.3e})")
+    print(f"  mesh scheduler ({me['arch']}, bf16, full width, {layers} layers, DEFAULT_RULES, "
+          f"{smi}): RequestScheduler of {ms['requests']} requests (prompts of "
+          f"{' / '.join(map(str, ms['prompts']))} tokens, {ms['new'][0]}-{ms['new'][1]} new "
+          f"each, {sd['n_tokens']} tokens) over {me['batch']} slots: tokens "
+          f"{'equal' if not differ else f'equal up to near ties ({len(differ)} requests)'} to "
+          f"the unsharded scheduler's, none failed, every cache leaf in its cache_pspecs "
+          f"placements with {me['batch']} / data local rows at each of {len(sc['kept'])} "
+          f"ticks; ms {sd['ms']:.2f} sharded vs {pl['ms']:.2f} unsharded, tok/s "
+          f"{sd['tok_s']:.2f} vs {pl['tok_s']:.2f} (host clock, synced, the whole run)")
 
 
 def _print_prefill(key, pf, world, smi, what):
@@ -4310,6 +4430,7 @@ def phase_mesh(torch, smi, *, device="cuda", smoke=False):
           f"{e['tokens']}), every cache leaf in its placements after each step; tok/s "
           f"{e['sharded_tok_s']:.2f} sharded vs {e['plain_tok_s']:.2f} unsharded (host clock, "
           f"synced, the whole generate call)")
+    _print_scheduler(e["sched"], world, smi, e["layers"])
     p = r["pipe"]
     check(p["equal"], f"mesh: pipeline_forward differs from the sequential loop ({p})")
     print(f"  mesh pipeline_forward ({p['layers']} layers of tanh(h @ W), D = "

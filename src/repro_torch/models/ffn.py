@@ -30,7 +30,7 @@ from ..configs.base import ArchConfig, MoEConfig
 from ..kernels import ops as kops
 from ..kernels.ref import _ACT
 from .layers import _normal, init_linear, init_pruned_linear, linear, linear_auto
-from .sharding import on_experts, on_rows
+from .sharding import on_experts, on_rows, whole_if_uneven
 
 __all__ = ["init_mlp", "mlp", "init_moe", "moe"]
 
@@ -181,6 +181,10 @@ def moe(p: Params, cfg: ArchConfig, x: torch.Tensor, *, activation: str = "silu"
     """Returns ``(output, router_aux_loss)``; ``x [B, S, D]``.  The aux loss
     is Switch-style: ``E * sum(mean router prob * top-1 load)``, f32."""
     mc: MoEConfig = cfg.moe
+    # the [B, S*k] views below take only even cuts: on a mesh whose batch
+    # axes a batch does not divide (a one-row prefill, an odd batch),
+    # DTensor's matmuls may have cut the rows or the sequence over them
+    x = whole_if_uneven(x, 0, 1)
     b, s, d = x.shape
     k, n_e = mc.top_k, mc.n_routed
     probs = torch.softmax(linear(p["router"], x.float()), dim=-1)  # [B, S, E]

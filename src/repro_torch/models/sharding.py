@@ -15,7 +15,9 @@ param tree on a mesh, where JAX's ``NamedSharding`` + ``device_put`` do.
 ``cache_pspecs`` lays decode caches out as the JAX package's dry run does
 (batch over the data axes, the long axis over ``model``), ``place_cache``
 puts a layer's cache there and ``place_rows`` cuts a batch every rank holds
-(a prompt, a sampled token) over the batch axes.
+(a prompt, a sampled token) over the batch axes; ``broadcast_row`` and
+``splice_row`` fill a batched cache from one-row prefills (continuous
+batching), each rank writing only the rows it holds.
 
 The helpers at the end are what GSPMD does for the JAX package inside the
 model code: ``mesh_context`` (a constant the model builds -- rope tables,
@@ -23,8 +25,9 @@ masks, positions -- is replicated on every rank), ``constrain``
 (``with_sharding_constraint``), ``embedding`` (a vocab-sharded lookup and
 its all-reduce), ``head_operands`` (the LM head's logits split over the
 vocab), ``logsumexp_pick`` (the vocab-parallel cross entropy),
-``reduce_partial`` and ``replicate_axis`` (gathering a tensor dim before an
-op that needs it whole).  Some work runs on each rank's shard instead,
+``reduce_partial``, ``replicate_axis`` and ``whole_if_uneven`` (gathering a
+tensor dim before an op that needs it whole, or evenly cut).  Some work runs
+on each rank's shard instead,
 where DTensor has no sharding rule for an op (``scatter_reduce``), leaves a
 partial it cannot reduce (``gather``), or takes views and pads in one
 PyTorch version that it refuses in another (2.13 against the card's 2.11):
@@ -72,12 +75,15 @@ __all__ = [
     "cache_pspecs",
     "place_rows",
     "place_cache",
+    "broadcast_row",
+    "splice_row",
     "is_dtensor",
     "mesh_context",
     "constrain",
     "reduce_partial",
     "embedding",
     "replicate_axis",
+    "whole_if_uneven",
     "gather_last",
     "logsumexp_pick",
     "head_operands",
@@ -312,8 +318,11 @@ def cache_pspecs(caches: Tree, mesh) -> Tree:
 def place_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """A batch-leading plain tensor -- the same on every rank (a prompt, a
     sampled token) -- cut over ``mesh``'s batch axes, each rank keeping its
-    rows (no collective); whole where the batch does not divide."""
-    spec = _maybe_replicate_batch(P(*batch_spec(mesh), *([None] * (t.ndim - 1))), t, mesh)
+    rows (no collective); whole where the batch does not divide, and where
+    it is one row (a scheduler's one-row prefill lies alike on every mesh:
+    DTensor refuses to flatten a one-row dim cut over a mesh dim of one)."""
+    spec = P() if t.shape[0] == 1 else _maybe_replicate_batch(
+        P(*batch_spec(mesh), *([None] * (t.ndim - 1))), t, mesh)
     return _shard_like(t, mesh, param_placements(mesh, spec))
 
 
@@ -336,6 +345,88 @@ def place_cache(cache: Tree) -> Tree:
         return t if list(t.placements) == pl else t.redistribute(mesh, pl)
 
     return map_with_path(place, cache, cache_pspecs(cache, mesh))
+
+
+def _rows_held(n: int, mesh, placements) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of a batch-leading tensor of ``n`` rows that
+    this rank holds under ``placements`` (``torch.chunk`` over each mesh
+    dim that cuts the batch, DTensor's layout)."""
+    lo, hi = 0, n
+    for d, p in enumerate(placements):
+        if p.is_shard(0):
+            size = -(-(hi - lo) // mesh.size(d))
+            lo = min(hi, lo + size * mesh.get_local_rank(d))
+            hi = min(hi, lo + size)
+    return lo, hi
+
+
+def _check_row(row, mesh, placements) -> None:
+    """A one-row cache leaf ``row`` must lie as a batched leaf of
+    ``placements`` on ``mesh`` does off its batch: whole over each mesh dim
+    that cuts the rows (replicated, or cut over a mesh dim of one), the same
+    placement over every other."""
+    from torch.distributed.tensor import Replicate
+
+    def fits(d, r, p):
+        if not p.is_shard(0):
+            return r == p
+        return r == Replicate() or (r.is_shard(0) and mesh.size(d) == 1)
+
+    if row.device_mesh != mesh or not all(
+            fits(d, r, p) for d, (r, p) in enumerate(zip(row.placements, placements))):
+        raise ValueError(f"a one-row cache leaf lies {tuple(row.placements)}, off the "
+                         f"batch's {tuple(placements)}")
+
+
+@torch.no_grad()
+def broadcast_row(row_cache: Tree, batch: int) -> Tree:
+    """A layer's one-row cache (a batch-1 prefill's) as a cache of ``batch``
+    rows, each a copy of the row: what a scheduler's first admission fills
+    every slot with.  A leaf whose leading dim is 1 is repeated; any other
+    is kept.  DTensor leaves come back in :func:`cache_pspecs`' placements
+    for ``batch`` rows on their mesh: each rank repeats its cut of the row
+    (whole over the batch axes) over the rows it holds -- no collective,
+    nothing gathered."""
+    first = next((t for t in leaves(row_cache) if is_dtensor(t)), None)
+    if first is None:
+        return tree_map(lambda c: torch.cat([c] * batch)
+                        if c.dim() > 0 and c.shape[0] == 1 else c, row_cache)
+    mesh = first.device_mesh
+    template = tree_map(lambda c: torch.empty((batch, *c.shape[1:]), dtype=c.dtype,
+                                              device="meta")
+                        if c.dim() > 0 and c.shape[0] == 1 else c, row_cache)
+
+    def place(_, c, spec):
+        if c.dim() == 0 or c.shape[0] != 1:
+            return c
+        pl = param_placements(mesh, spec)
+        _check_row(c, mesh, pl)
+        lo, hi = _rows_held(batch, mesh, pl)
+        local = c.to_local()
+        return _placed(local.expand(hi - lo, *local.shape[1:]).contiguous(), mesh, pl,
+                       (batch, *c.shape[1:]))
+
+    return map_with_path(place, row_cache, cache_pspecs(template, mesh))
+
+
+@torch.no_grad()
+def splice_row(full_cache: Tree, row_cache: Tree, i: int) -> Tree:
+    """Row 0 of a layer's one-row cache written into row ``i`` of its
+    batched cache, in place (every leaf with a leading dim).  On DTensors
+    the rank or ranks holding row ``i`` write their cut of the row into
+    their local row ``i - lo``; the others do nothing -- no collective.  A
+    row leaf that lies other than the batched leaf off the batch raises."""
+    for full, row in zip(leaves(full_cache), leaves(row_cache)):
+        if full.dim() == 0:
+            continue
+        if not is_dtensor(full):
+            full[i] = row[0]
+            continue
+        _check_row(row, full.device_mesh, full.placements)
+        lo, hi = _rows_held(full.shape[0], full.device_mesh, full.placements)
+        if lo <= i < hi:
+            full.to_local()[i - lo] = row.to_local()[0]
+    return full_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -379,6 +470,23 @@ def replicate_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     dim = dim % x.ndim
     pl = [Replicate() if p.is_shard() and p.dim % x.ndim == dim else p for p in x.placements]
     return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def whole_if_uneven(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """A DTensor with each tensor dim of ``dims`` made whole on every rank
+    where the mesh dims cutting it do not divide it (DTensor's views take
+    only even cuts, and its matmuls may cut a batch or a sequence unevenly
+    over a mesh dim the batch leaves free); an even cut, or a plain tensor,
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    for dim in dims:
+        dim = dim % x.ndim
+        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim % x.ndim == dim)
+        if x.shape[dim] % n:
+            x = replicate_axis(x, dim)
+    return x
 
 
 class _Nesting:

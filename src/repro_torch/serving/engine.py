@@ -20,8 +20,9 @@ temperature sampling), the slot-based continuous-batching
 * :class:`RequestScheduler` -- fixed-slot continuous batching: finished
   sequences release their slot, queued requests are prefilled one row at a
   time and spliced into the batched cache (every cache kind: each tensor of
-  a layer's cache is batch-leading); plain params only (an engine on a
-  mesh is refused).
+  a layer's cache is batch-leading).  On an engine on a mesh the batched
+  caches keep their decode placements and each rank writes the rows it
+  holds (the class's docstring says how).
 * :class:`PlanServer` -- frames queue up and execute in fixed-size batches
   via :meth:`ExecutionPlan.batched`, padding only the tail batch.
 """
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as _lm
-from ..models.sharding import is_dtensor, place_rows
+from ..models.sharding import broadcast_row, is_dtensor, place_rows, splice_row
 from ..obs import metrics as _metrics
 
 __all__ = ["GenerationResult", "Engine", "Request", "RequestScheduler", "PlanServer"]
@@ -301,13 +302,24 @@ class RequestScheduler:
     ignored), greedily.  :meth:`run` returns the requests still holding a
     slot, as the JAX package's does: a finished request whose slot was
     refilled is not in the list.
+
+    On an engine on a mesh (DTensor params) every rank runs the same loop
+    over the same queue, as every rank calls ``Engine.generate``: the greedy
+    tokens come from logits made whole on each rank, so every rank admits,
+    finishes and refills the same slots.  A row's prefill keeps its one
+    prompt row whole (1 does not divide the batch axes) and its caches cut
+    over ``model``; the first admission repeats that row over each rank's
+    rows of caches in their decode placements (``sharding.broadcast_row``)
+    and a later one writes it into the rank that holds the slot
+    (``sharding.splice_row``): nothing is gathered or all-gathered, and the
+    caches stay cut over ``data`` (``B / data`` rows a rank, the whole batch
+    where ``data`` does not divide it) as the engine's do.  The JAX
+    package's scheduler, on params placed alike, leaves its batched caches
+    whole over the batch (GSPMD broadcasts the batch-1 prefill's caches);
+    the tokens are the same.
     """
 
     def __init__(self, engine: Engine, eos_id: Optional[int] = None):
-        if engine.mesh is not None:
-            raise NotImplementedError(
-                "RequestScheduler splices single-row prefills into plain caches; an Engine on "
-                "a mesh serves whole batches through generate")
         self.engine = engine
         self.eos_id = eos_id
         self.queue: List[Request] = []
@@ -331,14 +343,13 @@ class RequestScheduler:
                 self._last_tok[i] = tok
                 if self._caches is None:
                     # first admission: broadcast the row's cache to the batch
-                    b = self.engine.batch_size
-                    self._caches = [
-                        {k: torch.cat([c] * b) if c.dim() > 0 and c.shape[0] == 1 else c
-                         for k, c in cache.items()}
-                        for cache in caches
-                    ]
+                    self._caches = [broadcast_row(c, self.engine.batch_size) for c in caches]
                 else:
-                    self._caches = _splice_row(self._caches, caches, i)
+                    # in place: the scheduler owns its batched caches (each
+                    # decode step returns new ones), so no copy of the whole
+                    # cache is made per admission -- nor, on a mesh, gathered
+                    for full, row in zip(self._caches, caches):
+                        splice_row(full, row, i)
 
     def step(self) -> bool:
         """One decode tick over all active slots.  Returns False when idle."""
@@ -367,15 +378,3 @@ class RequestScheduler:
                 break
         return [s for s in self.slots if s is not None]
 
-
-@torch.no_grad()
-def _splice_row(caches, row_caches, i: int):
-    """Write row 0 of ``row_caches`` into row ``i`` of the batched
-    ``caches`` (the per-layer dicts' batch-leading tensors).  In place: the
-    scheduler owns its batched caches (each decode step returns new ones),
-    so no copy of the whole cache is made per admission."""
-    for full, row in zip(caches, row_caches):
-        for k, t in full.items():
-            if t.dim() > 0:
-                t[i] = row[k][0]
-    return caches

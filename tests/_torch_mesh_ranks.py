@@ -26,7 +26,9 @@ Cases:
   (whisper's: placed as the dry run places a decode cell's), with every
   returned cache leaf's placements; a windowed GQA cache; the ``Engine``
   on DTensor params (``ENGINE_ARCHS`` on (2, 2), ``DEFAULT_RULES``)
-  against the unsharded one.
+  against the unsharded one; the ``RequestScheduler`` on DTensor params
+  (``SCHED_CELLS`` on (2, 2)) against the unsharded one, with every cache
+  leaf's placements and local rows at each tick.
 * ``vocab2`` (2 ranks, ``tests/test_torch_dryrun.py``): a smoke config
   whose vocab needs no padding (256 classes) on a (1, 2) mesh, its residual
   stream cut over the batch on both axes: the logits' placements where the
@@ -629,11 +631,13 @@ def _zoo(out, io_dir):
     meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in ZOO_MESHES}
     _families(out, io_dir, ARCH_IDS, meshes, lambda arch, shape, name: (
         arch.startswith("deepseek") and name == "fsdp" and shape == (2, 2)),
-        lambda arch, shape, name: arch in ENGINE_ARCHS and shape == (2, 2) and name == "default")
+        lambda arch, shape, name: arch in ENGINE_ARCHS and shape == (2, 2) and name == "default",
+        lambda arch, shape, name: (arch, name) in SCHED_CELLS and shape == (2, 2))
     _zoo_window(out, meshes[(2, 2)])
 
 
-def _families(out, io_dir, archs, meshes, keep_grads, engine=lambda *cell: False):
+def _families(out, io_dir, archs, meshes, keep_grads, engine=lambda *cell: False,
+              scheduler=lambda *cell: False):
     """Each of ``archs``' smoke config, unsharded and on each of ``meshes``
     under both rule sets: the loss, each gradient leaf's error (and, where
     ``keep_grads(arch, shape, rules)``, the leaves), whether each came back
@@ -641,7 +645,8 @@ def _families(out, io_dir, archs, meshes, keep_grads, engine=lambda *cell: False
     the plain one (``_prefill_check``), and ``DECODE_STEPS`` decode steps'
     logits from its caches with whether the caches and weights kept theirs;
     where ``engine(arch, shape, rules)``, the ``Engine`` on the sharded
-    params against the plain one (``_engine``)."""
+    params against the plain one (``_engine``); where ``scheduler(arch,
+    shape, rules)``, the ``RequestScheduler`` likewise (``_scheduler``)."""
     import time
 
     from repro_torch.configs import smoke_config
@@ -691,6 +696,8 @@ def _families(out, io_dir, archs, meshes, keep_grads, engine=lambda *cell: False
                     model, dp, start, inp["steps"], mesh)
                 if engine(arch, shape, name):
                     _engine(out, arch, model, params, dp, inp, mesh)
+                if scheduler(arch, shape, name):
+                    _scheduler(out, arch, name, model, params, dp, mesh)
                 out[f"{tag}_weights_kept"] = np.asarray(_layout(dp) == weights)
         out[f"{arch}_paths"] = np.asarray([p for p, _ in leaves_with_path(params)])
         print(f"{arch}: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -743,6 +750,88 @@ def _engine(out, arch, model, params, dp, inp, mesh):
             out[f"{arch}_engine_logits"] = np.stack(logits)
     out[f"{arch}_engine_tokens"] = np.stack(tokens)
     out[f"{arch}_engine_kept"] = np.asarray(kept)
+
+
+#: the ``RequestScheduler`` on the mesh: (arch, rules) cells on (2, 2);
+#: ``SCHED_REQUESTS`` requests over ``ZOO_BATCH`` slots of ``ZOO_MAX_LEN``
+SCHED_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "mamba2-1.3b", "recurrentgemma-9b")
+SCHED_CELLS = tuple((a, "default") for a in SCHED_ARCHS) + (("deepseek-v2-lite-16b", "fsdp"),)
+SCHED_REQUESTS, SCHED_MAX_NEW = 7, 4
+
+
+def zoo_sched_requests(cfg, seed=0):
+    """The scheduler run's requests for ``cfg`` (either package's config):
+    ``SCHED_REQUESTS`` pairs ``(prompt, max_new)``, prompts of 5 or 9
+    tokens, 2-``SCHED_MAX_NEW`` new tokens each: more requests than slots,
+    so slots are refilled while the others decode."""
+    rng = np.random.default_rng(seed)
+    lens = rng.choice([5, 9], SCHED_REQUESTS)
+    news = rng.integers(2, SCHED_MAX_NEW + 1, SCHED_REQUESTS)
+    return [(rng.integers(0, cfg.vocab, int(n)).astype(np.int32), int(m))
+            for n, m in zip(lens, news)]
+
+
+def _scheduler(out, arch, rules, model, params, dp, mesh):
+    """``RequestScheduler`` over an ``Engine`` of ``ZOO_BATCH`` slots on the
+    plain params (once an arch) and on their DTensors ``dp``: each request's
+    greedy tokens (``[SCHED_REQUESTS, SCHED_MAX_NEW]``, -1 past its
+    ``max_new``), the plain run's logits behind each token (the near-tie
+    rule reads them) and, at each sharded tick, whether every cache leaf --
+    as spliced and as the decode step returns it -- has its ``cache_pspecs``
+    placements and ``ZOO_BATCH / 2`` local rows."""
+    import time
+
+    from repro_torch.serving.engine import Engine, Request, RequestScheduler
+    from repro_torch.utils.tree import leaves
+
+    def cut(caches):
+        return all(t.to_local().shape[0] == ZOO_BATCH // 2 for t in leaves(caches))
+
+    t0 = time.perf_counter()
+    for p in ((params, dp) if f"{arch}_sched_tokens" not in out else (dp,)):
+        eng = Engine(model, p, batch_size=ZOO_BATCH, max_len=ZOO_MAX_LEN)
+        sched = RequestScheduler(eng)
+        reqs = [Request(j, prompt, n) for j, (prompt, n) in
+                enumerate(zoo_sched_requests(model.cfg))]
+        prefill, decode, logits, placed, rows = eng._prefill, eng._decode, [], [], []
+        admitted = iter(reqs)
+
+        def prefilled(pp, tok, pe=None, prefill=prefill, logits=logits, admitted=admitted):
+            lg, caches = prefill(pp, tok, pe)
+            logits.append((next(admitted).rid, lg[0].float().numpy()))
+            return lg, caches
+
+        def decoded(pp, tok, caches, decode=decode, logits=logits, sched=sched):
+            lg, new = decode(pp, tok, caches)
+            logits.extend((s.rid, lg[i].float().numpy()) for i, s in enumerate(sched.slots)
+                          if s is not None and not s.done)
+            if p is dp:
+                placed.append(_in_place(caches, mesh) and _in_place(new, mesh))
+                rows.append(cut(caches) and cut(new))
+            return lg, new
+
+        eng._prefill, eng._decode = prefilled, decoded
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        tokens = np.full((SCHED_REQUESTS, SCHED_MAX_NEW), -1, np.int32)
+        for r in reqs:
+            tokens[r.rid, :len(r.generated)] = r.generated
+        if p is params:
+            out[f"{arch}_sched_tokens"] = tokens
+            v = logits[0][1].shape[-1]
+            lg = np.zeros((SCHED_REQUESTS, SCHED_MAX_NEW, v), np.float32)
+            for j in range(SCHED_REQUESTS):
+                mine = [x for rid, x in logits if rid == j]
+                lg[j, :len(mine)] = mine
+            out[f"{arch}_sched_logits"] = lg
+        else:
+            out[f"{arch}_{rules}_sched_tokens"] = tokens
+            out[f"{arch}_{rules}_sched_placed"] = np.asarray(placed)
+            out[f"{arch}_{rules}_sched_rows"] = np.asarray(rows)
+            out[f"{arch}_{rules}_sched_done"] = np.asarray(
+                [r.done and len(r.generated) == r.max_new for r in reqs])
+    print(f"{arch} scheduler ({rules}): {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def _zoo_window(out, mesh):

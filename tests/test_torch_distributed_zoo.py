@@ -22,7 +22,11 @@ and (4, 1) ``(data, model)`` meshes,
   local shape after each step;
 * a windowed GQA layer's steps on a ring cache cut over ``model``;
 * ``Engine.generate`` on DTensor params (``ranks.ENGINE_ARCHS``, (2, 2),
-  ``DEFAULT_RULES``) against the unsharded ``Engine``'s greedy tokens.
+  ``DEFAULT_RULES``) against the unsharded ``Engine``'s greedy tokens;
+* ``RequestScheduler`` on DTensor params (``ranks.SCHED_CELLS``, (2, 2)):
+  ``SCHED_REQUESTS`` requests over ``ZOO_BATCH`` slots against the
+  unsharded scheduler's tokens, with every cache leaf's placements and
+  local rows at each tick.
 
 The JAX reference runs in one subprocess on (2, 2) meshes of
 ``AxisType.Auto`` axes (see ``tests/test_torch_distributed.py``): the
@@ -30,7 +34,8 @@ deepseek-v2 smoke configs' loss and gradients under ``FSDP_RULES``; the
 qwen2.5-3b, deepseek-v2-lite and mamba2 decode steps from its own prefill,
 its caches placed by its ``_cache_pspecs``; and the jitted ``lm.prefill`` on
 params placed by ``param_pspecs`` for ``JAX_PREFILL``; the last two under
-both rule sets.  Both packages read the same params: ``numpy_tree``'s
+both rule sets; and its ``RequestScheduler`` on params placed by
+``param_pspecs`` (``DEFAULT_RULES``) for ``ranks.SCHED_ARCHS``.  Both packages read the same params: ``numpy_tree``'s
 arrays in the JAX layout, carried into the port by
 ``convert.lm_params_from_numpy`` and saved as a checkpoint that both
 restore.
@@ -148,9 +153,26 @@ for arch in %(prefill)r:
         with m22:
             lg, _ = prefill(params, cfg, rows(inp[arch + "_prompt"]), %(max_len)d, **kw)
         out[arch + "_" + name + "_prefill_logits"] = np.asarray(lg, np.float32)
+
+from repro.serving.engine import Engine, Request, RequestScheduler
+for arch in %(sched)r:
+    cfg, model, plain = restore(arch)
+    sched = RequestScheduler(Engine(model, place(plain, param_pspecs(plain)),
+                                    batch_size=%(batch)d, max_len=%(max_len)d))
+    new = inp[arch + "_sched_new"]
+    reqs = [Request(j, inp[arch + "_sched_prompt%%d" %% j], int(n)) for j, n in enumerate(new)]
+    for r in reqs:
+        sched.submit(r)
+    with m22:
+        sched.run()
+    tokens = np.full((len(reqs), %(sched_new)d), -1, np.int32)
+    for r in reqs:
+        tokens[r.rid, :len(r.generated)] = r.generated
+    out[arch + "_sched_tokens"] = tokens
 np.savez(io + "/jax.npz", **out)
-""" % dict(train=JAX_TRAIN, decode=JAX_DECODE, prefill=JAX_PREFILL, batch=ranks.ZOO_BATCH,
-           seq=ranks.ZOO_SEQ, max_len=ranks.ZOO_MAX_LEN, steps=ranks.DECODE_STEPS)
+""" % dict(train=JAX_TRAIN, decode=JAX_DECODE, prefill=JAX_PREFILL, sched=ranks.SCHED_ARCHS,
+           batch=ranks.ZOO_BATCH, seq=ranks.ZOO_SEQ, max_len=ranks.ZOO_MAX_LEN,
+           steps=ranks.DECODE_STEPS, sched_new=ranks.SCHED_MAX_NEW)
 
 
 def _numpy_params(arch):
@@ -171,6 +193,11 @@ def runs(tmp_path_factory):
         if arch in JAX_DECODE + JAX_PREFILL:
             for k, v in ranks.zoo_decode_inputs(smoke_config(arch)).items():
                 inputs[f"{arch}_{k}"] = v
+        if arch in ranks.SCHED_ARCHS:
+            reqs = ranks.zoo_sched_requests(smoke_config(arch))
+            for j, (prompt, _) in enumerate(reqs):
+                inputs[f"{arch}_sched_prompt{j}"] = prompt
+            inputs[f"{arch}_sched_new"] = np.asarray([n for _, n in reqs])
     np.savez(io_dir / "inputs.npz", **inputs)
     _finish({"jax": _start_jax(io_dir, JAX_REF), "zoo4": _start_ranks("zoo4", 4, io_dir)},
             wall_s=WALL_S)
@@ -295,6 +322,55 @@ def test_engine_on_the_mesh_matches_unsharded(runs, arch):
         assert (gap <= RTOL * np.abs(logits[t]).max()).all(), (t, gap)
     kept = p[f"{arch}_engine_kept"]
     assert kept.shape == (ranks.ENGINE_STEPS - 1,) and kept.all()
+
+
+def check_tokens(got, ref, logits):
+    """Each request's tokens ``got`` equal to ``ref`` (``[R, T]``, -1 past a
+    request's end); at a request's first token that differs, the top two of
+    the plain logits behind it (``logits [R, T, V]``) within 1e-5 x their
+    max |logits| (a near tie)."""
+    assert got.shape == ref.shape == logits.shape[:2]
+    assert ((got == -1) == (ref == -1)).all()
+    for r in np.flatnonzero((got != ref).any(axis=1)):
+        t = np.flatnonzero(got[r] != ref[r])[0]
+        top2 = np.sort(logits[r, t])[-2:]
+        assert top2[1] - top2[0] <= RTOL * np.abs(logits[r, t]).max(), (r, t, top2)
+
+
+@pytest.mark.parametrize("arch,rules", ranks.SCHED_CELLS)
+def test_scheduler_on_the_mesh_matches_unsharded(runs, arch, rules):
+    """``RequestScheduler`` over an ``Engine`` on DTensor params ((2, 2)):
+    ``SCHED_REQUESTS`` requests over ``ZOO_BATCH`` slots, each request's
+    greedy tokens those of the scheduler on the plain params (the near-tie
+    rule), and every request served to its ``max_new``."""
+    p = runs["port"]
+    tokens = p[f"{arch}_sched_tokens"]
+    assert (tokens >= 0).sum() == sum(n for _, n in ranks.zoo_sched_requests(smoke_config(arch)))
+    check_tokens(p[f"{arch}_{rules}_sched_tokens"], tokens, p[f"{arch}_sched_logits"])
+    assert p[f"{arch}_{rules}_sched_done"].all()
+
+
+@pytest.mark.parametrize("arch", ranks.SCHED_ARCHS)
+def test_scheduler_on_the_mesh_matches_jax_sharded(runs, arch):
+    """The same requests through the JAX package's ``RequestScheduler`` on
+    params placed by ``param_pspecs`` on (2, 2) (``DEFAULT_RULES``): the
+    port's sharded scheduler gives its tokens (the near-tie rule, on the
+    port's plain logits)."""
+    p, j = runs["port"], runs["jax"]
+    check_tokens(p[f"{arch}_default_sched_tokens"], j[f"{arch}_sched_tokens"],
+                 p[f"{arch}_sched_logits"])
+
+
+@pytest.mark.parametrize("arch,rules", ranks.SCHED_CELLS)
+def test_scheduler_caches_stay_cut_over_the_mesh(runs, arch, rules):
+    """At every tick of the sharded scheduler each cache leaf, as spliced
+    and as the decode step returns it, has its ``cache_pspecs`` placements
+    and ``ZOO_BATCH / 2`` local rows: no rank holds the batch whole, and
+    slots were refilled mid-run (more ticks than one admission needs)."""
+    p = runs["port"]
+    placed, rows = p[f"{arch}_{rules}_sched_placed"], p[f"{arch}_{rules}_sched_rows"]
+    assert placed.shape == rows.shape and len(placed) >= 2
+    assert placed.all() and rows.all()
 
 
 def test_windowed_gqa_cache_on_the_mesh(runs):

@@ -5,7 +5,8 @@ installed torch: 4 gloo ranks on the CPU each, every family's smoke config
 against the unsharded numbers with ``tests/test_torch_distributed_zoo.py``'s
 and ``tests/test_torch_distributed_ssm.py``'s tolerances: the train step,
 the sharded prefill (its logits, caches and their placements), the decode
-steps from its caches and, in ``zoo4``, the ``Engine`` on the mesh.  Prints
+steps from its caches and, in ``zoo4``, the ``Engine`` and the
+``RequestScheduler`` on the mesh.  Prints
 the worst loss / gradient / prefill / logit errors of each case and PASS or
 FAIL (exit 1).  Use
 it to run the mesh paths on another PyTorch than the test suite's (DTensor's
@@ -112,6 +113,28 @@ def check_engine(o):
     return bad
 
 
+def check_scheduler(o):
+    """The ``RequestScheduler`` on the mesh: each request's tokens equal to
+    the unsharded scheduler's (or, at its first token that differs, a near
+    tie of the plain logits), every request served, every cache leaf in its
+    ``cache_pspecs`` placements with half the batch a rank at each tick."""
+    bad = []
+    for arch, rules in ranks.SCHED_CELLS:
+        t = f"{arch}_{rules}"
+        plain, got, logits = o[arch + "_sched_tokens"], o[t + "_sched_tokens"], o[arch + "_sched_logits"]
+        ok = bool(o[t + "_sched_done"].all() and o[t + "_sched_placed"].all()
+                  and o[t + "_sched_rows"].all()) and ((plain == -1) == (got == -1)).all()
+        for r in np.flatnonzero((plain != got).any(axis=1)):
+            k = np.flatnonzero(plain[r] != got[r])[0]
+            top2 = np.sort(logits[r, k])[-2:]
+            ok = ok and bool(top2[1] - top2[0] <= 1e-5 * np.abs(logits[r, k]).max())
+        print(f"compat zoo4: scheduler {t}: tokens {'equal' if (plain == got).all() else 'differ'}"
+              f", {len(o[t + '_sched_placed'])} ticks in place", flush=True)
+        if not ok:
+            bad.append(("scheduler", t))
+    return bad
+
+
 bad = []
 o = run("zoo4")
 if o is None:
@@ -119,6 +142,7 @@ if o is None:
 else:
     bad += check("zoo4", o, ARCH_IDS, ranks.ZOO_MESHES)
     bad += check_engine(o)
+    bad += check_scheduler(o)
     y = o["window_y"]
     we = float(np.abs(y[:, 1] - y[:, 0]).max() / np.abs(y[:, 0]).max())
     print(f"compat zoo4: window {we:.2e}", flush=True)
