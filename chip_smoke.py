@@ -475,7 +475,9 @@ def device_kernels(torch, fn):
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # acc_events: keep events past the profiler's cycle end, as
+        # profiled_us does (without it a session can report none)
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
@@ -623,23 +625,31 @@ def gemm_registers():
 _FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_simt_kernel", "ffn_gateup_skinny_kernel")
 #: the bf16 tensor-core kernels, whose SASS must issue HMMA
 _TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
+#: the Hopper bf16 GEMM (csrc/wgmma_gemm.cuh), whose SASS must issue HGMMA
+#: (wgmma) and UTMALDG (TMA loads) and no HMMA: one instance per bf16 tile
+#: of dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu (depth 2 / 3)
+_WGMMA_KERNEL = "wgmma_gemm_kernel"
 
 
 def sass_check(lib_path):
-    """The built library's SASS (cuobjdump): every bf16 tensor-core kernel
-    (the dense ``mma_gemm_kernel``, the block-sparse
-    ``bsr_matmul_mma_kernel``, flash attention's prefill body) issues HMMA,
-    every W8A8 conv and GEMM instance IMMA, and no CUDA-core GEMM kernel is
-    instantiated for bf16."""
+    """The built library's SASS (cuobjdump): every instance of the Hopper
+    bf16 GEMM (``wgmma_gemm_kernel``) issues HGMMA and UTMALDG and no HMMA,
+    every other bf16 tensor-core kernel (the dense ``mma_gemm_kernel``, the
+    block-sparse ``bsr_matmul_mma_kernel``, flash attention's prefill body)
+    issues HMMA, every W8A8 conv and GEMM instance IMMA, and no CUDA-core
+    GEMM kernel is instantiated for bf16."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
-    hmma, fma_bf16, imma, imma_gemm = {}, [], {}, {}
+    hmma, fma_bf16, imma, imma_gemm, wgmma = {}, [], {}, {}, {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if any(k in name for k in _TC_KERNELS):
+        if _WGMMA_KERNEL in name:
+            wgmma[name] = (chunk.count("HGMMA"), chunk.count("UTMALDG"),
+                           len(re.findall(r"\bHMMA\b", chunk)))
+        elif any(k in name for k in _TC_KERNELS):
             hmma[name] = chunk.count("HMMA")
         if "conv2d_igemm_int8_kernel" in name:
             imma[name] = chunk.count("IMMA")
@@ -659,6 +669,14 @@ def sass_check(lib_path):
     check(len(imma_gemm) == 16 and min(imma_gemm.values()) > 0,
           f"sass: W8A8 GEMM instances without IMMA: "
           f"{[n for n, c in imma_gemm.items() if not c]} ({len(imma_gemm)} instances, want 16)")
+    n_wgmma = len(_build.BF16_GEMM_TILES)
+    check(len(wgmma) == n_wgmma, f"sass: {len(wgmma)} {_WGMMA_KERNEL} instances, want {n_wgmma}")
+    bad = [n for n, (hg, tma, hm) in wgmma.items() if not hg or not tma or hm]
+    check(not bad, f"sass: {_WGMMA_KERNEL} instances without HGMMA or UTMALDG, or with HMMA: "
+                   f"{bad[:3]}")
+    print(f"  sass: {len(wgmma)} {_WGMMA_KERNEL} instances, HGMMA per kernel "
+          f"{min(v[0] for v in wgmma.values())}..{max(v[0] for v in wgmma.values())}, UTMALDG "
+          f"{min(v[1] for v in wgmma.values())}..{max(v[1] for v in wgmma.values())}, no HMMA")
     print(f"  sass: {len(hmma)} {' / '.join(_TC_KERNELS)} instances, HMMA per kernel "
           f"{min(hmma.values())}..{max(hmma.values())}; {len(imma)} conv2d_igemm_int8_kernel "
           f"instances, IMMA per kernel {min(imma.values())}..{max(imma.values())}; "
@@ -1218,13 +1236,28 @@ def phase_llm_kernels(torch, results):
     ffn_case("M=20 K=130 F=77 f32 gelu (ragged)", 20, 130, 77, torch.float32, "gelu")
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
+    def took(mod, before, want_body, what):
+        """The one body a launch of ``mod`` took since ``before``
+        (``route_launches``) is ``want_body``."""
+        ran = {r for r, c in mod.route_launches.items() if c != before[r]}
+        check(ran == {want_body}, f"{what}: ran {sorted(ran)}, want {want_body}")
+
     def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False, role=None):
         x = randn(m, k, dtype=bf16)
         wt = randn(k, n, scale=k ** -0.5, dtype=bf16)
         b = randn(n, scale=0.1, dtype=bf16) if bias else None
         sides = (randn(m, n, dtype=bf16),) if add else ()
         kw = dict(epilogue=(("add", 0),) if add else ())
+        # the body the shape's rule picks: skinny at decode (M <= 8), the
+        # TMA + wgmma body at the served prefill shapes, mma_gemm.cuh for
+        # odd K or N
+        body = _build.bf16_body(m, n, k)
+        if m > _build.SKINNY_MT:
+            check(body == ("wgmma" if k % 8 == 0 and n % 8 == 0 else "mma_gemm"),
+                  f"dense_matmul bf16 {label}: the rule picks {body}")
+        before = dict(kdense.route_launches)
         out = kdense.dense_matmul(x, wt, b, *sides, **kw)
+        took(kdense, before, body, f"dense_matmul bf16 {label}")
         want = kdense.dense_matmul_plain(x, wt, b, *sides, **kw)
 
         def library():
@@ -1245,7 +1278,10 @@ def phase_llm_kernels(torch, results):
         for depth in (2, 3):
             fn = lambda d=depth: kdense_pipe.dense_matmul_pipelined(  # noqa: E731
                 x, wt, b, *sides, **kw, depth=d)
+            before = dict(kdense_pipe.route_launches)
             got = fn()
+            took(kdense_pipe, before, _build.bf16_body(m, n, k, named=True),
+                 f"dense_matmul_pipelined bf16 d{depth} {label}")
             check(torch.equal(got, out), f"dense_matmul_pipelined bf16 d{depth} {label}: "
                                          f"differs from the tiled kernel")
             record("dense_matmul_pipelined", f"d{depth} bf16 {label}", got, want, fn, plain,
@@ -1281,7 +1317,11 @@ def phase_llm_kernels(torch, results):
                     role=("prefill", "down"))
     dense_bf16_case("M=5 K=70 N=50 +add (ragged)", 5, 70, 50, add=True)
     # odd K and N: bf16 rows not 4-byte aligned, staged by element loads
+    # (the mma_gemm.cuh body: TMA cannot address them)
     dense_bf16_case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, add=True, pipelined=True)
+    # K ends inside a BK = 128 slab of the wgmma body (TMA's zero fill past
+    # K), still bit-equal across tiles and depths
+    dense_bf16_case("M=48 K=2112 N=256 +bias (K ends in a slab)", 48, 2112, 256, pipelined=True)
     # granite-3-2b (head dim 64, 32 / 8 heads) and phi4-mini-3.8b (head dim
     # 128, 24 / 8 heads: 3 query heads a KV group) at the rows they are
     # served with: decode M = 3, prefill M = 48 (3 prompts padded to 16)

@@ -49,6 +49,9 @@ __all__ = [
     "ffn_tile_f32",
     "ffn_split_f32",
     "gemm_split",
+    "tma_plan",
+    "bf16_body",
+    "wgmma_shape",
     "split_counters",
     "GEMM_TILES",
     "BF16_GEMM_TILES",
@@ -72,7 +75,6 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_ROOT = REPO_ROOT / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: fixed maxima of a step program (csrc/epilogue.cuh)
 MAX_STEPS, MAX_SIDES, MAX_NORMS = 8, 4, 4
@@ -103,6 +105,27 @@ FFN_SPLIT_TARGET, FFN_SPLIT_MIN_K, FFN_SPLIT_MAX = 528, 16, 8
 #: walks its range's slabs one after another), and the multiple a range is
 #: rounded up to
 SPLIT_TARGET_BLOCKS, SPLIT_MIN_K, SPLIT_MAX_K, SPLIT_ALIGN = 132, 128, 1536, 64
+
+#: the bf16 wgmma GEMM (csrc/wgmma_gemm.cuh): the most CTAs of a thread
+#: block cluster (the portable most: its K ranges), and the shared memory a
+#: block can use (227 KB)
+TMA_MAX_CLUSTER, SMEM_LIMIT = 8, 232448
+#: the CTAs a wgmma launch's K split aims for at most: measured on an H100
+#: (tools/gemm_bench.py --bf16), 192-240 CTAs ran the M = 48 prefill
+#: GEMMs fastest and 256 up to 1.1x slower (no longer all resident at once)
+TMA_SPLIT_TARGET = 240
+#: the multiple a wgmma K range is rounded up to: every tile's BK (32, 64,
+#: 128) divides it, so no slab crosses the end of a range
+TMA_SPLIT_ALIGN = 128
+#: the wgmma ring's bytes at most (two CTAs fit an SM) and its fewest slots
+TMA_RING_BUDGET, TMA_MIN_STAGES = 110 * 1024, 4
+#: the limits csrc/wgmma_gemm.cuh is compiled with (``-DREPRO_WGMMA_<key>``):
+#: the header keeps no copy of its own
+WGMMA_LIMITS = dict(MAX_CLUSTER=TMA_MAX_CLUSTER, SMEM_LIMIT=SMEM_LIMIT,
+                    RING_BUDGET=TMA_RING_BUDGET, MIN_STAGES=TMA_MIN_STAGES,
+                    SPLIT_ALIGN=TMA_SPLIT_ALIGN)
+NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v") + tuple(
+    f"-DREPRO_WGMMA_{key}={value}" for key, value in WGMMA_LIMITS.items())
 
 #: the tiles the GEMM kernels are built for, ``(block_m, block_n, block_k,
 #: pipeline_depth)``: depth 1 is the tiled kernel (``csrc/dense_matmul.cu``,
@@ -342,10 +365,10 @@ def build() -> Path:
 
 def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 7 + [P]
+    cdll.repro_dense_matmul.argtypes = [P, P, P, P] + [I] * 5 + [P, I, P, I, P, P] + [I] * 8 + [P]
     cdll.repro_dense_matmul.restype = I
     cdll.repro_dense_matmul_pipelined.argtypes = (
-        [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 7 + [P])
+        [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 8 + [P])
     cdll.repro_dense_matmul_pipelined.restype = I
     cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 5 + [P]
     cdll.repro_ffn_gateup.restype = I
@@ -546,6 +569,56 @@ def gemm_split(m: int, n: int, k: int) -> Tuple[int, int]:
         nsplit = max(1, min(nsplit, k // SPLIT_MIN_K))
     kchunk = _cdiv(_cdiv(k, nsplit), SPLIT_ALIGN) * SPLIT_ALIGN
     return kchunk, _cdiv(k, kchunk)
+
+
+def bf16_body(m: int, n: int, k: int, named: bool = False, aligned: bool = True) -> str:
+    """Which body a bf16 ``dense_matmul`` / ``dense_matmul_pipelined``
+    launch of ``x [m, k] @ w [k, n]`` runs -- a rule on the shape (and on
+    the operands' alignment, ``aligned``: x, w and out 16-byte aligned),
+    never a recovery: ``"skinny"`` (``csrc/skinny_bf16.cuh``) for at most
+    ``SKINNY_MT`` rows with no tile named and K > 0 (the tiled entry only);
+    else ``"wgmma"`` (``csrc/wgmma_gemm.cuh``, TMA + wgmma) where TMA
+    addresses the operands -- aligned, K and N multiples of 8 (row strides
+    of whole 16 bytes), K > 0; else ``"mma_gemm"`` (``csrc/mma_gemm.cuh``)."""
+    if m <= SKINNY_MT and k > 0 and not named:
+        return "skinny"
+    if aligned and k > 0 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma"
+    return "mma_gemm"
+
+
+def tma_plan(m: int, n: int, k: int) -> Tuple[int, int]:
+    """``(kchunk, nsplit)`` of a wgmma launch (``csrc/wgmma_gemm.cuh``),
+    fixed by the shape alone -- never by the tile or depth, so every tile
+    and depth sums each output over the same ranges and stays bit-equal.
+    K ranges: one where the default tile's grid (:func:`bf16_default_tile`)
+    alone holds ``TMA_SPLIT_TARGET`` blocks; else as many as that grid
+    can add without passing the target (the ranges of a tile are one
+    thread block cluster: at most ``TMA_MAX_CLUSTER``), none shorter than
+    ``SPLIT_MIN_K`` rows, each a multiple of ``TMA_SPLIT_ALIGN`` rows (the
+    last may be shorter)."""
+    bm, bn, _, _ = bf16_default_tile(m, n)
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    nsplit = max(1, min(TMA_SPLIT_TARGET // tiles, TMA_MAX_CLUSTER, k // SPLIT_MIN_K))
+    kchunk = _cdiv(_cdiv(max(k, 1), nsplit), TMA_SPLIT_ALIGN) * TMA_SPLIT_ALIGN
+    return kchunk, _cdiv(max(k, 1), kchunk)
+
+
+def wgmma_shape(tile: Sequence[int]) -> Dict[str, int]:
+    """The wgmma body's layout for a tile ``(BM, BN, BK, depth)`` of
+    :data:`BF16_GEMM_TILES`, as ``csrc/wgmma_gemm.cuh:Tile`` derives it:
+    ``BM / 64`` consumer warpgroups and a producer warp (``threads``), a
+    ring of ``2 + 2 * depth`` slots of ``BM x BK`` x and ``BK x BN`` w bf16
+    as far as ``TMA_RING_BUDGET`` bytes hold them, never fewer than
+    ``TMA_MIN_STAGES`` (``stages``), the partial tile (``BM`` rows of ``BN +
+    8`` floats) over the drained ring, two barriers a slot and 1024 bytes
+    to align the ring: ``smem`` bytes of dynamic shared memory."""
+    bm, bn, bk, depth = (int(v) for v in tile)
+    slot = 2 * (bm * bk + bk * bn)
+    stages = max(min(2 + 2 * depth, TMA_RING_BUDGET // slot), TMA_MIN_STAGES)
+    ring = stages * slot
+    return dict(warpgroups=bm // 64, threads=bm // 64 * 128 + 32, stages=stages, ring=ring,
+                partial=bm * (bn + 8) * 4, smem=ring + 2 * stages * 8 + 1024)
 
 
 #: (device, stream) -> int32 tile counters, zero between launches: the

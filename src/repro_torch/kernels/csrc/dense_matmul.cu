@@ -8,7 +8,7 @@
 // the one store rounds to T -- the TPU kernel's jnp.dot(...,
 // preferred_element_type=f32) and astype(x.dtype).
 //
-// Three kernels:
+// Four kernels:
 //
 // * f32: the CUDA-core body of csrc/simt_gemm.cuh at ring depth 1 (a tile
 //   of tiles.cuh's REPRO_GEMM_TILED_TILES, chosen by the wrapper), in one of
@@ -17,12 +17,18 @@
 //   path, read and written in place); 8 x 8 / 8 x 4 register micro-tiles,
 //   cp.async slabs, float4 stores; true f32 FMA, no TF32; bit-equal to the
 //   pipelined entries and across tiles and layouts.
-// * bf16 with M > 8 or a tile named: the tensor-core kernel of
-//   csrc/mma_gemm.cuh at ring depth 1 (tiles.cuh's REPRO_BF16_TILED_TILES):
-//   bf16 slabs through a 3-slot cp.async ring, ldmatrix + mma.sync
-//   m16n8k16 into f32 accumulators, K split into ranges fixed by the shape
-//   (the wrapper's _build.gemm_split) so that the decoder's M = 48 prefill
-//   GEMMs fill the card; bit-equal to the pipelined entries.  Row-major.
+// * bf16 with M > 8 or a tile named, where TMA addresses the operands
+//   (x, w, out 16-byte aligned; K, N multiples of 8; K > 0): the Hopper body
+//   of csrc/wgmma_gemm.cuh at depth 1 (tiles.cuh's REPRO_BF16_TILED_TILES):
+//   TMA into a ring of swizzled slots, wgmma m64nBNk16 into f32
+//   accumulators, K split into at most 8 ranges fixed by the shape (the
+//   wrapper's _build.tma_plan) and summed in the thread block cluster's
+//   shared memory; bit-equal to the pipelined entries.  Row-major.
+// * any other bf16 launch with M > 8 or a tile named (odd K or N,
+//   unaligned pointers): the tensor-core kernel of csrc/mma_gemm.cuh at
+//   ring depth 1: bf16 slabs through a 3-slot cp.async ring, ldmatrix +
+//   mma.sync m16n8k16 into f32 accumulators, K split into ranges fixed by
+//   the shape (_build.gemm_split); bit-equal to the pipelined entries.
 // * bf16 with M <= 8 and no tile named (the decoder's q/k/v/o/down
 //   projections at decode): the weight-streaming split-K kernel of
 //   csrc/skinny_bf16.cuh.  Row-major.
@@ -46,6 +52,7 @@
 #include "simt_gemm.cuh"
 #include "skinny_bf16.cuh"
 #include "tiles.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -80,16 +87,20 @@ extern "C" const char* repro_error_string(int err) {
 // * bf16, vec > 0: the skinny kernel (M <= 8) with vec columns per lane (8
 //   or 1), K ranges of kchunk rows and, with more than one range, the f32
 //   workspace ws [ceil(K / kchunk), M, N] and zeroed tile counters.
-// * bf16, vec == 0: the tensor-core kernel with the tile (bm, bn, bk), one
-//   of REPRO_BF16_TILED_TILES, K ranges of kchunk rows and, with more than
-//   one range, ws [ceil(K / kchunk), M, N] and zeroed tile counters
-//   (ceil(M / bm) * ceil(N / bn)).
+// * bf16, vec == 0, use_wgmma == 1: the wgmma body with the tile (bm, bn,
+//   bk), one of REPRO_BF16_TILED_TILES, K ranges of kchunk rows (ws,
+//   counters unused); a launch TMA cannot address gives
+//   cudaErrorInvalidValue (the wrapper's rule sends none).
+// * bf16, vec == 0, use_wgmma == 0: the mma.sync kernel with the tile (bm, bn,
+//   bk), one of REPRO_BF16_TILED_TILES, K ranges of kchunk rows and, with
+//   more than one range, ws [ceil(K / kchunk), M, N] and zeroed tile
+//   counters (ceil(M / bm) * ceil(N / bn)).
 // A tile not built gives cudaErrorInvalidValue.
 extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias, void* out,
                                   int M, int N, int K, int act, int n_steps, const int* prog,
                                   int n_sides, const void* const* sides, int dtype, void* ws,
-                                  void* counters, int kchunk, int vec, int bm, int bn, int bk,
-                                  int layout, int P, void* stream) {
+                                  void* counters, int kchunk, int vec, int use_wgmma, int bm,
+                                  int bn, int bk, int layout, int P, void* stream) {
   StepProgram p;
   if (M < 0 || N < 0 || K < 0 || dtype < 0 || dtype > 1 || layout < LAYOUT_ROW ||
       layout > LAYOUT_NCHW || (dtype == 1 && layout != LAYOUT_ROW) || P < 1 ||
@@ -115,6 +126,15 @@ extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias
   int* cnt = static_cast<int*>(counters);
   if (vec > 0) {
     return skinny_bf16::launch<1>(xb, wb, nullptr, M, N, K, kchunk, vec, wsf, cnt, epi, st);
+  }
+  if (use_wgmma) {
+#define REPRO_TRY_TMA(BM, BN, BK, DEPTH)                                                 \
+  if (bm == BM && bn == BN && bk == BK) {                                                \
+    return (int)wgmma_gemm::launch<BM, BN, BK, DEPTH>(xb, wb, out, M, N, K, kchunk, epi, st); \
+  }
+    REPRO_BF16_TILED_TILES(REPRO_TRY_TMA)
+#undef REPRO_TRY_TMA
+    return (int)cudaErrorInvalidValue;
   }
 #define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                 \
   if (bm == BM && bn == BN && bk == BK) {                                                 \

@@ -11,13 +11,15 @@
 //
 // It runs the tiled kernels' bodies at ring depth 2 / 3: f32 on
 // csrc/simt_gemm.cuh (DEPTH slabs of x in flight by cp.async; row-major or
-// NCHW, as dense_matmul.cu), bf16 on csrc/mma_gemm.cuh (row-major).  The
+// NCHW, as dense_matmul.cu); bf16 on csrc/wgmma_gemm.cuh (TMA + wgmma, a
+// ring of 2 + 2 * DEPTH slots) where TMA addresses the operands, else on
+// csrc/mma_gemm.cuh (row-major), by the same rule as dense_matmul.cu.  The
 // loop is the same at every depth, so the result is bit-equal to the tiled
 // kernel's for the same inputs.
 //
 // What bounds it here: as for the tiled kernel -- the CNN path's GEMMs are
 // a few FLOP per byte, so device memory; the decoder's, the weights'
-// bytes.  TMA (cuTensorMapEncodeTiled + mbarrier) and wgmma are later work.
+// bytes.
 
 #include <cuda_runtime.h>
 
@@ -25,6 +27,7 @@
 #include "mma_gemm.cuh"
 #include "simt_gemm.cuh"
 #include "tiles.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -46,16 +49,26 @@ struct DenseEpilogue {
   }
 };
 
-// bf16: the tile must be one of tiles.cuh's REPRO_BF16_PIPELINED_TILES.
+// bf16: the tile must be one of tiles.cuh's REPRO_BF16_PIPELINED_TILES;
+// use_wgmma == 1 runs the wgmma body, 0 the mma.sync body.
 int dispatch_bf16(const void* x, const void* w, const void* bias, void* out, int M, int N, int K,
                   int act, const StepProgram& p, int bm, int bn, int bk, int depth, void* ws,
-                  void* counters, int kchunk, cudaStream_t st) {
+                  void* counters, int kchunk, int use_wgmma, cudaStream_t st) {
   using B = __nv_bfloat16;
   const B* xb = static_cast<const B*>(x);
   const B* wb = static_cast<const B*>(w);
   const DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
+  if (use_wgmma) {
+#define REPRO_TRY_TMA(BM, BN, BK, DEPTH)                                                 \
+  if (bm == BM && bn == BN && bk == BK && depth == DEPTH) {                              \
+    return (int)wgmma_gemm::launch<BM, BN, BK, DEPTH>(xb, wb, out, M, N, K, kchunk, epi, st); \
+  }
+    REPRO_BF16_PIPELINED_TILES(REPRO_TRY_TMA)
+#undef REPRO_TRY_TMA
+    return (int)cudaErrorInvalidValue;
+  }
 #define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                 \
   if (bm == BM && bn == BN && bk == BK && depth == DEPTH) {                               \
     return (int)mma_gemm::launch<BM, BN, BK, DEPTH, 1>(xb, wb, nullptr, M, N, K, kchunk, wsf, \
@@ -72,14 +85,16 @@ int dispatch_bf16(const void* x, const void* w, const void* bias, void* out, int
 // pipelined tiles of that type (REPRO_GEMM_PIPELINED_TILES for f32,
 // REPRO_BF16_PIPELINED_TILES for bf16); layout and P as for
 // repro_dense_matmul (NCHW for f32 only).  bf16 takes K ranges of kchunk
-// rows and, with more than one range, the f32 workspace ws
-// [ceil(K / kchunk), M, N] and zeroed tile counters; f32 ignores them.
+// rows and either use_wgmma == 1 (the wgmma body, as repro_dense_matmul) or,
+// with more than one range, the f32 workspace ws [ceil(K / kchunk), M, N]
+// and zeroed tile counters; f32 ignores them.
 extern "C" int repro_dense_matmul_pipelined(const void* x, const void* w, const void* bias,
                                             void* out, int M, int N, int K, int act,
                                             int n_steps, const int* prog, int n_sides,
                                             const void* const* sides, int dtype, void* ws,
-                                            void* counters, int kchunk, int bm, int bn, int bk,
-                                            int depth, int layout, int P, void* stream) {
+                                            void* counters, int kchunk, int use_wgmma, int bm,
+                                            int bn, int bk, int depth, int layout, int P,
+                                            void* stream) {
   StepProgram p;
   if (M < 0 || N < 0 || K < 0 || dtype < 0 || dtype > 1 || layout < LAYOUT_ROW ||
       layout > LAYOUT_NCHW || (dtype == 1 && layout != LAYOUT_ROW) || P < 1 ||
@@ -98,5 +113,5 @@ extern "C" int repro_dense_matmul_pipelined(const void* x, const void* w, const 
     return (int)simt_gemm::run<float, true>(a, layout, bm, bn, bk, depth, st);
   }
   return dispatch_bf16(x, w, bias, out, M, N, K, act, p, bm, bn, bk, depth, ws, counters, kchunk,
-                       st);
+                       use_wgmma, st);
 }

@@ -19,11 +19,17 @@ so nothing is padded in device memory (the TPU wrapper pads to
   the row-major layout or, for the 1x1-conv path (``_layout="nchw"``),
   reading ``x [nb, K, OH, OW]`` and writing ``out [nb, N, OH, OW]`` where
   they lie, with ``w [N, K]`` (the OIHW filter's view);
-* bf16: the tensor-core kernel (``csrc/mma_gemm.cuh``: cp.async ring,
-  ``ldmatrix`` + ``mma.sync`` m16n8k16, f32 accumulators) with a tile of
-  ``_build.BF16_GEMM_TILES`` at depth 1, its K split into the ranges
-  ``_build.gemm_split`` fixes from the shape (an f32 workspace and tile
-  counters, this wrapper's, when there are several);
+* bf16 where TMA addresses the operands (``_build.bf16_body``: x, w and
+  out 16-byte aligned, K and N multiples of 8): the Hopper kernel
+  (``csrc/wgmma_gemm.cuh``: TMA into a ring of swizzled slots, ``wgmma``
+  m64nBNk16, f32 accumulators) with a tile of ``_build.BF16_GEMM_TILES`` at
+  depth 1, its K split into at most 8 ranges ``_build.tma_plan`` fixes from
+  the shape, summed in a thread block cluster (no workspace);
+* any other bf16 launch (odd K or N, unaligned pointers): the ``mma.sync``
+  kernel (``csrc/mma_gemm.cuh``: cp.async ring, ``ldmatrix`` + ``mma.sync``
+  m16n8k16, f32 accumulators) with the same tile, its K split into the
+  ranges ``_build.gemm_split`` fixes from the shape (an f32 workspace and
+  tile counters, this wrapper's, when there are several);
 * bf16 with at most 8 rows and no tile named (the decoder's projections
   at decode): the weight-streaming split-K kernel
   (``csrc/skinny_bf16.cuh``, planned by ``_build.skinny_plan``).
@@ -38,7 +44,8 @@ device memory bounds them; the decoder's projections (M = 48 at prefill, a
 few rows at decode) are bound by the weights' bytes.  The fused epilogue
 keeps every intermediate out of memory.  Routing: a CPU tensor takes
 :func:`dense_matmul_plain`, a CUDA tensor launches the kernel or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``route_launches`` the same launches
+by body.
 """
 
 from __future__ import annotations
@@ -52,12 +59,15 @@ from . import _build
 from .ref import _ACT, apply_steps_ref, matmul_ref
 
 __all__ = ["dense_matmul", "dense_matmul_plain", "validate_epilogue", "check_operands",
-           "split_buffers", "layout_dims", "nchw_to_rows", "rows_to_nchw"]
+           "bf16_launch", "split_buffers", "layout_dims", "nchw_to_rows", "rows_to_nchw"]
 
 #: kernel launches made by :func:`dense_matmul` (CUDA route only), in all
 #: and by element type
 launches = 0
 dtype_launches = {"f32": 0, "bf16": 0}
+#: the same launches by body: ``simt`` (f32), and for bf16 the routes of
+#: ``_build.bf16_body`` (``skinny``, ``wgmma``, ``mma_gemm``)
+route_launches = {"simt": 0, "skinny": 0, "wgmma": 0, "mma_gemm": 0}
 
 
 def validate_epilogue(epilogue: Sequence[Tuple], n_sides: int) -> None:
@@ -174,29 +184,46 @@ def dense_matmul(
     out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
-    ws = counters = None
-    kchunk = vec = 0
+    route, kchunk, vec, ws, counters = "simt", 0, 0, None, None
     if x.dtype == torch.bfloat16:
-        if m <= _build.SKINNY_MT and k > 0 and not named:
-            vec = 8 if n % 8 == 0 and w.data_ptr() % 16 == 0 else 1
-            kchunk, nsplit, tiles = _build.skinny_plan(m, n, k, vec)
-        else:
-            kchunk, nsplit = _build.gemm_split(m, n, k)
-            tiles = -(-m // tile[0]) * -(-n // tile[1])
-        ws, counters = split_buffers(dev, nsplit, 1, m, n, tiles)
+        route, kchunk, vec, ws, counters = bf16_launch(dev, x, w, out, m, n, k, tile, named)
     lib = _build.lib()
     err = lib.repro_dense_matmul(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, n, k, _build.activation_code(activation),
         prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
         _build.FLOAT_CODES[x.dtype], None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), kchunk, vec, *tile[:3],
+        None if counters is None else counters.data_ptr(), kchunk, vec, int(route == "wgmma"),
+        *tile[:3],
         _build.LAYOUT_CODES[_layout], p, _build.stream_handle(),
     )
     _build.check(err, "dense_matmul")
     launches += 1
     dtype_launches["f32" if x.dtype == torch.float32 else "bf16"] += 1
+    route_launches[route] += 1
     return out
+
+
+def bf16_launch(dev, x, w, out, m: int, n: int, k: int, tile, named: bool):
+    """``(route, kchunk, vec, ws, counters)`` of a bf16 launch: the body
+    ``_build.bf16_body`` picks and its plan -- the skinny kernel's K ranges
+    and columns a lane (``vec``), the wgmma body's K ranges, or the
+    ``mma.sync`` body's K ranges; with the workspace and tile counters of a
+    split skinny or ``mma.sync`` launch."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+    route = _build.bf16_body(m, n, k, named, aligned)
+    vec = 0
+    if route == "wgmma":
+        kchunk, _ = _build.tma_plan(m, n, k)
+        return route, kchunk, vec, None, None
+    if route == "skinny":
+        vec = 8 if n % 8 == 0 and w.data_ptr() % 16 == 0 else 1
+        kchunk, nsplit, tiles = _build.skinny_plan(m, n, k, vec)
+    else:
+        kchunk, nsplit = _build.gemm_split(m, n, k)
+        tiles = -(-m // tile[0]) * -(-n // tile[1])
+    ws, counters = split_buffers(dev, nsplit, 1, m, n, tiles)
+    return route, kchunk, vec, ws, counters
 
 
 def split_buffers(dev, nsplit: int, n_weights: int, m: int, n: int, tiles: int):

@@ -15,14 +15,18 @@ The kernel (``csrc/dense_matmul_pipelined.cu``) runs the tiled kernel's
 body at ring depth ``depth``: for f32, ``csrc/simt_gemm.cuh`` with
 ``depth`` slabs of x in flight by ``cp.async`` (row-major or, with
 ``_layout="nchw"``, the 1x1-conv layout of
-:func:`.dense_matmul.layout_dims`); for bf16, the tensor-core kernel of
-``csrc/mma_gemm.cuh`` (``depth + 2`` slots), with the K ranges
-``_build.gemm_split`` fixes from the shape.  Either way its result is
-bit-equal to the tiled kernel's.  What bounds it on an H100 is
+:func:`.dense_matmul.layout_dims`); for bf16, the body
+``_build.bf16_body`` picks, as the tiled kernel's: where TMA addresses
+the operands the Hopper kernel of ``csrc/wgmma_gemm.cuh`` (a ring of
+``2 + 2 * depth`` slots, the K ranges of ``_build.tma_plan``), else the
+``mma.sync`` kernel of ``csrc/mma_gemm.cuh`` (``depth + 2`` slots, the K
+ranges of ``_build.gemm_split``).  Either way its result is bit-equal to
+the tiled kernel's.  What bounds it on an H100 is
 the tiled kernel's bound: device memory on the CNN path's GEMMs, the
 weights' bytes on the decoder's.  Routing: a CPU tensor takes the plain
 version (tile and depth ignored, but checked), a CUDA tensor launches the
-kernel or raises.  ``launches`` counts kernel launches.
+kernel or raises.  ``launches`` counts kernel launches, ``route_launches``
+the same launches by body.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .dense_matmul import check_operands, dense_matmul_plain, split_buffers
+from .dense_matmul import bf16_launch, check_operands, dense_matmul_plain
 
 __all__ = ["dense_matmul_pipelined"]
 
@@ -40,6 +44,9 @@ __all__ = ["dense_matmul_pipelined"]
 #: in all and by element type
 launches = 0
 dtype_launches = {"f32": 0, "bf16": 0}
+#: the same launches by body: ``simt`` (f32), ``wgmma`` or ``mma_gemm``
+#: (bf16, by ``_build.bf16_body``)
+route_launches = {"simt": 0, "wgmma": 0, "mma_gemm": 0}
 
 
 def dense_matmul_pipelined(
@@ -72,20 +79,19 @@ def dense_matmul_pipelined(
     out = torch.empty(out_shape, dtype=x.dtype, device=dev)
     prog = _build.encode_program(epilogue)
     side_ptrs = _build.pointer_array(sides)
-    ws = counters = None
-    kchunk = 0
+    route, kchunk, ws, counters = "simt", 0, None, None
     if x.dtype == torch.bfloat16:
-        kchunk, nsplit = _build.gemm_split(m, n, k)
-        ws, counters = split_buffers(dev, nsplit, 1, m, n, -(-m // tile[0]) * -(-n // tile[1]))
+        route, kchunk, _, ws, counters = bf16_launch(dev, x, w, out, m, n, k, tile, True)
     err = _build.lib().repro_dense_matmul_pipelined(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), m, n, k, _build.activation_code(activation),
         prog["n"], _build.addr(prog["prog"]), len(sides), _build.addr(side_ptrs),
         _build.FLOAT_CODES[x.dtype], None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), kchunk, *tile,
+        None if counters is None else counters.data_ptr(), kchunk, int(route == "wgmma"), *tile,
         _build.LAYOUT_CODES[_layout], p, _build.stream_handle(),
     )
     _build.check(err, "dense_matmul_pipelined")
     launches += 1
     dtype_launches["f32" if x.dtype == torch.float32 else "bf16"] += 1
+    route_launches[route] += 1
     return out

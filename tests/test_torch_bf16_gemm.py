@@ -1,10 +1,13 @@
-"""The bf16 GEMM routes of the port (the tensor-core kernel of
-``csrc/mma_gemm.cuh`` behind ``dense_matmul`` / ``dense_matmul_pipelined``
-/ ``ffn_gateup``, and the weight-streaming kernel of
+"""The bf16 GEMM routes of the port (the Hopper kernel of
+``csrc/wgmma_gemm.cuh`` and the ``mma.sync`` kernel of ``csrc/mma_gemm.cuh``
+behind ``dense_matmul`` / ``dense_matmul_pipelined``, the latter also
+behind ``ffn_gateup``, and the weight-streaming kernel of
 ``csrc/skinny_bf16.cuh`` at decode), as far as the CPU reaches them: their
-tile list against the CUDA sources, the shape-fixed K split and the skinny
-plan the wrappers hand the kernels, the tuning candidates by element type,
-and the wrappers' CPU route (the plain versions) against the JAX package.
+tile list against the CUDA sources, the rule that picks a body, the
+shape-fixed K split and cluster plan and the skinny plan the wrappers hand
+the kernels, the wgmma ring's shared memory, the tuning candidates by
+element type, and the wrappers' CPU route (the plain versions) against the
+JAX package.
 
 Tolerance for bf16 outputs: one bf16 ulp of max|ref| (both sides sum in
 f32 and round once; the order differs).
@@ -184,6 +187,154 @@ def test_skinny_plan(shape):
     assert (nsplit - 1) * kchunk < k <= nsplit * kchunk
     assert nsplit == 1 or kchunk >= _build.SKINNY_MIN_K
     assert tiles * (nsplit - 1) < _build.SKINNY_TARGET_BLOCKS or kchunk == _build.SKINNY_KC
+
+
+# --------------------------------------------------------------------------- #
+# the wgmma body: the rule that picks it, its plan, its ring                   #
+# --------------------------------------------------------------------------- #
+
+
+def _served_prefill_gemms():
+    """``(label, m, n, k)`` of the q / k/v / o / down projections of the three
+    served decoders at their M = 48 prefill (3 prompts padded to 16)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch in ("qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b"):
+        c = get_config(arch)
+        d, dh, h, g, f = c.d_model, c.resolved_head_dim, c.n_heads, c.n_kv_heads, c.d_ff
+        for role, k, n in (("q", d, h * dh), ("kv", d, g * dh), ("o", h * dh, d),
+                           ("down", f, d)):
+            out.append((f"{arch.split('-')[0]}-{role}", 48, n, k))
+    return out
+
+
+SERVED = _served_prefill_gemms()
+
+
+def test_the_served_prefill_shapes_are_the_twelve_projections():
+    assert len(SERVED) == 12
+    assert {(m, n, k) for _, m, n, k in SERVED} >= {
+        (48, 2048, 2048), (48, 256, 2048), (48, 2048, 11008), (48, 512, 2048),
+        (48, 2048, 8192), (48, 3072, 3072), (48, 1024, 3072), (48, 3072, 8192)}
+
+
+@pytest.mark.parametrize("label,m,n,k", SERVED, ids=[c[0] for c in SERVED])
+@pytest.mark.parametrize("named", [False, True], ids=["default", "named"])
+def test_served_prefill_shapes_take_the_wgmma_body(label, m, n, k, named):
+    """Each served prefill shape goes to the TMA + wgmma body, from the tiled
+    entry with or without a tile named, and from the pipelined entry (which
+    always names a tile); unaligned operands would not."""
+    assert _build.bf16_body(m, n, k, named=named) == "wgmma"
+    assert _build.bf16_body(m, n, k, named=named, aligned=False) == "mma_gemm"
+
+
+@pytest.mark.parametrize("m,n,k,named,want", [
+    (20, 51, 71, False, "mma_gemm"), (20, 51, 71, True, "mma_gemm"),
+    (5, 50, 70, True, "mma_gemm"), (5, 50, 70, False, "skinny"),
+    (48, 2048, 2044, False, "mma_gemm"), (48, 2050, 2048, False, "mma_gemm"),
+    (48, 8, 0, False, "mma_gemm"), (3, 2048, 2048, False, "skinny"),
+    (3, 2048, 2048, True, "wgmma"), (9, 8, 8, False, "wgmma"),
+], ids=lambda v: str(v))
+def test_odd_ragged_and_decode_shapes_take_their_bodies(m, n, k, named, want):
+    """Odd or ragged K / N (rows not whole 16 bytes) keep ``mma_gemm.cuh``;
+    M <= 8 with no tile named keeps the skinny kernel."""
+    assert _build.bf16_body(m, n, k, named=named) == want
+
+
+PLAN_SHAPES = [(m, n, k) for _, m, n, k in SERVED] + [
+    (20, 56, 72), (9, 8, 8), (1000, 4096, 4096), (64, 4096, 100000), (48, 256, 64),
+    (130, 200, 2056)]
+
+
+@pytest.mark.parametrize("m,n,k", PLAN_SHAPES, ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+def test_tma_plan_covers_k_in_whole_slabs_and_fits_a_cluster(m, n, k):
+    """The K ranges cover K exactly in whole 128-row steps (so whole slabs of
+    every tile's BK and whole k16 steps), at most a cluster's 8 of them,
+    none shorter than SPLIT_MIN_K unless there is one."""
+    kchunk, nsplit = _build.tma_plan(m, n, k)
+    assert kchunk % _build.TMA_SPLIT_ALIGN == 0
+    assert all(kchunk % bk == 0 for _, _, bk, _ in _build.BF16_GEMM_TILES)
+    assert (nsplit - 1) * kchunk < k <= nsplit * kchunk
+    assert nsplit == 1 or kchunk >= _build.SPLIT_MIN_K
+    assert 1 <= nsplit <= _build.TMA_MAX_CLUSTER
+
+
+def test_tma_plan_depends_on_the_shape_alone():
+    """The plan takes the shape and nothing else (so every tile and depth
+    sums each output over the same ranges), and the served shapes fill the
+    card without passing the CTAs the split aims for."""
+    import inspect
+
+    assert list(inspect.signature(_build.tma_plan).parameters) == ["m", "n", "k"]
+    assert _build.tma_plan(48, 2048, 2048) == (384, 6)
+    assert _build.tma_plan(48, 256, 2048) == (256, 8)
+    assert _build.tma_plan(48, 2048, 11008) == (1664, 7)
+    assert _build.tma_plan(48, 3072, 3072) == (640, 5)
+    for _, m, n, k in SERVED:
+        bm, bn, _, _ = _build.bf16_default_tile(m, n)
+        _, nsplit = _build.tma_plan(m, n, k)
+        ctas = -(-m // bm) * -(-n // bn) * nsplit
+        assert 64 <= ctas <= _build.TMA_SPLIT_TARGET, (m, n, k, ctas)
+
+
+@pytest.mark.parametrize("tile", _build.BF16_GEMM_TILES,
+                         ids=["x".join(map(str, t)) for t in _build.BF16_GEMM_TILES])
+def test_wgmma_ring_fits_shared_memory(tile):
+    """Every instantiated tile x ring depth fits a block's 227 KB, its ring
+    is deeper than the mma.sync body's three slots, and the partial tile
+    fits the drained ring."""
+    shape = _build.wgmma_shape(tile)
+    assert shape["smem"] <= _build.SMEM_LIMIT == 227 * 1024
+    assert 3 < shape["stages"] <= 2 + 2 * tile[3]
+    assert shape["ring"] <= _build.TMA_RING_BUDGET or shape["stages"] == _build.TMA_MIN_STAGES
+    assert shape["partial"] <= shape["ring"]
+    assert shape["threads"] == tile[0] // 64 * 128 + 32
+
+
+def test_wgmma_instances_match_the_tile_list():
+    """tiles.cuh's lists are the wgmma body's instances: dense_matmul.cu
+    dispatches its wgmma launches over the tiled list, the pipelined entry
+    over the pipelined list; the header is compiled with ``_build``'s
+    limits (its only copy of them) and derives the ring and shared memory
+    from them as ``_build.wgmma_shape`` does."""
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    tiled = _macro_tiles("REPRO_BF16_TILED_TILES")
+    piped = _macro_tiles("REPRO_BF16_PIPELINED_TILES")
+    assert tuple(tiled + piped) == _build.BF16_GEMM_TILES
+    for src, macro in (("dense_matmul.cu", "REPRO_BF16_TILED_TILES"),
+                       ("dense_matmul_pipelined.cu", "REPRO_BF16_PIPELINED_TILES")):
+        text = (csrc / src).read_text()
+        assert '#include "wgmma_gemm.cuh"' in text
+        assert f"{macro}(REPRO_TRY_TMA)" in text
+        assert "wgmma_gemm::launch<BM, BN, BK, DEPTH>" in text
+    limits = {"MAX_CLUSTER": _build.TMA_MAX_CLUSTER, "SMEM_LIMIT": _build.SMEM_LIMIT,
+              "RING_BUDGET": _build.TMA_RING_BUDGET, "MIN_STAGES": _build.TMA_MIN_STAGES,
+              "SPLIT_ALIGN": _build.TMA_SPLIT_ALIGN}
+    assert _build.WGMMA_LIMITS == limits
+    head = (csrc / "wgmma_gemm.cuh").read_text()
+    for key, value in limits.items():
+        assert f"-DREPRO_WGMMA_{key}={value}" in _build.NVCC_FLAGS
+        assert f"= REPRO_WGMMA_{key};" in head, key
+    for line in ("WGS = BM / 64", "NT = WGS * 128 + 32", "SLOT = X_SLOT + W_SLOT",
+                 "(int)(RING_BUDGET / SLOT) < 2 + 2 * DEPTH",
+                 "STAGES = FIT > MIN_STAGES ? FIT : MIN_STAGES", "PART_LD = BN + PART_PAD",
+                 "SMEM = RING + 2 * STAGES * 8 + 1024", "kchunk % SPLIT_ALIGN", "PART_PAD = 8"):
+        assert line in head, line
+
+
+def test_route_launches_count_nothing_on_cpu_and_reset():
+    x = torch.zeros(48, 64, dtype=BF16)
+    w = torch.zeros(64, 32, dtype=BF16)
+    tdense.route_launches["wgmma"] += 3
+    tdense_pipe.route_launches["mma_gemm"] += 2
+    tops.reset_kernel_launches()
+    tdense.dense_matmul(x, w)
+    tdense_pipe.dense_matmul_pipelined(x, w, depth=2)
+    assert set(tdense.route_launches) == {"simt", "skinny", "wgmma", "mma_gemm"}
+    assert set(tdense_pipe.route_launches) == {"simt", "wgmma", "mma_gemm"}
+    assert not any(tdense.route_launches.values())
+    assert not any(tdense_pipe.route_launches.values())
 
 
 # --------------------------------------------------------------------------- #

@@ -1,7 +1,36 @@
 #!/usr/bin/env python3
-"""Check and time the f32 / INT8 GEMM kernels of one source tree on the card.
+"""Check and time the GEMM kernels of one or two source trees on the card.
 
     python3 tools/gemm_bench.py [--src DIR] [--label NAME] [--gemm-only] [--sweep]
+    python3 tools/gemm_bench.py --bf16 [--src OTHER_SRC] [--gemm-only | --plans]
+
+``--bf16`` times the bf16 prefill GEMMs (``dense_matmul`` and
+``dense_matmul_pipelined``, M = 48) of the three served decoders --
+qwen2.5-3b, granite-3-2b, phi4-mini-3.8b: q, k/v, o, down, their widths
+from ``configs`` -- each also through the pipelined entry at depth 2 and
+3, the odd case M=20 K=71 N=51 and a shape whose K ends inside a BK =
+128 slab, for this tree and, with ``--src``, another checkout's
+``src`` (its parent, say) in the same process (each tree's package loaded
+in turn, its kernels built into its own ``build/``; calls timed parent,
+this, this, parent; both trees' kernels are built at once).  Per case:
+the body each tree's launch took (``route_launches``; ``-`` where the
+tree has none), device ms by torch.profiler (20 calls after 3), host us
+of one call (``host_us``: the wrapper and the launch, the median of 200
+calls that do not wait on the card), this tree's wgmma body under other
+K splits than ``_build.tma_plan``'s (``nsS``: S K ranges, where K holds S
+ranges of 128 rows), ``d2`` / ``d3``: the pipelined entry's rings,
+``torch.addmm``'s ms (+ the side for ``+add``), the byte bound at 3.35
+TB/s, the largest error against the plain version (one bf16 ulp of the
+largest plain value) and whether every tile and depth is ``torch.equal``
+to the default (else which differ, in how many outputs); then each
+decoder's dense ms per prefill plan call (layers x (q + 2 k/v + o +
+down)), the registers and spills of every bf16 GEMM instance and ptxas's
+wgmma warnings from ``build.log``.  ``--bf16 --plans`` (full builds, not
+``--gemm-only``) instead builds each decoder at full width for each tree
+(random weights, seed 0) and reports ``profile_plan``'s host and device ms
+of one prefill plan call (3 prompts padded to 16 tokens: the M = 48
+GEMMs above; 3 traced runs after a warm-up) and the bodies its dense
+launches took, the trees timed parent, this, this, parent.
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default this repository's; another checkout's times that tree in the same
@@ -29,9 +58,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
+import time
 import types
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,6 +72,10 @@ _GEMM_SOURCES = ("dense_matmul.cu", "dense_matmul_pipelined.cu", "quant_matmul.c
                  "quant_matmul_pipelined.cu")
 _WATCHED = ("simt_gemm_kernel", "int8_gemm_kernel", "dense_matmul_kernel",
             "quant_matmul_kernel", "pipelined_gemm_kernel")
+_WATCHED_BF16 = ("mma_gemm_kernel", "wgmma_gemm_kernel")
+#: the served decoders whose prefill GEMMs --bf16 times
+_DECODERS = ("qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b")
+_PEAK_BYTES_PER_S = 3.35e12
 
 
 def gemm_only_library(_build):
@@ -72,15 +109,302 @@ def gemm_only_library(_build):
     return lib_path
 
 
-def registers(log_path: Path) -> None:
+def registers(log_path: Path, watched=_WATCHED) -> None:
     entry = None
     for line in log_path.read_text().splitlines():
+        if "wgmma" in line and ("warning" in line or "Performance" in line):
+            print(f"  ptxas: {line.strip()[:200]}")
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1) if any(k in m.group(1) for k in _WATCHED) else None
+            entry = m.group(1) if any(k in m.group(1) for k in watched) else None
         regs = re.search(r"Used (\d+) registers", line)
         if entry and (regs or ("spill" in line and " 0 bytes spill" not in line)):
             print(f"  ptxas {entry[:90]}: {line.split('ptxas info    :')[-1].strip()}")
+
+
+def _tree_modules() -> dict:
+    return {n: m for n, m in sys.modules.items()
+            if n == "repro_torch" or n.startswith("repro_torch.")}
+
+
+def load_tree(src: str):
+    """Import ``src``'s ``repro_torch`` afresh (dropping any ``repro_torch``
+    already imported, whose modules keep working through their own
+    references)."""
+    for name in _tree_modules():
+        del sys.modules[name]
+    sys.path.insert(0, src)
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import dense_matmul as kdense
+        from repro_torch.kernels import dense_matmul_pipelined as kdense_pipe
+        from repro_torch.kernels.ref import bf16_ulp
+        from repro_torch.launch import serve
+        from repro_torch.obs import profile_plan
+    finally:
+        sys.path.remove(src)
+    return types.SimpleNamespace(src=src, build=_build, dense=kdense, pipe=kdense_pipe,
+                                 get_config=get_config, ulp=bf16_ulp, serve=serve,
+                                 profile_plan=profile_plan, modules=_tree_modules())
+
+
+@contextlib.contextmanager
+def active(t):
+    """``t``'s modules in ``sys.modules`` while the block runs, so that the
+    imports its code makes at call time (the plans' executor, tracing)
+    reach its own tree; modules first imported meanwhile stay ``t``'s."""
+    for name in _tree_modules():
+        del sys.modules[name]
+    sys.modules.update(t.modules)
+    try:
+        yield
+    finally:
+        t.modules = _tree_modules()
+
+
+def build_trees(trees, gemm_only: bool) -> None:
+    """Build every tree's kernels at once (a thread each, so that their nvcc
+    processes run side by side), then bind each library."""
+    def make(t):
+        return gemm_only_library(t.build) if gemm_only else t.build.build()
+
+    with ThreadPoolExecutor(len(trees)) as pool:
+        paths = list(pool.map(make, trees))
+    for t, path in zip(trees, paths):
+        if not gemm_only:
+            t.build.lib()
+        t.log = path.parent / "build.log"
+
+
+def host_us(torch, fn, reps=200):
+    """Host us of one call: the median of ``reps`` calls timed on the host
+    clock, after 3 warm-up calls; nothing waits on the card in between
+    (its queue stays short: each call's kernel takes tens of us)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def device_ms(torch, fn, reps=20):
+    """Device ms of one call: the time of every kernel ``reps`` calls launch
+    (torch.profiler, after 3 warm-up calls; host gaps not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a session now and then sees no device event: try again
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return float("nan")
+
+
+def bf16_bench(args, torch) -> int:
+    """The --bf16 mode (module doc)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    this_src = str(ROOT / "src")
+    other = None if Path(args.src).resolve() == Path(this_src).resolve() else args.src
+    trees = {}
+    if other:
+        trees["parent"] = load_tree(other)
+    trees["this"] = this = load_tree(this_src)
+    build_trees(list(trees.values()), args.gemm_only)
+    print(f"== bf16 prefill GEMMs on {smi}: "
+          + ", ".join(f"{k} = {t.src}" for k, t in trees.items()))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    failed = []
+    order = ["parent", "this", "this", "parent"] if other else ["this", "this"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+    def routes(t):
+        """Launches by body: ``d:`` the tiled entry's, ``p:`` the pipelined one's."""
+        return {**{f"d:{k}": v for k, v in getattr(t.dense, "route_launches", {}).items()},
+                **{f"p:{k}": v for k, v in getattr(t.pipe, "route_launches", {}).items()}}
+
+    def took(t, before):
+        after = routes(t)
+        return ",".join(k for k in after if after[k] != before.get(k, 0)) or "-"
+
+    def with_ranges(ns):
+        """A plan of ``ns`` K ranges, cut to whole 128-row steps."""
+        def plan(m, n, k):
+            kc = -(-(-(-k // ns)) // 128) * 128
+            return kc, -(-k // kc)
+        return plan
+
+    def under(plan, fn):
+        """``fn()`` with this tree's wgmma launches planned by ``plan``."""
+        real = this.build.tma_plan
+        this.build.tma_plan = plan
+        try:
+            return fn()
+        finally:
+            this.build.tma_plan = real
+
+    per_call = {}
+
+    def case(label, m, k, n, bias, add, depths=()):
+        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+        b = randn(n, scale=0.1) if bias else None
+        sides = (randn(m, n),) if add else ()
+        kw = dict(epilogue=(("add", 0),) if add else ())
+        want = this.dense.dense_matmul_plain(x, w, b, *sides, **kw).float()
+        tol = this.ulp(want.abs().max().item())
+        times, bodies, errs = {}, {}, []
+        for name, t in trees.items():
+            before = routes(t)
+            out = t.dense.dense_matmul(x, w, b, *sides, **kw)
+            torch.cuda.synchronize()
+            bodies[name] = took(t, before)
+            errs.append((out.float() - want).abs().max().item())
+            if name == "this":
+                ref = out
+        differ = []
+        for t_ in this.build.BF16_GEMM_TILES:
+            got = (this.dense.dense_matmul(x, w, b, *sides, **kw, block_m=t_[0], block_n=t_[1],
+                                           block_k=t_[2])
+                   if t_[3] == 1 else this.pipe.dense_matmul_pipelined(
+                       x, w, b, *sides, **kw, block_m=t_[0], block_n=t_[1], block_k=t_[2],
+                       depth=t_[3]))
+            if not torch.equal(got, ref):
+                differ.append(f"{'x'.join(map(str, t_))}:{int((got != ref).sum())}")
+        eq = not differ
+        again = this.dense.dense_matmul(x, w, b, *sides, **kw)
+        if not torch.equal(again, ref):
+            differ.append(f"default-again:{int((again != ref).sum())}")
+        for name in order:
+            t = trees[name]
+            ms = device_ms(torch, lambda t=t: t.dense.dense_matmul(x, w, b, *sides, **kw))
+            times.setdefault(name, []).append(ms)
+        line = {name: sum(v) / len(v) for name, v in times.items()}
+        host = {}
+        for name in order:
+            t = trees[name]
+            host.setdefault(name, []).append(
+                host_us(torch, lambda t=t: t.dense.dense_matmul(x, w, b, *sides, **kw)))
+        extra = {f"host_us {name}": sum(v) / len(v) for name, v in host.items()}
+        if bodies["this"].endswith("wgmma"):
+            for ns in range(1, this.build.TMA_MAX_CLUSTER + 1):
+                plan = with_ranges(ns)
+                if plan(m, n, k) != this.build.tma_plan(m, n, k) and plan(m, n, k)[1] == ns:
+                    extra[f"ns{ns}"] = under(plan, lambda: device_ms(
+                        torch, lambda: this.dense.dense_matmul(x, w, b, *sides, **kw)))
+        for d in depths:
+            before = routes(this)
+            this.pipe.dense_matmul_pipelined(x, w, b, *sides, **kw, depth=d)
+            extra[f"d{d}"] = device_ms(
+                torch, lambda d=d: this.pipe.dense_matmul_pipelined(x, w, b, *sides, **kw, depth=d))
+            extra[f"d{d} body"] = took(this, before)
+            if other and d == depths[0]:
+                for dd in depths:
+                    extra[f"parent d{dd}"] = device_ms(torch, lambda dd=dd: trees[
+                        "parent"].pipe.dense_matmul_pipelined(x, w, b, *sides, **kw, depth=dd))
+
+        def library():
+            y = torch.addmm(b, x, w) if bias else torch.matmul(x, w)
+            return y + sides[0] if add else y
+
+        lib = device_ms(torch, library)
+        nb = sum(t_.numel() * 2 for t_ in (x, w, b, *sides, want) if t_ is not None)
+        bound = nb / _PEAK_BYTES_PER_S * 1e3
+        ok = max(errs) <= tol and eq
+        if not ok:
+            failed.append(label)
+        print(f"  {label:38s} " + " ".join(f"{k}={v:.4f}({bodies[k]})" for k, v in line.items())
+              + " " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                               for k, v in extra.items())
+              + f" addmm={lib:.4f} bound={bound:.4f} err={max(errs):.2e} (tol {tol:.1e}) "
+              f"tiles/depths {'equal' if eq else 'DIFFER ' + ' '.join(differ)} "
+              f"{'ok' if ok else 'FAIL'}")
+        return line, lib
+
+    if args.plans:
+        plan_calls(torch, trees, order, routes)
+        return 0
+    for arch in _DECODERS:
+        c = this.get_config(arch)
+        d, dh, h, g, f = c.d_model, c.resolved_head_dim, c.n_heads, c.n_kv_heads, c.d_ff
+        rows = {}
+        for role, k, n, add in (("q", d, h * dh, False), ("kv", d, g * dh, False),
+                                ("o", h * dh, d, True), ("down", f, d, True)):
+            rows[role] = case(f"{arch.split('-')[0]} {role} M=48 {k}->{n}" + (" +add" if add
+                                                                              else ""),
+                              48, k, n, c.qkv_bias and not add, add, depths=(2, 3))
+        per_call[arch] = (c.n_layers, rows)
+    case("M=20 K=71 N=51 +add (odd K, N)", 20, 71, 51, True, True, depths=(2, 3))
+    # K ends inside a BK = 128 slab (TMA's zero fill past K)
+    case("M=48 K=2112 N=256 (K ends in a slab)", 48, 2112, 256, True, False)
+    for arch, (layers, rows) in per_call.items():
+        def total(key):
+            return layers * sum(mult * (rows[r][0][key] if key else rows[r][1])
+                                for r, mult in (("q", 1), ("kv", 2), ("o", 1), ("down", 1)))
+        print(f"  {arch} per prefill plan call ({layers} layers, {5 * layers} dense launches): "
+              + " ".join(f"{k}={total(k):.3f}" for k in rows["q"][0])
+              + f" addmm={total(None):.3f} ms")
+    for name, t in trees.items():
+        print(f"  registers ({name}):")
+        registers(t.log, _WATCHED_BF16)
+    if failed:
+        print(f"gemm_bench: {len(failed)} checks failed: {failed}")
+        return 1
+    return 0
+
+
+def plan_calls(torch, trees, order, routes) -> None:
+    """The ``--plans`` part (module doc): per decoder, each tree's plans
+    built in turn (the previous freed first), timed in ``order``; the
+    dense launches of one untimed call by body."""
+    dev = torch.device("cuda")
+    for arch in _DECODERS:
+        res, bodies = {}, {}
+        for name in order:
+            t = trees[name]
+            args = argparse.Namespace(arch=arch, smoke=False, seed=0, guarded=False, frames=3,
+                                      prompt_len=16)
+            with active(t), torch.no_grad():
+                llm = t.serve.build_llm(args, dev)
+                prompts = t.serve.llm_prompts(args, llm["cfg"])
+                nb, s = len(prompts), 16
+                tokens = torch.zeros(nb, s, dtype=torch.int32)
+                for i, p in enumerate(prompts):
+                    tokens[i, :len(p)] = torch.from_numpy(p)
+                lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+                positions = torch.arange(s, dtype=torch.int32).expand(nb, s).contiguous()
+                inputs = [a.to(dev) for a in (tokens, positions, lengths)]
+                plan = llm["plans"]["prefill"]
+                before = routes(t)
+                plan(plan.graph.params, *inputs)
+                torch.cuda.synchronize()
+                after = routes(t)
+                bodies[name] = ",".join(f"{k}={after[k] - before.get(k, 0)}" for k in after
+                                        if after[k] != before.get(k, 0)) or "-"
+                pp = t.profile_plan(plan, plan.graph.params, *inputs, runs=3, warmup=1)
+                res.setdefault(name, []).append((pp.total_ms, pp.total_device_ms))
+                del llm, plan, inputs
+            torch.cuda.empty_cache()
+        print(f"  {arch} prefill plan call ({len(order)} sessions: {', '.join(order)}): "
+              + "; ".join(f"{name} host " + "/".join(f"{h:.3f}" for h, _ in v) + " ms, device "
+                          + "/".join(f"{d:.3f}" for _, d in v) + f" ms (dense: {bodies[name]})"
+                          for name, v in res.items()))
 
 
 def main() -> int:
@@ -89,13 +413,19 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--gemm-only", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--plans", action="store_true")
     args = ap.parse_args()
+    if args.plans and (args.gemm_only or not args.bf16):
+        ap.error("--plans needs --bf16 and the full build (no --gemm-only)")
     import torch
     import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("gemm_bench: no CUDA device", file=sys.stderr)
         return 2
+    if args.bf16:
+        return bf16_bench(args, torch)
     sys.path.insert(0, args.src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
