@@ -627,13 +627,17 @@ _FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_simt_kernel", "ffn_gateup_skinny_k
 _TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
 #: the Hopper bf16 GEMM (csrc/wgmma_gemm.cuh), whose SASS must issue HGMMA
 #: (wgmma) and UTMALDG (TMA loads) and no HMMA: one instance per bf16 tile
-#: of dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu (depth 2 / 3)
+#: of dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu (depth 2 / 3),
+#: one weight each, and one per two-weight tile of fused_ffn.cu (its
+#: epilogue GateUpEpilogue)
 _WGMMA_KERNEL = "wgmma_gemm_kernel"
 
 
 def sass_check(lib_path):
     """The built library's SASS (cuobjdump): every instance of the Hopper
-    bf16 GEMM (``wgmma_gemm_kernel``) issues HGMMA and UTMALDG and no HMMA,
+    bf16 GEMM (``wgmma_gemm_kernel``: one weight, and the two-weight
+    gate/up instances, one per ``FFN_WGMMA_TILES`` tile) issues HGMMA and
+    UTMALDG and no HMMA,
     every other bf16 tensor-core kernel (the dense ``mma_gemm_kernel``, the
     block-sparse ``bsr_matmul_mma_kernel``, flash attention's prefill body)
     issues HMMA, every W8A8 conv and GEMM instance IMMA, and no CUDA-core
@@ -669,12 +673,17 @@ def sass_check(lib_path):
     check(len(imma_gemm) == 16 and min(imma_gemm.values()) > 0,
           f"sass: W8A8 GEMM instances without IMMA: "
           f"{[n for n, c in imma_gemm.items() if not c]} ({len(imma_gemm)} instances, want 16)")
-    n_wgmma = len(_build.BF16_GEMM_TILES)
+    n_wgmma = len(_build.BF16_GEMM_TILES) + len(_build.FFN_WGMMA_TILES)
     check(len(wgmma) == n_wgmma, f"sass: {len(wgmma)} {_WGMMA_KERNEL} instances, want {n_wgmma}")
+    n_two = sum("GateUpEpilogue" in n for n in wgmma)
+    check(n_two == len(_build.FFN_WGMMA_TILES),
+          f"sass: {n_two} two-weight {_WGMMA_KERNEL} instances, want "
+          f"{len(_build.FFN_WGMMA_TILES)}")
     bad = [n for n, (hg, tma, hm) in wgmma.items() if not hg or not tma or hm]
     check(not bad, f"sass: {_WGMMA_KERNEL} instances without HGMMA or UTMALDG, or with HMMA: "
                    f"{bad[:3]}")
-    print(f"  sass: {len(wgmma)} {_WGMMA_KERNEL} instances, HGMMA per kernel "
+    print(f"  sass: {len(wgmma)} {_WGMMA_KERNEL} instances ({n_two} with two weights), "
+          f"HGMMA per kernel "
           f"{min(v[0] for v in wgmma.values())}..{max(v[0] for v in wgmma.values())}, UTMALDG "
           f"{min(v[1] for v in wgmma.values())}..{max(v[1] for v in wgmma.values())}, no HMMA")
     print(f"  sass: {len(hmma)} {' / '.join(_TC_KERNELS)} instances, HMMA per kernel "
@@ -1152,16 +1161,27 @@ def phase_llm_kernels(torch, results):
     per_call = {"prefill": {}, "decode": {}}
     per_arch = {}
 
+    def took(mod, before, want_body, what):
+        """The one body a launch of ``mod`` took since ``before``
+        (``route_launches``) is ``want_body``."""
+        ran = {r for r, c in mod.route_launches.items() if c != before[r]}
+        check(ran == {want_body}, f"{what}: ran {sorted(ran)}, want {want_body}")
+
     # -- ffn_gateup ---------------------------------------------------------- #
-    def ffn_case(label, m, k, f, dtype, act="silu", role=None):
+    def ffn_case(label, m, k, f, dtype, act="silu", role=None, every_tile=False):
         x = randn(m, k, dtype=dtype)
         wg = randn(k, f, scale=k ** -0.5, dtype=dtype)
         wu = randn(k, f, scale=k ** -0.5, dtype=dtype)
+        before = dict(kffn.route_launches)
         out = kffn.ffn_gateup(x, wg, wu, activation=act)
         want = kffn.ffn_gateup_plain(x, wg, wu, activation=act)
         actf = _ACT[act]
         if dtype == torch.float32:
+            took(kffn, before, "stream" if m <= _build.SKINNY_MT and k > 0 else "simt",
+                 f"ffn_gateup f32 {label}")
             ffn_f32_checks(label, x, wg, wu, act, out)
+        else:
+            ffn_bf16_checks(label, x, wg, wu, act, out, before, want, every_tile)
 
         def library():
             return actf(torch.matmul(x, wg)) * torch.matmul(x, wu)
@@ -1203,10 +1223,54 @@ def phase_llm_kernels(torch, results):
               f"({names[0].split('(')[0][:48]}), no counter allocation; unaligned weights "
               f"torch.equal")
 
+    def ffn_bf16_checks(label, x, wg, wu, act, out, before, want, every_tile):
+        """A bf16 call ran the body ``_build.ffn_body`` names
+        (``route_launches``): the two-weight wgmma body at every served
+        shape, ``mma_gemm`` where TMA cannot address the operands.  A wgmma
+        call launches one kernel and allocates its output and nothing else
+        (no workspace, no counters); ``every_tile``: each tile of
+        ``FFN_WGMMA_TILES`` under the plan's K ranges gives the plan's
+        bits."""
+        m, k = x.shape
+        f = wg.shape[1]
+        body = _build.ffn_body(f, k)
+        took(kffn, before, body, f"ffn_gateup bf16 {label}")
+        if k % 8 == 0 and f % 8 == 0:
+            check(body == "wgmma", f"ffn_gateup bf16 {label}: the rule picks {body}")
+        if body != "wgmma":
+            print(f"  {'ffn_gateup':18s} {label:42s} route {body}")
+            return
+        call = lambda: kffn.ffn_gateup(x, wg, wu, activation=act)  # noqa: E731
+        tile, kchunk, nsplit = _build.ffn_tma_plan(m, f, k)
+        names = device_kernels(torch, call)
+        check(len(names) == 1 and "wgmma_gemm_kernel" in names[0],
+              f"ffn_gateup {label}: one call launched {names}")
+        counters = _build.counter_allocations
+        blocks = torch.cuda.memory_stats()["allocation.all.allocated"]
+        call()
+        blocks = torch.cuda.memory_stats()["allocation.all.allocated"] - blocks
+        check(blocks == 1 and _build.counter_allocations == counters,
+              f"ffn_gateup {label}: a call allocated {blocks} blocks and "
+              f"{_build.counter_allocations - counters} counter buffers, want its output alone")
+        parts = []
+        real = _build.ffn_tma_plan
+        try:
+            for t in _build.FFN_WGMMA_TILES if every_tile else ():
+                _build.ffn_tma_plan = lambda *_, t=t: (t, kchunk, nsplit)
+                got = call()
+                check(torch.equal(got, out), f"ffn_gateup tile {t} {label}: differs from the "
+                                             f"plan's tile {tile}")
+                parts.append(f"{'x'.join(map(str, t))}={device_ms(torch, call, 10):.4f}")
+        finally:
+            _build.ffn_tma_plan = real
+        print(f"  {'ffn_gateup':18s} {label:42s} route wgmma, tile {'x'.join(map(str, tile))}, "
+              f"{nsplit} K ranges of {kchunk}; 1 kernel a call, its output the one allocation"
+              + (f"; every tile torch.equal: {' '.join(parts)} ms" if parts else ""))
+
     ffn_case("decode M=3 K=2048 F=11008 bf16 silu", 3, 2048, 11008, bf16,
-             role=("decode", "ffn"))
+             role=("decode", "ffn"), every_tile=True)
     ffn_case("prefill M=48 K=2048 F=11008 bf16 silu", 48, 2048, 11008, bf16,
-             role=("prefill", "ffn"))
+             role=("prefill", "ffn"), every_tile=True)
     ffn_case("M=5 K=70 F=50 f32 gelu (ragged)", 5, 70, 50, torch.float32, "gelu")
     # the f32 instance the smoke decoder launches (d_model 128, d_ff 256; one
     # launch a layer, 2 layers): decode rows = prompts, prefill rows =
@@ -1236,12 +1300,6 @@ def phase_llm_kernels(torch, results):
     ffn_case("M=20 K=130 F=77 f32 gelu (ragged)", 20, 130, 77, torch.float32, "gelu")
 
     # -- dense_matmul, bf16 -------------------------------------------------- #
-    def took(mod, before, want_body, what):
-        """The one body a launch of ``mod`` took since ``before``
-        (``route_launches``) is ``want_body``."""
-        ran = {r for r, c in mod.route_launches.items() if c != before[r]}
-        check(ran == {want_body}, f"{what}: ran {sorted(ran)}, want {want_body}")
-
     def dense_bf16_case(label, m, k, n, bias=True, add=False, pipelined=False, role=None):
         x = randn(m, k, dtype=bf16)
         wt = randn(k, n, scale=k ** -0.5, dtype=bf16)

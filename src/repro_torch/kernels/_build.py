@@ -52,9 +52,12 @@ __all__ = [
     "tma_plan",
     "bf16_body",
     "wgmma_shape",
+    "ffn_body",
+    "ffn_tma_plan",
     "split_counters",
     "GEMM_TILES",
     "BF16_GEMM_TILES",
+    "FFN_WGMMA_TILES",
     "CONV_TILES",
     "TileError",
     "gemm_default_tile",
@@ -119,6 +122,13 @@ TMA_SPLIT_TARGET = 240
 TMA_SPLIT_ALIGN = 128
 #: the wgmma ring's bytes at most (two CTAs fit an SM) and its fewest slots
 TMA_RING_BUDGET, TMA_MIN_STAGES = 110 * 1024, 4
+#: the CTAs a two-weight wgmma launch (``ffn_gateup``) aims for at most:
+#: two an SM, the most the first tile of :data:`FFN_WGMMA_TILES` keeps
+#: resident (a 96 KB ring).  Measured on an H100 (tools/gemm_bench.py
+#: --bf16 --ffn --sweep): the served gate/up shapes ran within 4% of
+#: their fastest split at or below it, and more K ranges (more CTAs) up to
+#: 1.6x slower
+FFN_TMA_TARGET = 264
 #: the limits csrc/wgmma_gemm.cuh is compiled with (``-DREPRO_WGMMA_<key>``):
 #: the header keeps no copy of its own
 WGMMA_LIMITS = dict(MAX_CLUSTER=TMA_MAX_CLUSTER, SMEM_LIMIT=SMEM_LIMIT,
@@ -147,6 +157,14 @@ BF16_GEMM_TILES = (
     (64, 64, 64, 2), (64, 32, 64, 2), (128, 64, 32, 2),
     (64, 64, 64, 3), (64, 32, 64, 3), (128, 64, 32, 3),
 )
+#: the two-weight wgmma body's tiles (``ffn_gateup``, ``csrc/fused_ffn.cu``
+#: over ``csrc/wgmma_gemm.cuh`` with NW = 2), ``(block_m, block_n, block_k,
+#: depth)``: a 96 KB ring of four 24 KB slots (two CTAs an SM), and a 48 KB
+#: ring of four 12 KB slots (four an SM), :func:`ffn_tma_plan`'s choice for
+#: grids the first cannot keep resident; both give the same bits for a
+#: shape.  ``csrc/tiles.cuh`` (``REPRO_FFN_WGMMA_TILES``) lists the same
+#: tiles.
+FFN_WGMMA_TILES = ((64, 64, 64, 1), (64, 64, 32, 1))
 #: the conv kernel's tiles, ``(BM, BN, BK)``: output pixels x output
 #: channels x K slab, each for every scheme (``csrc/tiles.cuh``)
 CONV_TILES = (
@@ -370,7 +388,7 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.repro_dense_matmul_pipelined.argtypes = (
         [P] * 4 + [I] * 5 + [P, I, P, I, P, P] + [I] * 8 + [P])
     cdll.repro_dense_matmul_pipelined.restype = I
-    cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 5 + [P]
+    cdll.repro_ffn_gateup.argtypes = [P, P, P, P, I, I, I, I, I, P, P] + [I] * 7 + [P]
     cdll.repro_ffn_gateup.restype = I
     cdll.repro_flash_attention.argtypes = (
         [P] * 5 + [I] * 6 + [ctypes.c_float, I, I, P] + [I] * 3 + [P, P])
@@ -604,21 +622,60 @@ def tma_plan(m: int, n: int, k: int) -> Tuple[int, int]:
     return kchunk, _cdiv(max(k, 1), kchunk)
 
 
-def wgmma_shape(tile: Sequence[int]) -> Dict[str, int]:
-    """The wgmma body's layout for a tile ``(BM, BN, BK, depth)`` of
-    :data:`BF16_GEMM_TILES`, as ``csrc/wgmma_gemm.cuh:Tile`` derives it:
-    ``BM / 64`` consumer warpgroups and a producer warp (``threads``), a
-    ring of ``2 + 2 * depth`` slots of ``BM x BK`` x and ``BK x BN`` w bf16
-    as far as ``TMA_RING_BUDGET`` bytes hold them, never fewer than
-    ``TMA_MIN_STAGES`` (``stages``), the partial tile (``BM`` rows of ``BN +
-    8`` floats) over the drained ring, two barriers a slot and 1024 bytes
-    to align the ring: ``smem`` bytes of dynamic shared memory."""
+def wgmma_shape(tile: Sequence[int], nw: int = 1) -> Dict[str, int]:
+    """The wgmma body's layout for a tile ``(BM, BN, BK, depth)`` with
+    ``nw`` weights (1: :data:`BF16_GEMM_TILES`; 2: :data:`FFN_WGMMA_TILES`),
+    as ``csrc/wgmma_gemm.cuh:Tile`` derives it: ``BM / 64`` consumer
+    warpgroups and a producer warp (``threads``), a ring of ``2 + 2 *
+    depth`` slots of ``BM x BK`` x and ``nw`` times ``BK x BN`` w bf16 as
+    far as ``TMA_RING_BUDGET`` bytes hold them, never fewer than
+    ``TMA_MIN_STAGES`` (``stages``), the ``nw`` partial tiles (``BM`` rows
+    of ``BN + 8`` floats each, ``partial`` bytes in all) over the drained
+    ring, two barriers a slot and 1024 bytes to align the ring: ``smem``
+    bytes of dynamic shared memory."""
     bm, bn, bk, depth = (int(v) for v in tile)
-    slot = 2 * (bm * bk + bk * bn)
+    slot = 2 * (bm * bk + nw * bk * bn)
     stages = max(min(2 + 2 * depth, TMA_RING_BUDGET // slot), TMA_MIN_STAGES)
     ring = stages * slot
     return dict(warpgroups=bm // 64, threads=bm // 64 * 128 + 32, stages=stages, ring=ring,
-                partial=bm * (bn + 8) * 4, smem=ring + 2 * stages * 8 + 1024)
+                partial=nw * bm * (bn + 8) * 4, smem=ring + 2 * stages * 8 + 1024)
+
+
+def ffn_body(f: int, k: int, aligned: bool = True) -> str:
+    """Which body a bf16 ``ffn_gateup`` launch of ``x [M, k]`` against two
+    ``[k, f]`` weights runs -- a rule on the shape and the operands'
+    alignment (``aligned``: x, both weights and out 16-byte aligned), never
+    a recovery: ``"wgmma"`` (``csrc/wgmma_gemm.cuh`` with two weights)
+    where TMA addresses the operands -- aligned, K and F multiples of 8, K
+    > 0 --, at every M (at decode too: 1.35-1.44x faster than the
+    weight-streaming skinny kernel at the served M = 3 shapes on an H100,
+    tools/gemm_bench.py --bf16 --ffn); else ``"mma_gemm"``
+    (``csrc/mma_gemm.cuh``)."""
+    if aligned and k > 0 and k % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "mma_gemm"
+
+
+def ffn_tma_plan(m: int, f: int, k: int) -> Tuple[Tuple[int, int, int, int], int, int]:
+    """``(tile, kchunk, nsplit)`` of a two-weight wgmma launch
+    (``ffn_gateup``), fixed by the shape alone.  Tile: the first of
+    :data:`FFN_WGMMA_TILES` while its grid (``ceil(m / 64) x ceil(f /
+    64)`` tiles) holds at most ``FFN_TMA_TARGET`` CTAs, else the second,
+    whose smaller ring keeps a wider grid resident in one wave.  K ranges:
+    one where the grid alone holds ``FFN_TMA_TARGET`` CTAs, else as many
+    as it can add without passing the target (a tile's ranges are one
+    thread block cluster: at most ``TMA_MAX_CLUSTER``), none shorter than
+    ``SPLIT_MIN_K`` rows, each a multiple of ``TMA_SPLIT_ALIGN`` rows (the
+    last may be shorter).  The ranges depend on no tile, so every tile of
+    the list sums each output over the same ranges and gives the same
+    bits."""
+    tile = FFN_WGMMA_TILES[0]
+    tiles = _cdiv(m, tile[0]) * _cdiv(f, tile[1])
+    if tiles > FFN_TMA_TARGET:
+        tile = FFN_WGMMA_TILES[1]
+    nsplit = max(1, min(FFN_TMA_TARGET // tiles, TMA_MAX_CLUSTER, k // SPLIT_MIN_K))
+    kchunk = _cdiv(_cdiv(max(k, 1), nsplit), TMA_SPLIT_ALIGN) * TMA_SPLIT_ALIGN
+    return tile, kchunk, _cdiv(max(k, 1), kchunk)
 
 
 #: (device, stream) -> int32 tile counters, zero between launches: the

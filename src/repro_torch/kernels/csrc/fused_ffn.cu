@@ -12,15 +12,23 @@
 //
 // Layout: x [M, K], Wg / Wu [K, F], out [M, F], row-major.  Kernels:
 //
-// * bf16, M > 8 (prefill): the tensor-core kernel of csrc/mma_gemm.cuh
-//   with two weights (NW = 2): each x fragment is loaded once (ldmatrix)
-//   and multiplied into the gate and the up accumulators (mma.sync
-//   m16n8k16), both weight slabs ride the same 3-slot cp.async ring, and
-//   act(g) * u is applied on the accumulators before the one store.  Tile
-//   (one of tiles.cuh's REPRO_BF16_TILED_TILES) and K ranges come from the
-//   wrapper, fixed by the shape.
-// * bf16, M <= 8 (decode): the weight-streaming split-K kernel of
-//   csrc/skinny_bf16.cuh with two weights.
+// * bf16 where TMA addresses the operands (x, Wg, Wu, out 16-byte aligned;
+//   K, F multiples of 8): the Hopper body of csrc/wgmma_gemm.cuh with two
+//   weights (NW = 2): a ring slot holds one x box and one box of each
+//   weight, all through TMA against one full barrier; each consumer
+//   warpgroup issues one wgmma per weight a k16 step on the same x
+//   descriptor into two f32 accumulators; the K ranges (fixed by the
+//   shape, _build.ffn_tma_plan) meet in a thread block cluster's shared
+//   memory, both partial tiles summed in split order; act(g) * u on the
+//   sums before the one store.  No workspace, no counters.  Tile: one of
+//   tiles.cuh's REPRO_FFN_WGMMA_TILES.  Prefill and decode alike: at M <= 8
+//   TMA fills the x box's rows past M with zeros, which cost no bytes of
+//   device memory.
+// * any other bf16 launch (odd K or F, unaligned pointers): the
+//   tensor-core kernel of csrc/mma_gemm.cuh with two weights (NW = 2):
+//   ldmatrix + mma.sync m16n8k16 into both accumulators, a 3-slot cp.async
+//   ring, a tile of REPRO_BF16_TILED_TILES and the K ranges of
+//   _build.gemm_split (a workspace and tile counters when split).
 // * f32 (csrc/ffn_f32.cuh), M > 8: a two-weight CUDA-core GEMM -- a BM x
 //   64 tile a CTA (BM 48 or 64, by M), 16-deep slabs of x and both weights
 //   through a 4-slot cp.async ring, TM x 4 micro-tiles of both
@@ -35,21 +43,22 @@
 // at decode and at the M = 48 prefill alike (the tensor cores do the
 // prefill's 4.3 GFLOP in ~4 us); f32, twice the bytes (54 us) at decode and
 // the FMAs at the M = 48 prefill (4.3 GFLOP at 67 TFLOP/s: 65 us).  So the
-// designs stream both weights through one ring (prefill) or spread them over
-// every SM with 16-byte loads (decode), and the f32 prefill keeps every
-// loaded x value busy for 8 FMAs.
+// designs stream both weights through one TMA ring into wgmma (bf16, and the
+// K split keeps every SM's ring full), spread them over every SM with
+// 16-byte loads (f32 decode), and keep every loaded x value busy for 8 FMAs
+// (f32 prefill).
 
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
 #include "ffn_f32.cuh"
 #include "mma_gemm.cuh"
-#include "skinny_bf16.cuh"
 #include "tiles.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-// The split-K and tensor-core kernels' epilogue: act(g) * u, one store.
+// The bf16 kernels' epilogue: act(g) * u, one store.
 template <typename T>
 struct GateUpEpilogue {
   T* out;
@@ -76,8 +85,8 @@ int run_f32(const void* x, const void* wg, const void* wu, void* out, int M, int
 }
 
 int run_bf16(const void* x, const void* wg, const void* wu, void* out, int M, int F, int K,
-             int act, void* ws, void* counters, int kchunk, int vec, int bm, int bn, int bk,
-             cudaStream_t st) {
+             int act, void* ws, void* counters, int kchunk, int use_wgmma, int bm, int bn,
+             int bk, int depth, cudaStream_t st) {
   using B = __nv_bfloat16;
   const B* xb = static_cast<const B*>(x);
   const B* gb = static_cast<const B*>(wg);
@@ -85,8 +94,15 @@ int run_bf16(const void* x, const void* wg, const void* wu, void* out, int M, in
   const GateUpEpilogue<B> epi{static_cast<B*>(out), F, act};
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
-  if (vec > 0) {
-    return skinny_bf16::launch<2>(xb, gb, ub, M, F, K, kchunk, vec, wsf, cnt, epi, st);
+  if (use_wgmma) {
+#define REPRO_TRY_TMA(BM, BN, BK, DEPTH)                                                     \
+  if (bm == BM && bn == BN && bk == BK && depth == DEPTH) {                                  \
+    return (int)wgmma_gemm::launch_nw<BM, BN, BK, DEPTH, 2>(xb, gb, ub, out, M, F, K, kchunk, \
+                                                           epi, st);                        \
+  }
+    REPRO_FFN_WGMMA_TILES(REPRO_TRY_TMA)
+#undef REPRO_TRY_TMA
+    return (int)cudaErrorInvalidValue;
   }
 #define REPRO_TRY_TILE(BM, BN, BK, DEPTH)                                                   \
   if (bm == BM && bn == BN && bk == BK) {                                                   \
@@ -108,16 +124,20 @@ int run_bf16(const void* x, const void* wg, const void* wu, void* out, int M, in
 // * f32, vec == 0: the two-weight GEMM on a bm x 64 tile (bm 48 or 64), K
 //   ranges of kchunk rows (a multiple of 16, at most 8 ranges; ws and
 //   counters unused; bn, bk unused).
-// * bf16, vec > 0: the split-K kernel of skinny_bf16.cuh (M <= 8) with vec
-//   columns per lane (8 or 1), K ranges of kchunk rows and, with more than
-//   one range, ws [ceil(K / kchunk), 2, M, F] and zeroed tile counters.
-// * bf16, vec == 0: the tensor-core kernel with the tile (bm, bn, bk), one
-//   of REPRO_BF16_TILED_TILES, K ranges of kchunk rows and, with more than
-//   one range, ws [ceil(K / kchunk), 2, M, F] and zeroed tile counters.
+// * bf16 (vec unused), use_wgmma == 1: the two-weight wgmma body with the
+//   tile (bm, bn, bk, depth), one of REPRO_FFN_WGMMA_TILES, K ranges of
+//   kchunk rows (a multiple of 128, at most 8 ranges; ws, counters
+//   unused); a launch TMA cannot address gives cudaErrorInvalidValue (the
+//   wrapper's rule sends none).
+// * bf16, use_wgmma == 0: the mma.sync kernel with the tile (bm, bn, bk),
+//   one of REPRO_BF16_TILED_TILES (depth unused), K ranges of kchunk rows
+//   and, with more than one range, ws [ceil(K / kchunk), 2, M, F] and
+//   zeroed tile counters.
+// A tile not built gives cudaErrorInvalidValue.
 extern "C" int repro_ffn_gateup(const void* x, const void* wg, const void* wu, void* out,
                                 int M, int F, int K, int act, int dtype, void* ws,
-                                void* counters, int kchunk, int vec, int bm, int bn, int bk,
-                                void* stream) {
+                                void* counters, int kchunk, int vec, int use_wgmma, int bm,
+                                int bn, int bk, int depth, void* stream) {
   if (M < 0 || F < 0 || K < 0 || act < ACT_NONE || act > ACT_TANH || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -126,5 +146,6 @@ extern "C" int repro_ffn_gateup(const void* x, const void* wg, const void* wu, v
   if (dtype == 0) {
     return run_f32(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, bm, st);
   }
-  return run_bf16(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, vec, bm, bn, bk, st);
+  return run_bf16(x, wg, wu, out, M, F, K, act, ws, counters, kchunk, use_wgmma, bm, bn, bk,
+                  depth, st);
 }

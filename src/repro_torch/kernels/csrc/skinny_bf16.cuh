@@ -1,7 +1,7 @@
 // Weight-streaming split-K GEMM for a few bf16 rows: out = epi(x @ w0 [, x @ w1]).
 //
-// Shared by dense_matmul.cu (one weight) and fused_ffn.cu (gate and up,
-// NW = 2) for bf16 with M <= 8: the decode step, where M is the batch and
+// Run by dense_matmul.cu (one weight, NW = 1) for bf16 with M <= 8 and no
+// tile named: the decode step, where M is the batch and
 // every weight byte is read once, so the bound is the weights' bytes over
 // the memory rate.  What keeps such a kernel from that bound is the number
 // of 16-byte loads in flight on each SM, and the fixed cost of each block

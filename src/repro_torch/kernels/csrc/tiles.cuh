@@ -51,6 +51,15 @@
   X(64, 32, 64, 3)                    \
   X(128, 64, 32, 3)
 
+// fused_ffn.cu's two-weight wgmma body (wgmma_gemm.cuh with NW = 2), its own
+// list: X(BM, BN, BK, DEPTH), a slot of one x box and a box of each weight,
+// 4 slots: 96 KB (two CTAs an SM) and 48 KB (four).  _build.ffn_tma_plan
+// runs the first while its grid fits two CTAs an SM, else the second;
+// both sum the same k16 steps, so they are bit-equal for a shape.
+#define REPRO_FFN_WGMMA_TILES(X) \
+  X(64, 64, 64, 1)               \
+  X(64, 64, 32, 1)
+
 // conv2d.cu, every scheme: X(BM, BN, BK, TM, TN).  The shape-based
 // defaults by output-channel count (_build.conv_default_tile): f32 256 x 4
 // (O <= 4), 256 x 16 (<= 16), 256 x 32 (<= 32), 64 x 64 (wider); W8 256 x 32

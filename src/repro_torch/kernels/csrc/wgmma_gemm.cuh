@@ -1,18 +1,21 @@
 // The bf16 GEMM body for Hopper: TMA + mbarrier ring, wgmma on the tensor
-// cores.  dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu (depth 2
-// / 3) run it for a bf16 launch with M > 8 (or a tile named) whenever TMA
-// can address the operands:
+// cores, with one weight (NW = 1) or two (NW = 2) against one x:
 //
-//   out[m, n] = epi(m, n, sum_k x[m, k] * w[k, n])
+//   out[m, n] = epi(m, n, {sum_k x[m, k] * w0[k, n], sum_k x[m, k] * w1[k, n]})
 //
-// x [M, K] and w [K, N] row-major bf16, the sum in f32, epi (the wrappers'
-// DenseEpilogue: bias, activation, step program, one rounding store) on
-// the f32 sum.  It replaces, for those launches, the mma.sync body of
-// mma_gemm.cuh, which keeps every other bf16 launch (odd K or N, unaligned
-// pointers) and ffn_gateup / bsr_matmul / flash attention's bodies.
+// x [M, K] and w0 / w1 [K, N] row-major bf16, each sum in f32, epi on the
+// f32 sums.  NW = 1: dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu
+// (depth 2 / 3) run it for a bf16 launch with M > 8 (or a tile named)
+// whenever TMA can address the operands, epi their DenseEpilogue (bias,
+// activation, step program, one rounding store).  NW = 2: fused_ffn.cu runs
+// it for every bf16 ffn_gateup launch TMA can address, epi its
+// GateUpEpilogue (act(gate) * up, one rounding store).  The mma.sync body of
+// mma_gemm.cuh keeps every other bf16 launch of both (odd K or N, unaligned
+// pointers), and bsr_matmul / flash attention keep their own bodies.
 //
 // What bounds it on an H100: the decoders' prefill projections (M = 48, K
-// and N 256..11008) read ~2 bytes of weight a multiply-add pair, ~150x
+// and N 256..11008) and their gate/up at prefill and decode (M = 48 or a
+// few rows) read ~2 bytes of weight a multiply-add pair or more, >= 150x
 // below the card's bf16 ridge, so the weights' bytes over HBM bound them;
 // at a few MB of weights the launch, the ramp and the epilogue are a large
 // share of the time.  The design spreads the weights over every SM and
@@ -20,20 +23,24 @@
 // possible:
 //
 // * Grid (M tiles, N tiles, K ranges), a thread block cluster of (1, 1,
-//   NS) CTAs: NS = the K ranges of kchunk rows (_build.tma_plan: at most
-//   MAX_CLUSTER, fixed by the shape, never the tile or depth).
+//   NS) CTAs: NS = the K ranges of kchunk rows (_build.tma_plan, with two
+//   weights _build.ffn_tma_plan: at most MAX_CLUSTER, fixed by the shape,
+//   never the tile or depth).
 // * Warp specialisation: BM / 64 consumer warpgroups (one m64 row block
 //   each) and one producer warp (the last), whose one thread issues every
 //   copy.  Tile (BM, BN, BK, DEPTH): BN is wgmma's N (32 or 64), BK the K
 //   rows a slab, and the ring holds 2 + 2 * DEPTH slabs as far as
-//   RING_BUDGET (110 KB) holds them (at least MIN_STAGES): two CTAs fit an SM, so the clusters
-//   of a launch are all resident at once (a 214 KB ring of 13 slots, one
-//   CTA an SM, ran 1.8x slower: its clusters did not all fit).
+//   RING_BUDGET (110 KB) holds them (at least MIN_STAGES): two CTAs fit an
+//   SM, so the clusters of a launch are all resident at once (a 214 KB ring
+//   of 13 slots, one CTA an SM, ran 1.8x slower: its clusters did not all
+//   fit).  With two weights a 64 x 64 x 64 slot is 24 KB: 4 slots.
 // * Copies: cp.async.bulk.tensor (TMA) from tensor maps the entry point
 //   encodes (cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint: no -lcuda), passed as __grid_constant__
-//   CUtensorMap.  A slot's full barrier counts the slab's bytes; the
-//   consumers release a slot through its empty barrier.  Rows past M and
+//   CUtensorMap (x, w0, w1; NW = 1 passes w0's map twice and never reads
+//   the third).  A slot holds one x box and one box of each weight; its
+//   full barrier counts all of the slot's bytes; the consumers release a
+//   slot through its empty barrier.  Rows past M and
 //   K rows past K come in as zeros (TMA's out-of-bounds fill), so ragged
 //   edges need no masking.  Each N tile loads its own x slabs: sharing
 //   them across the N tiles of a cluster by TMA multicast measured 1.7-5.5x
@@ -44,14 +51,16 @@
 //   descriptors, w with wgmma's transpose flag: no ldmatrix, no register
 //   staging.  Slots are 1024-byte aligned, as the swizzle atoms need.
 // * Math: per k16 step one wgmma.mma_async.m64nBNk16.f32.bf16.bf16 per
-//   warpgroup, a slab's steps committed as one group; the slot of the
-//   previous slab is released once its group has retired (wait_group 1).
-// * K split: each CTA's f32 partial tile goes to its own shared memory
+//   warpgroup and weight, every weight's on the same x descriptor (x is
+//   read from shared memory once for both products), into NW accumulators;
+//   a slab's steps committed as one group; the slot of the previous slab
+//   is released once its group has retired (wait_group 1).
+// * K split: each CTA's NW f32 partial tiles go to its own shared memory
 //   (over the drained ring); after one cluster barrier CTA `z` of the
-//   cluster sums its share of the tile's rows over the NS ranges through
-//   distributed shared memory, in split order, and runs the epilogue.  No
-//   workspace, no counters, no second pass.  One range is a cluster of
-//   one, the same code.
+//   cluster sums its share of the tiles' rows over the NS ranges through
+//   distributed shared memory, in split order, and runs the epilogue on
+//   the NW sums.  No workspace, no counters, no second pass.  One range is
+//   a cluster of one, the same code.
 //
 // Same result for every tile and depth: the K ranges are whole multiples of
 // SPLIT_ALIGN (128) rows, which every BK divides, so every output sums the same k16 steps
@@ -88,7 +97,7 @@ constexpr int MIN_STAGES = REPRO_WGMMA_MIN_STAGES;       // the fewest ring slot
 constexpr int SPLIT_ALIGN = REPRO_WGMMA_SPLIT_ALIGN;     // a K range's multiple of rows
 constexpr int PART_PAD = 8;                              // f32 row pad of a partial tile
 
-template <int BM, int BN, int BK, int DEPTH>
+template <int BM, int BN, int BK, int DEPTH, int NW = 1>
 struct Tile {
   static constexpr int WGS = BM / 64;          // consumer warpgroups
   static constexpr int NT = WGS * 128 + 32;    // + the producer warp
@@ -98,7 +107,7 @@ struct Tile {
   static constexpr int W_ROW = BN * 2;           // bytes: 64 or 128
   static constexpr int X_SLOT = BM * BK * 2;
   static constexpr int W_SLOT = BK * BN * 2;
-  static constexpr int SLOT = X_SLOT + W_SLOT;
+  static constexpr int SLOT = X_SLOT + NW * W_SLOT;  // x, then each weight
   // ring slots: 2 + 2 * DEPTH, as far as RING_BUDGET holds them, but never
   // fewer than MIN_STAGES
   static constexpr int FIT = (int)(RING_BUDGET / SLOT) < 2 + 2 * DEPTH
@@ -106,15 +115,16 @@ struct Tile {
   static constexpr int STAGES = FIT > MIN_STAGES ? FIT : MIN_STAGES;
   static constexpr int PART_LD = BN + PART_PAD;  // floats a partial row
   static constexpr size_t RING = (size_t)STAGES * SLOT;
-  static constexpr size_t PART = (size_t)BM * PART_LD * 4;
-  // ring (its first bytes reused for the partial tile), 2 * STAGES
+  static constexpr size_t PART = (size_t)BM * PART_LD * 4;  // one weight's
+  // ring (its first bytes reused for the NW partial tiles), 2 * STAGES
   // barriers, 1024 bytes of slack to align the ring
   static constexpr size_t SMEM = RING + 2 * STAGES * 8 + 1024;
   static_assert(BM % 64 == 0 && (BN == 32 || BN == 64), "m64 warpgroups, wgmma N 32 or 64");
+  static_assert(NW == 1 || NW == 2, "one weight or two");
   static_assert(BK == 32 || BK == 64 || BK == 128, "BK 32, 64 or 128");
   static_assert(SPLIT_ALIGN % BK == 0, "no slab crosses the end of a K range");
   static_assert(X_SLOT % 1024 == 0 && W_SLOT % 1024 == 0, "1024-byte aligned slots");
-  static_assert(PART <= RING, "the partial tile fits the drained ring");
+  static_assert(NW * PART <= RING, "the partial tiles fit the drained ring");
   static_assert(SMEM <= SMEM_LIMIT, "ring too large for a block");
   static_assert(STAGES > 3, "a ring deeper than three slots");
 };
@@ -241,12 +251,13 @@ __device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da, uint
 
 // grid (M tiles, N tiles, NS), cluster (1, 1, NS): kchunk K rows a range
 // (a multiple of SPLIT_ALIGN, so of every BK)
-template <int BM, int BN, int BK, int DEPTH, typename Epi>
-__global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH>::NT)
+template <int BM, int BN, int BK, int DEPTH, int NW, typename Epi>
+__global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
-                      const __grid_constant__ CUtensorMap wmap, int M, int N, int K, int kchunk,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap umap, int M, int N, int K, int kchunk,
                       Epi epi) {
-  using T = Tile<BM, BN, BK, DEPTH>;
+  using T = Tile<BM, BN, BK, DEPTH, NW>;
   constexpr int STAGES = T::STAGES, WGS = T::WGS, NT = T::NT;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle atoms need 1024-byte aligned slots
@@ -279,6 +290,7 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH>::NT)
   if (tid == WGS * 128) {
     prefetch_map(&xmap);
     prefetch_map(&wmap);
+    if constexpr (NW == 2) prefetch_map(&umap);
   }
   __syncthreads();  // the barriers initialised before any copy
 
@@ -297,14 +309,18 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH>::NT)
           tma_load(xs + b * (BM * T::X_ROW), &xmap, fb, k0 + b * T::XBOX, m0);
         }
         tma_load(xs + T::X_SLOT, &wmap, fb, n0, k0);
+        if constexpr (NW == 2) tma_load(xs + T::X_SLOT + T::W_SLOT, &umap, fb, n0, k0);
       }
     }
     __syncwarp();
   } else {
     // ---- consumer warpgroups ----
-    float acc[BN / 2];
+    float acc[NW][BN / 2];  // one accumulator a weight
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int wi = 0; wi < NW; ++wi) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[wi][i] = 0.f;
+    }
     // x: K-major, rows of X_ROW bytes, 8-row atoms X_ROW * 8 apart (the
     // stride byte offset); w: N-major (the transpose flag), K rows of W_ROW
     // bytes, 8-row atoms W_ROW * 8 apart.  The leading byte offset (the
@@ -319,45 +335,55 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH>::NT)
       // every k16 step of the slab: a range is whole slabs of every BK,
       // and steps past K multiply TMA's zero fill (exact zeros).  No branch
       // near a wgmma, or ptxas serialises them.
-      fence_regs(acc);
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) fence_regs(acc[wi]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint32_t xa = xs + (kk * 16 / T::XBOX) * (BM * T::X_ROW) + (kk * 16 % T::XBOX) * 2;
-        const uint32_t wa = ws + kk * 16 * T::W_ROW;
-        wgmma_bf16<BN>(acc, smem_desc(xa, 16, 8 * T::X_ROW, XSW),
-                       smem_desc(wa, 8 * T::W_ROW, 8 * T::W_ROW, WSW));
+        const uint64_t xd = smem_desc(xa, 16, 8 * T::X_ROW, XSW);
+#pragma unroll
+        for (int wi = 0; wi < NW; ++wi) {
+          const uint32_t wa = ws + wi * T::W_SLOT + kk * 16 * T::W_ROW;
+          wgmma_bf16<BN>(acc[wi], xd, smem_desc(wa, 8 * T::W_ROW, 8 * T::W_ROW, WSW));
+        }
       }
       wgmma_commit();
       // the previous slab's group has retired: release its slot
       wgmma_wait<1>();
-      fence_regs(acc);
+#pragma unroll
+      for (int wi = 0; wi < NW; ++wi) fence_regs(acc[wi]);
       if (s > 0 && tid % 128 == 0) mbar_arrive(smem_u32(empty + (s - 1) % STAGES));
     }
     wgmma_wait<0>();
-    fence_regs(acc);
+#pragma unroll
+    for (int wi = 0; wi < NW; ++wi) fence_regs(acc[wi]);
     // (the last slot needs no release: nothing more is loaded).  Every
     // consumer warpgroup done with the ring before any parks its partial
     // tile over it.
     if (WGS > 1) asm volatile("bar.sync 1, %0;\n" ::"n"(WGS * 128) : "memory");
 
-    // park the partial tile over the drained ring: accumulator i of a
-    // thread is row 16 * warp + lane / 4 (+ 8 for i % 4 >= 2), column
-    // 8 * (i / 4) + 2 * (lane % 4) (+ 1 for odd i)
-    float* part = reinterpret_cast<float*>(smem);
+    // park the partial tiles over the drained ring, weight wi's PART bytes
+    // after weight wi - 1's: accumulator i of a thread is row 16 * warp +
+    // lane / 4 (+ 8 for i % 4 >= 2), column 8 * (i / 4) + 2 * (lane % 4)
+    // (+ 1 for odd i)
     const int warp = (tid % 128) / 32, lane = tid % 32;
     const int r = wg * 64 + warp * 16 + lane / 4;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int c = j * 8 + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(part + r * T::PART_LD + c) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(part + (r + 8) * T::PART_LD + c) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    for (int wi = 0; wi < NW; ++wi) {
+      float* part = reinterpret_cast<float*>(smem + wi * T::PART);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = j * 8 + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(part + r * T::PART_LD + c) =
+            make_float2(acc[wi][4 * j], acc[wi][4 * j + 1]);
+        *reinterpret_cast<float2*>(part + (r + 8) * T::PART_LD + c) =
+            make_float2(acc[wi][4 * j + 2], acc[wi][4 * j + 3]);
+      }
     }
   }
-  // CTA zr of the K ranges sums rows [r0, r1) of the live tile over the
-  // ranges in split order, four columns a thread, every range's partial
+  // CTA zr of the K ranges sums rows [r0, r1) of the live tiles over the
+  // ranges in split order, four columns a thread, every range's partials
   // requested before any is added
   const int live = min(BM, M - m0);
   const int chunk = (live + ns - 1) / ns;
@@ -366,36 +392,46 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH>::NT)
   const int groups = max(r1 - r0, 0) * G4;
   cluster.sync();
 
-  const float* part = reinterpret_cast<const float*>(smem);
   for (int e = tid; e < groups; e += NT) {
     const int rr = r0 + e / G4, c = (e % G4) * 4;
     const int n = n0 + c;
     if (n >= N) continue;
-    const float* own = part + rr * T::PART_LD + c;
-    float4 p[MAX_CLUSTER];
+    float4 p[NW][MAX_CLUSTER];
 #pragma unroll
-    for (int sp = 0; sp < MAX_CLUSTER; ++sp) {
-      if (sp < ns) {
-        p[sp] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, sp));
+    for (int wi = 0; wi < NW; ++wi) {
+      const float* own = reinterpret_cast<const float*>(smem + wi * T::PART) +
+                         rr * T::PART_LD + c;
+#pragma unroll
+      for (int sp = 0; sp < MAX_CLUSTER; ++sp) {
+        if (sp < ns) {
+          p[wi][sp] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, sp));
+        }
       }
     }
-    float4 v = p[0];
+    float vs[4][NW];  // column q's NW sums, as the epilogue takes them
 #pragma unroll
-    for (int sp = 1; sp < MAX_CLUSTER; ++sp) {
-      if (sp < ns) {
-        v.x += p[sp].x;
-        v.y += p[sp].y;
-        v.z += p[sp].z;
-        v.w += p[sp].w;
+    for (int wi = 0; wi < NW; ++wi) {
+      float4 v = p[wi][0];
+#pragma unroll
+      for (int sp = 1; sp < MAX_CLUSTER; ++sp) {
+        if (sp < ns) {
+          v.x += p[wi][sp].x;
+          v.y += p[wi][sp].y;
+          v.z += p[wi][sp].z;
+          v.w += p[wi][sp].w;
+        }
       }
+      vs[0][wi] = v.x;
+      vs[1][wi] = v.y;
+      vs[2][wi] = v.z;
+      vs[3][wi] = v.w;
     }
-    const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      if (n + q < N) epi(m0 + rr, n + q, vs + q);
+      if (n + q < N) epi(m0 + rr, n + q, vs[q]);
     }
   }
-  cluster.sync();  // no CTA leaves while another reads its partial tile
+  cluster.sync();  // no CTA leaves while another reads its partial tiles
 }
 
 // --------------------------------------------------------------------------
@@ -443,32 +479,40 @@ inline cudaError_t encode(CUtensorMap* map, const void* ptr, int inner, int oute
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The rule that sends a bf16 launch here (_build.bf16_body): TMA addresses
-// the operands -- x, w and out 16-byte aligned, K and N multiples of 8 (row
-// strides of whole 16 bytes), K > 0.
-inline bool addressable(const void* x, const void* w, const void* out, int N, int K) {
+// The rule that sends a bf16 launch here (_build.bf16_body, _build.ffn_body):
+// TMA addresses the operands -- x, the weights and out 16-byte aligned, K
+// and N multiples of 8 (row strides of whole 16 bytes), K > 0.
+inline bool addressable(const void* x, const void* w0, const void* w1, const void* out, int N,
+                        int K) {
   const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return K > 0 && K % 8 == 0 && N % 8 == 0 && a16(x) && a16(w) && a16(out);
+  return K > 0 && K % 8 == 0 && N % 8 == 0 && a16(x) && a16(w0) && a16(w1) && a16(out);
 }
 
-// Launch one tile on `stream`: K ranges of kchunk rows (a multiple of
-// SPLIT_ALIGN, at most MAX_CLUSTER ranges).  A launch the rule or the plan
-// refuses returns cudaErrorInvalidValue: nothing falls back.
-template <int BM, int BN, int BK, int DEPTH, typename Epi>
-cudaError_t launch(const bf16* x, const bf16* w, const void* out, int M, int N, int K,
-                   int kchunk, const Epi& epi, cudaStream_t stream) {
-  using T = Tile<BM, BN, BK, DEPTH>;
-  if (!addressable(x, w, out, N, K) || kchunk < SPLIT_ALIGN || kchunk % SPLIT_ALIGN) {
+// Launch one tile with NW weights (w1 unused at NW = 1) on `stream`: K
+// ranges of kchunk rows (a multiple of SPLIT_ALIGN, at most MAX_CLUSTER
+// ranges).  A launch the rule or the plan refuses returns
+// cudaErrorInvalidValue: nothing falls back.
+template <int BM, int BN, int BK, int DEPTH, int NW, typename Epi>
+cudaError_t launch_nw(const bf16* x, const bf16* w0, const bf16* w1, const void* out, int M,
+                      int N, int K, int kchunk, const Epi& epi, cudaStream_t stream) {
+  using T = Tile<BM, BN, BK, DEPTH, NW>;
+  if (NW == 1) w1 = w0;
+  if (!addressable(x, w0, w1, out, N, K) || kchunk < SPLIT_ALIGN || kchunk % SPLIT_ALIGN) {
     return cudaErrorInvalidValue;
   }
   const int ns = (K + kchunk - 1) / kchunk;
   if (ns > MAX_CLUSTER) return cudaErrorInvalidValue;
-  CUtensorMap xmap, wmap;
+  CUtensorMap xmap, wmap, umap;
   cudaError_t e = encode(&xmap, x, K, M, T::XBOX, BM);
   if (e != cudaSuccess) return e;
-  e = encode(&wmap, w, N, K, BN, BK);
+  e = encode(&wmap, w0, N, K, BN, BK);
   if (e != cudaSuccess) return e;
-  auto kernel = wgmma_gemm_kernel<BM, BN, BK, DEPTH, Epi>;
+  umap = wmap;
+  if (NW == 2) {
+    e = encode(&umap, w1, N, K, BN, BK);
+    if (e != cudaSuccess) return e;
+  }
+  auto kernel = wgmma_gemm_kernel<BM, BN, BK, DEPTH, NW, Epi>;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -483,9 +527,16 @@ cudaError_t launch(const bf16* x, const bf16* w, const void* out, int M, int N, 
   attr[0].val.clusterDim.z = ns;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, M, N, K, kchunk, epi);
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, umap, M, N, K, kchunk, epi);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// One weight: the dense GEMMs' launch.
+template <int BM, int BN, int BK, int DEPTH, typename Epi>
+cudaError_t launch(const bf16* x, const bf16* w, const void* out, int M, int N, int K,
+                   int kchunk, const Epi& epi, cudaStream_t stream) {
+  return launch_nw<BM, BN, BK, DEPTH, 1>(x, w, nullptr, out, M, N, K, kchunk, epi, stream);
 }
 
 }  // namespace wgmma_gemm

@@ -145,7 +145,8 @@ def reset_kernel_launches() -> None:
         mod.launches = 0
     for counts in (_dense_mod.dtype_launches, _dense_pipe_mod.dtype_launches,
                    _dense_mod.route_launches, _dense_pipe_mod.route_launches,
-                   _conv2d_mod.scheme_launches, _flash_mod.route_launches):
+                   _conv2d_mod.scheme_launches, _flash_mod.route_launches,
+                   _ffn_mod.route_launches):
         for key in counts:
             counts[key] = 0
 

@@ -316,7 +316,7 @@ def test_wgmma_instances_match_the_tile_list():
     for key, value in limits.items():
         assert f"-DREPRO_WGMMA_{key}={value}" in _build.NVCC_FLAGS
         assert f"= REPRO_WGMMA_{key};" in head, key
-    for line in ("WGS = BM / 64", "NT = WGS * 128 + 32", "SLOT = X_SLOT + W_SLOT",
+    for line in ("WGS = BM / 64", "NT = WGS * 128 + 32", "SLOT = X_SLOT + NW * W_SLOT",
                  "(int)(RING_BUDGET / SLOT) < 2 + 2 * DEPTH",
                  "STAGES = FIT > MIN_STAGES ? FIT : MIN_STAGES", "PART_LD = BN + PART_PAD",
                  "SMEM = RING + 2 * STAGES * 8 + 1024", "kchunk % SPLIT_ALIGN", "PART_PAD = 8"):

@@ -3,6 +3,7 @@
 
     python3 tools/gemm_bench.py [--src DIR] [--label NAME] [--gemm-only] [--sweep]
     python3 tools/gemm_bench.py --bf16 [--src OTHER_SRC] [--gemm-only | --plans]
+    python3 tools/gemm_bench.py --bf16 --ffn [--src OTHER_SRC] [--gemm-only] [--sweep]
 
 ``--bf16`` times the bf16 prefill GEMMs (``dense_matmul`` and
 ``dense_matmul_pipelined``, M = 48) of the three served decoders --
@@ -31,6 +32,23 @@ wgmma warnings from ``build.log``.  ``--bf16 --plans`` (full builds, not
 of one prefill plan call (3 prompts padded to 16 tokens: the M = 48
 GEMMs above; 3 traced runs after a warm-up) and the bodies its dense
 launches took, the trees timed parent, this, this, parent.
+
+``--bf16 --ffn`` times the bf16 ``ffn_gateup`` instead: the three served
+decoders' gate/up (``d_model -> d_ff``, silu) at decode (M = 3) and
+prefill (M = 48), qwen3-14b's 5120 -> 17408 at both, and the ragged
+M=20 K=130 F=77 (odd K and F: the ``mma_gemm`` body), each tree in the
+same process (parent, this, this, parent).  Per case: each tree's body
+(``route_launches``), device ms (torch.profiler, 20 calls after 3), host
+us of one call, the library's ms (two ``torch.matmul``, the activation,
+the product), the byte bound at 3.35 TB/s, the largest error against the
+plain version (tolerance one bf16 ulp of max|plain|) and whether every
+tile of ``FFN_WGMMA_TILES`` is ``torch.equal`` to the plan's; with
+``--sweep`` also this tree's two-weight body on every tile under every
+K split ``tTILE:nsS`` (S ranges of whole 128-row steps).  Then each decoder's ``ffn_gateup`` ms per plan call
+(layers x one launch) by tree, the registers and spills of every bf16
+gate/up instance (``GateUpEpilogue``) from ``build.log``, ptxas's wgmma
+warnings, and whether the dense bf16 GEMMs (one weight) at the 12 served
+prefill shapes give outputs ``torch.equal`` to the other tree's.
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default this repository's; another checkout's times that tree in the same
@@ -78,23 +96,24 @@ _DECODERS = ("qwen2.5-3b", "granite-3-2b", "phi4-mini-3.8b")
 _PEAK_BYTES_PER_S = 3.35e12
 
 
-def gemm_only_library(_build):
-    """Build the GEMM sources alone and bind their entry points as the
-    package's library (the other entry points stay unbound)."""
-    out = _build.REPO_ROOT / "build" / "gemm_only" / _build.source_hash()
+def gemm_only_library(_build, sources=_GEMM_SOURCES):
+    """Build the GEMM sources (``sources``) alone and bind their entry
+    points as the package's library (the other entry points stay
+    unbound)."""
+    out = _build.REPO_ROOT / "build" / "gemm_only" / (_build.source_hash() + str(len(sources)))
     lib_path = out / "libgemm.so"
     if not lib_path.exists():
         out.mkdir(parents=True, exist_ok=True)
         procs = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-c",
              str(_build.CSRC / src), "-o", str(out / (src + ".o"))],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in _GEMM_SOURCES]
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in sources]
         logs = [p.communicate()[0] for p in procs]
         (out / "build.log").write_text("\n".join(logs))
         if any(p.returncode for p in procs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
         subprocess.run([_build._nvcc(), *_build.GENCODE, "-shared", "-o", str(lib_path),
-                        *[str(out / (src + ".o")) for src in _GEMM_SOURCES]], check=True)
+                        *[str(out / (src + ".o")) for src in sources]], check=True)
     cdll = ctypes.CDLL(str(lib_path))
 
     class Partial:  # _bind types every entry point: stand-ins for those not built
@@ -139,13 +158,14 @@ def load_tree(src: str):
         from repro_torch.kernels import _build
         from repro_torch.kernels import dense_matmul as kdense
         from repro_torch.kernels import dense_matmul_pipelined as kdense_pipe
+        from repro_torch.kernels import fused_ffn as kffn
         from repro_torch.kernels.ref import bf16_ulp
         from repro_torch.launch import serve
         from repro_torch.obs import profile_plan
     finally:
         sys.path.remove(src)
     return types.SimpleNamespace(src=src, build=_build, dense=kdense, pipe=kdense_pipe,
-                                 get_config=get_config, ulp=bf16_ulp, serve=serve,
+                                 ffn=kffn, get_config=get_config, ulp=bf16_ulp, serve=serve,
                                  profile_plan=profile_plan, modules=_tree_modules())
 
 
@@ -163,11 +183,11 @@ def active(t):
         t.modules = _tree_modules()
 
 
-def build_trees(trees, gemm_only: bool) -> None:
+def build_trees(trees, gemm_only: bool, sources=_GEMM_SOURCES) -> None:
     """Build every tree's kernels at once (a thread each, so that their nvcc
     processes run side by side), then bind each library."""
     def make(t):
-        return gemm_only_library(t.build) if gemm_only else t.build.build()
+        return gemm_only_library(t.build, sources) if gemm_only else t.build.build()
 
     with ThreadPoolExecutor(len(trees)) as pool:
         paths = list(pool.map(make, trees))
@@ -223,7 +243,10 @@ def bf16_bench(args, torch) -> int:
     if other:
         trees["parent"] = load_tree(other)
     trees["this"] = this = load_tree(this_src)
-    build_trees(list(trees.values()), args.gemm_only)
+    build_trees(list(trees.values()), args.gemm_only,
+                _GEMM_SOURCES + ("fused_ffn.cu",) if args.ffn else _GEMM_SOURCES)
+    if args.ffn:
+        return ffn_bench(args, torch, smi, trees)
     print(f"== bf16 prefill GEMMs on {smi}: "
           + ", ".join(f"{k} = {t.src}" for k, t in trees.items()))
     dev = torch.device("cuda")
@@ -369,6 +392,137 @@ def bf16_bench(args, torch) -> int:
     return 0
 
 
+def ffn_bench(args, torch, smi, trees) -> int:
+    """The --bf16 --ffn mode (module doc)."""
+    import torch.nn.functional as F
+
+    this, other = trees["this"], "parent" in trees
+    print(f"== bf16 ffn_gateup on {smi}: "
+          + ", ".join(f"{k} = {t.src}" for k, t in trees.items()))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    failed = []
+    order = ["parent", "this", "this", "parent"] if other else ["this", "this"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+    def took(t, before):
+        after = getattr(t.ffn, "route_launches", {})
+        return ",".join(k for k in after if after[k] != before.get(k, 0)) or "-"
+
+    @contextlib.contextmanager
+    def patched(**fns):
+        """This tree's ``_build`` functions replaced while the block runs."""
+        real = {name: getattr(this.build, name) for name in fns}
+        for name, fn in fns.items():
+            setattr(this.build, name, fn)
+        try:
+            yield
+        finally:
+            for name, fn in real.items():
+                setattr(this.build, name, fn)
+
+    def case(label, m, k, f):
+        x = randn(m, k)
+        wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+        want = this.ffn.ffn_gateup_plain(x, wg, wu).float()
+        tol = this.ulp(want.abs().max().item())
+        bodies, errs, outs = {}, [], {}
+        for name, t in trees.items():
+            before = dict(getattr(t.ffn, "route_launches", {}))
+            outs[name] = t.ffn.ffn_gateup(x, wg, wu)
+            torch.cuda.synchronize()
+            bodies[name] = took(t, before)
+            errs.append((outs[name].float() - want).abs().max().item())
+        ref = outs["this"]
+        extra, differ = {}, []
+        if bodies["this"] == "wgmma":
+            _, kchunk, nsplit = this.build.ffn_tma_plan(m, f, k)
+            extra["plan"] = f"{'x'.join(map(str, this.build.ffn_tma_plan(m, f, k)[0]))}:ns{nsplit}"
+            for tile in this.build.FFN_WGMMA_TILES:
+                with patched(ffn_tma_plan=lambda *_, tile=tile: (tile, kchunk, nsplit)):
+                    got = this.ffn.ffn_gateup(x, wg, wu)
+                if not torch.equal(got, ref):
+                    differ.append(f"{'x'.join(map(str, tile))}:{int((got != ref).sum())}")
+        again = this.ffn.ffn_gateup(x, wg, wu)
+        if not torch.equal(again, ref):
+            differ.append(f"default-again:{int((again != ref).sum())}")
+        times, host = {}, {}
+        for name in order:
+            t = trees[name]
+            fn = lambda t=t: t.ffn.ffn_gateup(x, wg, wu)  # noqa: E731
+            times.setdefault(name, []).append(device_ms(torch, fn))
+            host.setdefault(name, []).append(host_us(torch, fn))
+        line = {name: sum(v) / len(v) for name, v in times.items()}
+        extra.update({f"host_us {name}": sum(v) / len(v) for name, v in host.items()})
+        if args.sweep and bodies["this"] == "wgmma":
+            for tile in this.build.FFN_WGMMA_TILES:
+                for ns in range(1, this.build.TMA_MAX_CLUSTER + 1):
+                    kc = -(-(-(-k // ns)) // 128) * 128
+                    if -(-k // kc) != ns:
+                        continue
+                    with patched(ffn_tma_plan=lambda *_, tile=tile, kc=kc, ns=ns: (tile, kc, ns)):
+                        extra[f"t{'x'.join(map(str, tile))}:ns{ns}"] = device_ms(
+                            torch, lambda: this.ffn.ffn_gateup(x, wg, wu))
+
+        def library():
+            return F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)
+
+        lib = device_ms(torch, library)
+        bound = sum(t_.numel() * 2 for t_ in (x, wg, wu, ref)) / _PEAK_BYTES_PER_S * 1e3
+        ok = max(errs) <= tol and not differ
+        if not ok:
+            failed.append(label)
+        print(f"  {label:30s} " + " ".join(f"{k}={v:.4f}({bodies[k]})" for k, v in line.items())
+              + f" library={lib:.4f} bound={bound:.4f} "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                         for k, v in extra.items())
+              + f" err={max(errs):.2e} (tol {tol:.1e}) tiles "
+              f"{'equal' if not differ else 'DIFFER ' + ' '.join(differ)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        return line, lib
+
+    per_call = {}
+    for arch in _DECODERS + ("qwen3-14b",):
+        c = this.get_config(arch)
+        for phase, m in (("decode", 3), ("prefill", 48)):
+            per_call[(arch, phase)] = (c.n_layers, case(
+                f"{arch.split('-')[0]} {phase} M={m} {c.d_model}->{c.d_ff}", m, c.d_model,
+                c.d_ff))
+    case("M=20 K=130 F=77 (odd K, F)", 20, 130, 77)
+    for (arch, phase), (layers, (line, lib)) in per_call.items():
+        print(f"  {arch} ffn_gateup per {phase} plan call ({layers} launches): "
+              + " ".join(f"{k}={layers * v:.3f}" for k, v in line.items())
+              + f" library={layers * lib:.3f} ms")
+    if other:  # the dense bf16 GEMMs (one weight): the same bits as the other tree's
+        differ = []
+        for arch in _DECODERS:
+            c = this.get_config(arch)
+            d, dh, h, g, f = c.d_model, c.resolved_head_dim, c.n_heads, c.n_kv_heads, c.d_ff
+            for role, k, n, add in (("q", d, h * dh, False), ("kv", d, g * dh, False),
+                                    ("o", h * dh, d, True), ("down", f, d, True)):
+                x, w = randn(48, k), randn(k, n, scale=k ** -0.5)
+                b = randn(n, scale=0.1) if c.qkv_bias and not add else None
+                sides = (randn(48, n),) if add else ()
+                kw = dict(epilogue=(("add", 0),) if add else ())
+                outs = [t.dense.dense_matmul(x, w, b, *sides, **kw) for t in trees.values()]
+                if not torch.equal(*outs):
+                    differ.append(f"{arch} {role}")
+        print(f"  dense bf16 at the 12 served prefill shapes: "
+              + ("torch.equal to the parent's" if not differ else f"DIFFER {differ}"))
+        if differ:
+            failed.append("dense bf16 equality")
+    for name, t in trees.items():
+        print(f"  gate/up registers ({name}):")
+        registers(t.log, ("GateUpEpilogue",))
+    if failed:
+        print(f"gemm_bench: {len(failed)} checks failed: {failed}")
+        return 1
+    return 0
+
+
 def plan_calls(torch, trees, order, routes) -> None:
     """The ``--plans`` part (module doc): per decoder, each tree's plans
     built in turn (the previous freed first), timed in ``order``; the
@@ -415,7 +569,10 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--ffn", action="store_true")
     args = ap.parse_args()
+    if args.ffn and (args.plans or not args.bf16):
+        ap.error("--ffn needs --bf16 (and no --plans)")
     if args.plans and (args.gemm_only or not args.bf16):
         ap.error("--plans needs --bf16 and the full build (no --gemm-only)")
     import torch
