@@ -624,24 +624,25 @@ def gemm_registers():
 #: the tensor-core kernel (mma_gemm_kernel) and the skinny kernel
 _FMA_GEMMS = ("simt_gemm_kernel", "ffn_gateup_simt_kernel", "ffn_gateup_skinny_kernel")
 #: the bf16 tensor-core kernels, whose SASS must issue HMMA
-_TC_KERNELS = ("mma_gemm_kernel", "bsr_matmul_mma_kernel", "flash_attention_tc_kernel")
+_TC_KERNELS = ("mma_gemm_kernel", "flash_attention_tc_kernel")
 #: the Hopper bf16 GEMM (csrc/wgmma_gemm.cuh), whose SASS must issue HGMMA
 #: (wgmma) and UTMALDG (TMA loads) and no HMMA: one instance per bf16 tile
 #: of dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu (depth 2 / 3),
-#: one weight each, and one per two-weight tile of fused_ffn.cu (its
-#: epilogue GateUpEpilogue)
+#: one weight each, one per two-weight tile of fused_ffn.cu (its epilogue
+#: GateUpEpilogue), and one per block-sparse tile of bsr_matmul.cu (its K
+#: walk BsrWalk)
 _WGMMA_KERNEL = "wgmma_gemm_kernel"
 
 
 def sass_check(lib_path):
     """The built library's SASS (cuobjdump): every instance of the Hopper
-    bf16 GEMM (``wgmma_gemm_kernel``: one weight, and the two-weight
-    gate/up instances, one per ``FFN_WGMMA_TILES`` tile) issues HGMMA and
-    UTMALDG and no HMMA,
-    every other bf16 tensor-core kernel (the dense ``mma_gemm_kernel``, the
-    block-sparse ``bsr_matmul_mma_kernel``, flash attention's prefill body)
-    issues HMMA, every W8A8 conv and GEMM instance IMMA, and no CUDA-core
-    GEMM kernel is instantiated for bf16."""
+    bf16 GEMM (``wgmma_gemm_kernel``: one weight, the two-weight gate/up
+    instances, one per ``FFN_WGMMA_TILES`` tile, and the block-sparse
+    instances, one per ``BSR_TMA_TILES`` pair) issues HGMMA and UTMALDG and
+    no HMMA, every other bf16 tensor-core kernel (the dense
+    ``mma_gemm_kernel``, flash attention's prefill body) issues HMMA, every
+    W8A8 conv and GEMM instance IMMA, and no CUDA-core GEMM kernel is
+    instantiated for bf16."""
     from repro_torch.kernels import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
@@ -664,25 +665,30 @@ def sass_check(lib_path):
     check(hmma and min(hmma.values()) > 0,
           f"sass: tensor-core kernels without HMMA: {[n for n, c in hmma.items() if not c]}")
     check(not fma_bf16, f"sass: CUDA-core bf16 GEMM instances remain: {fma_bf16[:3]}")
-    for kernel, want in (("bsr_matmul_mma_kernel", 4), ("flash_attention_tc_kernel", 3)):
-        got = sum(kernel in n for n in hmma)
-        check(got == want, f"sass: {got} {kernel} instances, want {want}")
+    got = sum("flash_attention_tc_kernel" in n for n in hmma)
+    check(got == 3, f"sass: {got} flash_attention_tc_kernel instances, want 3")
     check(len(imma) == 6 and min(imma.values()) > 0,
           f"sass: W8A8 conv instances without IMMA: {[n for n, c in imma.items() if not c]} "
           f"({len(imma)} instances, want 6)")
     check(len(imma_gemm) == 16 and min(imma_gemm.values()) > 0,
           f"sass: W8A8 GEMM instances without IMMA: "
           f"{[n for n, c in imma_gemm.items() if not c]} ({len(imma_gemm)} instances, want 16)")
-    n_wgmma = len(_build.BF16_GEMM_TILES) + len(_build.FFN_WGMMA_TILES)
+    n_wgmma = (len(_build.BF16_GEMM_TILES) + len(_build.FFN_WGMMA_TILES)
+               + len(_build.BSR_TMA_TILES))
     check(len(wgmma) == n_wgmma, f"sass: {len(wgmma)} {_WGMMA_KERNEL} instances, want {n_wgmma}")
     n_two = sum("GateUpEpilogue" in n for n in wgmma)
     check(n_two == len(_build.FFN_WGMMA_TILES),
           f"sass: {n_two} two-weight {_WGMMA_KERNEL} instances, want "
           f"{len(_build.FFN_WGMMA_TILES)}")
+    n_bsr = sum("BsrWalk" in n for n in wgmma)
+    check(n_bsr == len(_build.BSR_TMA_TILES),
+          f"sass: {n_bsr} block-sparse {_WGMMA_KERNEL} instances, want "
+          f"{len(_build.BSR_TMA_TILES)}")
     bad = [n for n, (hg, tma, hm) in wgmma.items() if not hg or not tma or hm]
     check(not bad, f"sass: {_WGMMA_KERNEL} instances without HGMMA or UTMALDG, or with HMMA: "
                    f"{bad[:3]}")
-    print(f"  sass: {len(wgmma)} {_WGMMA_KERNEL} instances ({n_two} with two weights), "
+    print(f"  sass: {len(wgmma)} {_WGMMA_KERNEL} instances ({n_two} with two weights, "
+          f"{n_bsr} block-sparse), "
           f"HGMMA per kernel "
           f"{min(v[0] for v in wgmma.values())}..{max(v[0] for v in wgmma.values())}, UTMALDG "
           f"{min(v[1] for v in wgmma.values())}..{max(v[1] for v in wgmma.values())}, no HMMA")
@@ -1306,13 +1312,17 @@ def phase_llm_kernels(torch, results):
         b = randn(n, scale=0.1, dtype=bf16) if bias else None
         sides = (randn(m, n, dtype=bf16),) if add else ()
         kw = dict(epilogue=(("add", 0),) if add else ())
-        # the body the shape's rule picks: skinny at decode (M <= 8), the
-        # TMA + wgmma body at the served prefill shapes, mma_gemm.cuh for
-        # odd K or N
+        # the body the shape's rule picks: the TMA + wgmma body at every
+        # served prefill shape and at decode for N <= TMA_DECODE_MAX_N (k /
+        # v, on _build.TMA_DECODE_TILE), the skinny kernel for the other
+        # decode shapes, mma_gemm.cuh for odd K or N at prefill
         body = _build.bf16_body(m, n, k)
-        if m > _build.SKINNY_MT:
-            check(body == ("wgmma" if k % 8 == 0 and n % 8 == 0 else "mma_gemm"),
-                  f"dense_matmul bf16 {label}: the rule picks {body}")
+        tma = k % 8 == 0 and n % 8 == 0
+        if m <= _build.SKINNY_MT:
+            want = "wgmma" if tma and n <= _build.TMA_DECODE_MAX_N else "skinny"
+        else:
+            want = "wgmma" if tma else "mma_gemm"
+        check(body == want, f"dense_matmul bf16 {label}: the rule picks {body}, want {want}")
         before = dict(kdense.route_launches)
         out = kdense.dense_matmul(x, wt, b, *sides, **kw)
         took(kdense, before, body, f"dense_matmul bf16 {label}")
@@ -1358,10 +1368,13 @@ def phase_llm_kernels(torch, results):
         print(f"  {'dense_matmul_bf16':18s} every tile, {label}: {' '.join(parts)} ms "
               f"(each torch.equal to the default tile)")
 
-    # every projection the decoder plans launch, at decode (M = 3 rows, the
-    # skinny kernel) and at prefill (M = 48, the tensor-core kernel)
+    # every projection the decoder plans launch, at decode (M = 3 rows: k /
+    # v on the TMA + wgmma body, every tile and depth too on the decode
+    # plan's K ranges; q / o / down on the skinny kernel) and at prefill
+    # (M = 48, the TMA + wgmma body)
     dense_bf16_case("q decode M=3 2048->2048 +bias", 3, 2048, 2048, role=("decode", "q"))
-    dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256, role=("decode", "kv"))
+    dense_bf16_case("k/v decode M=3 2048->256 +bias", 3, 2048, 256, pipelined=True,
+                    role=("decode", "kv"))
     dense_bf16_case("o decode M=3 2048->2048 +add", 3, 2048, 2048, bias=False, add=True,
                     role=("decode", "o"))
     dense_bf16_case("down decode M=3 11008->2048 +add", 3, 11008, 2048, bias=False, add=True,
@@ -1435,9 +1448,10 @@ def phase_bsr_kernels(torch, record, results):
     into one output, as ``ops.bsr_matmul`` makes them.  Bound: the real
     blocks' bytes + block_rows + x + out + bias + sides, and
     2 * M * bm * bn per real block.  Each case prints its route and split
-    per band (``bsr_matmul.plan``); bf16 edge cases drive each route's
-    other instances (bm = 16 slabs, 32-column chunks, pads, a split
-    streaming launch, an empty band).  Then the pruned decoder's device
+    per band (``bsr_matmul.plan``); bf16 edge cases drive every route
+    (``route_launches``: wgmma, stream, cuda_core) and the wgmma route's
+    other instances (32-row and 128-row slabs, 32-column tiles, pads, two
+    M tiles, an empty band).  Then the pruned decoder's device
     time per plan call in ``bsr_matmul`` (36 q + 36 o launches), and a
     check that no split launch allocated tile counters (the kernels reset
     the ones ``_build.split_counters`` keeps)."""
@@ -1495,6 +1509,7 @@ def phase_bsr_kernels(torch, record, results):
         return rows
 
     allocs, splits = _build.counter_allocations, kbsr.split_launches
+    routes0 = dict(kbsr.route_launches)
     # full width: the headline (decode q) first
     w_q = randn(2048, 2048, scale=2048 ** -0.5, dtype=bf16)
     w_o = randn(2048, 2048, scale=2048 ** -0.5, dtype=bf16)
@@ -1518,9 +1533,10 @@ def phase_bsr_kernels(torch, record, results):
         ms = LLM_LAYERS * (t[f"q {phase}"] + t[f"o {phase}"])
         print(f"  per pruned {phase} plan call ({LLM_LAYERS} layers, device ms x launches): "
               f"bsr_matmul {2 * LLM_LAYERS} launches {ms:.3f} ms")
-    # bf16 edge shapes: bm = 16 slabs over 32-column chunks with pads (the
-    # tensor cores), a split streaming launch with pads, bands with an
-    # empty one
+    # bf16 edge shapes: bm = 16 blocks with pads (no wgmma slab: the CUDA
+    # cores), 24-column blocks with pads at decode (streaming), 32 x 32
+    # blocks in bands with an empty one and 128-row blocks over two M
+    # tiles with pads (the wgmma route's 32-row and 128-row slabs)
     w3 = randn(192, 96, scale=192 ** -0.5, dtype=bf16)
     case("bf16 M=13 192->96 b16x32 pads +add", randn(13, 192, dtype=bf16), w3,
          project(w3, Block(0.5, bm=16, bn=32, balanced=False))[1], 16, 32, add=True)
@@ -1533,6 +1549,11 @@ def phase_bsr_kernels(torch, record, results):
     case("bf16 M=20 256->256 b32 3 bands, 1 empty", randn(20, 256, dtype=bf16), w5, m5, 32, 32,
          bias=randn(256, scale=0.1, dtype=bf16), act="gelu",
          bands=((0, 1, 0), (1, 5, min(2, s5)), (5, 8, s5)))
+    w6 = randn(512, 256, scale=512 ** -0.5, dtype=bf16)
+    case("bf16 M=70 512->256 b128x64 pads +add", randn(70, 512, dtype=bf16), w6,
+         project(w6, Block(0.5, bm=128, bn=64, balanced=False))[1], 128, 64, add=True)
+    unused = [r for r, n in kbsr.route_launches.items() if n == routes0[r]]
+    check(not unused, f"bsr_matmul: routes {unused} not launched by the bf16 cases")
     # the test MLP's first layer (256 -> 512, Block(0.5, 128, 128,
     # balanced=False)), numpy-seeded so its pads are known: two bands over
     # the unpermuted packing, pads inside them, an add side
@@ -2202,7 +2223,7 @@ def phase_serve_async(torch, np, apps):
 
 #: kernel-name fragments of the port's own kernels
 _OWN = {"conv2d_igemm": "conv2d", "simt_gemm_kernel<float": "dense_matmul",
-        "DenseEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
+        "BsrWalk": "bsr_matmul", "RowEpilogue": "dense_matmul", "fused_ew": "fused_elementwise",
         "simt_gemm_kernel<signed char": "quant_matmul", "int8_gemm_kernel": "quant_matmul",
         "ffn_gateup_simt_kernel": "ffn_gateup", "ffn_gateup_skinny_kernel": "ffn_gateup",
         "GateUpEpilogue": "ffn_gateup",

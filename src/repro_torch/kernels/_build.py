@@ -58,6 +58,7 @@ __all__ = [
     "GEMM_TILES",
     "BF16_GEMM_TILES",
     "FFN_WGMMA_TILES",
+    "BSR_TMA_TILES",
     "CONV_TILES",
     "TileError",
     "gemm_default_tile",
@@ -129,6 +130,24 @@ TMA_RING_BUDGET, TMA_MIN_STAGES = 110 * 1024, 4
 #: their fastest split at or below it, and more K ranges (more CTAs) up to
 #: 1.6x slower
 FFN_TMA_TARGET = 264
+#: the wgmma body at decode (M <= SKINNY_MT, no tile named): the widest N
+#: it takes from the skinny kernel, its tile (rows past M are TMA's zero
+#: fill: no bytes read) and the CTAs its K split aims for at most
+#: (:func:`tma_plan`).  Measured on an H100 at the served M = 3 shapes
+#: (tools/wgmma_bench.py --decode, both routes in one process): the body
+#: beat the skinny kernel at the k / v projections (N 256 / 512 / 1024:
+#: 0.0046 / 0.0045 / 0.0056 ms against 0.0059 / 0.0058 / 0.0070), lost at
+#: every q / o (N 2048 / 3072: 0.0071-0.0120 against 0.0065-0.0101) under
+#: every tile and K split swept, and split the down projections (qwen /
+#: phi4 4-5% faster, granite 33% slower), which stay skinny; phi4's k / v
+#: ran 0.0056 ms on 6 ranges (96 CTAs) against 0.0062 on 8.  No N between
+#: 1024 and 2048 was measured: the cut lies somewhere in that gap
+TMA_DECODE_MAX_N, TMA_DECODE_TILE, TMA_DECODE_TARGET = 1024, (64, 64, 64, 1), 96
+#: bsr_matmul's wgmma route (csrc/bsr_matmul.cu over csrc/wgmma_gemm.cuh,
+#: a 64-row M tile at depth 1): ``(BN, BK)`` instances, BN the columns of a
+#: block-column a CTA covers, BK the rows of a slab (``bsr_matmul.tma_bk``);
+#: ``csrc/tiles.cuh`` (``REPRO_BSR_TMA_TILES``) lists the same pairs
+BSR_TMA_TILES = ((64, 128), (64, 64), (64, 32), (32, 128), (32, 64), (32, 32))
 #: the limits csrc/wgmma_gemm.cuh is compiled with (``-DREPRO_WGMMA_<key>``):
 #: the header keeps no copy of its own
 WGMMA_LIMITS = dict(MAX_CLUSTER=TMA_MAX_CLUSTER, SMEM_LIMIT=SMEM_LIMIT,
@@ -593,31 +612,40 @@ def bf16_body(m: int, n: int, k: int, named: bool = False, aligned: bool = True)
     """Which body a bf16 ``dense_matmul`` / ``dense_matmul_pipelined``
     launch of ``x [m, k] @ w [k, n]`` runs -- a rule on the shape (and on
     the operands' alignment, ``aligned``: x, w and out 16-byte aligned),
-    never a recovery: ``"skinny"`` (``csrc/skinny_bf16.cuh``) for at most
-    ``SKINNY_MT`` rows with no tile named and K > 0 (the tiled entry only);
-    else ``"wgmma"`` (``csrc/wgmma_gemm.cuh``, TMA + wgmma) where TMA
-    addresses the operands -- aligned, K and N multiples of 8 (row strides
-    of whole 16 bytes), K > 0; else ``"mma_gemm"`` (``csrc/mma_gemm.cuh``)."""
-    if m <= SKINNY_MT and k > 0 and not named:
+    never a recovery.  At most ``SKINNY_MT`` rows with no tile named (the
+    tiled entry at decode): ``"wgmma"`` on ``TMA_DECODE_TILE`` where
+    TMA addresses the operands and N is at most ``TMA_DECODE_MAX_N``, else
+    ``"skinny"`` (``csrc/skinny_bf16.cuh``) for K > 0.  Otherwise
+    ``"wgmma"`` (``csrc/wgmma_gemm.cuh``, TMA + wgmma) where TMA addresses
+    the operands -- aligned, K and N multiples of 8 (row strides of whole
+    16 bytes), K > 0 --, else ``"mma_gemm"`` (``csrc/mma_gemm.cuh``)."""
+    tma = aligned and k > 0 and k % 8 == 0 and n % 8 == 0
+    if m <= SKINNY_MT and k > 0 and not named and not (tma and n <= TMA_DECODE_MAX_N):
         return "skinny"
-    if aligned and k > 0 and k % 8 == 0 and n % 8 == 0:
-        return "wgmma"
-    return "mma_gemm"
+    return "wgmma" if tma else "mma_gemm"
 
 
 def tma_plan(m: int, n: int, k: int) -> Tuple[int, int]:
     """``(kchunk, nsplit)`` of a wgmma launch (``csrc/wgmma_gemm.cuh``),
     fixed by the shape alone -- never by the tile or depth, so every tile
     and depth sums each output over the same ranges and stays bit-equal.
-    K ranges: one where the default tile's grid (:func:`bf16_default_tile`)
-    alone holds ``TMA_SPLIT_TARGET`` blocks; else as many as that grid
-    can add without passing the target (the ranges of a tile are one
-    thread block cluster: at most ``TMA_MAX_CLUSTER``), none shorter than
-    ``SPLIT_MIN_K`` rows, each a multiple of ``TMA_SPLIT_ALIGN`` rows (the
-    last may be shorter)."""
-    bm, bn, _, _ = bf16_default_tile(m, n)
+    K ranges: one where the grid of the shape's tile alone holds the
+    target; else as many as that grid can add without passing it (the
+    ranges of a tile are one thread block cluster: at most
+    ``TMA_MAX_CLUSTER``), none shorter than ``SPLIT_MIN_K`` rows, each a
+    multiple of ``TMA_SPLIT_ALIGN`` rows (the last may be shorter).  The
+    tile and target: where an untiled launch of the shape takes the body
+    at decode (at most ``SKINNY_MT`` rows, N at most ``TMA_DECODE_MAX_N``;
+    outside the tuning cache as the skinny route's plan was)
+    ``TMA_DECODE_TILE`` and ``TMA_DECODE_TARGET``, else
+    :func:`bf16_default_tile` and ``TMA_SPLIT_TARGET`` (a named tile at
+    decode on a wider N: more ranges, as the down projection measured)."""
+    if m <= SKINNY_MT and n <= TMA_DECODE_MAX_N:
+        (bm, bn, _, _), target = TMA_DECODE_TILE, TMA_DECODE_TARGET
+    else:
+        (bm, bn, _, _), target = bf16_default_tile(m, n), TMA_SPLIT_TARGET
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    nsplit = max(1, min(TMA_SPLIT_TARGET // tiles, TMA_MAX_CLUSTER, k // SPLIT_MIN_K))
+    nsplit = max(1, min(target // tiles, TMA_MAX_CLUSTER, k // SPLIT_MIN_K))
     kchunk = _cdiv(_cdiv(max(k, 1), nsplit), TMA_SPLIT_ALIGN) * TMA_SPLIT_ALIGN
     return kchunk, _cdiv(max(k, 1), kchunk)
 

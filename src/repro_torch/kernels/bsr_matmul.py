@@ -18,19 +18,23 @@ program are f32 and the output takes x's type, rounded once.  ``bm`` and
 The kernel (``csrc/bsr_matmul.cu``) has three bodies; :func:`plan` picks
 one from the shape before the launch (never as a retry):
 
-* ``tensor_core`` -- bf16 with M > 8 (prefill) and ``bm % 16 == 0``: one
-  CTA per 64-row M tile by a 64- (or 32-) column chunk of a block-column
-  runs ``mma.sync`` over each packed block as K slabs through a
-  ``cp.async`` ring, so a weight block is read once per M tile;
+* ``wgmma`` -- bf16 blocks of ``bm % 32 == 0`` rows and ``bn % 32 == 0``
+  columns on 16-byte aligned x and values, at M > 8 (prefill): the
+  Hopper GEMM body (``csrc/wgmma_gemm.cuh``, TMA into a swizzled ring,
+  ``wgmma`` m64nBNk16) with a block-sparse K walk -- one tensor map over x
+  and one over all of ``values``, each CTA's steps of ``block_rows`` staged
+  in shared memory and its pads dropped there, a packed block read once per
+  64-row M tile as ``bm / BK`` slabs (:func:`tma_bk`);
 * ``stream`` -- bf16 with M <= 8 (decode): weight streaming, 16-byte loads
-  of the packed rows, several in flight a lane, only M rounded up to 1 /
-  2 / 4 / 8 rows of x staged;
+  of the packed rows, several in flight a lane, only M rounded up to 1 / 2
+  / 4 / 8 rows of x staged (at the decoder's q / o decode 0.0049 ms against
+  the wgmma route's 0.0064-0.0068 on an H100, tools/wgmma_bench.py --bsr);
 * ``cuda_core`` -- f32 (true f32) and any other bf16 shape: 8-row M tiles
   on the CUDA cores.
 
 Each route splits a column's packed steps over CTAs when its grid alone
 would leave SMs idle (``nsplit``, a function of the shape alone), and the
-splits are summed in split order: the tensor-core body's in a thread block
+splits are summed in split order: the wgmma body's in a thread block
 cluster through distributed shared memory; the others' in an f32
 workspace, by the last CTA of a tile, whose int counter it resets, so the
 counters come from ``_build.split_counters`` (one zeroed buffer per
@@ -40,7 +44,7 @@ What bounds it on an H100: the packed weights' bytes, at decode and at
 the decoder's prefill (48 rows).  Routing: a CPU tensor takes
 :func:`bsr_matmul_plain`, a CUDA tensor launches the kernel or raises.
 ``launches`` counts kernel launches, ``split_launches`` those with more
-than one split.
+than one split, ``route_launches`` the same launches by body.
 """
 
 from __future__ import annotations
@@ -52,49 +56,60 @@ import torch
 from . import _build
 from .ref import _ACT, apply_steps_ref, bsr_matmul_ref
 
-__all__ = ["bsr_matmul", "bsr_matmul_plain", "plan", "BsrPlan", "ROUTES", "rows_per_tile"]
+__all__ = ["bsr_matmul", "bsr_matmul_plain", "plan", "BsrPlan", "ROUTES", "rows_per_tile",
+           "tma_bk", "tma_grid"]
 
 #: kernel launches made by :func:`bsr_matmul` (CUDA route only)
 launches = 0
 #: the launches among them whose steps were split across CTAs
 split_launches = 0
+#: the same launches by body (:data:`ROUTES`)
+route_launches = {"cuda_core": 0, "wgmma": 0, "stream": 0}
 
 #: the kernel's bodies, by the code its C entry takes (csrc/bsr_matmul.cu)
-ROUTES = {"cuda_core": 0, "tensor_core": 1, "stream": 2}
-#: rows of x a CTA covers: the CUDA-core body's M tile, the tensor-core
-#: body's, and the most rows the streaming body takes (its M tile)
-FMA_MT, MMA_MT, STREAM_MAX_M = 8, 64, 8
+ROUTES = {"cuda_core": 0, "wgmma": 1, "stream": 2}
+#: rows of x a CTA covers: the CUDA-core body's M tile, the wgmma body's,
+#: and the most rows the streaming body takes (its M tile)
+FMA_MT, TMA_MT, STREAM_MAX_M = 8, 64, 8
 #: the streaming body's columns a CTA, the most packed rows (steps x bm) it
 #: stages, and the fewest it should stream (csrc/bsr_matmul.cu bsr_stream::
 #: CW, KC; _build.SKINNY_MIN_K)
 STREAM_CW, STREAM_KC, STREAM_MIN_ROWS = 16, 1024, _build.SKINNY_MIN_K
-#: the tensor-core body's most splits (the CTAs of a thread block cluster)
-#: and most steps a CTA (csrc/bsr_matmul.cu bsr_mma::MAX_SPLIT, MAX_STEPS)
-MMA_MAX_SPLIT, MMA_MAX_STEPS = 8, 256
+#: the wgmma body's most splits (the CTAs of a thread block cluster) and
+#: most steps a CTA (the block_rows table it stages: csrc/wgmma_gemm.cuh
+#: BsrWalk::TABLE)
+TMA_MAX_SPLIT, TMA_MAX_STEPS = _build.TMA_MAX_CLUSTER, 256
 #: the CTAs each route's split aims for: two per SM of an H100's 132 for the
-#: CUDA-core body (8 warps, a few loads in flight each) and the tensor-core
-#: body (a 74 KB ring each; on the decoder's q prefill 8 splits ran 8%
-#: faster than 4 on an H100, tools/bsr_conv_bench.py --mma-target), one per
-#: SM for the streaming body, whose CTA has all its rows' loads in flight
-#: at once: it splits only while whole splits still fit one CTA a SM (on
-#: q decode no split ran 30% faster than 2, --stream-target)
-FMA_TARGET, MMA_TARGET, STREAM_TARGET = (_build.SKINNY_TARGET_BLOCKS, _build.SKINNY_TARGET_BLOCKS,
+#: CUDA-core body (8 warps, a few loads in flight each); one per SM for the
+#: wgmma body (at the decoder's q / o prefill 4 splits of 4 steps ran
+#: 0.0067 / 0.0069 ms against 8 splits' 0.0072 / 0.0072 and no split's
+#: 0.0106 / 0.0111, tools/wgmma_bench.py --bsr) and for the streaming body,
+#: whose CTA has all its rows' loads in flight at once: it splits only
+#: while whole splits still fit one CTA a SM (on q decode no split ran 30%
+#: faster than 2, --stream-target)
+FMA_TARGET, TMA_TARGET, STREAM_TARGET = (_build.SKINNY_TARGET_BLOCKS, _build.SPLIT_TARGET_BLOCKS,
                                          _build.SPLIT_TARGET_BLOCKS)
 
 
 class BsrPlan(NamedTuple):
     """One launch of the kernel: the body, its width (``cuda_core``: columns
-    a lane; ``tensor_core``: columns a CTA; ``stream``: 16, columns a CTA),
-    the split of each column's steps (``nsplit`` CTAs of ``schunk`` steps,
+    a lane; ``wgmma``: columns a CTA; ``stream``: 16, columns a CTA), the
+    split of each column's steps (``nsplit`` CTAs of ``schunk`` steps,
     every one non-empty) and the tiles of the grid (one counter each where
-    the splits meet through ``_build.split_counters``: not the tensor-core
-    body, whose splits meet in a thread block cluster)."""
+    the splits meet through ``_build.split_counters``: not the wgmma body,
+    whose splits meet in a thread block cluster)."""
 
     route: str
     width: int
     nsplit: int
     schunk: int
     tiles: int
+
+
+def tma_bk(bm: int) -> int:
+    """The wgmma route's slab rows for ``bm``-row blocks: the largest of
+    128 / 64 / 32 that divides ``bm`` (0: none does, the route refuses)."""
+    return next((bk for bk in (128, 64, 32) if bm % bk == 0), 0)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -118,37 +133,48 @@ def plan(m: int, bm: int, bn: int, ncols: int, count: int, bf16: bool,
     """The route and split of one band's launch, from its shape alone: ``m``
     rows of x, ``bm x bn`` blocks, ``ncols`` block-columns walked for
     ``count`` steps; ``bf16`` operands; ``aligned``: x and values on 16-byte
-    boundaries (the tensor-core and streaming bodies' copies); ``vec``: the
+    boundaries (the wgmma and streaming bodies' copies); ``vec``: the
     CUDA-core body's columns a lane (:func:`_vec`).
 
-    bf16 with ``m <= 8`` and ``bm <= 1024`` streams; bf16 with ``m > 8`` and
-    ``bm % 16 == 0`` takes the tensor cores (up to 8 x 256 steps a
-    column: its splits form one thread block cluster); everything else
-    (f32, an unaligned operand, another block shape) the CUDA cores."""
+    bf16 with ``m <= 8`` and ``bm <= 1024`` streams; other bf16 launches
+    of ``bm % 32 == 0`` and ``bn % 32 == 0`` take the wgmma body (up to 8 x
+    256 steps a column: its splits form one thread block cluster, each
+    stages its steps); everything else (f32, an unaligned operand, another
+    block shape) runs on the CUDA cores."""
+    tma = (bf16 and aligned and tma_bk(bm) > 0 and bn % 32 == 0
+           and count <= TMA_MAX_SPLIT * TMA_MAX_STEPS)
     if bf16 and aligned and m <= STREAM_MAX_M and bm <= STREAM_KC:
         tiles = _cdiv(bn, STREAM_CW) * ncols
         nsplit, schunk = _split(count, max(1, STREAM_TARGET // tiles),
                                 least=_cdiv(STREAM_MIN_ROWS, bm), most=STREAM_KC // bm)
         return BsrPlan("stream", STREAM_CW, nsplit, schunk, tiles)
-    if (bf16 and aligned and m > STREAM_MAX_M and bm % 16 == 0
-            and count <= MMA_MAX_SPLIT * MMA_MAX_STEPS):
+    if tma:
         width = 64 if bn % 64 == 0 else 32
-        tiles = _cdiv(bn, width) * ncols * _cdiv(m, MMA_MT)
-        want = min(_cdiv(MMA_TARGET, tiles), MMA_MAX_SPLIT)
-        nsplit, schunk = _split(count, want, least=_cdiv(count, MMA_MAX_SPLIT),
-                                most=MMA_MAX_STEPS)
-        return BsrPlan("tensor_core", width, nsplit, schunk, tiles)
+        tiles = bn // width * ncols * _cdiv(m, TMA_MT)
+        want = min(_cdiv(TMA_TARGET, tiles), TMA_MAX_SPLIT)
+        nsplit, schunk = _split(count, want, least=_cdiv(count, TMA_MAX_SPLIT),
+                                most=TMA_MAX_STEPS)
+        return BsrPlan("wgmma", width, nsplit, schunk, tiles)
     tiles = _cdiv(bn, 32 * vec) * ncols * _cdiv(m, FMA_MT)
     nsplit, schunk = _split(count, _cdiv(FMA_TARGET, tiles))
     return BsrPlan("cuda_core", vec, nsplit, schunk, tiles)
 
 
-def rows_per_tile(m: int, bm: int, dtype: torch.dtype) -> int:
+def tma_grid(m: int, bm: int, bn: int, ncols: int, p: BsrPlan) -> Tuple[Tuple[int, int, int], int]:
+    """The wgmma route's launch: its grid ``(M tiles, N tiles, splits)`` --
+    a 64-row M tile by ``p.width`` columns of a block-column by one split
+    of each column's steps, the splits of a tile one thread block cluster
+    -- and the rows of a slab (:func:`tma_bk`), as ``csrc/bsr_matmul.cu``
+    launches ``wgmma_gemm::BsrWalk``."""
+    return (_cdiv(m, TMA_MT), bn // p.width * ncols, p.nsplit), tma_bk(bm)
+
+
+def rows_per_tile(m: int, bm: int, bn: int, dtype: torch.dtype) -> int:
     """Rows of x one CTA covers for a call of this shape (aligned operands):
-    the tensor-core body's 64 or the other bodies' 8 -- what the ops layer
+    the wgmma body's 64 or the other bodies' 8 -- what the ops layer
     records as the kernel's one configuration of a tuning key."""
-    route = plan(m, bm, 8, 1, 1, dtype == torch.bfloat16).route
-    return MMA_MT if route == "tensor_core" else FMA_MT
+    route = plan(m, bm, bn, 1, 1, dtype == torch.bfloat16).route
+    return TMA_MT if route == "wgmma" else FMA_MT
 
 
 def _check(x, values, block_rows, bias, sides, band, out, activation, epilogue):
@@ -262,8 +288,11 @@ def bsr_matmul(
     if m == 0 or ncols == 0:
         return out
     p = plan_for(x, values, ncols, count)
+    if p.route == "wgmma" and tma_grid(m, bm, bn, ncols, p)[0][1] > 65535:
+        raise ValueError(f"bsr_matmul: {ncols} block-columns of {bn // p.width} N tiles pass "
+                         f"the grid's 65535 (x{tuple(x.shape)} values{tuple(values.shape)})")
     ws = counters = None
-    if p.nsplit > 1 and p.route != "tensor_core":  # its splits meet in a cluster
+    if p.nsplit > 1 and p.route != "wgmma":  # its splits meet in a cluster
         ws = torch.empty((p.nsplit, m, ncols * bn), dtype=torch.float32, device=dev)
         counters = _build.split_counters(dev, p.tiles)
     prog = _build.encode_program(epilogue)
@@ -280,4 +309,5 @@ def bsr_matmul(
     _build.check(err, f"bsr_matmul ({p.route}, x{tuple(x.shape)} values{tuple(values.shape)})")
     launches += 1
     split_launches += p.nsplit > 1
+    route_launches[p.route] += 1
     return out

@@ -27,15 +27,17 @@
 // (kernels/bsr_matmul.py:plan; the C entry refuses a route the shape does
 // not allow):
 //
-// * ROUTE_MMA, bf16 with M > 8 (prefill), bm % 16 == 0: tensor cores.  A
-//   CTA owns a 64-row M tile by a CN-column chunk (64 or 32) of one
-//   block-column and treats each packed block as BK-deep K slabs (BK = 64
-//   or 16, dividing bm) whose x columns start at block_rows[j, s] * bm.  The
-//   slabs run through a cp.async ring of STAGES slots (mma_gemm.cuh's
-//   stage16 copies, its ldmatrix / mma.sync.m16n8k16 fragments), so each
-//   weight block is read once per 64-row M tile -- not once per 8 rows --
-//   and several blocks are in flight behind the one being multiplied.  Its
-//   splits meet in a thread block cluster (below).
+// * ROUTE_TMA, bf16 blocks of bm % 32 == 0 rows and bn % 32 == 0 columns
+//   on 16-byte aligned x and values: the Hopper GEMM body of
+//   csrc/wgmma_gemm.cuh with its block-sparse K walk (wgmma_gemm::BsrWalk).
+//   TMA loads x [M, K] and the packed blocks -- values seen as one
+//   [Nb * S * bm, bn] matrix, one tensor map each for the whole launch --
+//   into a ring of swizzled slots; a CTA owns a 64-row M tile by BN = 64 or
+//   32 columns of one block-column, stages its steps of block_rows in
+//   shared memory before the loop and drops the pads there, and runs
+//   wgmma m64nBNk16 over each live block as bm / BK slabs whose x columns
+//   start at block_rows[j, s] * bm.  Its splits meet in a thread block
+//   cluster (below).
 // * ROUTE_STREAM, bf16 with M <= 8 (decode): weight streaming, like
 //   skinny_bf16.cuh.  8 warps over 16 columns of a block-column; lane l
 //   owns 8 adjacent columns (one 16-byte word of a block row, two lanes a
@@ -54,9 +56,9 @@
 //
 // Every body splits a column's `count` steps over gridDim.y CTAs of
 // `schunk` steps when the grid is small (the split is a function of the
-// shape: kernels/bsr_matmul.py).  ROUTE_MMA's splits of a tile form one
+// shape: kernels/bsr_matmul.py).  ROUTE_TMA's splits of a tile form one
 // thread block cluster and sum their partial tiles through distributed
-// shared memory, each CTA a share of the rows.  The other bodies write
+// shared memory, each CTA a share of the rows (wgmma_gemm.cuh's K split).  The other bodies write
 // each split's partial tile to the f32 workspace ws [nsplit, M, ncols *
 // bn]; the CTA that finishes a tile last (an int counter per tile, which
 // it resets to 0 for the next launch, so the wrapper keeps one zeroed
@@ -68,7 +70,7 @@
 // Pads (block_rows -1) contribute nothing.  That is exact for finite x: the
 // TPU kernel clamps a pad to x block 0 and multiplies its product by 0, so
 // with a non-finite x it yields NaN where this kernel yields the finite
-// sum.  ROUTE_MMA and ROUTE_FMA skip a pad's copies and products;
+// sum.  ROUTE_TMA and ROUTE_FMA skip a pad's copies and products;
 // ROUTE_STREAM loads its weight rows with the others (the load is issued
 // before block_rows is known) and multiplies them by zero x, the weight
 // forced to 0.
@@ -78,20 +80,18 @@
 // 3.35 TB/s -- at decode and, with 48 rows of x, at prefill too.  There are
 // only Nb = 32 block-columns, so the split is what fills 132 SMs.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
-#include "mma_gemm.cuh"
-#include "pipelined_gemm.cuh"
+#include "tiles.cuh"
+#include "wgmma_gemm.cuh"
 
-enum { ROUTE_FMA = 0, ROUTE_MMA = 1, ROUTE_STREAM = 2 };
+enum { ROUTE_FMA = 0, ROUTE_TMA = 1, ROUTE_STREAM = 2 };
 
 namespace {
 
-namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 // Bias, activation, step program, one store; n is the global output column.
@@ -354,233 +354,44 @@ int launch_fma(const void* x, const void* values, const int* rows, int M, int K,
 }
 
 // ---------------------------------------------------------------------------
-// ROUTE_MMA: bf16 tensor cores, M > 8
+// ROUTE_TMA: bf16 on the TMA + wgmma body (csrc/wgmma_gemm.cuh)
 // ---------------------------------------------------------------------------
 
-namespace bsr_mma {
-
-constexpr int BM = 64;         // rows of x a CTA covers
-constexpr int STAGES = 4;      // ring slots: three slabs in flight behind the one multiplied
-constexpr int MAX_SPLIT = 8;   // CTAs of a cluster (the portable most)
-constexpr int MAX_STEPS = 256; // packed steps a CTA walks (its block_rows live in shared memory)
-
-template <int CN, int BK>
-struct Shape {
-  static constexpr int WM = BM / 32;  // warps along m
-  static constexpr int WN = CN / 32;  // warps along n
-  static constexpr int NT = WM * WN * 32;
-  static constexpr int MI = 2;  // m16 fragments a warp (32 rows)
-  static constexpr int NI = 4;  // n8 fragments a warp (32 columns)
-  static constexpr int XP = BK + 8;
-  static constexpr int WP = CN + 8;
-  static constexpr int TP = CN + 4;  // the f32 partial tile's row, after the loop
-  static constexpr int X_SLOT = BM * XP;
-  static constexpr int W_SLOT = BK * WP;
-  static constexpr size_t RING = (size_t)STAGES * (X_SLOT + W_SLOT) * sizeof(bf16);
-  static constexpr size_t TILE = (size_t)BM * TP * sizeof(float);
-  static constexpr size_t BYTES = RING > TILE ? RING : TILE;
-  static_assert(CN % 32 == 0 && BK % 16 == 0, "whole warp tiles and k16 steps");
-};
-
-}  // namespace bsr_mma
-
-// The splits of one output tile form a thread block cluster (gridDim.y = its
-// size = nsplit <= 8): after its slabs each CTA parks its f32 partial tile
-// in its own shared memory, and after one cluster barrier CTA `rank` sums
-// rows [rank * chunk, (rank + 1) * chunk) of the live tile over every
-// split, in split order, reading the others' partials through distributed
-// shared memory, and runs their epilogue.  No workspace, no counters, no
-// round trip to L2 between the splits.
-template <int CN, int BK>
-__global__ void __launch_bounds__(bsr_mma::Shape<CN, BK>::NT)
-    bsr_matmul_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ values,
-                          const int* __restrict__ rows, int M, int K, int bm, int bn,
-                          int s_stride, int count, int col0, int schunk,
-                          BsrEpilogue<bf16> epi) {
-  using S = bsr_mma::Shape<CN, BK>;
-  constexpr int BM = bsr_mma::BM, STAGES = bsr_mma::STAGES;
-  constexpr int NT = S::NT, WN = S::WN, MI = S::MI, NI = S::NI;
-  constexpr int XP = S::XP, WP = S::WP, TP = S::TP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* wsm = xs + STAGES * S::X_SLOT;
-  __shared__ int s_rows[bsr_mma::MAX_STEPS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / WN, wn = warp % WN;
-  const int nct = (bn + CN - 1) / CN;
-  const int c0 = (blockIdx.x % nct) * CN;
-  const int j = col0 + blockIdx.x / nct;
-  const int m0 = blockIdx.z * BM;
-  const int sb = blockIdx.y * schunk;
-  const int ns = max(min(count, sb + schunk) - sb, 0);
-  const int spb = bm / BK;  // slabs a block
-  const int n_slabs = ns * spb;
-  const bf16* vj = values + ((long long)j * s_stride + sb) * bm * bn;
-
-  // slab t: sub-slab u of the CTA's packed step t / spb.  The weight copy
-  // needs no block_rows; a pad's x is not copied (its products are skipped)
-  auto issue_w = [&](int t) {
-    const int i = t / spb, u = t - i * spb;
-    mma_gemm::stage16<BK, CN, WP, NT>(wsm + (t % STAGES) * S::W_SLOT, vj + (long long)i * bm * bn,
-                                      bn, u * BK, c0, bm, bn, tid);
-  };
-  auto issue_x = [&](int t) {
-    const int i = t / spb, u = t - i * spb;
-    const int r = s_rows[i];
-    if (r >= 0) {
-      mma_gemm::stage16<BM, BK, XP, NT>(xs + (t % STAGES) * S::X_SLOT, x, K, m0,
-                                        r * bm + u * BK, M, K, tid);
-    }
-  };
-
-  // the warm-up's weights go out before block_rows arrives; each slab's x
-  // joins the commit group of its slab (groups complete in order)
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < n_slabs) issue_w(p);
-  }
-  for (int i = tid; i < ns; i += NT) s_rows[i] = __ldg(rows + (long long)j * s_stride + sb + i);
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < n_slabs) issue_x(p);
-    pipelined::cp_async_commit();
-  }
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int q = 0; q < NI; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
-
-  // per-lane ldmatrix offsets, as mma_gemm.cuh computes them
-  const int a_off = (wm * 32 + (lane & 15)) * XP + (lane >> 4) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * WP + wn * 32 + (lane >> 4) * 8;
-
-  for (int t = 0; t < n_slabs; ++t) {
-    const int ahead = t + STAGES - 1;
-    if (ahead < n_slabs) {
-      issue_w(ahead);
-      issue_x(ahead);
-    }
-    pipelined::cp_async_commit();
-    pipelined::cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    if (s_rows[t / spb] >= 0) {  // the same for the whole CTA
-      const int slot = t % STAGES;
-      const bf16* xsl = xs + slot * S::X_SLOT;
-      const bf16* wsl = wsm + slot * S::W_SLOT;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[MI][4];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma_gemm::ldmatrix_x4(a[i], xsl + a_off + i * 16 * XP + kk * 16);
-        }
-#pragma unroll
-        for (int jj = 0; jj < NI / 2; ++jj) {
-          uint32_t b[4];
-          mma_gemm::ldmatrix_x4_trans(b, wsl + b_off + kk * 16 * WP + jj * 16);
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            mma_gemm::mma_m16n8k16(acc[i][2 * jj], a[i], b[0], b[1]);
-            mma_gemm::mma_m16n8k16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // slot t % STAGES may be refilled by the next step's prefetch
-  }
-  pipelined::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it holds the partial tile from here on
-
-  // accumulator element e of fragment (i, q): row lane / 4 (+ 8 for e >= 2),
-  // column 2 * (lane % 4) (+ 1 for odd e)
-  float* tile = reinterpret_cast<float*>(smem);  // [BM][TP]
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int q = 0; q < NI; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + i * 16 + h * 8 + (lane >> 2);
-        const int c = wn * 32 + q * 8 + (lane & 3) * 2;
-        *reinterpret_cast<float2*>(tile + r * TP + c) =
-            make_float2(acc[i][q][2 * h], acc[i][q][2 * h + 1]);
-      }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-
-  const int nsplit = gridDim.y;
-  const int rank = blockIdx.y;  // the cluster spans gridDim.y
-  const int live = min(BM, M - m0);
-  const int chunk = (live + nsplit - 1) / nsplit;
-  const int r0 = rank * chunk, r1 = min(live, r0 + chunk);
-  constexpr int G = CN / 4;  // float4 groups a row
-  const int groups = max(r1 - r0, 0) * G;
-  // a group at a time: every split's partial is requested (at most 8
-  // distributed-shared-memory loads in flight) before any is added
-  for (int e = tid; e < groups; e += NT) {
-    const int r = r0 + e / G, c = (e % G) * 4;
-    if (c0 + c >= bn) continue;
-    const float* own = tile + r * TP + c;
-    float4 part[bsr_mma::MAX_SPLIT];
-#pragma unroll
-    for (int sp = 0; sp < bsr_mma::MAX_SPLIT; ++sp) {
-      if (sp < nsplit) {
-        part[sp] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, sp));
-      }
-    }
-    const int n = j * bn + c0 + c;
-    const float4 bv = epi.bias4(n);
-    float4 sum = part[0];
-#pragma unroll
-    for (int sp = 1; sp < bsr_mma::MAX_SPLIT; ++sp) {
-      if (sp < nsplit) {
-        sum.x += part[sp].x;
-        sum.y += part[sp].y;
-        sum.z += part[sp].z;
-        sum.w += part[sp].w;
-      }
-    }
-    epi.finish4(m0 + r, n, make_float4(sum.x + bv.x, sum.y + bv.y, sum.z + bv.z, sum.w + bv.w));
-  }
-  cluster.sync();  // no CTA leaves while another reads its tile
+// One band on the Hopper GEMM body with wgmma_gemm::BsrWalk: x [M, K] and
+// values viewed as one [Nb * S * bm, bn] matrix each read through one tensor
+// map (boxes of BK rows: BK = the largest of 128 / 64 / 32 dividing bm, so a
+// packed block is bm / BK slabs), BN = `width` columns of a block-column an
+// N tile, the CTA's steps of block_rows staged in shared memory and its
+// pads dropped there, the splits of a column's steps one thread block
+// cluster summed in split order, RowEpilogue on the band's output columns
+// (rows ldo = Nb * bn apart).
+template <int BN, int BK>
+int launch_tma(const bf16* x, const bf16* values, const int* rows, int M, int K, int nb_total,
+               int s_stride, int bm, int bn, int ncols, int count, int schunk, int nsplit,
+               const RowEpilogue<bf16>& epi, int col0, cudaStream_t stream) {
+  using T = wgmma_gemm::Tile<64, BN, BK, 1, 1>;
+  CUtensorMap xmap, wmap;
+  cudaError_t e = wgmma_gemm::encode(&xmap, x, K, M, T::XBOX, 64);
+  if (e != cudaSuccess) return (int)e;
+  e = wgmma_gemm::encode(&wmap, values, bn, nb_total * s_stride * bm, BN, BK);
+  if (e != cudaSuccess) return (int)e;
+  const wgmma_gemm::BsrWalk walk{rows, s_stride, col0, bm, bn, count, schunk};
+  const dim3 grid((M + 63) / 64, (bn / BN) * ncols, nsplit);
+  return (int)wgmma_gemm::run<64, BN, BK, 1, 1>(xmap, wmap, wmap, M, grid, walk, epi, stream);
 }
 
-template <int CN, int BK>
-int launch_mma(const bf16* x, const bf16* values, const int* rows, int M, int K, int s_stride,
-               int bm, int bn, int ncols, int count, int schunk, int nsplit,
-               const BsrEpilogue<bf16>& epi, int col0, cudaStream_t stream) {
-  using S = bsr_mma::Shape<CN, BK>;
-  auto kernel = bsr_matmul_mma_kernel<CN, BK>;
-  if constexpr (S::BYTES > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::BYTES);
-    if (e != cudaSuccess) return (int)e;
+int run_tma(const bf16* x, const bf16* values, const int* rows, int M, int K, int nb_total,
+            int s_stride, int bm, int bn, int ncols, int count, int schunk, int nsplit,
+            int width, const RowEpilogue<bf16>& epi, int col0, cudaStream_t st) {
+  const int bk = bm % 128 == 0 ? 128 : bm % 64 == 0 ? 64 : 32;
+#define REPRO_TRY_BSR_TMA(BN, BK)                                                          \
+  if (width == BN && bk == BK) {                                                          \
+    return launch_tma<BN, BK>(x, values, rows, M, K, nb_total, s_stride, bm, bn, ncols,  \
+                              count, schunk, nsplit, epi, col0, st);                      \
   }
-  const int nct = (bn + CN - 1) / CN;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nct * ncols, nsplit, (M + bsr_mma::BM - 1) / bsr_mma::BM);
-  cfg.blockDim = dim3(S::NT);
-  cfg.dynamicSmemBytes = S::BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = nsplit;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, values, rows, M, K, bm, bn, s_stride,
-                                           count, col0, schunk, epi);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  REPRO_BSR_TMA_TILES(REPRO_TRY_BSR_TMA)
+#undef REPRO_TRY_BSR_TMA
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -794,9 +605,9 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 // out and the sides [M, nb_total * bn].  The band is block-columns
 // [col0, col0 + ncols) with `count` packed steps each.  dtype: 0 = f32,
 // 1 = bf16.  route: ROUTE_FMA with `width` = VEC (1, 2 or 4 columns a lane,
-// dividing bn, the values pointer aligned to VEC elements); ROUTE_MMA (bf16,
-// M > 8, bm % 16 == 0, x and values 16-byte aligned, at most 8 splits of at
-// most 256 steps) with `width` = CN (64 or 32 columns a CTA); ROUTE_STREAM
+// dividing bn, the values pointer aligned to VEC elements); ROUTE_TMA (bf16,
+// bm % 32 == 0, x and values 16-byte aligned, at most 8 splits of at most
+// 256 steps) with `width` = BN (64 or 32 columns a CTA, dividing bn); ROUTE_STREAM
 // (bf16, M <= 8, schunk * bm <= 1024, x and values 16-byte aligned),
 // `width` ignored.  nsplit > 1 splits the steps across CTAs (ceil(count /
 // nsplit) a CTA, every split non-empty); ROUTE_FMA and ROUTE_STREAM then
@@ -820,7 +631,7 @@ extern "C" int repro_bsr_matmul(const void* x, const void* values, const int* ro
   }
   const int schunk = count > 0 ? (count + nsplit - 1) / nsplit : 1;
   if (count > 0 && (count + schunk - 1) / schunk != nsplit) return (int)cudaErrorInvalidValue;
-  if (nsplit > 1 && route != ROUTE_MMA && (ws == nullptr || counters == nullptr)) {
+  if (nsplit > 1 && route != ROUTE_TMA && (ws == nullptr || counters == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (M == 0 || ncols == 0) return (int)cudaSuccess;
@@ -828,30 +639,24 @@ extern "C" int repro_bsr_matmul(const void* x, const void* values, const int* ro
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   const int ldo = nb_total * bn;
-  if (route == ROUTE_MMA || route == ROUTE_STREAM) {
-    if (dtype != 1 || !aligned16(values)) return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_TMA || route == ROUTE_STREAM) {
+    if (dtype != 1 || !aligned16(values) || !aligned16(x)) return (int)cudaErrorInvalidValue;
     const bf16* xb = static_cast<const bf16*>(x);
     const bf16* vb = static_cast<const bf16*>(values);
-    BsrEpilogue<bf16> epi{static_cast<const bf16*>(bias), static_cast<bf16*>(out), ldo, act, p};
     if (route == ROUTE_STREAM) {
-      if (M > 8 || schunk * bm > bsr_stream::KC || !aligned16(x)) return (int)cudaErrorInvalidValue;
+      BsrEpilogue<bf16> epi{static_cast<const bf16*>(bias), static_cast<bf16*>(out), ldo, act, p};
+      if (M > 8 || schunk * bm > bsr_stream::KC) return (int)cudaErrorInvalidValue;
       return launch_stream(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count, schunk, nsplit,
                            wsf, cnt, epi, col0, st);
     }
-    if (M <= 8 || bm % 16 || !aligned16(x) || (width != 64 && width != 32) ||
-        nsplit > bsr_mma::MAX_SPLIT || schunk > bsr_mma::MAX_STEPS) {
+    if (bm % 32 || (width != 64 && width != 32) || bn % width || nsplit > wgmma_gemm::MAX_CLUSTER ||
+        schunk > wgmma_gemm::BsrWalk::TABLE) {
       return (int)cudaErrorInvalidValue;
     }
-    if (bm % 64 == 0) {
-      return width == 64 ? launch_mma<64, 64>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
-                                              schunk, nsplit, epi, col0, st)
-                         : launch_mma<32, 64>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
-                                              schunk, nsplit, epi, col0, st);
-    }
-    return width == 64 ? launch_mma<64, 16>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
-                                            schunk, nsplit, epi, col0, st)
-                       : launch_mma<32, 16>(xb, vb, rows, M, K, s_stride, bm, bn, ncols, count,
-                                            schunk, nsplit, epi, col0, st);
+    const RowEpilogue<bf16> epi{static_cast<const bf16*>(bias), static_cast<bf16*>(out), ldo, act,
+                                p};
+    return run_tma(xb, vb, rows, M, K, nb_total, s_stride, bm, bn, ncols, count, schunk, nsplit,
+                   width, epi, col0, st);
   }
   if (route != ROUTE_FMA) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {

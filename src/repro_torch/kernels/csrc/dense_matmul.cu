@@ -17,21 +17,24 @@
 //   path, read and written in place); 8 x 8 / 8 x 4 register micro-tiles,
 //   cp.async slabs, float4 stores; true f32 FMA, no TF32; bit-equal to the
 //   pipelined entries and across tiles and layouts.
-// * bf16 with M > 8 or a tile named, where TMA addresses the operands
-//   (x, w, out 16-byte aligned; K, N multiples of 8; K > 0): the Hopper body
-//   of csrc/wgmma_gemm.cuh at depth 1 (tiles.cuh's REPRO_BF16_TILED_TILES):
-//   TMA into a ring of swizzled slots, wgmma m64nBNk16 into f32
-//   accumulators, K split into at most 8 ranges fixed by the shape (the
-//   wrapper's _build.tma_plan) and summed in the thread block cluster's
-//   shared memory; bit-equal to the pipelined entries.  Row-major.
+// * bf16 where TMA addresses the operands (x, w, out 16-byte aligned; K, N
+//   multiples of 8; K > 0) with M > 8 or a tile named, and at M <= 8 for N
+//   <= 1024 (the decoders' k / v projections at decode, on
+//   _build.TMA_DECODE_TILE and tma_plan's ranges, rows past M TMA's zero
+//   fill): the Hopper body of csrc/wgmma_gemm.cuh at depth 1 (tiles.cuh's
+//   REPRO_BF16_TILED_TILES): TMA into a ring of swizzled slots, wgmma
+//   m64nBNk16 into f32 accumulators, K split into at most 8 ranges fixed
+//   by the shape (the wrapper's _build.tma_plan) and summed in the thread
+//   block cluster's shared memory; bit-equal to the pipelined entries.
+//   Row-major.
 // * any other bf16 launch with M > 8 or a tile named (odd K or N,
 //   unaligned pointers): the tensor-core kernel of csrc/mma_gemm.cuh at
 //   ring depth 1: bf16 slabs through a 3-slot cp.async ring, ldmatrix +
 //   mma.sync m16n8k16 into f32 accumulators, K split into ranges fixed by
 //   the shape (_build.gemm_split); bit-equal to the pipelined entries.
-// * bf16 with M <= 8 and no tile named (the decoder's q/k/v/o/down
-//   projections at decode): the weight-streaming split-K kernel of
-//   csrc/skinny_bf16.cuh.  Row-major.
+// * any other bf16 launch with M <= 8 and no tile named (q / o / down at
+//   decode, where it measured faster than the wgmma body): the
+//   weight-streaming split-K kernel of csrc/skinny_bf16.cuh.  Row-major.
 // The pipelined variant (tuning winners with depth >= 2) is
 // dense_matmul_pipelined.cu.
 //
@@ -53,27 +56,6 @@
 #include "skinny_bf16.cuh"
 #include "tiles.cuh"
 #include "wgmma_gemm.cuh"
-
-namespace {
-
-// The bf16 kernels' epilogue: bias, activation, step program, one store.
-template <typename T>
-struct DenseEpilogue {
-  const T* bias;
-  T* out;
-  int N;
-  int act;
-  StepProgram prog;
-  __device__ __forceinline__ void operator()(int m, int n, const float* v) const {
-    float y = v[0];
-    if (bias) y += to_f32(bias[n]);
-    y = apply_act(act, y);
-    const long long idx = (long long)m * N + n;
-    out[idx] = from_f32<T>(apply_pointwise_steps<T>(prog, y, idx));
-  }
-};
-
-}  // namespace
 
 // Message for an error code an entry point returned (shared by all kernels).
 extern "C" const char* repro_error_string(int err) {
@@ -121,7 +103,7 @@ extern "C" int repro_dense_matmul(const void* x, const void* w, const void* bias
   using B = __nv_bfloat16;
   const B* xb = static_cast<const B*>(x);
   const B* wb = static_cast<const B*>(w);
-  DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
+  RowEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (vec > 0) {

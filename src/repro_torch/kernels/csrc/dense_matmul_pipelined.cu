@@ -33,21 +33,6 @@ namespace {
 
 // the bf16 kernel's epilogue: bias, activation, step program, one store --
 // dense_matmul.cu's order
-template <typename T>
-struct DenseEpilogue {
-  const T* bias;
-  T* out;
-  int N;
-  int act;
-  StepProgram prog;
-  __device__ __forceinline__ void operator()(int m, int n, const float* v) const {
-    float y = v[0];
-    if (bias) y += to_f32(bias[n]);
-    y = apply_act(act, y);
-    const long long idx = (long long)m * N + n;
-    out[idx] = from_f32<T>(apply_pointwise_steps<T>(prog, y, idx));
-  }
-};
 
 // bf16: the tile must be one of tiles.cuh's REPRO_BF16_PIPELINED_TILES;
 // use_wgmma == 1 runs the wgmma body, 0 the mma.sync body.
@@ -57,7 +42,7 @@ int dispatch_bf16(const void* x, const void* w, const void* bias, void* out, int
   using B = __nv_bfloat16;
   const B* xb = static_cast<const B*>(x);
   const B* wb = static_cast<const B*>(w);
-  const DenseEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
+  const RowEpilogue<B> epi{static_cast<const B*>(bias), static_cast<B*>(out), N, act, p};
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (use_wgmma) {

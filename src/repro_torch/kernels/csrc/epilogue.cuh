@@ -148,6 +148,26 @@ __device__ __forceinline__ float apply_pointwise_steps(const StepProgram& p, flo
   return v;
 }
 
+// The GEMM bodies' epilogue on a row-major output whose rows are ldo
+// elements apart (dense_matmul*.cu: ldo = N; bsr_matmul.cu's wgmma route:
+// the whole [M, Nb * bn] output a band writes into): bias, activation,
+// step program, one rounding store, one column a call.
+template <typename T>
+struct RowEpilogue {
+  const T* bias;
+  T* out;
+  int ldo;
+  int act;
+  StepProgram prog;
+  __device__ __forceinline__ void operator()(int m, int n, const float* v) const {
+    float y = v[0];
+    if (bias) y += to_f32(bias[n]);
+    y = apply_act(act, y);
+    const long long idx = (long long)m * ldo + n;
+    out[idx] = from_f32<T>(apply_pointwise_steps<T>(prog, y, idx));
+  }
+};
+
 // Host side: fill a StepProgram from the flat arrays the ctypes binding
 // passes.  `prog` holds (kind, arg) pairs; `eps` may be null; `sides` and
 // `norms` (scale0, bias0, scale1, bias1, ...) are host arrays of device

@@ -2,8 +2,8 @@
 // with x [M, K], Wg / Wu [K, F] and out [M, F] row-major f32; both products
 // accumulate in f32 FMAs on the CUDA cores (no TF32), the activation is
 // applied to the gate sum and act(g) * u is stored once.  fused_ffn.cu
-// launches them; the bf16 routes are csrc/mma_gemm.cuh and
-// csrc/skinny_bf16.cuh.
+// launches them; the bf16 routes are csrc/wgmma_gemm.cuh and
+// csrc/mma_gemm.cuh.
 //
 // M > 8 (prefill): ffn_gateup_simt_kernel<BM>, a two-weight GEMM.
 //

@@ -60,6 +60,19 @@
   X(64, 64, 64, 1)               \
   X(64, 64, 32, 1)
 
+// bsr_matmul.cu's wgmma route (wgmma_gemm.cuh with wgmma_gemm::BsrWalk, a
+// 64-row M tile, depth 1), its own list: X(BN, BK), BN the columns of a
+// block-column an N tile (64 where bn % 64 == 0, else 32), BK the rows of
+// a slab (the largest of 128 / 64 / 32 dividing bm).
+// _build.BSR_TMA_TILES lists the same pairs.
+#define REPRO_BSR_TMA_TILES(X) \
+  X(64, 128)                   \
+  X(64, 64)                    \
+  X(64, 32)                    \
+  X(32, 128)                   \
+  X(32, 64)                    \
+  X(32, 32)
+
 // conv2d.cu, every scheme: X(BM, BN, BK, TM, TN).  The shape-based
 // defaults by output-channel count (_build.conv_default_tile): f32 256 x 4
 // (O <= 4), 256 x 16 (<= 16), 256 x 32 (<= 32), 64 x 64 (wider); W8 256 x 32

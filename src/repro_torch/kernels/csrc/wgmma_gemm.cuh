@@ -5,13 +5,16 @@
 //
 // x [M, K] and w0 / w1 [K, N] row-major bf16, each sum in f32, epi on the
 // f32 sums.  NW = 1: dense_matmul.cu (depth 1) and dense_matmul_pipelined.cu
-// (depth 2 / 3) run it for a bf16 launch with M > 8 (or a tile named)
-// whenever TMA can address the operands, epi their DenseEpilogue (bias,
-// activation, step program, one rounding store).  NW = 2: fused_ffn.cu runs
-// it for every bf16 ffn_gateup launch TMA can address, epi its
-// GateUpEpilogue (act(gate) * up, one rounding store).  The mma.sync body of
-// mma_gemm.cuh keeps every other bf16 launch of both (odd K or N, unaligned
-// pointers), and bsr_matmul / flash attention keep their own bodies.
+// (depth 2 / 3) run it for the bf16 launches TMA can address (at decode,
+// a few rows and TMA's zero fill past M, the k / v projections), epi RowEpilogue
+// (epilogue.cuh: bias, activation, step program, one rounding store).
+// NW = 2: fused_ffn.cu runs it for every bf16 ffn_gateup launch TMA can
+// address, epi its GateUpEpilogue (act(gate) * up, one rounding store).
+// bsr_matmul.cu runs it (NW = 1) on block-sparse weights: a K walk
+// (BsrWalk, below) replaces the dense one (DenseWalk), so the packed blocks
+// stream through the same ring.  The mma.sync body of mma_gemm.cuh keeps
+// every other bf16 launch of the dense GEMMs and ffn_gateup (odd K or N,
+// unaligned pointers), and flash attention keeps its own body.
 //
 // What bounds it on an H100: the decoders' prefill projections (M = 48, K
 // and N 256..11008) and their gate/up at prefill and decode (M = 48 or a
@@ -59,8 +62,13 @@
 //   (over the drained ring); after one cluster barrier CTA `z` of the
 //   cluster sums its share of the tiles' rows over the NS ranges through
 //   distributed shared memory, in split order, and runs the epilogue on
-//   the NW sums.  No workspace, no counters, no second pass.  One range is
-//   a cluster of one, the same code.
+//   the NW sums.  No workspace, no counters, no second pass.  One range
+//   launches no cluster: a CTA barrier, its own partial tiles, the same
+//   sums.
+// * K walks (DenseWalk, BsrWalk): which x columns and weight rows each
+//   slab reads, how many slabs a CTA has (the same in every warp), and
+//   what a CTA stages in shared memory before the loop (BsrWalk: its steps
+//   of block_rows, pads dropped when the producer walks them).
 //
 // Same result for every tile and depth: the K ranges are whole multiples of
 // SPLIT_ALIGN (128) rows, which every BK divides, so every output sums the same k16 steps
@@ -246,17 +254,107 @@ __device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t da, uint
 }
 
 // --------------------------------------------------------------------------
+// K walks: which x columns and weight rows slab s of a CTA reads
+// --------------------------------------------------------------------------
+
+// A walk gives the kernel, for CTA (blockIdx.x, .y, .z) = (M tile, N tile,
+// K range or split): its first output column and how many of its BN
+// columns are live, the weight map's column of its boxes, and its slabs --
+// the number (the same in every warp, so the k16 loop needs no branch) and,
+// for the producer, each slab's x column and weight row.  TABLE ints of
+// shared memory hold what a walk stages before the loop.
+
+// The dense GEMM: x [M, K] @ w [K, N]; K range z covers rows [z * kchunk,
+// (z + 1) * kchunk) of K, slab s x columns and weight rows kb + s * BK.
+struct DenseWalk {
+  int N, K, kchunk;
+  static constexpr int TABLE = 0;
+  __device__ __forceinline__ int out_col(int bn) const { return blockIdx.y * bn; }
+  __device__ __forceinline__ int out_cols(int bn) const {
+    return min(bn, N - (int)blockIdx.y * bn);
+  }
+  __device__ __forceinline__ int w_col(int bn) const { return blockIdx.y * bn; }
+  __device__ __forceinline__ void stage(int*, int, int, int) const {}
+  __device__ __forceinline__ int slabs(const int*, int bk) const {
+    const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+    return ke > kb ? (ke - kb + bk - 1) / bk : 0;
+  }
+  template <typename F>
+  __device__ __forceinline__ void for_each(const int* table, int, int bk, F&& issue) const {
+    const int kb = blockIdx.z * kchunk, n = slabs(table, bk);
+    for (int s = 0; s < n; ++s) issue(s, kb + s * bk, kb + s * bk);
+  }
+};
+
+// One band of a block-sparse matmul over PBCSR weights (bsr_matmul.cu):
+// values [Nb, S, bm, bn] seen as one [Nb * S * bm, bn] matrix, block_rows
+// [Nb, S] (-1 = pad).  N tile y is BN columns of block-column col0 + y /
+// (bn / BN); split z walks packed steps [z * schunk, (z + 1) * schunk) of
+// the band's `count`, their block_rows staged in shared memory before the
+// loop (one coalesced read, never a dependent global load a slab) and the
+// pads dropped there: slab s is a BK-row part of the CTA's s-th live step,
+// x columns block_rows * bm + u * BK, weight rows of the step's block.
+// This is the TPU kernel's scalar prefetch (PrefetchScalarGridSpec): one
+// tensor map covers x and one all of values, so a band needs no map of its
+// own.
+struct BsrWalk {
+  const int* rows;
+  int s_stride, col0, bm, bn, count, schunk;
+  static constexpr int TABLE = 256;  // most packed steps a CTA walks
+  __device__ __forceinline__ int col(int bnt) const { return col0 + blockIdx.y / (bn / bnt); }
+  __device__ __forceinline__ int w_col(int bnt) const { return (blockIdx.y % (bn / bnt)) * bnt; }
+  __device__ __forceinline__ int out_col(int bnt) const { return col(bnt) * bn + w_col(bnt); }
+  __device__ __forceinline__ int out_cols(int bnt) const { return bnt; }
+  __device__ __forceinline__ int steps() const {
+    const int sb = blockIdx.z * schunk;
+    return max(min(count, sb + schunk) - sb, 0);
+  }
+  // the CTA's first packed step: block-column col, step z * schunk
+  __device__ __forceinline__ long long first(int bnt) const {
+    return (long long)col(bnt) * s_stride + (long long)blockIdx.z * schunk;
+  }
+  // every thread: the CTA's steps of block_rows into the table
+  __device__ __forceinline__ void stage(int* table, int bnt, int tid, int nt) const {
+    const int n = steps();
+    const int* src = rows + first(bnt);
+    for (int i = tid; i < n; i += nt) table[i] = __ldg(src + i);
+  }
+  // the live steps' slabs, counted by each warp over the staged table
+  __device__ __forceinline__ int slabs(const int* table, int bk) const {
+    const int n = steps(), lane = threadIdx.x % 32;
+    int live = 0;
+    for (int b = 0; b < n; b += 32) {
+      const bool v = b + lane < n && table[b + lane] >= 0;
+      live += __popc(__ballot_sync(0xffffffffu, v));
+    }
+    return live * (bm / bk);
+  }
+  // the producer: each live step's bm / bk slabs in order, pads skipped
+  template <typename F>
+  __device__ __forceinline__ void for_each(const int* table, int bnt, int bk, F&& issue) const {
+    const int n = steps();
+    const long long f = first(bnt);
+    int s = 0;
+    for (int i = 0; i < n; ++i) {
+      const int r = table[i];
+      if (r < 0) continue;
+      const int wrow = (int)((f + i) * bm);
+      for (int u = 0; u < bm; u += bk) issue(s++, r * bm + u, wrow + u);
+    }
+  }
+};
+
+// --------------------------------------------------------------------------
 // the kernel
 // --------------------------------------------------------------------------
 
-// grid (M tiles, N tiles, NS), cluster (1, 1, NS): kchunk K rows a range
-// (a multiple of SPLIT_ALIGN, so of every BK)
-template <int BM, int BN, int BK, int DEPTH, int NW, typename Epi>
+// grid (M tiles, N tiles, NS), cluster (1, 1, NS) where NS > 1 (one range
+// or split launches no cluster): the walk says which K rows each CTA reads
+template <int BM, int BN, int BK, int DEPTH, int NW, typename Walk, typename Epi>
 __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap wmap,
-                      const __grid_constant__ CUtensorMap umap, int M, int N, int K, int kchunk,
-                      Epi epi) {
+                      const __grid_constant__ CUtensorMap umap, int M, Walk walk, Epi epi) {
   using T = Tile<BM, BN, BK, DEPTH, NW>;
   constexpr int STAGES = T::STAGES, WGS = T::WGS, NT = T::NT;
   extern __shared__ unsigned char smem_raw[];
@@ -265,16 +363,13 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::RING);
   uint64_t* empty = full + STAGES;
+  int* table = reinterpret_cast<int*>(empty + STAGES);
   const uint32_t ring = smem_u32(smem);
 
   const int tid = threadIdx.x;
   const int ns = gridDim.z;
-  const int zr = blockIdx.z;  // this CTA's K range: its rank in the cluster
+  const int zr = blockIdx.z;  // this CTA's K range or split: its rank in the cluster
   const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int kb = zr * kchunk;
-  const int ke = min(K, kb + kchunk);
-  const int n_slabs = ke > kb ? (ke - kb + BK - 1) / BK : 0;
   cg::cluster_group cluster = cg::this_cluster();
 
   // the role of this thread's warpgroup, provably uniform (a shuffle), so
@@ -292,25 +387,28 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
     prefetch_map(&wmap);
     if constexpr (NW == 2) prefetch_map(&umap);
   }
-  __syncthreads();  // the barriers initialised before any copy
+  walk.stage(table, BN, tid, NT);
+  __syncthreads();  // the barriers initialised and the walk's table staged before any copy
+  const int n_slabs = walk.slabs(table, BK);  // the same in every warp
 
   if (wg == WGS) {
     // ---- producer warp: one thread issues every copy ----
     if (tid == WGS * 128) {
-      for (int s = 0; s < n_slabs; ++s) {
+      const int n0 = walk.w_col(BN);
+      const CUtensorMap *xm = &xmap, *wm = &wmap, *um = &umap;
+      walk.for_each(table, BN, BK, [&](int s, int xk, int k0) {
         const int slot = s % STAGES;
         if (s >= STAGES) mbar_wait(smem_u32(empty + slot), ((s / STAGES) - 1) & 1);
         const uint32_t fb = smem_u32(full + slot);
         mbar_expect_tx(fb, T::SLOT);
         const uint32_t xs = ring + slot * T::SLOT;
-        const int k0 = kb + s * BK;
 #pragma unroll
         for (int b = 0; b < T::XBOXES; ++b) {
-          tma_load(xs + b * (BM * T::X_ROW), &xmap, fb, k0 + b * T::XBOX, m0);
+          tma_load(xs + b * (BM * T::X_ROW), xm, fb, xk + b * T::XBOX, m0);
         }
-        tma_load(xs + T::X_SLOT, &wmap, fb, n0, k0);
-        if constexpr (NW == 2) tma_load(xs + T::X_SLOT + T::W_SLOT, &umap, fb, n0, k0);
-      }
+        tma_load(xs + T::X_SLOT, wm, fb, n0, k0);
+        if constexpr (NW == 2) tma_load(xs + T::X_SLOT + T::W_SLOT, um, fb, n0, k0);
+      });
     }
     __syncwarp();
   } else {
@@ -382,27 +480,33 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
       }
     }
   }
-  // CTA zr of the K ranges sums rows [r0, r1) of the live tiles over the
+  // CTA zr of the cluster sums rows [r0, r1) of the live tiles over the
   // ranges in split order, four columns a thread, every range's partials
   // requested before any is added
+  const int out0 = walk.out_col(BN), ncols = walk.out_cols(BN);
   const int live = min(BM, M - m0);
   const int chunk = (live + ns - 1) / ns;
   const int r0 = zr * chunk, r1 = min(live, r0 + chunk);
   constexpr int G4 = BN / 4;
   const int groups = max(r1 - r0, 0) * G4;
-  cluster.sync();
+  if (ns > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();  // one range: no cluster, the CTA's own partial tiles
+  }
 
   for (int e = tid; e < groups; e += NT) {
     const int rr = r0 + e / G4, c = (e % G4) * 4;
-    const int n = n0 + c;
-    if (n >= N) continue;
+    if (c >= ncols) continue;
     float4 p[NW][MAX_CLUSTER];
 #pragma unroll
     for (int wi = 0; wi < NW; ++wi) {
       const float* own = reinterpret_cast<const float*>(smem + wi * T::PART) +
                          rr * T::PART_LD + c;
+      p[wi][0] = *reinterpret_cast<const float4*>(ns > 1 ? cluster.map_shared_rank(own, 0)
+                                                           : own);
 #pragma unroll
-      for (int sp = 0; sp < MAX_CLUSTER; ++sp) {
+      for (int sp = 1; sp < MAX_CLUSTER; ++sp) {
         if (sp < ns) {
           p[wi][sp] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(own, sp));
         }
@@ -428,10 +532,10 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, DEPTH, NW>::NT)
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      if (n + q < N) epi(m0 + rr, n + q, vs[q]);
+      if (c + q < ncols) epi(m0 + rr, out0 + c + q, vs[q]);
     }
   }
-  cluster.sync();  // no CTA leaves while another reads its partial tiles
+  if (ns > 1) cluster.sync();  // no CTA leaves while another reads its partial tiles
 }
 
 // --------------------------------------------------------------------------
@@ -488,6 +592,37 @@ inline bool addressable(const void* x, const void* w0, const void* w1, const voi
   return K > 0 && K % 8 == 0 && N % 8 == 0 && a16(x) && a16(w0) && a16(w1) && a16(out);
 }
 
+// Launch the body on tensor maps the caller encoded: grid (M tiles, N
+// tiles, NS), a thread block cluster of the NS CTAs along z where NS > 1,
+// Walk's table after the ring's barriers.
+template <int BM, int BN, int BK, int DEPTH, int NW, typename Walk, typename Epi>
+cudaError_t run(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& umap, int M,
+                dim3 grid, const Walk& walk, const Epi& epi, cudaStream_t stream) {
+  using T = Tile<BM, BN, BK, DEPTH, NW>;
+  constexpr size_t SMEM = T::SMEM + Walk::TABLE * sizeof(int);
+  static_assert(SMEM <= SMEM_LIMIT, "ring and table too large for a block");
+  if (grid.z > (unsigned)MAX_CLUSTER) return cudaErrorInvalidValue;
+  auto kernel = wgmma_gemm_kernel<BM, BN, BK, DEPTH, NW, Walk, Epi>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(T::NT);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.z > 1 ? 1 : 0;  // one range or split: no cluster to form
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, umap, M, walk, epi);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // Launch one tile with NW weights (w1 unused at NW = 1) on `stream`: K
 // ranges of kchunk rows (a multiple of SPLIT_ALIGN, at most MAX_CLUSTER
 // ranges).  A launch the rule or the plan refuses returns
@@ -512,24 +647,9 @@ cudaError_t launch_nw(const bf16* x, const bf16* w0, const bf16* w1, const void*
     e = encode(&umap, w1, N, K, BN, BK);
     if (e != cudaSuccess) return e;
   }
-  auto kernel = wgmma_gemm_kernel<BM, BN, BK, DEPTH, NW, Epi>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + BM - 1) / BM, (N + BN - 1) / BN, ns);
-  cfg.blockDim = dim3(T::NT);
-  cfg.dynamicSmemBytes = T::SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = ns;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, umap, M, N, K, kchunk, epi);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, ns);
+  return run<BM, BN, BK, DEPTH, NW>(xmap, wmap, umap, M, grid, DenseWalk{N, K, kchunk}, epi,
+                                    stream);
 }
 
 // One weight: the dense GEMMs' launch.

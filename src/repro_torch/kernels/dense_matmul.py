@@ -24,15 +24,18 @@ so nothing is padded in device memory (the TPU wrapper pads to
   (``csrc/wgmma_gemm.cuh``: TMA into a ring of swizzled slots, ``wgmma``
   m64nBNk16, f32 accumulators) with a tile of ``_build.BF16_GEMM_TILES`` at
   depth 1, its K split into at most 8 ranges ``_build.tma_plan`` fixes from
-  the shape, summed in a thread block cluster (no workspace);
+  the shape, summed in a thread block cluster (no workspace); at most 8
+  rows with no tile named only for N <= ``_build.TMA_DECODE_MAX_N`` (the
+  decoders' k / v projections at decode), on ``_build.TMA_DECODE_TILE``
+  and ``_build.tma_plan``'s ranges, rows past M being TMA's zero fill;
 * any other bf16 launch (odd K or N, unaligned pointers): the ``mma.sync``
   kernel (``csrc/mma_gemm.cuh``: cp.async ring, ``ldmatrix`` + ``mma.sync``
   m16n8k16, f32 accumulators) with the same tile, its K split into the
   ranges ``_build.gemm_split`` fixes from the shape (an f32 workspace and
-  tile counters, this wrapper's, when there are several);
-* bf16 with at most 8 rows and no tile named (the decoder's projections
-  at decode): the weight-streaming split-K kernel
-  (``csrc/skinny_bf16.cuh``, planned by ``_build.skinny_plan``).
+  tile counters, this wrapper's, when there are several); at most 8 rows
+  with no tile named otherwise (q / o / down at decode, where it measured
+  faster): the weight-streaming split-K kernel (``csrc/skinny_bf16.cuh``,
+  planned by ``_build.skinny_plan``).
 
 A tile is named by the caller (``ops.matmul`` resolves it through the
 tuning cache), else the shape-based default of the element type.  The
@@ -187,6 +190,8 @@ def dense_matmul(
     route, kchunk, vec, ws, counters = "simt", 0, 0, None, None
     if x.dtype == torch.bfloat16:
         route, kchunk, vec, ws, counters = bf16_launch(dev, x, w, out, m, n, k, tile, named)
+        if route == "wgmma" and not named and m <= _build.SKINNY_MT:
+            tile = _build.TMA_DECODE_TILE  # decode: the plan's tile, no cache
     lib = _build.lib()
     err = lib.repro_dense_matmul(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),

@@ -31,12 +31,13 @@ Differences from the JAX wrappers, by design:
   ``matmul`` keys sweep ``_build.BF16_GEMM_TILES``), and a tile
   they are not built for raises (from a pin or a loaded entry) or is
   skipped (in a sweep);
-* the bf16 skinny split-K route (M <= 8, decode) stays outside the cache:
-  its split is planned from (M, N, K), not from tiles; a pinned tile sends
-  such a call to the tiled kernel;
+* the bf16 decode route (M <= 8 rows) stays outside the cache: its tile
+  and K split are planned from (M, N, K) (``_build.TMA_DECODE_TILE`` and
+  ``_build.tma_plan`` for N <= ``_build.TMA_DECODE_MAX_N``, else the skinny kernel's plan), not
+  from the cache; a pinned tile sends such a call to that tile;
 * ``fused_elementwise`` and ``bsr_matmul`` record their keys but never
   sweep: their kernels have one configuration for a shape (``bsr_matmul``
-  records the rows a CTA covers, 64 on its tensor-core route, else 8);
+  records the rows a CTA covers, 64 on its wgmma route, else 8);
 * the conv fallback matrix keeps ``groups`` / ``dilation`` / ``padding`` /
   ``degenerate`` and routes them to the plain version (never to a library
   convolution), counted in ``conv_fallback_total{reason}`` as the JAX
@@ -146,7 +147,7 @@ def reset_kernel_launches() -> None:
     for counts in (_dense_mod.dtype_launches, _dense_pipe_mod.dtype_launches,
                    _dense_mod.route_launches, _dense_pipe_mod.route_launches,
                    _conv2d_mod.scheme_launches, _flash_mod.route_launches,
-                   _ffn_mod.route_launches):
+                   _ffn_mod.route_launches, _bsr_mod.route_launches):
         for key in counts:
             counts[key] = 0
 
@@ -222,7 +223,7 @@ class TuningCache:
     #: depth >= 2 the K-slab ring; ``conv2d`` is the conv kernel's (BM, BN,
     #: BK); ``fused_elementwise`` rows per block and ``bsr_matmul`` rows per
     #: M tile, each the one configuration of its kernel for a shape (bsr:
-    #: ``bsr_matmul.rows_per_tile``, 64 on the bf16 tensor-core route, else
+    #: ``bsr_matmul.rows_per_tile``, 64 on the bf16 wgmma route, else
     #: 8).  The wrappers pass
     #: their shape-based default (``_build.default_gemm_tile`` /
     #: ``conv_default_tile``); these are the families' fallbacks.
@@ -597,7 +598,7 @@ def _layout_of(x2) -> str:
 def _dense_call(x2, w, bias, sides2, activation, epilogue, tile):
     """One dense GEMM launch: the tiled kernel (depth 1), the ring kernel
     (depth >= 2), or -- ``tile`` None -- the kernel's own choice (the bf16
-    skinny route)."""
+    decode route)."""
     kw = dict(activation=activation, epilogue=epilogue, _layout=_layout_of(x2))
     if tile is None:
         return _dense_matmul(x2, w, bias, *sides2, **kw)
@@ -636,7 +637,7 @@ def matmul(
     on).  The tuple's fourth field is the pipeline depth: 1 = the tiled
     kernel, >= 2 = the K-slab ring (:mod:`.dense_matmul_pipelined`);
     ``pipeline`` pins it.  bf16 calls with M <= 8 and nothing pinned take
-    the skinny route, outside the cache."""
+    the decode route, outside the cache."""
     x2, sides2, m, n, k, shape = _gemm_operands("matmul", x, w, epilogue_sides, _layout)
     w = w.contiguous()
     epilogue = tuple(tuple(s) for s in epilogue)
@@ -724,7 +725,7 @@ def bsr_matmul(
     epilogue = tuple(tuple(st) for st in epilogue)
     _one_config("bsr_matmul", m, n, x2.shape[1], x2.dtype,
                 _epilogue_fmt("pbcsr", epilogue, len(sides2)), x2.device,
-                (_bsr_mod.rows_per_tile(m, values.shape[2], x2.dtype),))
+                (_bsr_mod.rows_per_tile(m, values.shape[2], values.shape[3], x2.dtype),))
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     for band in bands:
         if band[1] > band[0]:

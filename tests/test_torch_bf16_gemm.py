@@ -235,10 +235,14 @@ def test_served_prefill_shapes_take_the_wgmma_body(label, m, n, k, named):
     (48, 2048, 2044, False, "mma_gemm"), (48, 2050, 2048, False, "mma_gemm"),
     (48, 8, 0, False, "mma_gemm"), (3, 2048, 2048, False, "skinny"),
     (3, 2048, 2048, True, "wgmma"), (9, 8, 8, False, "wgmma"),
+    (3, 256, 2048, False, "wgmma"), (3, 1024, 3072, False, "wgmma"),
+    (3, 1032, 2048, False, "skinny"),
 ], ids=lambda v: str(v))
 def test_odd_ragged_and_decode_shapes_take_their_bodies(m, n, k, named, want):
     """Odd or ragged K / N (rows not whole 16 bytes) keep ``mma_gemm.cuh``;
-    M <= 8 with no tile named keeps the skinny kernel."""
+    M <= 8 with no tile named keeps the skinny kernel, but for N up to
+    ``TMA_DECODE_MAX_N`` where TMA addresses the operands (the k / v
+    projections), which take the wgmma body; a named tile takes it too."""
     assert _build.bf16_body(m, n, k, named=named) == want
 
 

@@ -4,8 +4,8 @@ The CUDA bodies run only on the card (``chip_smoke.py``); what they depend
 on is plain Python and is held here:
 
 * ``bsr_matmul.plan``: each (M, bm, bn, count, element type, alignment)
-  lands on its documented route -- ``stream`` (bf16, M <= 8),
-  ``tensor_core`` (bf16, M > 8, bm % 16 == 0), ``cuda_core`` (the rest) --
+  lands on its documented route -- ``stream`` (bf16, M <= 8), ``wgmma``
+  (other bf16, bm % 32 == 0, bn % 32 == 0), ``cuda_core`` (the rest) --
   and every split covers each packed step exactly once within the route's
   limits (the C entry's own checks);
 * the rows per CTA that the ops layer records for a ``bsr_matmul`` tuning
@@ -71,13 +71,15 @@ ROUTE_CASES = [
     ((1, 16, 16, 16, 32, True, True), "stream"),
     ((8, 8, 24, 4, 4, True, True), "stream"),  # M = 8: the last streaming row count
     ((8, 1024, 64, 2, 1, True, True), "stream"),  # the largest block the x stage holds
-    ((3, 2048, 64, 2, 1, True, True), "cuda_core"),  # a block past the x stage
-    ((48, 64, 64, 32, 16, True, True), "tensor_core"),  # the decoder's prefill
-    ((9, 16, 16, 16, 16, True, True), "tensor_core"),  # M = 9: the first tensor-core rows
-    ((70, 16, 40, 8, 8, True, True), "tensor_core"),
-    ((48, 8, 8, 32, 16, True, True), "cuda_core"),  # bm % 16 != 0
+    ((3, 2048, 40, 2, 1, True, True), "cuda_core"),  # a block past the x stage
+    ((3, 2048, 64, 2, 1, True, True), "wgmma"),  # ... that the wgmma body takes
+    ((48, 64, 64, 32, 16, True, True), "wgmma"),  # the decoder's prefill
+    ((9, 32, 32, 16, 16, True, True), "wgmma"),  # M = 9: past the streaming rows
+    ((70, 32, 96, 8, 8, True, True), "wgmma"),  # 32-column tiles
+    ((13, 16, 32, 4, 4, True, True), "cuda_core"),  # bm = 16 past M = 8
+    ((48, 8, 8, 32, 16, True, True), "cuda_core"),  # bm % 32 != 0
     ((48, 24, 16, 4, 4, True, True), "cuda_core"),
-    ((100, 16, 16, 4, 3000, True, True), "cuda_core"),  # more steps than 8 x 256
+    ((100, 32, 32, 4, 3000, True, True), "cuda_core"),  # more steps than 8 x 256
     ((48, 64, 64, 32, 16, True, False), "cuda_core"),  # an unaligned operand
     ((3, 64, 64, 32, 16, True, False), "cuda_core"),
     ((3, 64, 64, 32, 16, False, True), "cuda_core"),  # f32 stays true f32
@@ -108,8 +110,8 @@ def _check_split(p, count, bm):
     assert covered == list(range(count))
     if p.route == "stream":
         assert p.schunk * bm <= tbsr.STREAM_KC
-    if p.route == "tensor_core":
-        assert p.nsplit <= tbsr.MMA_MAX_SPLIT and p.schunk <= tbsr.MMA_MAX_STEPS
+    if p.route == "wgmma":
+        assert p.nsplit <= tbsr.TMA_MAX_SPLIT and p.schunk <= tbsr.TMA_MAX_STEPS
     assert p.nsplit <= 65535
 
 
@@ -126,9 +128,9 @@ def test_bsr_splits_cover_every_step_once(m, bf16):
         for vec in (1, 2, 4):
             p = tbsr.plan(m, bm, bn, ncols, count, bf16, True, vec)
             _check_split(p, count, bm)
-            width = {"stream": tbsr.STREAM_CW, "tensor_core": p.width,
+            width = {"stream": tbsr.STREAM_CW, "wgmma": p.width,
                      "cuda_core": 32 * vec}[p.route]
-            rows = {"stream": 1, "tensor_core": -(-m // tbsr.MMA_MT),
+            rows = {"stream": 1, "wgmma": -(-m // tbsr.TMA_MT),
                     "cuda_core": -(-m // tbsr.FMA_MT)}[p.route]
             assert p.tiles == -(-bn // width) * ncols * rows
 
@@ -136,10 +138,10 @@ def test_bsr_splits_cover_every_step_once(m, bf16):
 def test_bsr_plans_at_the_decoders_shapes():
     """qwen2.5-3b's q / o pruned with Block(0.5, 64, 64): 32 block-columns
     of 16 steps.  Decode streams 16 columns a CTA over all 16 steps (128
-    CTAs, no split); prefill runs the tensor cores, 64 x 64 tiles in 8
-    splits of 2 steps (256 CTAs, clusters of 8)."""
+    CTAs, no split); prefill runs the wgmma body, 64 x 64 tiles in 4 splits
+    of 4 steps (128 CTAs, clusters of 4)."""
     assert tbsr.plan(3, 64, 64, 32, 16, True) == tbsr.BsrPlan("stream", 16, 1, 16, 128)
-    assert tbsr.plan(48, 64, 64, 32, 16, True) == tbsr.BsrPlan("tensor_core", 64, 8, 2, 32)
+    assert tbsr.plan(48, 64, 64, 32, 16, True) == tbsr.BsrPlan("wgmma", 64, 4, 4, 32)
 
 
 def test_bsr_split_is_fixed_by_the_shape():
@@ -165,25 +167,26 @@ def fresh_cache():
 
 def test_bsr_tuning_record_follows_the_route(fresh_cache):
     """``ops.bsr_matmul`` records the rows a CTA covers for the shape: 64
-    on the tensor-core route (bf16, M > 8, bm % 16 == 0), 8 elsewhere; a
-    loaded entry naming the other raises."""
+    on the wgmma route (bf16, M > 8, 32 x 32 blocks), 8 elsewhere (f32,
+    decode, or bf16 blocks the route does not take); a loaded entry naming
+    the other raises."""
     rng = np.random.default_rng(3)
-    v = T(_arr(rng, 2, 2, 16, 16)).to(BF16)
+    v = T(_arr(rng, 2, 2, 32, 32)).to(BF16)
     r = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
-    tops.bsr_matmul(T(_arr(rng, 48, 32)).to(BF16), v, r)
-    tops.bsr_matmul(T(_arr(rng, 3, 32)).to(BF16), v, r)
-    tops.bsr_matmul(T(_arr(rng, 48, 32)), v.float(), r)
+    tops.bsr_matmul(T(_arr(rng, 48, 64)).to(BF16), v, r)
+    tops.bsr_matmul(T(_arr(rng, 3, 64)).to(BF16), v[:, :, :16, :16].contiguous(), r)
+    tops.bsr_matmul(T(_arr(rng, 48, 64)), v.float(), r)
     assert fresh_cache.entries == {
-        TuningCache.key("bsr_matmul", 48, 32, 32, BF16, "pbcsr", "cpu"): TuneEntry((64,), "default"),
-        TuningCache.key("bsr_matmul", 3, 32, 32, BF16, "pbcsr", "cpu"): TuneEntry((8,), "default"),
-        TuningCache.key("bsr_matmul", 48, 32, 32, torch.float32, "pbcsr", "cpu"):
+        TuningCache.key("bsr_matmul", 48, 64, 64, BF16, "pbcsr", "cpu"): TuneEntry((64,), "default"),
+        TuningCache.key("bsr_matmul", 3, 32, 64, BF16, "pbcsr", "cpu"): TuneEntry((8,), "default"),
+        TuningCache.key("bsr_matmul", 48, 64, 64, torch.float32, "pbcsr", "cpu"):
             TuneEntry((8,), "default"),
     }
     assert TuningCache.CANDIDATES["bsr_matmul"] == ((8,), (64,))
-    fresh_cache.entries[TuningCache.key("bsr_matmul", 3, 32, 32, BF16, "pbcsr", "cpu")] = \
-        TuneEntry((64,), "loaded")
-    with pytest.raises(_build.TileError, match=r"\(8,\)"):
-        tops.bsr_matmul(T(_arr(rng, 3, 32)).to(BF16), v, r)
+    fresh_cache.entries[TuningCache.key("bsr_matmul", 48, 64, 64, BF16, "pbcsr", "cpu")] = \
+        TuneEntry((8,), "loaded")
+    with pytest.raises(_build.TileError, match=r"\(64,\)"):
+        tops.bsr_matmul(T(_arr(rng, 48, 64)).to(BF16), v, r)
 
 
 # --------------------------------------------------------------------------- #

@@ -179,7 +179,7 @@ def test_two_weight_instances_match_the_tile_list():
     head = (CSRC / "wgmma_gemm.cuh").read_text()
     for line in ("template <int BM, int BN, int BK, int DEPTH, int NW = 1>",
                  "SLOT = X_SLOT + NW * W_SLOT", "NW * PART <= RING",
-                 "tma_load(xs + T::X_SLOT + T::W_SLOT, &umap, fb, n0, k0)",
+                 "tma_load(xs + T::X_SLOT + T::W_SLOT, um, fb, n0, k0)",
                  "launch_nw<BM, BN, BK, DEPTH, 1>(x, w, nullptr, out"):
         assert line in head, line
 

@@ -23,7 +23,7 @@ the gate/up FFN in f32 at the smoke decoder's and qwen2.5-3b's widths, a
 ragged case a route, and the bf16 gate/up and dense q / down at
 qwen2.5-3b's widths as controls -- with the byte / FMA bound, the kernels
 one call launches, and the smoke decoder's ms a plan call);
-``--mma-target`` / ``--stream-target`` set the block-sparse routes' split
+``--tma-target`` / ``--stream-target`` set the block-sparse routes' split
 targets for the run (a sweep of the split), ``--flash-target``
 / ``--flash-chunk`` the flash split route's CTAs and most keys a split,
 ``--ffn-target`` / ``--ffn-min-k`` the f32 gate/up GEMM's split target and
@@ -51,7 +51,7 @@ def main() -> int:
     ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--only", choices=("bsr", "conv", "w8a8", "flash", "ffn"),
                     help="one kernel's cases only")
-    ap.add_argument("--mma-target", type=int, help="bsr_matmul.MMA_TARGET for this run")
+    ap.add_argument("--tma-target", type=int, help="bsr_matmul.TMA_TARGET for this run")
     ap.add_argument("--stream-target", type=int, help="bsr_matmul.STREAM_TARGET for this run")
     ap.add_argument("--flash-target", type=int,
                     help="flash_attention.SPLIT_TARGET for this run (the split route's CTAs)")
@@ -98,8 +98,8 @@ def main() -> int:
                 and " 0 bytes spill stores" not in line:
             print(f"  ptxas {fn[:90]}: {line.strip()}")
 
-    if args.mma_target:
-        kbsr.MMA_TARGET = args.mma_target
+    if args.tma_target:
+        kbsr.TMA_TARGET = args.tma_target
     if args.stream_target:
         kbsr.STREAM_TARGET = args.stream_target
     if args.flash_target:

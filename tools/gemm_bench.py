@@ -31,7 +31,10 @@ wgmma warnings from ``build.log``.  ``--bf16 --plans`` (full builds, not
 (random weights, seed 0) and reports ``profile_plan``'s host and device ms
 of one prefill plan call (3 prompts padded to 16 tokens: the M = 48
 GEMMs above; 3 traced runs after a warm-up) and the bodies its dense
-launches took, the trees timed parent, this, this, parent.
+launches took, the trees timed parent, this, this, parent; then the same
+for qwen2.5-3b block-pruned (q / o on ``Block(0.5, 64, 64)``, packed by the
+compiler as ``chip_smoke.py``'s block-pruned phase packs them), with its
+``bsr_matmul`` launches.
 
 ``--bf16 --ffn`` times the bf16 ``ffn_gateup`` instead: the three served
 decoders' gate/up (``d_model -> d_ff``, silu) at decode (M = 3) and
@@ -75,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import re
 import statistics
 import subprocess
@@ -100,7 +104,8 @@ def gemm_only_library(_build, sources=_GEMM_SOURCES):
     """Build the GEMM sources (``sources``) alone and bind their entry
     points as the package's library (the other entry points stay
     unbound)."""
-    out = _build.REPO_ROOT / "build" / "gemm_only" / (_build.source_hash() + str(len(sources)))
+    names = hashlib.sha256(",".join(sources).encode()).hexdigest()[:8]
+    out = _build.REPO_ROOT / "build" / "gemm_only" / (_build.source_hash() + names)
     lib_path = out / "libgemm.so"
     if not lib_path.exists():
         out.mkdir(parents=True, exist_ok=True)
@@ -526,16 +531,28 @@ def ffn_bench(args, torch, smi, trees) -> int:
 def plan_calls(torch, trees, order, routes) -> None:
     """The ``--plans`` part (module doc): per decoder, each tree's plans
     built in turn (the previous freed first), timed in ``order``; the
-    dense launches of one untimed call by body."""
+    dense launches of one untimed call by body.  qwen2.5-3b also
+    block-pruned: q / o projected onto ``Block(0.5, 64, 64)`` and packed as
+    PBCSR by the compiler (``chip_smoke.block_pruned_llm``), its
+    ``bsr_matmul`` launches counted beside the dense ones."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
     dev = torch.device("cuda")
-    for arch in _DECODERS:
+    for arch in _DECODERS + ("qwen2.5-3b block-pruned",):
         res, bodies = {}, {}
         for name in order:
             t = trees[name]
-            args = argparse.Namespace(arch=arch, smoke=False, seed=0, guarded=False, frames=3,
-                                      prompt_len=16)
+            args = argparse.Namespace(arch=arch.split()[0], smoke=False, seed=0, guarded=False,
+                                      frames=3, prompt_len=16)
             with active(t), torch.no_grad():
                 llm = t.serve.build_llm(args, dev)
+                if arch.endswith("block-pruned"):
+                    from repro_torch.core.pruning import Block
+                    from repro_torch.kernels import bsr_matmul as kbsr
+
+                    llm = cs.block_pruned_llm(torch, llm, Block(0.5, bm=64, bn=64))
+                    bsr0 = kbsr.launches
                 prompts = t.serve.llm_prompts(args, llm["cfg"])
                 nb, s = len(prompts), 16
                 tokens = torch.zeros(nb, s, dtype=torch.int32)
@@ -551,6 +568,8 @@ def plan_calls(torch, trees, order, routes) -> None:
                 after = routes(t)
                 bodies[name] = ",".join(f"{k}={after[k] - before.get(k, 0)}" for k in after
                                         if after[k] != before.get(k, 0)) or "-"
+                if arch.endswith("block-pruned"):
+                    bodies[name] += f"; bsr_matmul={kbsr.launches - bsr0}"
                 pp = t.profile_plan(plan, plan.graph.params, *inputs, runs=3, warmup=1)
                 res.setdefault(name, []).append((pp.total_ms, pp.total_device_ms))
                 del llm, plan, inputs
